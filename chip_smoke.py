@@ -5,12 +5,16 @@ card, end to end, and hold every kernel against its plain version.
     python3 chip_smoke.py
 
 Phases (each fails loudly; nothing is caught):
-  1. build   — nvcc builds the hand-written kernels from the checkout.
+  1. build   — nvcc builds the hand-written kernels from the checkout, one
+               process per source, all started together.
   2. kernels — `bayes_predict` at 2**20 random posteriors, bitwise against
                its plain version evaluated on the CPU in float64 (and against
                core.bayes.predict_blr_np); `bayes_fit` on 65,536 ragged
                buffers of 3-64 points, within rtol 5e-3 / atol 5e-4 of its
-               plain version (the batched fit_blr) on the CPU.
+               plain version (the batched fit_blr) on the CPU; `fused_cost`
+               at 1000 x 100 random posteriors (with rows under the 1e-3
+               mean floor and rows whose var_s is <= 0), z = 0 and
+               z(0.95), bitwise against its plain version on the CPU.
   3. paper   — the paper's pipeline for the five nf-core workflows, training
                sets 0 and 1, Lotaru-G/A/W: profile, fit, predict to the
                target machines, HEFT on a 20-node cluster, simulate.  Held
@@ -20,12 +24,24 @@ Phases (each fails loudly; nothing is caught):
                100,000-query predict_batch, HEFT), then a fleet refit of
                65,536 buffers in one bayes_fit launch, stored under 64
                tenants and served per tenant.
-  5. report  — per-kernel launches on the main path (phases 3-4), errors,
-               and times at the main path's shapes beside their bounds:
-               CUDA events over back-to-back launches through the C entry
-               point (`ms`, the kernel), through the Python wrapper
-               (`wrapper_ms`, what a caller pays) and of the plain version
-               on the card (`plain_ms`).  `tol_ratio` is the worst
+  5. plan    — the same replan round through HEFT placement on the card:
+               `cost_view` (one fused_cost launch) and
+               `fused_heft_schedule(engine="device")` (one eft_sweep launch
+               per round), cold and warm (rank_cache reused), at q = None
+               and 0.95 and as a constrained replan; each schedule
+               identical to the host `heft_schedule_matrix`.  Then the
+               sweep kernel against its plain version on the CPU: a round
+               whose slot retry doubles S, a direct launch at S = 192 and
+               N = 100 (307 KB of interval stacks), a pack padded with
+               masked rows, and a launch on 1500 nodes (more nodes than a
+               block has threads).
+  6. report  — per-kernel launches on the main path (phases 3-5, each path
+               with the counts set to 0 just before it), errors, and times
+               at the main path's shapes beside their bounds: CUDA events
+               over back-to-back launches through the C entry point (`ms`,
+               the kernel), through the Python wrapper (`wrapper_ms`, what
+               a caller pays) and of the plain version on the card
+               (`plain_ms`).  `tol_ratio` is the worst
                |got - want| / (atol + rtol * |want|) over all outputs: at
                most 1 is within the stated tolerance.
 
@@ -50,6 +66,7 @@ SRC = os.path.join(ROOT, "src")
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12          # non-tensor float32
 H100_FP64_FLOPS = 34e12          # non-tensor float64
+H100_CLOCK_HZ = 1.98e9           # SXM5 maximum boost clock
 
 FIT_TOL = dict(rtol=5e-3, atol=5e-4)
 # cuSOLVER's batched eigvalsh (inside the plain fit) refuses a batch of
@@ -60,6 +77,16 @@ N_TENANTS = 64
 Q_PREDICT_CHECK = 1 << 20
 MPE_REL_TOL = 1e-3
 TASK_TYPES = ("bwa", "idx", "dedup", "qc", "merge", "report")
+PLAN_TASKS, PLAN_NODES = 1000, 100
+PLAN_QUANTILE = 0.95
+S_DIRECT = 192                   # 2 x 192 x 100 float64 stacks: 307 KB
+WIDE_NODES = 1500                # > 1024 threads: a thread owns two nodes
+# the least latency of one sweep step, in cycles (a reckoning, not a
+# measurement): three block barriers (~20 each), ten shuffle levels of the
+# two-stage argmin over up to 1024 threads (~25 each), two dependent L1
+# reads (a dependency's finish time, then an interval; ~35 each) and a
+# chain of about eight float64 max/add/compare (~4 each)
+SWEEP_STEP_CYCLES = 3 * 20 + 10 * 25 + 2 * 35 + 8 * 4
 
 
 def plain_fit_chunked(x, y, mask) -> dict:
@@ -175,13 +202,24 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    path = _build.build("bayes")
-    print(f"[build] {os.path.relpath(path, ROOT)} in "
+    paths = _build.build("bayes", "decision_plane")
+    print(f"[build] {[os.path.relpath(p, ROOT) for p in paths]} in "
           f"{time.perf_counter() - t0:.3f} s")
-    with open(path + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+    for path in paths:
+        with open(path + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {line.strip()}")
+
+
+def cost_inputs(rng: np.random.Generator, t: int, n: int):
+    """t posterior rows (a quarter with a mean under the 1e-3 floor, a
+    quarter with var_s <= 0), their inputs and a (t, n) factor matrix."""
+    x, post = random_posteriors(rng, t)
+    q = t // 4
+    post["y_mu"][:q] = -rng.uniform(1e3, 1e4, q)
+    post["sigma"][q:2 * q] = -np.abs(post["sigma"][q:2 * q]) - 5.0
+    return x, post, rng.uniform(0.2, 5.0, (t, n))
 
 
 def phase_kernels(dev, fleet) -> dict:
@@ -233,6 +271,38 @@ def phase_kernels(dev, fleet) -> dict:
           f"|err| / (atol + rtol |want|) per leaf {ratios}")
     check(ok, "bayes_fit outside rtol 5e-3 / atol 5e-4 of its plain version")
     out["bayes_fit"] = (max(errs.values()), max(ratios.values()))
+
+    from repro_torch.kernels import decision_plane as plane
+    from repro_torch.sched.plane import quantile_z
+    x, post, f = cost_inputs(np.random.default_rng(13), PLAN_TASKS,
+                             PLAN_NODES)
+    xs = (x - post["x_mu"]) / post["x_sd"]
+    var_s = (1.0 / post["beta_prec"] + post["sigma"][:, 0, 0]
+             + 2.0 * post["sigma"][:, 0, 1] * xs
+             + post["sigma"][:, 1, 1] * xs * xs)
+    n_floor = int((predict_blr_np(post, x)[0] < 1e-3).sum())
+    n_var = int((var_s <= 0.0).sum())
+    check(n_floor > 0 and n_var > 0,
+          "fused_cost inputs lack rows under the floor or with var_s <= 0")
+    xc, fc = torch.from_numpy(x), torch.from_numpy(f)
+    pc = {k: torch.from_numpy(v) for k, v in post.items()}
+    err = 0.0
+    for z in (0.0, quantile_z(PLAN_QUANTILE)):
+        got = plane.fused_cost(xc.to(dev), {k: v.to(dev)
+                                            for k, v in pc.items()},
+                               fc.to(dev), z)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        want = ref.fused_cost_ref(xc, pc, fc, z)
+        bitwise = torch.equal(got.view(torch.int64), want.view(torch.int64))
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        print(f"[kernels] fused_cost T={PLAN_TASKS} N={PLAN_NODES} z={z!r}: "
+              f"bitwise vs plain (CPU float64) {bitwise}, max |err| {e!r}, "
+              f"rows under the mean floor {n_floor}, rows with var_s <= 0 "
+              f"{n_var}")
+        check(bitwise, f"fused_cost (z={z}) differs from its plain version")
+    out["fused_cost"] = (err, 0.0)
     return out
 
 
@@ -420,7 +490,202 @@ def phase_fleet(dev, fleet) -> dict:
           f"{t1 - t0:.4f} s, put_many under {N_TENANTS} tenants "
           f"{t2 - t1:.4f} s (generation {store.generation}), "
           f"{n_queries} queries served per tenant in {serve_s:.4f} s")
-    return {"replan_queries": queries, "replan_service": svc}
+    return {"replan_queries": queries, "replan_service": svc,
+            "replan_dag": dag, "replan_nodes": nodes}
+
+
+def phase_plan(dev, fleet_out) -> dict:
+    """The main path of HEFT placement on the card: the fleet's replan
+    round through `cost_view` and `fused_heft_schedule(engine="device")`,
+    cold, then warm with the rank_cache reused, at q = None and 0.95, and
+    as a constrained replan.  Returns the schedules and the cost matrices
+    for the checks, which run after the launch counts are read."""
+    import torch
+    from repro_torch.sched.fused import cost_view, fused_heft_schedule
+    svc = fleet_out["replan_service"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    rng = np.random.default_rng(17)
+    avail = {n.name: float(rng.uniform(0.0, 200.0)) for n in nodes[::2]}
+    ready = {u: float(rng.uniform(0.0, 100.0)) for u in dag.tasks}
+    cache: dict = {}
+
+    def round_(quantile, **kw):
+        t0 = time.perf_counter()
+        W = cost_view(svc, dag, nodes, quantile)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sched = fused_heft_schedule(dag, nodes, None, W=W, rank_cache=cache,
+                                    engine="device", device=dev, **kw)
+        t2 = time.perf_counter()
+        return sched, W, (t1 - t0, t2 - t1)
+
+    out = {"cache": cache, "avail": avail, "ready": ready}
+    out["none"], out["W_none"], cold = round_(None)
+    warm = [round_(None)[2] for _ in range(5)]
+    out["q"], out["W_q"], _ = round_(PLAN_QUANTILE)
+    qwarm = [round_(PLAN_QUANTILE)[2] for _ in range(5)]
+    out["constrained"], _, cons = round_(PLAN_QUANTILE, ready_at=ready,
+                                         node_available=avail)
+    med = lambda xs, k: float(np.median([x[k] for x in xs]))
+    out["times"] = {
+        "cold_cost_view_s": cold[0], "cold_heft_s": cold[1],
+        "warm_cost_view_s": med(warm, 0), "warm_heft_s": med(warm, 1),
+        "warm_q_cost_view_s": med(qwarm, 0), "warm_q_heft_s": med(qwarm, 1),
+        "constrained_heft_s": cons[1]}
+    t = out["times"]
+    print(f"[plan] replan {PLAN_TASKS}x{PLAN_NODES} on the card: cold round "
+          f"{cold[0] + cold[1]:.4f} s (cost_view {cold[0]:.4f} s, HEFT "
+          f"{cold[1]:.4f} s); warm round (median of 5) "
+          f"{t['warm_cost_view_s'] + t['warm_heft_s']:.4f} s (cost_view "
+          f"{t['warm_cost_view_s']:.4f} s, HEFT {t['warm_heft_s']:.4f} s); "
+          f"q={PLAN_QUANTILE} warm HEFT {t['warm_q_heft_s']:.4f} s; "
+          f"constrained replan HEFT {cons[1]:.4f} s; predicted makespan "
+          f"{out['none'].predicted_makespan:.1f} s")
+    return out
+
+
+def plan_breakdown(dev, fleet_out, plan) -> dict:
+    """Host clock of each piece of a warm device round, run piece by piece
+    as `fused_heft_schedule` runs them: W to the host and the ranks, the
+    packing and its copies to the card, the sweep launch (with the sync
+    for its overflow check), and the copies back plus the Schedule
+    rebuild."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sched import fused
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    W = plan["W_q"]
+    ctx = fused._context(dag, nodes, plan["cache"])
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rank = ctx.ranks(dag, W.cpu().numpy())
+        t1 = time.perf_counter()
+        order_arr, _, avail = fused._sweep_inputs(ctx, dag, nodes, rank,
+                                                  None, None)
+        st = ctx.on_device(dev)
+        args = (W, torch.from_numpy(order_arr).to(dev), st["dep_rows"],
+                st["gb8"], st["zeros"], torch.from_numpy(avail).to(dev),
+                st["same"], st["gbps_min"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        assign, est, eft, cnt = ops.eft_sweep(*args, S=ctx.slot_cap)
+        check(int(cnt.max()) <= ctx.slot_cap - 1, "warm round overflowed")
+        t3 = time.perf_counter()
+        sched = fused._build_schedule(ctx, order_arr, assign.cpu().numpy(),
+                                      est.cpu().numpy(), eft.cpu().numpy())
+        t4 = time.perf_counter()
+        times.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3))
+    check(same_schedule(sched, plan["q"]), "breakdown round differs")
+    keys = ("rank_s", "pack_s", "sweep_s", "rebuild_s")
+    out = {k: float(np.median([x[i] for x in times]))
+           for i, k in enumerate(keys)}
+    out["args"] = args
+    print(f"[plan] warm round pieces (median of 5, q={PLAN_QUANTILE}): "
+          + ", ".join(f"{k} {out[k]:.6f}" for k in keys))
+    return out
+
+
+def wide_pack(rng: np.random.Generator, t: int, n: int) -> list:
+    """Sweep inputs for t tasks in topo order on n nodes: random costs, up
+    to three dependencies on earlier rows, busy prefixes on a third of the
+    nodes, and a random symmetric link-rate matrix."""
+    dep = np.full((t, 3), -1, np.int32)
+    for i in range(1, t):
+        k = int(rng.integers(0, 4))
+        dep[i, :k] = rng.choice(i, size=min(k, i), replace=False)
+    rate = rng.uniform(1.0, 25.0, (n, n))
+    avail = np.where(rng.random(n) < 1 / 3, rng.uniform(0.0, 50.0, n), 0.0)
+    return [rng.uniform(1.0, 100.0, (t, n)), np.arange(t, dtype=np.int32),
+            dep, rng.uniform(0.0, 16.0, t), np.zeros((t, n)), avail,
+            np.eye(n, dtype=bool), np.minimum(rate, rate.T)]
+
+
+def phase_plan_checks(dev, fleet_out, plan, args) -> float:
+    """Each plan round against the host HEFT, then the sweep kernel
+    against its plain version on the CPU.  Returns the largest |err| of
+    the sweep's float outputs against the plain version."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane
+    from repro_torch.kernels import ref
+    from repro_torch.sched import fused
+    from repro_torch.sched.heft import heft_schedule_matrix
+    from repro_torch.sched.plane import PredictionMatrix
+    svc = fleet_out["replan_service"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    entries = [(u, t.task_name, t.input_gb) for u, t in dag.tasks.items()]
+    mat = PredictionMatrix.from_service(svc, entries, nodes)
+    order, names = dag.topo_order(), [n.name for n in nodes]
+    for q, key in ((None, "W_none"), (PLAN_QUANTILE, "W_q")):
+        want = mat.costs(order, names, q)
+        check(np.array_equal(plan[key].cpu().numpy().view(np.int64),
+                             want.view(np.int64)),
+              f"cost_view (q={q}) differs from PredictionMatrix.costs")
+    host = {"none": heft_schedule_matrix(dag, nodes, mat),
+            "q": heft_schedule_matrix(dag, nodes, mat,
+                                      quantile=PLAN_QUANTILE),
+            "constrained": heft_schedule_matrix(
+                dag, nodes, mat, quantile=PLAN_QUANTILE,
+                ready_at=plan["ready"], node_available=plan["avail"])}
+    for key, want in host.items():
+        check(same_schedule(plan[key], want),
+              f"device schedule ({key}) differs from heft_schedule_matrix")
+    print("[plan] device schedules identical to heft_schedule_matrix: "
+          "q=None, q=0.95, constrained replan; cost views bitwise equal "
+          "to PredictionMatrix.costs")
+
+    # the slot retry: start the stacks at 4 columns so they overflow
+    cache: dict = {}
+    ctx = fused._context(dag, nodes, cache)
+    ctx.slot_cap = 4
+    got = fused.fused_heft_schedule(dag, nodes, None, W=plan["W_none"],
+                                    rank_cache=cache, engine="device",
+                                    device=dev)
+    check(same_schedule(got, host["none"]),
+          "schedule after the slot retry differs from heft_schedule_matrix")
+    check(ctx.slot_cap >= 8, "the slot retry did not run")
+    print(f"[plan] slot retry 4 -> {ctx.slot_cap}: schedule identical to "
+          f"heft_schedule_matrix")
+
+    # direct launches against the plain sweep on the CPU: S = 48, S = 192,
+    # and a pack padded with masked rows to a multiple of 64
+    cpu = [a.cpu() for a in args]
+    t, n = args[0].shape
+    pad = -(-t // 64) * 64 - t
+    padded = (torch.cat([args[0], torch.ones(pad, n, dtype=torch.float64,
+                                             device=dev)]),
+              torch.cat([args[1], torch.full((pad,), -1, dtype=torch.int32,
+                                             device=dev)]),
+              torch.cat([args[2], torch.full((pad, args[2].shape[1]), -1,
+                                             dtype=torch.int32, device=dev)]),
+              torch.cat([args[3], torch.zeros(pad, dtype=torch.float64,
+                                              device=dev)]),
+              torch.cat([args[4], torch.zeros(pad, n, dtype=torch.float64,
+                                              device=dev)])) + args[5:]
+    wide = [torch.from_numpy(v).to(dev) for v in
+            wide_pack(np.random.default_rng(19), 200, WIDE_NODES)]
+    err = 0.0
+    for label, a, s in (("S=48", args, 48), (f"S={S_DIRECT}", args, S_DIRECT),
+                        (f"padded T={t + pad} S=48", padded, 48),
+                        ("T=200 S=48, more nodes than threads", wide, 48)):
+        got = [g.cpu() for g in plane.eft_sweep(*a, S=s)]
+        torch.cuda.synchronize()
+        want = ref.eft_sweep_ref(*(x.cpu() for x in a), S=s)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        e = max(float((got[k] - want[k]).abs().max()) for k in (1, 2))
+        err = max(err, e)
+        print(f"[plan] eft_sweep {label} N={a[0].shape[1]}: identical to "
+              f"the plain "
+              f"sweep (CPU float64) {same}, max |err| {e!r}, max count "
+              f"{int(got[3].max())}")
+        check(same, f"eft_sweep ({label}) differs from its plain version")
+        if label.startswith("padded"):
+            base = ref.eft_sweep_ref(*cpu, S=48)
+            check(all(torch.equal(g[:t], w) for g, w in
+                      zip(got[:3], base[:3]))
+                  and torch.equal(got[3], base[3]),
+                  "masked rows changed the sweep's result")
+    return err
 
 
 def bounds_predict(q: int) -> tuple:
@@ -444,14 +709,14 @@ def bounds_fit(mask: np.ndarray) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def raw_launch(name: str, args):
+def raw_launch(name: str, args, lib=None):
     """A callable that launches kernel `name` through its C entry point
     with fixed arguments (tensors become pointers; the current stream is
     appended): back-to-back calls of it time the kernel, not the wrapper's
     checks and allocations."""
     import torch
     from repro_torch.kernels import bayes_fit as kernels
-    fn = getattr(kernels._lib(), f"lotaru_{name}")
+    fn = getattr(lib or kernels._lib(), f"lotaru_{name}")
     full = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args] + [torch.cuda.current_stream().cuda_stream]
 
@@ -459,6 +724,94 @@ def raw_launch(name: str, args):
         rc = fn(*full)
         check(rc == 0, f"{name} launch failed with CUDA error {rc}")
     return launch
+
+
+def bounds_cost(t: int, n: int, has_z: bool) -> tuple:
+    """Least time for one fused cost matrix: x and the 88-byte posterior
+    row read once per task, the factor read and the cost written once per
+    cell (16 B); about 20 float64 operations per task and 2 (5 with the
+    quantile shift) per cell."""
+    t_bytes = (t * (8 + 88) + t * n * 16) / H100_BYTES_PER_S * 1e3
+    ops = t * 20 + t * n * (5 if has_z else 2)
+    t_ops = ops / H100_FP64_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bounds_sweep(args, assign) -> tuple:
+    """Least time for one sweep.  Bytes: W and ready0 (8 B per cell), the
+    dep rows, order, output sizes, available times, the (N, N) comm
+    structure read once; assign, est, eft and the counts written once.
+    Operations, counted from this run's placements: per task and node two
+    per dependency (add, max), three per live interval plus the pad column
+    of the gap search (max, add, compare), the finish add, the argmin
+    compare and the comm divide; per task two per live interval of the
+    chosen node for the insert position.  Also the latency bound: T
+    dependent steps of SWEEP_STEP_CYCLES each at the maximum clock."""
+    W, order, dep, gb8, ready0, avail, same, gbps = args
+    t, n = W.shape
+    d = dep.shape[1]
+    t_bytes = (16 * t * n + 4 * t * d + 12 * t + 8 * n + 9 * n * n
+               + 20 * t + 4 * n) / H100_BYTES_PER_S * 1e3
+    counts = (avail.cpu().numpy() > 0).astype(np.int64)
+    ndeps = (dep.cpu().numpy() >= 0).sum(axis=1)
+    assign = assign.cpu().numpy()
+    ops = 0
+    for i in order.cpu().numpy():
+        if i < 0:
+            continue
+        ops += n * (2 * int(ndeps[i]) + 3) + 3 * (int(counts.sum()) + n)
+        j = int(assign[i])
+        ops += 2 * int(counts[j])
+        counts[j] += 1
+    t_ops = ops / H100_FP64_FLOPS * 1e3
+    step_ms = t * SWEEP_STEP_CYCLES / H100_CLOCK_HZ * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", step_ms)
+
+
+def time_plane(dev, sweep_args) -> dict:
+    """Times of fused_cost and eft_sweep at the plan round's shapes."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane
+    from repro_torch.kernels import ref
+    from repro_torch.sched.plane import quantile_z
+    from repro_torch.store.compute import LEAVES
+    lib = plane._lib()
+    z = quantile_z(PLAN_QUANTILE)
+    x, post, f = cost_inputs(np.random.default_rng(13), PLAN_TASKS,
+                             PLAN_NODES)
+    xd, fd = torch.from_numpy(x).to(dev), torch.from_numpy(f).to(dev)
+    pd = {k: torch.from_numpy(v).to(dev) for k, v in post.items()}
+    w = torch.empty_like(fd)
+    out = {"fused_cost": {
+        "ms": time_ms(raw_launch("fused_cost", [xd] + [pd[k] for k in LEAVES]
+                                 + [fd, w, PLAN_TASKS, PLAN_NODES, z, 1],
+                                 lib)),
+        "wrapper_ms": time_ms(lambda: plane.fused_cost(xd, pd, fd, z)),
+        "plain_ms": time_ms(lambda: ref.fused_cost_ref(xd, pd, fd, z),
+                            reps=5)}}
+    W = sweep_args[0]
+    t, n = W.shape
+    S = 48
+    scratch = [torch.empty((S, n), dtype=torch.float64, device=dev),
+               torch.empty((S, n), dtype=torch.float64, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.zeros(t + 1, dtype=torch.float64, device=dev),
+               torch.zeros((t + 1, n), dtype=torch.float64, device=dev),
+               torch.zeros(t + 1, dtype=torch.int32, device=dev),
+               torch.zeros(t + 1, dtype=torch.float64, device=dev),
+               torch.zeros(t + 1, dtype=torch.float64, device=dev)]
+    a = sweep_args
+    launch = raw_launch("eft_sweep", [a[0], a[1], a[2], a[2].shape[1], a[3],
+                                      a[4], a[5], a[6], a[7], t, n, S]
+                        + scratch, lib)
+    out["eft_sweep"] = {
+        "ms": time_ms(launch, reps=10, inner=5),
+        "wrapper_ms": time_ms(lambda: plane.eft_sweep(*a, S=S), reps=10,
+                              inner=5),
+        "plain_ms": time_ms(lambda: ref.eft_sweep_ref(*a, S=S), reps=3,
+                            inner=1)}
+    return out
 
 
 def time_predict(x, post) -> dict:
@@ -475,7 +828,8 @@ def time_predict(x, post) -> dict:
                                 reps=5)}
 
 
-def phase_report(dev, launches, errors, fleet, fleet_out) -> list:
+def phase_report(dev, launches, errors, fleet, fleet_out, plan_args
+                 ) -> list:
     import torch
     from repro_torch.kernels import bayes_fit as kernels
     from repro_torch.store import TaskKey
@@ -513,7 +867,19 @@ def phase_report(dev, launches, errors, fleet, fleet_out) -> list:
     f_bound, f_by = bounds_fit(fleet[2])
     print(f"[report] bayes_fit T={t} N={n}: ms {f_ms!r}, wrapper_ms "
           f"{f_wrapper!r}, plain_ms {f_plain!r}, bound {f_bound!r} ms")
+    from repro_torch.kernels import decision_plane as plane
+    pl = time_plane(dev, plan_args)
+    c_bound, c_by = bounds_cost(PLAN_TASKS, PLAN_NODES, True)
+    assign = plane.eft_sweep(*plan_args, S=48)[0]
+    s_bound, s_by, s_step = bounds_sweep(plan_args, assign)
+    t_plan = plan_args[0].shape[0]
+    print(f"[report] fused_cost T={PLAN_TASKS} N={PLAN_NODES}: "
+          f"{pl['fused_cost']} bound {c_bound!r} ms ({c_by})")
+    print(f"[report] eft_sweep T={t_plan} N={PLAN_NODES} S=48: "
+          f"{pl['eft_sweep']} bound {s_bound!r} ms ({s_by}), latency bound "
+          f"{s_step!r} ms, per step {pl['eft_sweep']['ms'] / t_plan!r} ms")
     src = "src/repro_torch/kernels/csrc/bayes.cu"
+    dsrc = "src/repro_torch/kernels/csrc/decision_plane.cu"
     return [
         {"name": "bayes_fit", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/bayes_fit.py:94",
@@ -532,6 +898,25 @@ def phase_report(dev, launches, errors, fleet, fleet_out) -> list:
          "plain_ms": pt["plain_ms"], "bound_ms": p_bound, "bound_by": p_by,
          "library_ms": None, "wrapper_ms": pt["wrapper_ms"],
          "shape": f"Q={q}"},
+        {"name": "fused_cost", "route": "cuda", "source": dsrc,
+         "replaces": "src/repro/kernels/decision_plane.py:111",
+         "launches": launches["fused_cost"],
+         "max_abs_err": errors["fused_cost"][0], "tolerance": "bitwise",
+         "tol_ratio": errors["fused_cost"][1], "ms": pl["fused_cost"]["ms"],
+         "plain_ms": pl["fused_cost"]["plain_ms"], "bound_ms": c_bound,
+         "bound_by": c_by, "library_ms": None,
+         "wrapper_ms": pl["fused_cost"]["wrapper_ms"],
+         "shape": f"T={PLAN_TASKS} N={PLAN_NODES}"},
+        {"name": "eft_sweep", "route": "cuda", "source": dsrc,
+         "replaces": "src/repro/kernels/decision_plane.py:357",
+         "launches": launches["eft_sweep"],
+         "max_abs_err": errors["eft_sweep"], "tolerance": "bitwise",
+         "tol_ratio": 0.0, "ms": pl["eft_sweep"]["ms"],
+         "plain_ms": pl["eft_sweep"]["plain_ms"], "bound_ms": s_bound,
+         "bound_by": s_by, "library_ms": None,
+         "wrapper_ms": pl["eft_sweep"]["wrapper_ms"],
+         "step_bound_ms": s_step,
+         "shape": f"T={t_plan} N={PLAN_NODES} S=48"},
     ]
 
 
@@ -543,6 +928,7 @@ def main() -> None:
         fail("no CUDA card: this script drives the port on a GPU")
     sys.path.insert(0, SRC)
     from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import decision_plane as plane
     from repro_torch.kernels.bayes_fit import pad_ragged
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain fit's Gram
     torch.backends.cudnn.allow_tf32 = False         # products in full fp32
@@ -553,17 +939,39 @@ def main() -> None:
     fleet = pad_ragged(*fleet_buffers(np.random.default_rng(7), N_FLEET))
     errors = phase_kernels(dev, fleet)
 
-    kernels.bayes_fit.launches = 0
-    kernels.bayes_predict.launches = 0
-    phase_paper(dev)
-    fleet_out = phase_fleet(dev, fleet)
-    launches = {"bayes_fit": kernels.bayes_fit.launches,
-                "bayes_predict": kernels.bayes_predict.launches}
+    counted = (("bayes_fit", kernels.bayes_fit),
+               ("bayes_predict", kernels.bayes_predict),
+               ("fused_cost", plane.fused_cost),
+               ("eft_sweep", plane.eft_sweep))
+    launches = dict.fromkeys((name for name, _ in counted), 0)
+
+    def drive(path):
+        """Run one main path with every count set to 0 just before it and
+        read just after it."""
+        for _, fn in counted:
+            fn.launches = 0
+        out = path()
+        got = {name: fn.launches for name, fn in counted}
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    (_, fleet_out), got = drive(lambda: (phase_paper(dev),
+                                         phase_fleet(dev, fleet)))
+    print(f"[launches] paper + fleet: {got}")
+    plan, got = drive(lambda: phase_plan(dev, fleet_out))
+    print(f"[launches] plan: {got}")
+    check(got["fused_cost"] > 0 and got["eft_sweep"] > 0,
+          "the plan path launched fused_cost or eft_sweep no time")
     print(f"[launches] main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
-    report = phase_report(dev, launches, errors, fleet, fleet_out)
+    pieces = plan_breakdown(dev, fleet_out, plan)
+    errors["eft_sweep"] = phase_plan_checks(dev, fleet_out, plan,
+                                            pieces["args"])
+    report = phase_report(dev, launches, errors, fleet, fleet_out,
+                          pieces["args"])
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import check, cuda_device, raise_on
 
 _P = ctypes.c_void_p
 
@@ -37,43 +38,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
-           shape: Tuple[int, ...], device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, want {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, want {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        msg = _lib().lotaru_error_string(rc).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")
-
-
-def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors; {name} is on "
-                         f"{t.device} (kernels.ops picks the plain version "
-                         f"for CPU tensors)")
-    return t.device
-
-
 def bayes_fit(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> dict:
     """x, y, mask: (T, N) float32 CUDA tensors -> posterior dict matching
     core.bayes.fit_blr (leaves stacked over T).  Any T: the kernel takes
     one warp per task and guards the tail itself, so no padding rows are
     added."""
-    dev = _cuda_device(x, "x")
+    dev = cuda_device(x, "x")
     if x.dim() != 2:
         raise ValueError(f"x must be (T, N), got shape {tuple(x.shape)}")
     t, n = x.shape
     for name, v in (("x", x), ("y", y), ("mask", mask)):
-        _check(v, name, torch.float32, (t, n), dev)
+        check(v, name, torch.float32, (t, n), dev)
     out = {k: torch.empty(shape, dtype=torch.float32, device=dev)
            for k, shape in (("mu", (t, 2)), ("sigma", (t, 2, 2)),
                             ("alpha", (t,)), ("beta_prec", (t,)),
@@ -89,7 +64,7 @@ def bayes_fit(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> dict:
                                           "beta_prec", "x_mu", "x_sd",
                                           "y_mu", "y_sd", "n")),
             stream)
-    _raise_on(rc, "bayes_fit")
+    raise_on(_lib(), rc, "bayes_fit")
     bayes_fit.launches += 1
     return out
 
@@ -138,13 +113,13 @@ def bayes_predict(x: torch.Tensor, post: dict
     query (Q, ...), float64 and contiguous on the same card.  Returns
     (mean, std), each (Q,) float64, bitwise equal to
     core.bayes.predict_blr_np on the same values."""
-    dev = _cuda_device(x, "x")
+    dev = cuda_device(x, "x")
     if x.dim() != 1:
         raise ValueError(f"x must be (Q,), got shape {tuple(x.shape)}")
     q = x.shape[0]
-    _check(x, "x", torch.float64, (q,), dev)
+    check(x, "x", torch.float64, (q,), dev)
     for leaf, shape in _PREDICT_LEAVES:
-        _check(post[leaf], leaf, torch.float64, (q,) + shape, dev)
+        check(post[leaf], leaf, torch.float64, (q,) + shape, dev)
     mean = torch.empty(q, dtype=torch.float64, device=dev)
     std = torch.empty(q, dtype=torch.float64, device=dev)
     if q == 0:
@@ -155,7 +130,7 @@ def bayes_predict(x: torch.Tensor, post: dict
             x.data_ptr(), *(post[leaf].data_ptr()
                             for leaf, _ in _PREDICT_LEAVES),
             mean.data_ptr(), std.data_ptr(), q, stream)
-    _raise_on(rc, "bayes_predict")
+    raise_on(_lib(), rc, "bayes_predict")
     bayes_predict.launches += 1
     return mean, std
 

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "predictive.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -34,7 +36,8 @@ constexpr float kEps = 1e-9f;
 // instead of the host repacking it into planes, which would cost a copy per
 // call.  The TPU kernel ran float32 (the TPU has no fast float64); here
 // every term is float64 and evaluated in the host reference's order
-// (core.bayes.predict_blr_np), so the result is bitwise equal to it.
+// (core.bayes.predict_blr_np, in predictive.cuh, shared with fused_cost),
+// so the result is bitwise equal to it.
 __global__ void __launch_bounds__(kThreads)
 bayes_predict_kernel(const double* __restrict__ x,
                      const double* __restrict__ mu,
@@ -50,16 +53,8 @@ bayes_predict_kernel(const double* __restrict__ x,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < q;
        i += stride) {
-    const double xs = (x[i] - x_mu[i]) / x_sd[i];
-    const double mean_s = mu[2 * i] + mu[2 * i + 1] * xs;
-    const double var_s = 1.0 / beta[i] + sigma[4 * i]
-                         + 2.0 * sigma[4 * i + 1] * xs
-                         + sigma[4 * i + 3] * xs * xs;
-    const double ysd = y_sd[i];
-    mean[i] = mean_s * ysd + y_mu[i];
-    // numpy.maximum(var_s, 0.0): NaN propagates, -0.0 becomes +0.0
-    const double v = (var_s <= 0.0) ? 0.0 : var_s;
-    std[i] = sqrt(v) * ysd;
+    lotaru_predictive(x, mu, sigma, beta, x_mu, x_sd, y_mu, y_sd, i,
+                      &mean[i], &std[i]);
   }
 }
 

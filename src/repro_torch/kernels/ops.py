@@ -5,11 +5,12 @@ fallback from one to the other: a caller that wants the plain version
 hands over CPU tensors."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import bayes_fit as _kernels
+from repro_torch.kernels import decision_plane as _plane
 from repro_torch.kernels import ref
 
 
@@ -36,3 +37,30 @@ def bayes_predict(x: torch.Tensor, post: dict
     if _route(x) == "cuda":
         return _kernels.bayes_predict(x, post)
     return ref.bayes_predict_ref(x, post)
+
+
+def fused_cost(x: torch.Tensor, post: dict, factors: torch.Tensor,
+               z: Optional[float] = None) -> torch.Tensor:
+    """Fused predict -> scale -> quantile cost matrix for the decision
+    plane: x (T,), the T task rows' posterior leaves (T, ...) and the
+    (T, N) factor matrix in, the float64 (T, N) HEFT cost matrix out.
+    `z` None (or 0) schedules on the mean."""
+    if _route(x) == "cuda":
+        return _plane.fused_cost(x, post, factors, z)
+    return ref.fused_cost_ref(x, post, factors, z)
+
+
+def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,
+              dep_rows: torch.Tensor, gb8: torch.Tensor,
+              ready0: torch.Tensor, avail: torch.Tensor, same: torch.Tensor,
+              gbps_min: torch.Tensor, *, S: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """One workflow's HEFT insertion sweep -> (assign, est, eft, cnt)
+    (see `kernels.decision_plane.eft_sweep`).  No task padding: the TPU
+    form padded T to a bucket to avoid recompiles, which eager launches
+    never pay."""
+    args = (W, order_arr, dep_rows, gb8, ready0, avail, same, gbps_min)
+    if _route(W) == "cuda":
+        return _plane.eft_sweep(*args, S=S)
+    return ref.eft_sweep_ref(*args, S=S)

@@ -5,7 +5,7 @@ only there) and are what the kernels are held against on the card: the
 same function on the same inputs, with no claim to speed."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,3 +46,90 @@ def _sqrt_rn(v: torch.Tensor) -> torch.Tensor:
     complex128 path reaches the C library's csqrt, which returns the
     correctly rounded real sqrt for a non-negative real argument."""
     return torch.sqrt(v.to(torch.complex128)).real
+
+
+def fused_cost_ref(x: torch.Tensor, post: dict, factors: torch.Tensor,
+                   z: Optional[float] = None) -> torch.Tensor:
+    """(T,) inputs + posterior leaves of the T task rows + (T, N) factors
+    -> (T, N) float64 HEFT cost matrix: the predictive, then
+    max(mean, 1e-3) * f, then + z * (std * f) when z is neither None nor
+    0.  Term for term `predict_blr_np`, then `store.compute.scale`, then
+    `store.compute.cost_matrix`, so it is bitwise equal to them."""
+    mean, std = bayes_predict_ref(x, post)
+    # numpy.maximum(mean, 1e-3): NaN propagates, -0.0 becomes 1e-3
+    mean = torch.where(mean < 1e-3, 1e-3, mean)
+    w = mean[:, None] * factors
+    if z is not None and z != 0.0:
+        w = w + z * (std[:, None] * factors)
+    return w
+
+
+def eft_sweep_ref(W: torch.Tensor, order_arr: torch.Tensor,
+                  dep_rows: torch.Tensor, gb8: torch.Tensor,
+                  ready0: torch.Tensor, avail: torch.Tensor,
+                  same: torch.Tensor, gbps_min: torch.Tensor, *, S: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """One workflow's HEFT insertion sweep, task by task, with the
+    arguments and results of `kernels.decision_plane.eft_sweep`.  Works in
+    the dtype of W (float64 for the kernel, float32 to hold it against the
+    reference's float32 sweep).
+
+    Per-node busy intervals live in (N, S) begin/end stacks padded with
+    +inf.  A task's candidate start before interval k is
+    max(ready, end[k-1]); the earliest fitting one is its start on that
+    node, and the node with the earliest finish wins (first minimum).  The
+    interval goes in at the counting-searchsorted position of the
+    (begin, end) order.  A masked row (order -1) inserts (inf, inf), a
+    no-op on the pads, and writes its results to the dump row T."""
+    T, N = W.shape
+    f, dev = W.dtype, W.device
+    inf = torch.tensor(float("inf"), dtype=f, device=dev)
+    has = avail > 0.0
+    b0 = torch.full((N, S), float("inf"), dtype=f, device=dev)
+    b1 = torch.full((N, S), float("inf"), dtype=f, device=dev)
+    b0[:, 0] = torch.where(has, 0.0, inf)
+    b1[:, 0] = torch.where(has, avail, inf)
+    assign = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    fin = torch.zeros(T + 1, dtype=f, device=dev)
+    est_a = torch.zeros(T + 1, dtype=f, device=dev)
+    eft_a = torch.zeros(T + 1, dtype=f, device=dev)
+    comm = torch.zeros((T + 1, N), dtype=f, device=dev)
+    ar = torch.arange(S, device=dev)
+    ninf_col = torch.full((N, 1), float("-inf"), dtype=f, device=dev)
+    for t in range(T):
+        o = order_arr[t].long()
+        valid = o >= 0
+        i = o.clamp(min=0)
+        drows = dep_rows[i].long()
+        ds = drows.clamp(0, T)
+        dcand = fin[ds][:, None] + comm[ds]                    # (D, N)
+        dcand = torch.where((drows >= 0)[:, None], dcand, -inf)
+        ready = ready0[i]
+        if dcand.shape[0]:
+            ready = torch.maximum(ready, dcand.amax(dim=0))
+        dur = W[i]
+        prev = torch.cat([ninf_col, b1[:, :-1]], dim=1)
+        cand = torch.maximum(ready[:, None], prev)
+        fits = cand + dur[:, None] <= b0
+        est = torch.where(fits, cand, inf).amin(dim=1)
+        eft = est + dur
+        j = torch.argmin(eft)
+        estj, eftj = est[j], eft[j]
+        est_ins = torch.where(valid, estj, inf)
+        eft_ins = torch.where(valid, eftj, inf)
+        b0j, b1j = b0[j], b1[j]
+        pos = ((b0j < est_ins).sum()
+               + ((b0j == est_ins) & (b1j < eft_ins)).sum())
+        b0[j] = torch.where(ar < pos, b0j, torch.where(
+            ar == pos, est_ins, torch.roll(b0j, 1)))
+        b1[j] = torch.where(ar < pos, b1j, torch.where(
+            ar == pos, eft_ins, torch.roll(b1j, 1)))
+        iw = torch.where(valid, i, T)
+        assign[iw] = j.to(torch.int32)
+        fin[iw] = eftj
+        est_a[iw] = estj
+        eft_a[iw] = eftj
+        comm[iw] = torch.where(same[j], 0.0, gb8[i] / gbps_min[j])
+    cnt = (b0 < inf).sum(dim=1).to(torch.int32)
+    return assign[:T], est_a[:T], eft_a[:T], cnt

@@ -1,0 +1,406 @@
+"""HEFT placement on the card: the single-workflow engine of the fused
+decision plane.
+
+  * `cost_view` builds a round's (T, N) quantile cost matrix W in
+    `dag.topo_order()` rows and cluster column order, on the service's
+    device, from ONE `fused_cost` launch over the gathered posterior rows,
+    the input sizes and the factor matrix.  It is bitwise
+    `PredictionMatrix.from_service(...).costs(order, names, quantile)`.
+
+  * `fused_heft_schedule` ranks and places off W.  It is bitwise
+    `heft.heft_schedule_matrix` with either engine:
+      - "numpy": the host sweep on flat (N, S) busy-interval arrays, one
+        vectorized gap search over every node per task (the oracle);
+      - "device": the whole insertion sweep as ONE `eft_sweep` launch on
+        `device` (its plain version on "cpu");
+      - "auto": "device" from `_DEVICE_MIN_CELLS` (T x N) cells up, by
+        size alone.
+    Upward ranks stay on the host: W is copied there once for them, while
+    the sweep reads the W already on the card.  The rank terms that do not
+    depend on W (the average pairwise comm per task) and the sweep's
+    static arrays are kept per (dag, cluster) in the caller's
+    `rank_cache`, so a warm round pays only the w_avg sum, the reverse-topo
+    recurrence and the sweep.
+
+Why the sweep is exact: the insertion policy keeps each node's busy
+intervals non-overlapping and sorted, so interval ends are non-decreasing;
+the candidate start before interval k is max(ready, end[k-1]) whatever the
+earlier fit checks said, and the first k with `cand + dur <= begin[k]` is
+the slot the reference's sequential walk returns.  max, min and compare
+are exact in IEEE floats, and every arithmetic term (`cand + dur`,
+`est + dur`, comm charges) is a single add or divide in the reference's
+expression, so schedules match bitwise, not approximately.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.microbench import NodeSpec
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.sched.heft import Schedule, comm_structure
+from repro_torch.sched.plane import PredictionMatrix, quantile_z
+from repro_torch.store.compute import LEAVES
+from repro_torch.workflow.dag import WorkflowDAG
+
+__all__ = ["cost_view", "fused_heft_schedule"]
+
+_NEG_INF = float("-inf")
+
+# auto engine policy: below this many (task x node) cells the host sweep
+# beats a launch plus the copies around it
+_DEVICE_MIN_CELLS = 5000
+
+
+class _PlanContext:
+    """Per-(dag, cluster) invariants cached across planning rounds: the
+    topo order and row maps, the pairwise comm structure, successor
+    lists, the W-independent avg-comm rank terms, and the sweep's static
+    arrays (dep rows, output bits, and their copies on each device used).
+    All of it is derived data — cached values are bitwise what a cold
+    round recomputes, so warm and cold rounds schedule identically."""
+
+    __slots__ = ("dag", "order", "row_of", "names", "same", "gbps_min",
+                 "succ", "avg_comm", "dep_rows", "gb8", "slot_cap",
+                 "_on_device")
+
+    def __init__(self, dag: WorkflowDAG, nodes: List[NodeSpec]):
+        self.dag = dag      # strong ref: the cache key includes id(dag),
+        # which stays unique only while the dag is alive
+        self.order = dag.topo_order()
+        self.row_of = {u: i for i, u in enumerate(self.order)}
+        self.names = [n.name for n in nodes]
+        self.same, self.gbps_min = comm_structure(nodes)
+        self.succ = dag.successors()
+        n_nodes = len(nodes)
+        self.avg_comm: Dict[str, float] = {}
+        for u in self.order:
+            gb = dag.tasks[u].output_gb
+            terms = np.where(self.same, 0.0, (gb * 8.0) / self.gbps_min)
+            self.avg_comm[u] = (float(terms.ravel().cumsum()[-1])
+                                / (n_nodes ** 2))
+        n_tasks = len(self.order)
+        depth = max((len(dag.tasks[u].deps) for u in self.order), default=0)
+        self.dep_rows = np.full((n_tasks, max(depth, 1)), -1, np.int32)
+        for i, u in enumerate(self.order):
+            for k, d in enumerate(dag.tasks[u].deps):
+                self.dep_rows[i, k] = self.row_of[d]
+        self.gb8 = np.asarray([dag.tasks[u].output_gb * 8.0
+                               for u in self.order], np.float64)
+        self.slot_cap = 48        # doubled on interval-stack overflow
+        self._on_device: Dict[torch.device, dict] = {}
+
+    def ranks(self, dag: WorkflowDAG, W: np.ndarray) -> Dict[str, float]:
+        """Upward ranks off this round's W: the per-round halves only
+        (w_avg cumsum + reverse-topo recurrence); avg_comm is cached."""
+        n_nodes = len(self.names)
+        w_avg_arr = (W.cumsum(axis=1)[:, -1] / n_nodes if n_nodes
+                     else W.sum(1))
+        rank: Dict[str, float] = {}
+        avg_comm, succ, row_of = self.avg_comm, self.succ, self.row_of
+        for u in reversed(self.order):
+            best = 0.0
+            for v in succ[u]:
+                best = max(best, avg_comm[u] + rank[v])
+            rank[u] = float(w_avg_arr[row_of[u]]) + best
+        return rank
+
+    def on_device(self, dev: torch.device) -> dict:
+        """The sweep's static arrays on `dev`, copied once per device."""
+        st = self._on_device.get(dev)
+        if st is None:
+            st = self._on_device[dev] = {
+                "dep_rows": torch.from_numpy(self.dep_rows).to(dev),
+                "gb8": torch.from_numpy(self.gb8).to(dev),
+                "same": torch.from_numpy(self.same).to(dev),
+                "gbps_min": torch.from_numpy(self.gbps_min).to(dev),
+                "zeros": torch.zeros((len(self.order), len(self.names)),
+                                     dtype=torch.float64, device=dev)}
+        return st
+
+
+_CTX_CACHE_MAX = 32
+
+
+def _context(dag: WorkflowDAG, nodes: List[NodeSpec],
+             rank_cache: Optional[dict]) -> _PlanContext:
+    if rank_cache is None:
+        return _PlanContext(dag, nodes)
+    key = (id(dag), len(dag.tasks), tuple(n.name for n in nodes))
+    ctx = rank_cache.get(key)
+    if ctx is None or ctx.dag is not dag:
+        ctx = rank_cache[key] = _PlanContext(dag, nodes)
+        while len(rank_cache) > _CTX_CACHE_MAX:    # bound replan-frontier
+            rank_cache.pop(next(iter(rank_cache)))  # churn (FIFO evict)
+    return ctx
+
+
+class _SlotArrays:
+    """Per-node busy intervals as flat (N, S) arrays: `b0`/`b1` are the
+    interval begins/ends sorted by begin, `cnt` the live count per node.
+    Padding is +inf / -inf so the vectorized gap search needs no masking:
+    the +inf begin past the last interval always fits, and the -inf ends
+    make the shifted `prev` ends a no-op under max."""
+
+    __slots__ = ("b0", "b1", "cnt", "cap", "_prev", "_cand", "_tmp")
+
+    def __init__(self, n_nodes: int, cap: int = 8):
+        self.cap = cap
+        self.b0 = np.full((n_nodes, cap), np.inf)
+        self.b1 = np.full((n_nodes, cap), _NEG_INF)
+        self.cnt = np.zeros(n_nodes, np.int64)
+        self._prev = np.empty((n_nodes, cap))
+        self._cand = np.empty((n_nodes, cap))
+        self._tmp = np.empty((n_nodes, cap))
+
+    def seed_available(self, avail: np.ndarray) -> None:
+        """node_available entries > 0 enter as a [0, avail) busy prefix —
+        same convention as the reference's slot lists."""
+        busy = avail > 0.0
+        self.b0[busy, 0] = 0.0
+        self.b1[busy, 0] = avail[busy]
+        self.cnt[busy] = 1
+
+    def _grow(self) -> None:
+        n, cap = self.b0.shape
+        new_cap = cap * 2
+        for name, fill in (("b0", np.inf), ("b1", _NEG_INF)):
+            a = np.full((n, new_cap), fill)
+            a[:, :cap] = getattr(self, name)
+            setattr(self, name, a)
+        self.cap = new_cap
+        self._prev = np.empty((n, new_cap))
+        self._cand = np.empty((n, new_cap))
+        self._tmp = np.empty((n, new_cap))
+
+    def earliest(self, ready: np.ndarray, dur: np.ndarray) -> np.ndarray:
+        """The vectorized `_earliest_slot`: the earliest fitting start on
+        every node at once, (N,)."""
+        b0, b1 = self.b0, self.b1
+        prev = self._prev
+        prev[:, 0] = _NEG_INF
+        prev[:, 1:] = b1[:, :-1]
+        cand = np.maximum(ready[:, None], prev, out=self._cand)
+        np.add(cand, dur[:, None], out=self._tmp)
+        fits = self._tmp <= b0                     # +inf pad: always a fit
+        ff = fits.argmax(axis=1)
+        return cand[np.arange(cand.shape[0]), ff]
+
+    def insert(self, j: int, est: float, eft: float) -> None:
+        """Insert [est, eft) into node j's sorted intervals (the tuple
+        (b0, b1) lexicographic order the reference's list.sort() keeps)."""
+        c = int(self.cnt[j])
+        if c + 1 >= self.cap:
+            self._grow()      # keep >= 1 spare +inf column: the gap search
+            # relies on the pad past the last interval always fitting
+        b0r, b1r = self.b0[j], self.b1[j]
+        pos = int(np.searchsorted(b0r[:c], est))
+        while pos < c and b0r[pos] == est and b1r[pos] < eft:
+            pos += 1                               # zero-length-interval ties
+        if pos < c:
+            b0r[pos + 1:c + 1] = b0r[pos:c].copy()
+            b1r[pos + 1:c + 1] = b1r[pos:c].copy()
+        b0r[pos] = est
+        b1r[pos] = eft
+        self.cnt[j] = c + 1
+
+
+def _ready_rows(ctx: _PlanContext, dag: WorkflowDAG, nodes: List[NodeSpec],
+                ready_at) -> Optional[np.ndarray]:
+    """Materialize external ready-time constraints as a (T, N) array in
+    topo-row order (None when unconstrained).  The callable form pays the
+    same T x N calls the reference engine would have made."""
+    if ready_at is None:
+        return None
+    if isinstance(ready_at, np.ndarray):
+        rows = np.ascontiguousarray(ready_at, np.float64)
+        want = (len(ctx.order), len(nodes))
+        if rows.shape != want:
+            raise ValueError(f"ready_at array must be {want}, got "
+                             f"{rows.shape}")
+        return rows
+    if callable(ready_at):
+        return np.asarray([[ready_at(u, n) for n in nodes]
+                           for u in ctx.order], np.float64)
+    col = np.asarray([ready_at.get(u, 0.0) for u in ctx.order], np.float64)
+    return np.repeat(col[:, None], len(nodes), axis=1)
+
+
+def cost_view(service, dag: WorkflowDAG, nodes: List[NodeSpec],
+              quantile: Optional[float] = None) -> torch.Tensor:
+    """The round's (T, N) float64 quantile cost matrix W, rows in
+    `dag.topo_order()` and columns in `nodes` order, on `service.device`:
+    the T task rows gathered once from the store, then ONE `fused_cost`
+    launch over them, their input sizes and the binding's factor matrix.
+    Bitwise `PredictionMatrix.from_service(service, entries, nodes)
+    .costs(order, names, quantile)`."""
+    order = dag.topo_order()
+    names = [n.name for n in nodes]
+    tasks = [dag.tasks[u].task_name for u in order]
+    binding = service._binding
+    binding.sync()
+    post = service.store.snapshot().gather([binding.key_str(t)
+                                            for t in tasks])
+    dev = service.device
+    x = np.asarray([dag.tasks[u].input_gb for u in order], np.float64)
+    f = binding.factor_matrix(tasks, names)
+    z = None if quantile is None else quantile_z(quantile)
+    return ops.fused_cost(
+        torch.from_numpy(x).to(dev),
+        {leaf: torch.from_numpy(np.ascontiguousarray(post[leaf])).to(dev)
+         for leaf in LEAVES},
+        torch.from_numpy(np.ascontiguousarray(f, np.float64)).to(dev), z)
+
+
+def fused_heft_schedule(dag: WorkflowDAG, nodes: List[NodeSpec],
+                        matrix: Optional[PredictionMatrix],
+                        ready_at=None,
+                        node_available: Optional[Dict[str, float]] = None,
+                        quantile: Optional[float] = None,
+                        rank_cache: Optional[dict] = None,
+                        engine: str = "auto",
+                        W=None, device=DEFAULT_DEVICE) -> Schedule:
+    """Fused-engine HEFT: bit-identical to `heft.heft_schedule_matrix`.
+
+    `ready_at` additionally accepts a precomputed (T, N) array (rows in
+    `dag.topo_order()` order) so replans can charge external dependency
+    comm without T x N Python callbacks.  `rank_cache` is an optional
+    dict the caller keeps across rounds; per-(dag, cluster) invariants are
+    memoized in it.  `engine`: 'numpy' = flat-array host sweep; 'device'
+    = one `eft_sweep` launch on `device` ("cuda" by default; "cpu" runs
+    its plain version); 'auto' picks by problem size.  `W` overrides the
+    cost matrix (topo-row order, a numpy array or a tensor such as
+    `cost_view`'s), and then `matrix` may be None."""
+    ctx = _context(dag, nodes, rank_cache)
+    if W is None:
+        if matrix is None:
+            raise ValueError("fused_heft_schedule needs a matrix or W")
+        W = matrix.costs(ctx.order, ctx.names, quantile=quantile)  # (T, N)
+    W_host = (W.cpu().numpy() if isinstance(W, torch.Tensor)
+              else np.asarray(W, np.float64))
+    rank = ctx.ranks(dag, W_host)
+    if engine == "auto":
+        engine = "device" if W_host.size >= _DEVICE_MIN_CELLS else "numpy"
+    if engine == "device":
+        dev = resolve_device(device)
+        W_dev = torch.as_tensor(W, dtype=torch.float64).to(dev).contiguous()
+        return _schedule_device(ctx, dag, nodes, W_dev, rank, ready_at,
+                                node_available)
+    if engine != "numpy":
+        raise ValueError(f"engine must be 'auto', 'numpy' or 'device', "
+                         f"got {engine!r}")
+    return _schedule_numpy(ctx, dag, nodes, W_host, rank, ready_at,
+                           node_available)
+
+
+def _schedule_numpy(ctx: _PlanContext, dag: WorkflowDAG,
+                    nodes: List[NodeSpec], W: np.ndarray,
+                    rank: Dict[str, float], ready_at,
+                    node_available: Optional[Dict[str, float]]) -> Schedule:
+    order, names = ctx.order, ctx.names
+    same, gbps_min = ctx.same, ctx.gbps_min
+    n_nodes = len(nodes)
+    sched = Schedule(order={name: [] for name in names})
+    row_of = ctx.row_of
+    slots = _SlotArrays(n_nodes)
+    if node_available:
+        slots.seed_available(np.asarray(
+            [node_available.get(name, 0.0) for name in names], np.float64))
+
+    ready_rows = _ready_rows(ctx, dag, nodes, ready_at)
+    finish: Dict[str, float] = {}
+    assign_idx: Dict[str, int] = {}
+    zeros = np.zeros(n_nodes)
+
+    for u in sorted(order, key=lambda u: -rank[u]):
+        t = dag.tasks[u]
+        i = row_of[u]
+        ready = zeros.copy() if ready_rows is None else ready_rows[i].copy()
+        for d in t.deps:
+            dn = assign_idx[d]
+            comm = np.where(same[dn], 0.0,
+                            (dag.tasks[d].output_gb * 8.0) / gbps_min[dn])
+            np.maximum(ready, finish[d] + comm, out=ready)
+        dur = W[i]
+        est = slots.earliest(ready, dur)
+        eft = est + dur
+        j = int(np.argmin(eft))
+        est_j, eft_j = float(est[j]), float(eft[j])
+        slots.insert(j, est_j, eft_j)
+        name = names[j]
+        sched.assignment[u] = name
+        sched.order[name].append(u)
+        sched.est[u] = (est_j, eft_j)
+        finish[u] = eft_j
+        assign_idx[u] = j
+    for name in sched.order:
+        sched.order[name].sort(key=lambda u: sched.est[u][0])
+    return sched
+
+
+def _sweep_inputs(ctx: _PlanContext, dag: WorkflowDAG,
+                  nodes: List[NodeSpec], rank: Dict[str, float], ready_at,
+                  node_available: Optional[Dict[str, float]]):
+    """One replan's per-round sweep inputs on the host: the rows in rank
+    order (int32), the (T, N) external ready times (None when
+    unconstrained) and the per-node available times.  Nothing is padded:
+    the TPU form padded T to a bucket to reuse one compiled sweep."""
+    rank_arr = np.asarray([rank[u] for u in ctx.order], np.float64)
+    # stable argsort == sorted(order, key=-rank): ties keep topo order
+    order_arr = np.argsort(-rank_arr, kind="stable").astype(np.int32)
+    ready0 = _ready_rows(ctx, dag, nodes, ready_at)
+    if node_available:
+        avail = np.asarray([node_available.get(name, 0.0)
+                            for name in ctx.names], np.float64)
+    else:
+        avail = np.zeros(len(nodes))
+    return order_arr, ready0, avail
+
+
+def _build_schedule(ctx: _PlanContext, order_arr: np.ndarray,
+                    assign: np.ndarray, est: np.ndarray,
+                    eft: np.ndarray) -> Schedule:
+    """Rehydrate a `Schedule` from the sweep's flat outputs, visiting
+    tasks in rank order (the order the reference appends in) so per-node
+    lists tie-break identically before the final est sort."""
+    n_tasks = len(ctx.order)
+    sched = Schedule(order={name: [] for name in ctx.names})
+    order, names = ctx.order, ctx.names
+    for t in range(len(order_arr)):
+        i = int(order_arr[t])
+        if i < 0 or i >= n_tasks:
+            continue
+        u = order[i]
+        name = names[int(assign[i])]
+        sched.assignment[u] = name
+        sched.order[name].append(u)
+        sched.est[u] = (float(est[i]), float(eft[i]))
+    for name in sched.order:
+        sched.order[name].sort(key=lambda u: sched.est[u][0])
+    return sched
+
+
+def _schedule_device(ctx: _PlanContext, dag: WorkflowDAG,
+                     nodes: List[NodeSpec], W: torch.Tensor,
+                     rank: Dict[str, float], ready_at,
+                     node_available: Optional[Dict[str, float]]) -> Schedule:
+    dev = W.device
+    order_arr, ready0, avail = _sweep_inputs(ctx, dag, nodes, rank, ready_at,
+                                             node_available)
+    st = ctx.on_device(dev)
+    args = (W, torch.from_numpy(order_arr).to(dev), st["dep_rows"],
+            st["gb8"],
+            st["zeros"] if ready0 is None else torch.from_numpy(ready0).to(dev),
+            torch.from_numpy(avail).to(dev), st["same"], st["gbps_min"])
+    while True:
+        S = ctx.slot_cap
+        assign, est, eft, cnt = ops.eft_sweep(*args, S=S)
+        if len(nodes) == 0 or int(cnt.max()) <= S - 1:
+            break
+        ctx.slot_cap = S * 2      # interval stacks overflowed: the gap
+        # search needs >= 1 spare pad column per node — run again larger
+    return _build_schedule(ctx, order_arr, assign.cpu().numpy(),
+                           est.cpu().numpy(), eft.cpu().numpy())
