@@ -35,15 +35,32 @@ Phases (each fails loudly; nothing is caught):
                N = 100 (307 KB of interval stacks), a pack padded with
                masked rows, and a launch on 1500 nodes (more nodes than a
                block has threads).
-  6. report  — per-kernel launches on the main path (phases 3-5, each path
+  6. ingest  — the online write path on the card.  The workflow loop: the
+               replan problem's predictor wrapped in
+               `OnlinePredictor(device="cuda")`, fed 8 batches of local and
+               remote completions through `observe_many` (every fold group
+               one `nig_fold` launch), then re-predicted (predict_batch)
+               and re-placed (`cost_view` + `fused_heft_schedule(engine=
+               "device")`).  Its `export_state` must equal that of a CPU
+               port predictor driven by the scalar `observe`, and the
+               predictions and schedule the CPU run's.  The fleet fold:
+               an OnlinePredictor over the 65,536 fleet posteriors takes
+               1-8 local completions per task in one `observe_many`; its
+               state must equal the CPU numpy fold's, and `nig_fold` on
+               the fold's operands must be bitwise its plain version on
+               the CPU.
+  7. report  — per-kernel launches on the main path (phases 3-6, each path
                with the counts set to 0 just before it), errors, and times
                at the main path's shapes beside their bounds: CUDA events
-               over back-to-back launches through the C entry point (`ms`,
-               the kernel), through the Python wrapper (`wrapper_ms`, what
-               a caller pays) and of the plain version on the card
-               (`plain_ms`).  `tol_ratio` is the worst
-               |got - want| / (atol + rtol * |want|) over all outputs: at
-               most 1 is within the stated tolerance.
+               around one call with the L2 flushed before it, through the
+               C entry point (`ms`, the kernel), through the Python
+               wrapper (`wrapper_ms`, what a caller pays) and of the plain
+               version on the card (`plain_ms`); `warm_ms` is the kernel
+               back to back on the same operands.  For the fold also
+               `observe_many`'s split (kernel, copies, host) and the host
+               numpy fold at the same size.  `tol_ratio` is
+               the worst |got - want| / (atol + rtol * |want|) over all
+               outputs: at most 1 is within the stated tolerance.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit, and the `ok` JSON.  The script exits non-zero, printing no result,
@@ -87,6 +104,13 @@ WIDE_NODES = 1500                # > 1024 threads: a thread owns two nodes
 # reads (a dependency's finish time, then an interval; ~35 each) and a
 # chain of about eight float64 max/add/compare (~4 each)
 SWEEP_STEP_CYCLES = 3 * 20 + 10 * 25 + 2 * 35 + 8 * 4
+INGEST_BATCHES, INGEST_BATCH = 8, 250
+INGEST_DRIFT = 1.6               # remote nodes run this much slower than
+                                 # their static factor says
+FOLD_COLS = 8                    # fleet fold: 1-8 completions per task
+# float64 operations of one fold step (core.bayes._nig_step, three of them
+# divides, plus the b floor and the mask test)
+FOLD_STEP_OPS = 60
 
 
 def plain_fit_chunked(x, y, mask) -> dict:
@@ -177,9 +201,51 @@ def replan_problem(n_tasks: int, n_nodes: int, seed: int, device):
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
+L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
+_flush = []
+
+
+def flush_l2() -> None:
+    """Evict the card's L2 by reading a buffer several times its size.  A
+    read leaves clean lines behind; a write would leave dirty ones, whose
+    write-back the next kernel would pay for."""
+    import torch
+    if not _flush:
+        _flush.append(torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                                 device="cuda"))
+    _flush[0].sum()
+
+
+def time_ms(fn, reps: int = 20, host: bool = False) -> float:
+    """Median over `reps` of the CUDA-event time of one call, each with
+    the L2 flushed before it (untimed), after a warm-up: a caller that
+    finds its operands in device memory, not in the cache.  With
+    host=False the flush is still running when the call is enqueued, so
+    the time is the device's alone (a kernel); with host=True the card is
+    idle first, so the call's host work (a wrapper's checks, the plain
+    version's op dispatch) is in the time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush_l2()
+        if host:
+            torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def warm_ms(fn, reps: int = 20, inner: int = 10) -> float:
     """Median over `reps` of CUDA-event time per call across `inner`
-    back-to-back calls, after a warm-up."""
+    back-to-back calls on the same operands, after a warm-up: operands
+    that fit in the L2 are served from it."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -491,6 +557,7 @@ def phase_fleet(dev, fleet) -> dict:
           f"{t2 - t1:.4f} s (generation {store.generation}), "
           f"{n_queries} queries served per tenant in {serve_s:.4f} s")
     return {"replan_queries": queries, "replan_service": svc,
+            "fleet_post": post,
             "replan_dag": dag, "replan_nodes": nodes}
 
 
@@ -688,6 +755,253 @@ def phase_plan_checks(dev, fleet_out, plan, args) -> float:
     return err
 
 
+def ingest_stream(rng: np.random.Generator, dag, base, benches, nodes
+                  ) -> list:
+    """The workflow loop's completions, INGEST_BATCHES batches of
+    INGEST_BATCH: even batches local only (each task type one fold
+    group), odd batches half on the cluster's nodes, running INGEST_DRIFT
+    times slower than their static factor says.  Runtimes follow the
+    lines the replan problem's traces come from, with 5% noise."""
+    from repro_torch.online import TaskCompletion
+    tasks = list(dag.tasks.values())
+    batches = []
+    for b in range(INGEST_BATCHES):
+        batch = []
+        for _ in range(INGEST_BATCH):
+            t = tasks[int(rng.integers(len(tasks)))]
+            j = TASK_TYPES.index(t.task_name)
+            rt = (2.0 + j + (15.0 + 6 * j) * t.input_gb) \
+                * (1.0 + rng.normal(0.0, 0.05))
+            node = "local"
+            if b % 2 and rng.random() < 0.5:
+                node = nodes[int(rng.integers(len(nodes)))].name
+                rt *= INGEST_DRIFT * base.factor(t.task_name, benches[node])
+            batch.append(TaskCompletion("replan", t.uid, t.task_name, node,
+                                        t.input_gb, float(rt)))
+        batches.append(batch)
+    return batches
+
+
+def fleet_state(post: dict) -> dict:
+    """A fitted-predictor state (`repro_torch.convert`) carrying the
+    fleet's N_FLEET posteriors as regression tasks."""
+    from repro_torch.core.microbench import simulate_microbench
+    from repro_torch.sched.cluster import LOCAL
+    local = simulate_microbench(LOCAL, 1)
+    return {"variant": "G", "threshold": 0.75,
+            "local_bench": {f: getattr(local, f) for f in
+                            ("name", "cpu", "mem", "io_read", "io_write")},
+            "app_bench": {},
+            "models": {f"task{i:05d}": {
+                "correlated": True,
+                "posterior": {k: post[k][i] for k in post},
+                "median_s": float(post["y_mu"][i]), "spread_s": 1.0,
+                "cpu_fraction": 0.5, "fit_x": None, "fit_y": None}
+                for i in range(N_FLEET)}}
+
+
+def fleet_completions(rng: np.random.Generator, names) -> list:
+    """1-FOLD_COLS local completions per fleet task, linear runtimes with
+    5% noise, in a shuffled arrival order."""
+    from repro_torch.online import TaskCompletion
+    t = len(names)
+    counts = rng.integers(1, FOLD_COLS + 1, t)
+    base = rng.uniform(2.0, 30.0, t)
+    slope = rng.uniform(1.0, 60.0, t)
+    idx = np.repeat(np.arange(t), counts)
+    rng.shuffle(idx)
+    x = rng.uniform(0.05, 4.0, idx.size)
+    y = (base[idx] + slope[idx] * x) * (1.0 + rng.normal(0.0, 0.05,
+                                                          idx.size))
+    return [TaskCompletion("fleet", names[i], names[i], "local", a, b)
+            for i, a, b in zip(idx.tolist(), x.tolist(), y.tolist())]
+
+
+def phase_ingest(dev, fleet_out) -> dict:
+    """The main path of the online write path on the card: the workflow
+    loop (ingest in batches, re-predict, replan) and the fleet fold (one
+    observe_many over the 65,536 fleet tasks).  Returns what the checks
+    need; they run after the launch counts are read."""
+    import torch
+    from repro_torch.convert import predictor_from_state
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.fused import cost_view, fused_heft_schedule
+    svc = fleet_out["replan_service"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    benches = dict(svc.benches)
+    batches = ingest_stream(np.random.default_rng(23), dag, svc.predictor,
+                            benches, nodes)
+    online = OnlinePredictor(svc.predictor, benches, device=dev)
+    t0 = time.perf_counter()
+    for batch in batches:
+        online.observe_many(batch)
+    t1 = time.perf_counter()
+    isvc = PredictionService(online, benches, device=dev)
+    flat = isvc.predict_batch(fleet_out["replan_queries"])
+    t2 = time.perf_counter()
+    W = cost_view(isvc, dag, nodes, PLAN_QUANTILE)
+    sched = fused_heft_schedule(dag, nodes, None, W=W, engine="device",
+                                device=dev)
+    t3 = time.perf_counter()
+    print(f"[ingest] workflow loop: {INGEST_BATCHES} observe_many of "
+          f"{INGEST_BATCH} completions {t1 - t0:.4f} s "
+          f"({online.ingest.as_dict()}), predict_batch "
+          f"(Q={len(flat)}) {t2 - t1:.4f} s, replan (cost_view + "
+          f"fused_heft_schedule, q={PLAN_QUANTILE}) {t3 - t2:.4f} s")
+
+    state = fleet_state(fleet_out["fleet_post"])
+    fleet = OnlinePredictor(predictor_from_state(state, dev), device=dev)
+    names = list(fleet.tasks)
+    comps = fleet_completions(np.random.default_rng(29), names)
+    nigs0 = [fleet.tasks[n].nig for n in names]
+    t4 = time.perf_counter()
+    fleet.observe_many(comps)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    print(f"[ingest] fleet fold: one observe_many of {len(comps)} "
+          f"completions over {len(names)} tasks {t5 - t4:.4f} s "
+          f"({fleet.ingest.as_dict()})")
+    return {"batches": batches, "online": online, "benches": benches,
+            "flat": flat, "sched": sched, "state": state, "fleet": fleet,
+            "comps": comps, "nigs0": nigs0, "names": names,
+            "loop_s": t1 - t0, "fleet_observe_s": t5 - t4}
+
+
+def bounds_fold(counts: np.ndarray) -> tuple:
+    """Least time for one fold: per task its int32 count (4 B), x and y
+    for the observations it holds (16 B each; padded cells carry no
+    information), and the 88-byte state (mu, v, prec, b) read once and
+    written once; FOLD_STEP_OPS float64 operations per observation this
+    run's rows hold."""
+    t, n = counts.size, float(counts.sum())
+    t_bytes = (n * 16 + t * 4 + t * 88 * 2) / H100_BYTES_PER_S * 1e3
+    t_ops = n * FOLD_STEP_OPS / H100_FP64_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """Median host-clock seconds of `reps` calls (each ends on the host)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def phase_ingest_checks(dev, fleet_out, ing) -> dict:
+    """The ingest path against the CPU: the workflow loop's state,
+    predictions and schedule; the fleet fold's state against the CPU numpy
+    fold; `nig_fold` on the fold's operands bitwise against its plain
+    version on the CPU.  Then the fold's times.  Returns the report's
+    numbers for nig_fold."""
+    import torch
+    from repro_torch.convert import predictor_from_state, predictor_state
+    from repro_torch.core import bayes
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import ref
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.heft import heft_schedule_matrix
+    from repro_torch.sched.plane import PredictionMatrix
+    from repro_torch.store import compute
+    online, benches = ing["online"], ing["benches"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    cpu = OnlinePredictor(predictor_from_state(predictor_state(online.base),
+                                               "cpu"), benches, device="cpu")
+    for batch in ing["batches"]:
+        for c in batch:
+            cpu.observe(c)
+    check(online.export_state() == cpu.export_state(),
+          "workflow loop: export_state on the card differs from the CPU "
+          "port predictor driven by the scalar observe")
+    moved = sum(online.node_correction(n.name) != 1.0 for n in nodes)
+    check(online.ingest.fold_dispatches > 0 and moved > 0,
+          "workflow loop: no fold group, or no node correction moved")
+    cpu_svc = PredictionService(cpu, benches, device="cpu")
+    check(np.array_equal(cpu_svc.predict_batch(fleet_out["replan_queries"]),
+                         ing["flat"]),
+          "post-ingest predict_batch on the card differs from the CPU run")
+    entries = [(u, t.task_name, t.input_gb) for u, t in dag.tasks.items()]
+    mat = PredictionMatrix.from_service(cpu_svc, entries, nodes)
+    check(same_schedule(heft_schedule_matrix(dag, nodes, mat,
+                                             quantile=PLAN_QUANTILE),
+                        ing["sched"]),
+          "post-ingest replan on the card differs from the CPU run")
+    print(f"[ingest] workflow loop: export_state equal to the CPU scalar "
+          f"observe chain; {moved} node corrections moved; predict_batch "
+          f"bitwise and the replan schedule identical to the CPU run")
+
+    cpu_fleet = OnlinePredictor(predictor_from_state(ing["state"], "cpu"),
+                                device="cpu")
+    t0 = time.perf_counter()
+    cpu_fleet.observe_many(ing["comps"])
+    cpu_observe_s = time.perf_counter() - t0
+    check(ing["fleet"].export_state() == cpu_fleet.export_state(),
+          "fleet fold: export_state on the card differs from the CPU "
+          "numpy fold")
+    rows = {n: ([], []) for n in ing["names"]}
+    for c in ing["comps"]:
+        rows[c.task][0].append(c.input_gb)
+        rows[c.task][1].append(c.runtime_s)
+    xs = [rows[n][0] for n in ing["names"]]
+    ys = [rows[n][1] for n in ing["names"]]
+    nigs0 = ing["nigs0"]
+    sx, sy, m, mu, v, prec, _, b, _ = bayes.fold_pack(nigs0, xs, ys)
+    counts = np.count_nonzero(m, axis=1).astype(np.int32)
+    host_args = (sx, sy, counts, mu, v, prec, b)
+    cpu_args = [torch.from_numpy(a) for a in host_args]
+    dev_args = [a.to(dev) for a in cpu_args]
+    got = [g.cpu() for g in kernels.nig_fold(*dev_args)]
+    want = ref.nig_fold_ref(*cpu_args)
+    same = all(torch.equal(g.view(torch.int64), w.view(torch.int64))
+               for g, w in zip(got, want))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    t, k = m.shape
+    print(f"[ingest] nig_fold T={t} K={k} ({int(counts.sum())} "
+          f"observations): bitwise vs plain (CPU float64) {same}, max "
+          f"|err| {err!r}; fleet export_state equal to the CPU numpy fold")
+    check(same, "nig_fold differs from its plain version")
+
+    outs = [torch.empty_like(a) for a in dev_args[3:]]
+    launch = raw_launch("nig_fold", dev_args[:3] + [t, k] + dev_args[3:]
+                        + outs)
+    out = {"ms": time_ms(launch), "warm_ms": warm_ms(launch),
+           "wrapper_ms": time_ms(lambda: kernels.nig_fold(*dev_args),
+                                 host=True),
+           "plain_ms": time_ms(lambda: ref.nig_fold_ref(*dev_args), reps=5,
+                               host=True),
+           "err": err, "shape": f"T={t} K={k}"}
+    out["bound_ms"], out["bound_by"] = bounds_fold(counts)
+    # the fold's copies as the card sees them: the seven operands to the
+    # card, the four folded leaves back
+    h2d_ms = time_ms(lambda: [torch.from_numpy(a).to(dev)
+                              for a in host_args], reps=5, host=True)
+    d2h_ms = time_ms(lambda: [o.cpu() for o in outs], reps=5, host=True)
+    pack_s = median_s(lambda: bayes.fold_pack(nigs0, xs, ys))
+    kernel_fold_s = median_s(lambda: compute.fold_kernel(nigs0, xs, ys,
+                                                         dev))
+    numpy_fold_s = median_s(lambda: bayes.nig_update_batch(nigs0, xs, ys))
+    obs_s = ing["fleet_observe_s"]
+    device_s = (out["ms"] + h2d_ms + d2h_ms) / 1e3
+    print(f"[ingest] nig_fold kernel {out['ms']!r} ms (L2 flushed) beside "
+          f"its bound {out['bound_ms']!r} ms ({out['bound_by']}); "
+          f"back to back on the same operands {out['warm_ms']!r} ms")
+    print(f"[ingest] nig_fold through the wrapper {out['wrapper_ms']!r} ms; "
+          f"plain version on the card {out['plain_ms']!r} ms")
+    print(f"[ingest] fleet observe_many {obs_s!r} s on the card: the fold "
+          f"call {kernel_fold_s!r} s (packing {pack_s!r} s, copies to the "
+          f"card {h2d_ms / 1e3!r} s and back {d2h_ms / 1e3!r} s, the "
+          f"kernel {out['ms'] / 1e3!r} s, unpacking the rest), the "
+          f"grouping, ring appends and change feed "
+          f"{obs_s - kernel_fold_s!r} s; share outside the kernel "
+          f"{1.0 - out['ms'] / 1e3 / obs_s!r}, host share (outside the "
+          f"kernel and the copies) {1.0 - device_s / obs_s!r}")
+    print(f"[ingest] host numpy fold (nig_update_batch) at the same size "
+          f"{numpy_fold_s!r} s; the CPU predictor's observe_many "
+          f"{cpu_observe_s!r} s")
+    return out
+
+
 def bounds_predict(q: int) -> tuple:
     """Least time for q predictive queries: 96 B read + 16 B written per
     query; 20 float64 operations per query."""
@@ -783,13 +1097,14 @@ def time_plane(dev, sweep_args) -> dict:
     xd, fd = torch.from_numpy(x).to(dev), torch.from_numpy(f).to(dev)
     pd = {k: torch.from_numpy(v).to(dev) for k, v in post.items()}
     w = torch.empty_like(fd)
+    launch = raw_launch("fused_cost", [xd] + [pd[k] for k in LEAVES]
+                        + [fd, w, PLAN_TASKS, PLAN_NODES, z, 1], lib)
     out = {"fused_cost": {
-        "ms": time_ms(raw_launch("fused_cost", [xd] + [pd[k] for k in LEAVES]
-                                 + [fd, w, PLAN_TASKS, PLAN_NODES, z, 1],
-                                 lib)),
-        "wrapper_ms": time_ms(lambda: plane.fused_cost(xd, pd, fd, z)),
+        "ms": time_ms(launch), "warm_ms": warm_ms(launch),
+        "wrapper_ms": time_ms(lambda: plane.fused_cost(xd, pd, fd, z),
+                              host=True),
         "plain_ms": time_ms(lambda: ref.fused_cost_ref(xd, pd, fd, z),
-                            reps=5)}}
+                            reps=5, host=True)}}
     W = sweep_args[0]
     t, n = W.shape
     S = 48
@@ -806,11 +1121,12 @@ def time_plane(dev, sweep_args) -> dict:
                                       a[4], a[5], a[6], a[7], t, n, S]
                         + scratch, lib)
     out["eft_sweep"] = {
-        "ms": time_ms(launch, reps=10, inner=5),
+        "ms": time_ms(launch, reps=10),
+        "warm_ms": warm_ms(launch, reps=10, inner=5),
         "wrapper_ms": time_ms(lambda: plane.eft_sweep(*a, S=S), reps=10,
-                              inner=5),
+                              host=True),
         "plain_ms": time_ms(lambda: ref.eft_sweep_ref(*a, S=S), reps=3,
-                            inner=1)}
+                            host=True)}
     return out
 
 
@@ -822,14 +1138,15 @@ def time_predict(x, post) -> dict:
     out = [torch.empty_like(x), torch.empty_like(x)]
     launch = raw_launch("bayes_predict", [x] + [post[k] for k in LEAVES]
                         + out + [x.shape[0]])
-    return {"ms": time_ms(launch),
-            "wrapper_ms": time_ms(lambda: kernels.bayes_predict(x, post)),
+    return {"ms": time_ms(launch), "warm_ms": warm_ms(launch),
+            "wrapper_ms": time_ms(lambda: kernels.bayes_predict(x, post),
+                                  host=True),
             "plain_ms": time_ms(lambda: ref.bayes_predict_ref(x, post),
-                                reps=5)}
+                                reps=5, host=True)}
 
 
-def phase_report(dev, launches, errors, fleet, fleet_out, plan_args
-                 ) -> list:
+def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
+                 fold) -> list:
     import torch
     from repro_torch.kernels import bayes_fit as kernels
     from repro_torch.store import TaskKey
@@ -860,13 +1177,14 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args
     fout = [torch.empty(t, k, device=dev) for k in (2, 4, 1, 1, 1, 1, 1, 1,
                                                     1)]
     launch = raw_launch("bayes_fit", [fx, fy, fm, t, n] + fout)
-    f_ms = time_ms(launch)
-    f_wrapper = time_ms(lambda: kernels.bayes_fit(fx, fy, fm))
+    f_ms, f_warm = time_ms(launch), warm_ms(launch)
+    f_wrapper = time_ms(lambda: kernels.bayes_fit(fx, fy, fm), host=True)
     f_plain = time_ms(lambda: plain_fit_chunked(fx, fy, fm), reps=3,
-                      inner=1)
+                      host=True)
     f_bound, f_by = bounds_fit(fleet[2])
-    print(f"[report] bayes_fit T={t} N={n}: ms {f_ms!r}, wrapper_ms "
-          f"{f_wrapper!r}, plain_ms {f_plain!r}, bound {f_bound!r} ms")
+    print(f"[report] bayes_fit T={t} N={n}: ms {f_ms!r}, warm_ms "
+          f"{f_warm!r}, wrapper_ms {f_wrapper!r}, plain_ms {f_plain!r}, "
+          f"bound {f_bound!r} ms")
     from repro_torch.kernels import decision_plane as plane
     pl = time_plane(dev, plan_args)
     c_bound, c_by = bounds_cost(PLAN_TASKS, PLAN_NODES, True)
@@ -888,7 +1206,7 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args
          "tolerance": "rtol 5e-3 atol 5e-4",
          "tol_ratio": errors["bayes_fit"][1], "ms": f_ms, "plain_ms": f_plain,
          "bound_ms": f_bound, "bound_by": f_by, "library_ms": None,
-         "wrapper_ms": f_wrapper,
+         "warm_ms": f_warm, "wrapper_ms": f_wrapper,
          "shape": f"T={fleet[0].shape[0]} N={fleet[0].shape[1]}"},
         {"name": "bayes_predict", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/bayes_fit.py:343",
@@ -896,8 +1214,8 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args
          "max_abs_err": errors["bayes_predict"][0], "tolerance": "bitwise",
          "tol_ratio": errors["bayes_predict"][1], "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": p_bound, "bound_by": p_by,
-         "library_ms": None, "wrapper_ms": pt["wrapper_ms"],
-         "shape": f"Q={q}"},
+         "library_ms": None, "warm_ms": pt["warm_ms"],
+         "wrapper_ms": pt["wrapper_ms"], "shape": f"Q={q}"},
         {"name": "fused_cost", "route": "cuda", "source": dsrc,
          "replaces": "src/repro/kernels/decision_plane.py:111",
          "launches": launches["fused_cost"],
@@ -905,6 +1223,7 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args
          "tol_ratio": errors["fused_cost"][1], "ms": pl["fused_cost"]["ms"],
          "plain_ms": pl["fused_cost"]["plain_ms"], "bound_ms": c_bound,
          "bound_by": c_by, "library_ms": None,
+         "warm_ms": pl["fused_cost"]["warm_ms"],
          "wrapper_ms": pl["fused_cost"]["wrapper_ms"],
          "shape": f"T={PLAN_TASKS} N={PLAN_NODES}"},
         {"name": "eft_sweep", "route": "cuda", "source": dsrc,
@@ -914,9 +1233,18 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args
          "tol_ratio": 0.0, "ms": pl["eft_sweep"]["ms"],
          "plain_ms": pl["eft_sweep"]["plain_ms"], "bound_ms": s_bound,
          "bound_by": s_by, "library_ms": None,
+         "warm_ms": pl["eft_sweep"]["warm_ms"],
          "wrapper_ms": pl["eft_sweep"]["wrapper_ms"],
          "step_bound_ms": s_step,
          "shape": f"T={t_plan} N={PLAN_NODES} S=48"},
+        {"name": "nig_fold", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/bayes_fit.py:240",
+         "launches": launches["nig_fold"], "max_abs_err": fold["err"],
+         "tolerance": "bitwise", "tol_ratio": 0.0, "ms": fold["ms"],
+         "plain_ms": fold["plain_ms"], "bound_ms": fold["bound_ms"],
+         "bound_by": fold["bound_by"], "library_ms": None,
+         "warm_ms": fold["warm_ms"], "wrapper_ms": fold["wrapper_ms"],
+         "shape": fold["shape"]},
     ]
 
 
@@ -942,7 +1270,8 @@ def main() -> None:
     counted = (("bayes_fit", kernels.bayes_fit),
                ("bayes_predict", kernels.bayes_predict),
                ("fused_cost", plane.fused_cost),
-               ("eft_sweep", plane.eft_sweep))
+               ("eft_sweep", plane.eft_sweep),
+               ("nig_fold", kernels.nig_fold))
     launches = dict.fromkeys((name for name, _ in counted), 0)
 
     def drive(path):
@@ -963,6 +1292,12 @@ def main() -> None:
     print(f"[launches] plan: {got}")
     check(got["fused_cost"] > 0 and got["eft_sweep"] > 0,
           "the plan path launched fused_cost or eft_sweep no time")
+    ingest, got = drive(lambda: phase_ingest(dev, fleet_out))
+    print(f"[launches] ingest: {got}")
+    check(all(got[k] > 0 for k in ("nig_fold", "bayes_predict",
+                                   "fused_cost", "eft_sweep")),
+          "the ingest path launched nig_fold, bayes_predict, fused_cost "
+          "or eft_sweep no time")
     print(f"[launches] main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
@@ -970,8 +1305,9 @@ def main() -> None:
     pieces = plan_breakdown(dev, fleet_out, plan)
     errors["eft_sweep"] = phase_plan_checks(dev, fleet_out, plan,
                                             pieces["args"])
+    fold = phase_ingest_checks(dev, fleet_out, ingest)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
-                          pieces["args"])
+                          pieces["args"], fold)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -13,6 +13,12 @@ task models fit in one call; `fit_blr` is the one-task view of it.  The
 hand-written CUDA form of the batched fit is `kernels.bayes_fit.bayes_fit`.
 The serving predictive is `predict_blr_np`, float64 host code that the
 CUDA `bayes_predict` kernel matches bit for bit.
+
+The streaming section below lifts a fit into a Normal-Inverse-Gamma state
+and folds completions into it exactly.  Its host forms are here; the card's
+form (`store.compute.fold_stacked` over the CUDA `nig_fold` kernel) packs
+with `fold_pack` and unpacks with `fold_unpack`, float64 and bit for bit
+the scalar `nig_update` chain.
 """
 from __future__ import annotations
 
@@ -138,3 +144,336 @@ def constant_posterior(mean: float, std: float) -> dict:
             "x_mu": np.float64(0.0), "x_sd": np.float64(1.0),
             "y_mu": np.float64(mean), "y_sd": np.float64(max(std, 1e-6)),
             "n": np.float64(0.0)}
+
+
+# ---------------------------------------------------------------------------
+# streaming conjugate updates (the online-prediction subsystem)
+# ---------------------------------------------------------------------------
+# The MacKay fit above is a one-shot offline procedure.  For the online
+# service a fitted posterior is lifted into a conjugate Normal-Inverse-Gamma
+# state:  beta | s2 ~ N(mu, s2 V),  s2 ~ IG(a, b),  which admits EXACT
+# rank-1 updates as task completions stream in — no refit, O(1) per event.
+# The standardization stats are frozen at lift time (they only fix the
+# affine coordinate system; the conjugate algebra is exact in it).
+# All state is float64 numpy: thousands of sequential Sherman-Morrison
+# updates stay exact to ~1e-12 where float32 would drift.
+
+def nig_from_blr(post: dict) -> dict:
+    """Lift a fitted BLR posterior into a streaming NIG state.
+
+    Moment matching: the MacKay posterior has weight covariance `sigma` and
+    noise precision `beta_prec`; we take E[s2] = b/a = 1/beta_prec with
+    a = max(n/2, 1) pseudo-observations of noise, and V = sigma * beta_prec
+    so that E[s2] * V equals the fitted weight covariance exactly."""
+    sigma = np.asarray(post["sigma"], np.float64)
+    beta = float(post["beta_prec"])
+    a = max(float(post["n"]) / 2.0, 1.0)
+    v = sigma * beta
+    return {"mu": np.asarray(post["mu"], np.float64).copy(),
+            "v": v, "prec": np.linalg.inv(v),
+            "a": a, "b": a / beta,
+            "x_mu": float(post["x_mu"]), "x_sd": float(post["x_sd"]),
+            "y_mu": float(post["y_mu"]), "y_sd": float(post["y_sd"]),
+            "n0": float(post["n"]), "n_obs": 0.0,
+            # noise level the evidence fixed point chose at lift time; a
+            # drift trigger compares the streaming estimate b/a against it
+            # (OnlinePredictor.refresh_due)
+            "s2_lift": 1.0 / beta}
+
+
+def nig_update(nig: dict, x_new: float, y_new: float) -> dict:
+    """Exact conjugate rank-1 update with one observation (original units).
+
+    Sherman-Morrison keeps V = prec^-1 without re-inversion:
+        prec' = prec + phi phi^T
+        V'    = V - (V phi)(V phi)^T / (1 + phi^T V phi)
+        mu'   = V' (prec mu + phi y)
+        a'    = a + 1/2
+        b'    = b + (y^2 + mu^T prec mu - mu'^T prec' mu') / 2
+
+    All 2x2 algebra is unrolled to explicit component arithmetic — the
+    SAME expressions `_nig_fold_np`, `kernels.ref.nig_fold_ref` and the
+    CUDA `nig_fold` kernel evaluate — so the scalar chain and every batched
+    fold perform identical float64 IEEE op sequences per task and agree
+    bit for bit.
+    """
+    xs = (float(x_new) - nig["x_mu"]) / nig["x_sd"]
+    ys = (float(y_new) - nig["y_mu"]) / nig["y_sd"]
+    prec, v, mu = nig["prec"], nig["v"], nig["mu"]
+    mu1, mu2 = mu[0], mu[1]
+    v11, v12, v22 = v[0, 0], v[0, 1], v[1, 1]
+    p11, p12, p22 = prec[0, 0], prec[0, 1], prec[1, 1]
+
+    (nmu1, nmu2, nv11, nv12, nv22, np11, np12, np22, nb) = _nig_step(
+        mu1, mu2, v11, v12, v22, p11, p12, p22, nig["b"], xs, ys)
+
+    out = dict(nig)
+    out.update(mu=np.array([nmu1, nmu2], np.float64),
+               v=np.array([[nv11, nv12], [nv12, nv22]], np.float64),
+               prec=np.array([[np11, np12], [np12, np22]], np.float64),
+               a=nig["a"] + 0.5, b=nb if nb > 1e-12 else 1e-12,
+               n_obs=nig["n_obs"] + 1.0)
+    return out
+
+
+def _nig_step(mu1, mu2, v11, v12, v22, p11, p12, p22, b, xs, ys):
+    """One Sherman-Morrison rank-1 NIG update in explicit 2x2 component
+    form, on standardized (xs, ys).  Polymorphic over scalars, (T,)
+    float64 numpy vectors and float64 tensors: each operation is one
+    correctly rounded IEEE add, multiply or divide per element, so
+    evaluating these expressions lane-wise over T tasks is bit-identical
+    to evaluating them one task at a time — the property
+    `nig_update_batch` is built on."""
+    # vp = V phi with phi = (1, xs);  denom = 1 + phi^T V phi
+    vp1 = v11 + v12 * xs
+    vp2 = v12 + v22 * xs
+    denom = 1.0 + (vp1 + xs * vp2)
+    nv11 = v11 - vp1 * vp1 / denom
+    nv12 = v12 - vp1 * vp2 / denom
+    nv22 = v22 - vp2 * vp2 / denom
+    np11 = p11 + 1.0
+    np12 = p12 + xs
+    np22 = p22 + xs * xs
+    r1 = (p11 * mu1 + p12 * mu2) + ys            # prec mu + phi y
+    r2 = (p12 * mu1 + p22 * mu2) + xs * ys
+    nmu1 = nv11 * r1 + nv12 * r2
+    nmu2 = nv12 * r1 + nv22 * r2
+    qo = (mu1 * p11 + mu2 * p12) * mu1 + (mu1 * p12 + mu2 * p22) * mu2
+    qn = (nmu1 * np11 + nmu2 * np12) * nmu1 \
+        + (nmu1 * np12 + nmu2 * np22) * nmu2
+    # callers floor nb at 1e-12 (np.maximum for vectors, a branch for
+    # scalars — identical values on finite inputs)
+    nb = b + 0.5 * (ys * ys + qo - qn)
+    return nmu1, nmu2, nv11, nv12, nv22, np11, np12, np22, nb
+
+
+def _nig_fold_np(mu, v, prec, a, b, n_obs, xs, ys, m):
+    """Vectorized masked fold: apply K standardized observations to T NIG
+    states simultaneously, one step per observation column.
+
+    Bit-identical to chaining `nig_update` per task: both evaluate the
+    SAME `_nig_step` component expressions, and numpy float64 elementwise
+    ufuncs are IEEE-deterministic per lane.  Masked lanes keep their old
+    state via `where` selection."""
+    mu1, mu2 = mu[:, 0], mu[:, 1]
+    v11, v12, v22 = v[:, 0, 0], v[:, 0, 1], v[:, 1, 1]
+    p11, p12, p22 = prec[:, 0, 0], prec[:, 0, 1], prec[:, 1, 1]
+    for k in range(xs.shape[1]):
+        xk, yk, mk = xs[:, k], ys[:, k], m[:, k] > 0.0
+        (nmu1, nmu2, nv11, nv12, nv22, np11, np12, np22, nb) = _nig_step(
+            mu1, mu2, v11, v12, v22, p11, p12, p22, b, xk, yk)
+        nb = np.maximum(nb, 1e-12)
+        mu1 = np.where(mk, nmu1, mu1)
+        mu2 = np.where(mk, nmu2, mu2)
+        v11 = np.where(mk, nv11, v11)
+        v12 = np.where(mk, nv12, v12)
+        v22 = np.where(mk, nv22, v22)
+        p11 = np.where(mk, np11, p11)
+        p12 = np.where(mk, np12, p12)
+        p22 = np.where(mk, np22, p22)
+        b = np.where(mk, nb, b)
+    a, n_obs = fold_counts(a, n_obs, m)
+    mu = np.stack([mu1, mu2], axis=1)
+    v = np.stack([np.stack([v11, v12], 1), np.stack([v12, v22], 1)], axis=1)
+    prec = np.stack([np.stack([p11, p12], 1),
+                     np.stack([p12, p22], 1)], axis=1)
+    return mu, v, prec, a, b, n_obs
+
+
+def fold_counts(a, n_obs, m):
+    """a and n_obs after a masked fold, one masked +0.5 / +1.0 per column
+    as the vectorized fold adds them (the kernel leaves both on the
+    host)."""
+    for k in range(m.shape[1]):
+        mk = m[:, k] > 0.0
+        a = np.where(mk, a + 0.5, a)
+        n_obs = np.where(mk, n_obs + 1.0, n_obs)
+    return a, n_obs
+
+
+_FOLD_VEC_MIN_TASKS = 64
+"""Below this many tasks the vectorized fold's numpy per-op dispatch
+overhead loses to per-task python-float chains; both are the identical
+IEEE op sequence, so the size dispatch is invisible to the results."""
+
+
+def _nig_chain_py(nig: dict, xrow, yrow) -> dict:
+    """Per-task scalar chain on python floats: the same `_nig_step`
+    component expressions `nig_update` evaluates (python float and numpy
+    float64 scalar arithmetic share the hardware double ops, so results
+    are bit-identical), minus numpy's per-op scalar dispatch — the fast
+    form for narrow folds."""
+    if not len(xrow):
+        return dict(nig)
+    x_mu, x_sd = float(nig["x_mu"]), float(nig["x_sd"])
+    y_mu, y_sd = float(nig["y_mu"]), float(nig["y_sd"])
+    mu, v, prec = nig["mu"], nig["v"], nig["prec"]
+    mu1, mu2 = float(mu[0]), float(mu[1])
+    v11, v12, v22 = float(v[0, 0]), float(v[0, 1]), float(v[1, 1])
+    p11, p12, p22 = float(prec[0, 0]), float(prec[0, 1]), float(prec[1, 1])
+    b = float(nig["b"])
+    for x, y in zip(xrow, yrow):
+        sx = (float(x) - x_mu) / x_sd
+        sy = (float(y) - y_mu) / y_sd
+        (mu1, mu2, v11, v12, v22, p11, p12, p22, b) = _nig_step(
+            mu1, mu2, v11, v12, v22, p11, p12, p22, b, sx, sy)
+        b = b if b > 1e-12 else 1e-12
+    k = len(xrow)
+    out = dict(nig)
+    out.update(mu=np.array([mu1, mu2], np.float64),
+               v=np.array([[v11, v12], [v12, v22]], np.float64),
+               prec=np.array([[p11, p12], [p12, p22]], np.float64),
+               a=nig["a"] + 0.5 * k, b=b,
+               n_obs=nig["n_obs"] + float(k))
+    return out
+
+
+def nig_update_batch(nigs, xs, ys, impl: str = "numpy"):
+    """Fold grouped observations into many streaming NIG states in ONE
+    call: `nigs` is a list of T states, `xs[i]`/`ys[i]` the (ragged)
+    observation sequence for state i, in arrival order.  Returns T updated
+    states; the inputs are not mutated.
+
+    Every form is bit-identical to `[chain of nig_update]` per task (the
+    scalar chain is the exactness oracle):
+      'chain'  per-task python-float chains (fastest at small T);
+      'vec'    the masked (T, K) numpy fold `_nig_fold_np`;
+      'numpy'  (default) 'chain' below `_FOLD_VEC_MIN_TASKS` tasks, else
+               'vec'.
+    The reference's JAX forms ('scan', 'pallas', 'interpret') are not
+    carried over; the card's form is `store.compute.fold_stacked`.
+    """
+    kmax = check_rows(nigs, xs, ys)
+    if kmax == 0:
+        return [dict(n) for n in nigs]
+    if impl == "numpy":
+        impl = "chain" if len(nigs) < _FOLD_VEC_MIN_TASKS else "vec"
+    if impl == "chain":
+        return [_nig_chain_py(n, xr, yr)
+                for n, xr, yr in zip(nigs, xs, ys)]
+    if impl != "vec":
+        raise ValueError(f"unknown impl {impl!r}")
+    sx, sy, m, mu, v, prec, a, b, n_obs = fold_pack(nigs, xs, ys)
+    mu, v, prec, a, b, n_obs = _nig_fold_np(mu, v, prec, a, b, n_obs,
+                                            sx, sy, m)
+    return fold_unpack(nigs, m, mu, v, prec, a, b, n_obs)
+
+
+def check_rows(nigs, xs, ys) -> int:
+    """Validate one observation row per state, each with as many x as y;
+    returns the longest row's length."""
+    if len(xs) != len(nigs) or len(ys) != len(nigs):
+        raise ValueError(f"need one observation row per state: "
+                         f"{len(nigs)} states, {len(xs)}/{len(ys)} rows")
+    kmax = 0
+    for i, (xi, yi) in enumerate(zip(xs, ys)):
+        if len(xi) != len(yi):
+            raise ValueError(f"row {i}: len(x)={len(xi)} != len(y)={len(yi)}")
+        kmax = max(kmax, len(xi))
+    return kmax
+
+
+def fold_pack(nigs, xs, ys):
+    """T states and their ragged observation rows -> the fold's float64
+    numpy operands, all C-contiguous: the standardized (T, K) observations
+    sx, sy and mask m (rows prefix-masked, K the longest row), and the
+    stacked mu (T, 2), v, prec (T, 2, 2), a, b, n_obs (T,).  A state lifted
+    from a fit on the card holds a column-major sigma (torch.linalg.inv's
+    layout there), and np.stack keeps its inputs' layout, hence the
+    explicit contiguity."""
+    t, kmax = len(nigs), max((len(r) for r in xs), default=0)
+    x = np.zeros((t, kmax), np.float64)
+    y = np.zeros((t, kmax), np.float64)
+    m = np.zeros((t, kmax), np.float64)
+    for i, (xi, yi) in enumerate(zip(xs, ys)):
+        k = len(xi)
+        x[i, :k] = np.asarray(xi, np.float64)
+        y[i, :k] = np.asarray(yi, np.float64)
+        m[i, :k] = 1.0
+    stats = np.array([[n["x_mu"], n["x_sd"], n["y_mu"], n["y_sd"]]
+                      for n in nigs], np.float64)
+    # standardize exactly as the scalar update does, per task
+    sx = (x - stats[:, 0:1]) / stats[:, 1:2]
+    sy = (y - stats[:, 2:3]) / stats[:, 3:4]
+    stack = lambda leaf: np.ascontiguousarray(
+        np.stack([np.asarray(n[leaf], np.float64) for n in nigs]))
+    mu, v, prec = stack("mu"), stack("v"), stack("prec")
+    a = np.array([n["a"] for n in nigs], np.float64)
+    b = np.array([n["b"] for n in nigs], np.float64)
+    n_obs = np.array([n["n_obs"] for n in nigs], np.float64)
+    return sx, sy, m, mu, v, prec, a, b, n_obs
+
+
+def fold_unpack(nigs, m, mu, v, prec, a, b, n_obs):
+    """The folded stacked leaves -> T state dicts.  Rows with no
+    observations pass through VERBATIM: restacking them would symmetrize
+    v/prec ([1,0] := [0,1]) and a fitted input matrix can be asymmetric in
+    the last ulp — the scalar chain (zero updates) leaves those bytes
+    untouched."""
+    counts = m.sum(axis=1)
+    out = []
+    for i, nig in enumerate(nigs):
+        o = dict(nig)
+        if counts[i]:
+            o.update(mu=mu[i], v=v[i], prec=prec[i],
+                     a=a[i], b=b[i], n_obs=n_obs[i])
+        out.append(o)
+    return out
+
+
+def nig_refit(nig0: dict, x: np.ndarray, y: np.ndarray) -> dict:
+    """Batch posterior from the prior state `nig0` and ALL observations at
+    once (closed form).  Mathematically identical to folding the points in
+    one at a time with `nig_update`."""
+    xs = (np.asarray(x, np.float64) - nig0["x_mu"]) / nig0["x_sd"]
+    ys = (np.asarray(y, np.float64) - nig0["y_mu"]) / nig0["y_sd"]
+    phi = np.stack([np.ones_like(xs), xs], axis=-1)          # (N, 2)
+    prec0, mu0 = nig0["prec"], nig0["mu"]
+    prec_n = prec0 + phi.T @ phi
+    v_n = np.linalg.inv(prec_n)
+    mu_n = v_n @ (prec0 @ mu0 + phi.T @ ys)
+    b_n = nig0["b"] + 0.5 * (ys @ ys + mu0 @ prec0 @ mu0
+                             - mu_n @ prec_n @ mu_n)
+    out = dict(nig0)
+    out.update(mu=mu_n, v=v_n, prec=prec_n,
+               a=nig0["a"] + 0.5 * len(xs), b=max(b_n, 1e-12),
+               n_obs=nig0["n_obs"] + float(len(xs)))
+    return out
+
+
+def refresh_fit(fit_x, fit_y, buf_x, buf_y, device) -> dict:
+    """Periodic evidence refresh: re-run the MacKay fixed point over the
+    fit-time profiling points plus every streamed observation retained in
+    the buffer, in one `fit_blr` on `device`.
+
+    Streaming NIG updates are exact *given* the hyperparameters frozen at
+    lift time; this refit re-chooses both the (alpha, beta) evidence lift
+    and the standardization from everything observed.  Either side may be
+    empty (a promoted median-fallback task has no fit-time regression
+    data), but not both.  Returns a predict_blr/nig_from_blr-compatible
+    posterior of float32 numpy leaves."""
+    x = np.concatenate([np.asarray(fit_x, np.float64).ravel(),
+                        np.asarray(buf_x, np.float64).ravel()])
+    y = np.concatenate([np.asarray(fit_y, np.float64).ravel(),
+                        np.asarray(buf_y, np.float64).ravel()])
+    if x.size == 0:
+        raise ValueError("refresh_fit needs at least one observation")
+    post = fit_blr(torch.from_numpy(x.astype(np.float32)).to(device),
+                   torch.from_numpy(y.astype(np.float32)).to(device))
+    return {k: v.cpu().numpy() for k, v in post.items()}
+
+
+def nig_to_blr(nig: dict) -> dict:
+    """Export a streaming state back to the predict_blr posterior format.
+
+    The Student-t predictive scale^2 = (b/a) (1 + phi V phi) maps onto the
+    Gaussian form 1/beta_prec + phi sigma phi with beta_prec = a/b and
+    sigma = (b/a) V, so downstream (batched) predict code is unchanged."""
+    s2 = nig["b"] / nig["a"]
+    return {"mu": nig["mu"].astype(np.float32),
+            "sigma": (s2 * nig["v"]).astype(np.float32),
+            "alpha": np.float32(1.0),
+            "beta_prec": np.float32(1.0 / s2),
+            "x_mu": np.float32(nig["x_mu"]), "x_sd": np.float32(nig["x_sd"]),
+            "y_mu": np.float32(nig["y_mu"]), "y_sd": np.float32(nig["y_sd"]),
+            "n": np.float32(nig["n0"] + nig["n_obs"])}

@@ -1,14 +1,15 @@
 """Launch wrappers for the hand-written CUDA kernels in `csrc/bayes.cu`:
 the batched Bayesian-linear-regression fit (the paper's Section 4.5 model,
-thousands of task models in one launch) and the batched posterior
-predictive (the prediction service's hot path).
+thousands of task models in one launch), the batched streaming fold of
+observations into NIG states (the ingest hot path) and the batched
+posterior predictive (the prediction service's hot path).
 
 Each wrapper takes CUDA tensors only (device dispatch is `kernels.ops`),
 checks device, dtype, shape and contiguity, allocates its outputs with
 `torch.empty`, launches on PyTorch's current stream, raises when the launch
 reports an error, and counts its launches in a plain integer attribute
-(`bayes_fit.launches`, `bayes_predict.launches`) so a run can show that a
-path went through the kernel.
+(`bayes_fit.launches`, `nig_fold.launches`, `bayes_predict.launches`) so
+a run can show that a path went through the kernel.
 """
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ def _lib() -> ctypes.CDLL:
     lib.lotaru_bayes_fit.argtypes = ([_P] * 3 + [ctypes.c_int] * 2
                                      + [_P] * 9 + [_P])
     lib.lotaru_bayes_fit.restype = ctypes.c_int
+    lib.lotaru_nig_fold.argtypes = ([_P] * 3
+                                    + [ctypes.c_longlong, ctypes.c_int]
+                                    + [_P] * 8 + [_P])
+    lib.lotaru_nig_fold.restype = ctypes.c_int
     return lib
 
 
@@ -101,6 +106,42 @@ def pad_ragged(xs, ys, min_cols: int = 2, col_bucket: int = 64):
 # The TPU form padded the task dimension to a grid-block multiple; the CUDA
 # kernel guards its ragged tail, so ragged buffers go straight to it.
 bayes_fit_ragged = bayes_fit
+
+
+def nig_fold(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
+             mu: torch.Tensor, v: torch.Tensor, prec: torch.Tensor,
+             b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """Fold of (T, K) standardized observations into T NIG states, float64
+    on the card: xs, ys (T, K), of which row i holds counts[i] observations
+    (int32 (T,), clamped to [0, K]); mu (T, 2); v, prec (T, 2, 2); b (T,).
+    Returns the folded (mu, v, prec, b), bitwise equal to
+    core.bayes._nig_fold_np on the same values.  Any T and K: no padding
+    rows or column buckets are added."""
+    dev = cuda_device(xs, "xs")
+    if xs.dim() != 2:
+        raise ValueError(f"xs must be (T, K), got shape {tuple(xs.shape)}")
+    t, k = xs.shape
+    check(counts, "counts", torch.int32, (t,), dev)
+    for name, a, shape in (("xs", xs, (t, k)), ("ys", ys, (t, k)),
+                           ("mu", mu, (t, 2)), ("v", v, (t, 2, 2)),
+                           ("prec", prec, (t, 2, 2)), ("b", b, (t,))):
+        check(a, name, torch.float64, shape, dev)
+    out = tuple(torch.empty_like(a) for a in (mu, v, prec, b))
+    if t == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().lotaru_nig_fold(
+            xs.data_ptr(), ys.data_ptr(), counts.data_ptr(), t, k,
+            mu.data_ptr(), v.data_ptr(), prec.data_ptr(), b.data_ptr(),
+            *(o.data_ptr() for o in out), stream)
+    raise_on(_lib(), rc, "nig_fold")
+    nig_fold.launches += 1
+    return out
+
+
+nig_fold.launches = 0
 
 
 _PREDICT_LEAVES = (("mu", (2,)), ("sigma", (2, 2)), ("beta_prec", ()),

@@ -1,12 +1,14 @@
 // Hand-written Hopper kernels for the Bayesian-linear-regression hot path
-// (the paper's Section 4.5 model), built by nvcc into a plain-C shared
-// library and bound with ctypes (see kernels/_build.py).
+// (the paper's Section 4.5 model) and its streaming write path, built by
+// nvcc into a plain-C shared library and bound with ctypes (see
+// kernels/_build.py).
 //
 // Build flags: -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false.
 // --fmad=false keeps every a*b+c as a separately rounded multiply and add,
-// which is what lets bayes_predict match the host float64 reference bit for
-// bit.  Each C entry point launches on the caller's stream, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// which is what lets bayes_predict and nig_fold match the host float64
+// reference bit for bit.  Each C entry point launches on the caller's
+// stream, does not synchronise, allocates nothing, and returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -187,6 +189,98 @@ bayes_fit_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// nig_fold
+// ---------------------------------------------------------------------------
+// Replaces the TPU kernel repro/kernels/bayes_fit.py::nig_fold
+// (_nig_fold_kernel): the masked fold of K standardized observations into
+// T Normal-Inverse-Gamma states (mu, V, prec, b), one Sherman-Morrison
+// rank-1 update per observation with the 2x2 algebra unrolled.
+//
+// Bound on the H100: memory.  Each task reads its count (4 bytes), 16
+// bytes (x, y as float64) per observation it holds and its 88-byte state,
+// and writes the 88-byte state back; a step is about 60 float64
+// operations, three of them divides, far below the card's
+// operations-per-byte line.  Design: one thread per task, grid-stride,
+// with a runtime loop over the task's own count, so any K runs without the
+// TPU form's column buckets and no padded cell is read.  The rows are
+// prefix-masked, so a per-row count (clamped to [0, K]) replaces the TPU
+// form's (T, K) mask.  The state lives in registers for the whole fold;
+// the row's x and y are read at stride K (adjacent threads share cache
+// lines across the loop, so each byte comes from device memory once).  The TPU kernel ran float32; here every term is
+// float64 in the order of core.bayes._nig_step, with no contraction, so
+// the fold is bitwise the host's float64 fold and the scalar nig_update
+// chain:
+//   * denom = 1 + (vp1 + x * vp2); vp1 * vp1 / denom is (vp1 * vp1) /
+//     denom; the parenthesization of r1, r2, qo and qn is the host's;
+//   * b is floored as numpy.maximum(nb, 1e-12), which lets a NaN through
+//     (fmax would drop it);
+//   * V and prec are read at [0, 0], [0, 1] and [1, 1] and written back
+//     symmetric;
+//   * a column past the task's count leaves the state as it is (the
+//     host's where).
+__global__ void __launch_bounds__(kThreads)
+nig_fold_kernel(const double* __restrict__ xs, const double* __restrict__ ys,
+                const int* __restrict__ counts, long long t_total, int k_cols,
+                const double* __restrict__ mu, const double* __restrict__ v,
+                const double* __restrict__ prec,
+                const double* __restrict__ b,
+                double* __restrict__ mu_out, double* __restrict__ v_out,
+                double* __restrict__ prec_out, double* __restrict__ b_out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < t_total; i += stride) {
+    double mu1 = mu[2 * i], mu2 = mu[2 * i + 1];
+    double v11 = v[4 * i], v12 = v[4 * i + 1], v22 = v[4 * i + 3];
+    double p11 = prec[4 * i], p12 = prec[4 * i + 1], p22 = prec[4 * i + 3];
+    double bb = b[i];
+    const long long row = i * k_cols;
+    const int n = min(counts[i], k_cols);
+    for (int k = 0; k < n; ++k) {
+      const double x = xs[row + k];
+      const double y = ys[row + k];
+      const double vp1 = v11 + v12 * x;
+      const double vp2 = v12 + v22 * x;
+      const double denom = 1.0 + (vp1 + x * vp2);
+      const double nv11 = v11 - vp1 * vp1 / denom;
+      const double nv12 = v12 - vp1 * vp2 / denom;
+      const double nv22 = v22 - vp2 * vp2 / denom;
+      const double np11 = p11 + 1.0;
+      const double np12 = p12 + x;
+      const double np22 = p22 + x * x;
+      const double r1 = (p11 * mu1 + p12 * mu2) + y;
+      const double r2 = (p12 * mu1 + p22 * mu2) + x * y;
+      const double nmu1 = nv11 * r1 + nv12 * r2;
+      const double nmu2 = nv12 * r1 + nv22 * r2;
+      const double qo = (mu1 * p11 + mu2 * p12) * mu1
+                        + (mu1 * p12 + mu2 * p22) * mu2;
+      const double qn = (nmu1 * np11 + nmu2 * np12) * nmu1
+                        + (nmu1 * np12 + nmu2 * np22) * nmu2;
+      const double nb = bb + 0.5 * (y * y + qo - qn);
+      mu1 = nmu1;
+      mu2 = nmu2;
+      v11 = nv11;
+      v12 = nv12;
+      v22 = nv22;
+      p11 = np11;
+      p12 = np12;
+      p22 = np22;
+      bb = (nb < 1e-12) ? 1e-12 : nb;
+    }
+    mu_out[2 * i] = mu1;
+    mu_out[2 * i + 1] = mu2;
+    v_out[4 * i] = v11;
+    v_out[4 * i + 1] = v12;
+    v_out[4 * i + 2] = v12;
+    v_out[4 * i + 3] = v22;
+    prec_out[4 * i] = p11;
+    prec_out[4 * i + 1] = p12;
+    prec_out[4 * i + 2] = p12;
+    prec_out[4 * i + 3] = p22;
+    b_out[i] = bb;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -224,6 +318,25 @@ int lotaru_bayes_fit(const float* x, const float* y, const float* m,
                      static_cast<cudaStream_t>(stream)>>>(
       x, y, m, t_total, n_cols, mu, sigma, alpha, beta, x_mu, x_sd, y_mu,
       y_sd, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int lotaru_nig_fold(const double* xs, const double* ys, const int* counts,
+                    long long t_total, int k_cols, const double* mu,
+                    const double* v, const double* prec, const double* b,
+                    double* mu_out, double* v_out, double* prec_out,
+                    double* b_out, void* stream) {
+  if (t_total <= 0) return 0;
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  long long blocks = (t_total + kThreads - 1) / kThreads;
+  const long long cap = 16LL * sms;
+  if (blocks > cap) blocks = cap;
+  nig_fold_kernel<<<(unsigned)blocks, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      xs, ys, counts, t_total, k_cols, mu, v, prec, b, mu_out, v_out, prec_out,
+      b_out);
   return static_cast<int>(cudaGetLastError());
 }
 

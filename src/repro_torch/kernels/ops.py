@@ -28,6 +28,21 @@ def bayes_fit(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> dict:
     return ref.bayes_fit_ref(x, y, mask)
 
 
+def nig_fold(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
+             mu: torch.Tensor, v: torch.Tensor, prec: torch.Tensor,
+             b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """Float64 fold of (T, K) standardized observations, the first
+    counts[i] of row i, into T NIG states (mu, v, prec, b) -> the folded
+    four, bitwise equal to the scalar `nig_update` chain.  Any K: nothing
+    is padded (the TPU form bucketed columns because its kernel unrolled
+    K)."""
+    args = (xs, ys, counts, mu, v, prec, b)
+    if _route(xs) == "cuda":
+        return _kernels.nig_fold(*args)
+    return ref.nig_fold_ref(*args)
+
+
 def bayes_predict(x: torch.Tensor, post: dict
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched float64 posterior predictive: x (Q,), post leaves gathered

@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.bayes import fit_blr_batch
+from repro_torch.core.bayes import _nig_step, fit_blr_batch
 
 
 def bayes_fit_ref(x: torch.Tensor, y: torch.Tensor,
@@ -62,6 +62,43 @@ def fused_cost_ref(x: torch.Tensor, post: dict, factors: torch.Tensor,
     if z is not None and z != 0.0:
         w = w + z * (std[:, None] * factors)
     return w
+
+
+def nig_fold_ref(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
+                 mu: torch.Tensor, v: torch.Tensor, prec: torch.Tensor,
+                 b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor, torch.Tensor]:
+    """Fold of K standardized observations into T NIG states, term for
+    term `core.bayes._nig_fold_np` (the same `_nig_step` expressions, each
+    one IEEE add, multiply or divide per element), so it is bitwise equal
+    to it and to the scalar `nig_update` chain.  xs, ys (T, K), of which
+    row i holds its first counts[i] columns (column k's mask is
+    counts > k); mu (T, 2); v, prec (T, 2, 2), read at [0, 0], [0, 1] and
+    [1, 1]; b (T,).  Returns (mu, v, prec, b) with v and prec written back
+    symmetric; a and n_obs stay with the caller."""
+    mu1, mu2 = mu[:, 0], mu[:, 1]
+    v11, v12, v22 = v[:, 0, 0], v[:, 0, 1], v[:, 1, 1]
+    p11, p12, p22 = prec[:, 0, 0], prec[:, 0, 1], prec[:, 1, 1]
+    for k in range(xs.shape[1]):
+        mk = counts > k
+        (nmu1, nmu2, nv11, nv12, nv22, np11, np12, np22, nb) = _nig_step(
+            mu1, mu2, v11, v12, v22, p11, p12, p22, b, xs[:, k], ys[:, k])
+        # numpy.maximum(nb, 1e-12): NaN propagates
+        nb = torch.where(nb < 1e-12, 1e-12, nb)
+        mu1 = torch.where(mk, nmu1, mu1)
+        mu2 = torch.where(mk, nmu2, mu2)
+        v11 = torch.where(mk, nv11, v11)
+        v12 = torch.where(mk, nv12, v12)
+        v22 = torch.where(mk, nv22, v22)
+        p11 = torch.where(mk, np11, p11)
+        p12 = torch.where(mk, np12, p12)
+        p22 = torch.where(mk, np22, p22)
+        b = torch.where(mk, nb, b)
+    t = mu.shape[0]
+    return (torch.stack([mu1, mu2], dim=1),
+            torch.stack([v11, v12, v12, v22], dim=1).reshape(t, 2, 2),
+            torch.stack([p11, p12, p12, p22], dim=1).reshape(t, 2, 2),
+            b.clone())
 
 
 def eft_sweep_ref(W: torch.Tensor, order_arr: torch.Tensor,

@@ -1,10 +1,13 @@
-"""Online prediction subsystem: the event vocabulary and the batched
-prediction service.
+"""Online prediction subsystem: the event vocabulary, the streaming
+predictor and the batched prediction service.
 
-Layering: `events` is leaf-level (shared vocabulary); `service` is a
-(tenant, workflow) view over the shared `repro_torch.store.PosteriorStore`
-that answers a batch of queries with one launch of the posterior
-predictive kernel.
+Layering: `events` is leaf-level (shared vocabulary); `predictor` wraps a
+fitted LotaruPredictor with exact conjugate updates, folding completion
+batches through the `nig_fold` kernel; `service` is a (tenant, workflow)
+view over the shared `repro_torch.store.PosteriorStore` that answers a
+batch of queries with one launch of the posterior predictive kernel.
 """
 from repro_torch.online.events import PredictionQuery, TaskCompletion  # noqa: F401
+from repro_torch.online.predictor import (IngestStats,                 # noqa: F401
+                                          OnlinePredictor)
 from repro_torch.online.service import PredictionService              # noqa: F401

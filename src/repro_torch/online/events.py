@@ -1,9 +1,12 @@
-"""Event vocabulary of the online subsystem (leaf module, so the simulator
-and service can both speak it)."""
+"""Event vocabulary of the online subsystem (near-leaf module: depends
+only on `repro_torch.store.keys`, so the simulator and service can both
+speak it)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
+
+from repro_torch.store.keys import resolve_bench  # noqa: F401  (re-export)
 
 
 @dataclass(frozen=True)

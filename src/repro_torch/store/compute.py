@@ -6,7 +6,7 @@ here: `predict_stacked` (one kernel launch over gathered posterior rows)
 and `finalize` (factor rescaling + z-bands).  On either device the math is
 the same float64 elementwise ops as the scalar `predict_blr_np` path, so
 slicing a batch apart yields exactly what each caller would have computed
-alone.
+alone.  The write side's batched fold, `fold_stacked`, lives here too.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import bayes
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
 
@@ -52,6 +53,44 @@ def fit_stacked(x: np.ndarray, y: np.ndarray, mask: np.ndarray,
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(dev)
     post = ops.bayes_fit(t(x), t(y), t(mask))
     return {k: v.cpu().numpy().astype(np.float64) for k, v in post.items()}
+
+
+def fold_stacked(nigs, xs, ys, device=DEFAULT_DEVICE):
+    """Batched streaming-observation fold — the ingest-side sibling of
+    `fit_stacked`: T NIG states + ragged per-task observation rows -> T
+    updated states from ONE fold, routed by the device alone: the
+    `nig_fold` kernel on "cuda" (`fold_kernel`), the float64 numpy fold
+    (`core.bayes.nig_update_batch`) on "cpu".
+
+    The reference keeps its fold off the device because its kernel is
+    float32, and the ingest plane's contract — states bit-identical to the
+    scalar `nig_update` chain, which feeds checkpoints and replay — holds
+    only for a float64 fold.  This kernel is float64, evaluates the
+    chain's expressions in the chain's order with FMA contraction off, and
+    so is bitwise equal to it: here digest-bearing ingest may run on the
+    card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return fold_kernel(nigs, xs, ys, dev)
+    return bayes.nig_update_batch(nigs, xs, ys)
+
+
+def fold_kernel(nigs, xs, ys, device=DEFAULT_DEVICE):
+    """The fold as the card runs it: the rows packed once
+    (`core.bayes.fold_pack`), one `ops.nig_fold` over per-row counts on
+    `device` (the kernel on "cuda", its plain version on "cpu"), a and
+    n_obs counted on the host, and rows with no observation passed through
+    verbatim (`core.bayes.fold_unpack`).  Inputs are not mutated."""
+    if bayes.check_rows(nigs, xs, ys) == 0:
+        return [dict(n) for n in nigs]
+    dev = resolve_device(device)
+    sx, sy, m, mu, v, prec, a, b, n_obs = bayes.fold_pack(nigs, xs, ys)
+    counts = np.count_nonzero(m, axis=1).astype(np.int32)
+    t = lambda arr: torch.from_numpy(arr).to(dev)
+    got = ops.nig_fold(t(sx), t(sy), t(counts), t(mu), t(v), t(prec), t(b))
+    mu, v, prec, b = (g.cpu().numpy() for g in got)
+    a, n_obs = bayes.fold_counts(a, n_obs, m)
+    return bayes.fold_unpack(nigs, m, mu, v, prec, a, b, n_obs)
 
 
 def scale(mean: np.ndarray, std: np.ndarray, factors: np.ndarray

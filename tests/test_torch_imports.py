@@ -55,12 +55,12 @@ def test_no_source_line_imports_jax_or_repro():
 
 def test_package_inits_import_only_ported_modules():
     """store/__init__ and online/__init__ export the ported names and no
-    module of a later slice (frontend, predictor, maintenance,
-    rescheduler)."""
+    module of a later slice (frontend, maintenance, rescheduler)."""
     code = ("import sys, repro_torch.store as s, repro_torch.online as o;"
             "print(s.PosteriorStore.__name__, s.TaskKey.__name__,"
             " s.predict_stacked.__name__, o.PredictionService.__name__,"
-            " o.PredictionQuery.__name__, o.TaskCompletion.__name__);"
+            " o.PredictionQuery.__name__, o.TaskCompletion.__name__,"
+            " o.OnlinePredictor.__name__, o.IngestStats.__name__);"
             "print(sorted(k for k in sys.modules if k.startswith("
             "'repro_torch.')))")
     lines = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -68,9 +68,9 @@ def test_package_inits_import_only_ported_modules():
                            check=True).stdout.splitlines()
     assert lines[0].split() == ["PosteriorStore", "TaskKey",
                                 "predict_stacked", "PredictionService",
-                                "PredictionQuery", "TaskCompletion"]
-    for later in ("frontend", "maintenance", "rescheduler",
-                  "online.predictor"):
+                                "PredictionQuery", "TaskCompletion",
+                                "OnlinePredictor", "IngestStats"]
+    for later in ("frontend", "maintenance", "rescheduler"):
         assert later not in lines[1]
 
 
