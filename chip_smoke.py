@@ -49,7 +49,25 @@ Phases (each fails loudly; nothing is caught):
                state must equal the CPU numpy fold's, and `nig_fold` on
                the fold's operands must be bitwise its plain version on
                the CPU.
-  7. report  — per-kernel launches on the main path (phases 3-6, each path
+  7. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
+               (bfloat16, weights made on the card from a seed) served
+               through `repro_torch.launch.serve`: B = 2 prompts of 4096
+               tokens (past the 2048 window, so the rings wrap), 16
+               generated tokens; prefill time and prompt tokens/s, decode
+               ms/step and tokens/s, peak device memory, the Lotaru
+               next-token line, and exactly one `flash_attention` launch
+               per local-attention layer (12) and one `rglru_scan` per
+               RG-LRU layer (26).  Before it, each kernel against its plain
+               version on the card: `rglru_scan` bitwise at (2, 4096,
+               4096) from h0 != 0, `flash_attention` at the path's shape
+               in bfloat16 (5e-2) and float32 (2e-5), at ragged S, window
+               0 and GQA K = 2.  After it, at full width with the depth cut
+               to one (r, r, l) cycle in float32: prefill logits on the
+               card against the port's CPU run on the same weights (1e-4),
+               and prefill of S = 2100 against prefill of S - 1 plus one
+               decode step (2e-3); then one prefill and 4 decode steps
+               under torch.profiler (device time by kernel, busy share).
+  8. report  — per-kernel launches on the main path (phases 3-7, each path
                with the counts set to 0 just before it), errors, and times
                at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -58,7 +76,9 @@ Phases (each fails loudly; nothing is caught):
                version on the card (`plain_ms`); `warm_ms` is the kernel
                back to back on the same operands.  For the fold also
                `observe_many`'s split (kernel, copies, host) and the host
-               numpy fold at the same size.  `tol_ratio` is
+               numpy fold at the same size.  For `flash_attention` also
+               `library_ms`: one SDPA call over the same band as a boolean
+               mask (kv heads expanded before it, untimed).  `tol_ratio` is
                the worst |got - want| / (atol + rtol * |want|) over all
                outputs: at most 1 is within the stated tolerance.
 
@@ -111,6 +131,22 @@ FOLD_COLS = 8                    # fleet fold: 1-8 completions per task
 # float64 operations of one fold step (core.bayes._nig_step, three of them
 # divides, plus the b floor and the mask test)
 FOLD_STEP_OPS = 60
+H100_BF16_FLOPS = 989e12         # dense tensor-core bfloat16
+LM_ARCH = "recurrentgemma-9b"
+LM_BATCH, LM_PROMPT, LM_GEN = 2, 4096, 16   # the prompt passes the 2048
+                                            # window, so the rings wrap
+LM_SEED, LM_CUT_SEED = 0, 1
+LM_CUT_S = 2100                  # the full-width, cut-depth checks' length
+LM_PROFILE_STEPS = 4
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)      # tests/test_kernels.py:31-41
+# The bf16 kernel's own limit, set from its error: one bf16 ulp is at most
+# 0.78 % of |want| (rtol), and P rounded to bf16 before P.V moves rows of
+# few keys whose values cancel by up to ~2e-3 (atol).  phase_lm_kernels
+# shows that a band one key too wide falls outside it.
+BF16_KERNEL_TOL = dict(rtol=1e-2, atol=4e-3)
+F32_TOL = dict(rtol=2e-5, atol=2e-5)       # tests/test_kernels.py:12-28
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_torch_lm.py
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_models_smoke.py:86
 
 
 def plain_fit_chunked(x, y, mask) -> dict:
@@ -268,7 +304,8 @@ def warm_ms(fn, reps: int = 20, inner: int = 10) -> float:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    paths = _build.build("bayes", "decision_plane")
+    paths = _build.build("bayes", "decision_plane", "flash_attention",
+                         "rglru_scan")
     print(f"[build] {[os.path.relpath(p, ROOT) for p in paths]} in "
           f"{time.perf_counter() - t0:.3f} s")
     for path in paths:
@@ -1248,6 +1285,342 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
     ]
 
 
+# ---------------------------------------------------------------------------
+# LM: RecurrentGemma-9B serving
+# ---------------------------------------------------------------------------
+def tol_check(got, want, tol) -> tuple:
+    """(max |got - want|, worst |got - want| / (atol + rtol |want|)) in
+    float32; the ratio is at most 1 within the tolerance."""
+    import torch
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), "an output is not finite")
+    diff = (g - w).abs()
+    return (float(diff.max()),
+            float((diff / (tol["atol"] + tol["rtol"] * w.abs())).max()))
+
+
+def attention_inputs(gen, b, s, h, kh, hd, dtype, dev, v_mean=0.0):
+    """q, k, v from N(0, 1), v shifted by `v_mean` (1 makes every output
+    O(1), where a zero-mean v averages to about 0.03 over 2048 keys)."""
+    import torch
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    return q.to(dtype), k.to(dtype), (v + v_mean).to(dtype)
+
+
+def phase_lm_kernels(dev) -> dict:
+    """Each LM kernel against its plain version on the card, at the serve
+    path's shapes and at the edges the path does not reach."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as scan
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shape = (LM_BATCH, LM_PROMPT, cfg.rglru_width)
+    a = torch.rand(shape, generator=gen, device=dev) * 0.3 + 0.699
+    gx = torch.randn(shape, generator=gen, device=dev) * 0.1
+    h0 = torch.randn((LM_BATCH, cfg.rglru_width), generator=gen, device=dev)
+    got, want = scan.rglru_scan(a, gx, h0), ref.rglru_scan_ref(a, gx, h0)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    print(f"[kernels] rglru_scan B={shape[0]} T={shape[1]} W={shape[2]}, "
+          f"h0 != 0: bitwise vs plain (on the card) {bitwise}, max |err| "
+          f"{err!r}")
+    check(bitwise, "rglru_scan differs from its plain version")
+    out = {"rglru_scan": (err, 0.0)}
+    del a, gx, h0, got, want
+
+    h, kh, hd, win = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.window)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, b, s, k_h, w, dt, v_mean in (
+            ("path", LM_BATCH, LM_PROMPT, kh, win, bf16, 0.0),
+            ("path, v mean 1", LM_BATCH, LM_PROMPT, kh, win, bf16, 1.0),
+            ("path", LM_BATCH, LM_PROMPT, kh, win, f32, 0.0),
+            ("ragged S", LM_BATCH, 1000, kh, win, bf16, 0.0),
+            ("window 0", 1, 1000, kh, 0, f32, 0.0),
+            ("GQA K=2", LM_BATCH, 1000, 2, 100, bf16, 0.0)):
+        q, k, v = attention_inputs(gen, b, s, h, k_h, hd, dt, dev, v_mean)
+        got = flash.flash_attention(q, k, v, causal=True, window=w)
+        want = ref.attention_ref(q, k, v, causal=True, window=w)
+        torch.cuda.synchronize()
+        check(got.dtype == dt, "flash_attention output dtype")
+        tols = (F32_TOL,) if dt == f32 else (BF16_TOL, BF16_KERNEL_TOL)
+        for tol in tols:
+            err, ratio = tol_check(got, want, tol)
+            print(f"[kernels] flash_attention {label} B={b} S={s} H={h} "
+                  f"K={k_h} hd={hd} window={w} {str(dt)[6:]}: vs plain (on "
+                  f"the card) within {tol['rtol']}/{tol['atol']} "
+                  f"{ratio <= 1.0}, max |err| {err!r}, |err| / (atol + "
+                  f"rtol |want|) {ratio!r}")
+            check(ratio <= 1.0, f"flash_attention ({label}, {dt}) outside "
+                  f"{tol} of its plain version")
+        if label == "path" and dt == bf16:
+            out["flash_attention"] = (err, ratio)
+            # the limit sees a fault of one key per row: the plain version
+            # over a band one key too wide is outside it
+            wide = ref.attention_ref(q, k, v, causal=True, window=w + 1)
+            ratios = [tol_check(wide, want, t)[1]
+                      for t in (BF16_TOL, BF16_KERNEL_TOL)]
+            print(f"[kernels] flash_attention {label}: the plain version "
+                  f"with window {w + 1} against window {w}, |err| / (atol + "
+                  f"rtol |want|) {ratios[0]!r} at 5e-2/5e-2, {ratios[1]!r} "
+                  f"at 1e-2/4e-3")
+            check(ratios[1] > 1.0, "the bf16 limit does not see a band one "
+                  "key too wide")
+    return out
+
+
+def phase_lm(dev) -> None:
+    """The LM main path: full-size RecurrentGemma-9B served through
+    repro_torch.launch.serve, weights made on the card from LM_SEED."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import lotaru_next_token, serve
+    from repro_torch.models import param_count_exact
+    cfg = get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = serve(cfg, LM_BATCH, LM_PROMPT, LM_GEN, seed=LM_SEED, device=dev)
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean, std = lotaru_next_token(out.decode_s, dev)
+    check(out.tokens.shape == (LM_BATCH, LM_GEN), "serve's token shape")
+    check(bool(((out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all()),
+          "serve returned a token outside the vocabulary")
+    dec = out.decode_s * 1e3
+    med = float(np.median(dec))
+    print(f"[lm] serve {LM_ARCH} on the card, full size ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {param_count_exact(cfg)} "
+          f"parameters, {cfg.dtype}, weights made on the card from seed "
+          f"{LM_SEED}): B={LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} "
+          f"generated tokens")
+    print(f"[lm] prefill {out.prefill_s!r} s "
+          f"({LM_BATCH * LM_PROMPT / out.prefill_s!r} prompt tokens/s); "
+          f"decode median {med!r} ms/step (min {float(dec.min())!r}, max "
+          f"{float(dec.max())!r}, first {float(dec[0])!r}), "
+          f"{LM_BATCH * 1e3 / med!r} tokens/s; the serve call {total!r} s "
+          f"with making the weights; max_memory_allocated {peak} bytes")
+    print(f"[lm] lotaru next-token prediction {mean * 1e3!r} ms +- "
+          f"{std * 1e3!r} ms (steps measured, ms: "
+          f"{[round(float(x), 3) for x in dec]})")
+
+
+def lm_cut_checks(dev) -> None:
+    """Full width, depth cut to one (r, r, l) cycle, float32: the card's
+    prefill logits against the port's CPU run on the same weights, and
+    prefill of S against prefill of S - 1 plus one decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import decode_step, forward, init_params
+    cfg = replace(get_config(LM_ARCH), num_layers=3, dtype="float32")
+    t0 = time.perf_counter()
+    p_cpu = init_params(LM_CUT_SEED, cfg, "cpu")
+    p_dev = tree_to(p_cpu, dev)
+    tok = torch.from_numpy(make_batch(DataConfig(cfg.vocab_size, LM_CUT_S,
+                                                 1, seed=LM_CUT_SEED),
+                                      0)["tokens"])
+    print(f"[lm] float32 checks at full width, depth 3 (cut from 38: one "
+          f"(r, r, l) cycle), weights made on the CPU from seed "
+          f"{LM_CUT_SEED} and copied ({time.perf_counter() - t0:.1f} s)")
+    with torch.inference_mode():
+        t_cpu = time.perf_counter()
+        want, _ = forward(p_cpu, cfg, {"tokens": tok})
+        t_cpu = time.perf_counter() - t_cpu
+        got, _ = forward(p_dev, cfg, {"tokens": tok.to(dev)})
+        torch.cuda.synchronize()
+        err, ratio = tol_check(got.cpu(), want, LOGIT_TOL)
+        print(f"[lm] prefill logits S={LM_CUT_S}, card vs the CPU run on "
+              f"the same weights: max |err| {err!r}, |err| / (atol + rtol "
+              f"|want|) {ratio!r} (tolerance {LOGIT_TOL['rtol']}/"
+              f"{LOGIT_TOL['atol']}), max |logit| "
+              f"{float(want.abs().max())!r}, the CPU forward "
+              f"{t_cpu:.1f} s")
+        check(ratio <= 1.0, "the card's prefill logits differ from the CPU "
+              "run's")
+        del want
+        _, _, cache = forward(p_dev, cfg, {"tokens": tok[:, :-1].to(dev)},
+                              mode="prefill")
+        step, _ = decode_step(p_dev, cfg, tok[:, -1:].to(dev), cache,
+                              LM_CUT_S - 1)
+        err, ratio = tol_check(step[:, 0], got[:, -1], DECODE_TOL)
+    print(f"[lm] prefill S={LM_CUT_S} vs prefill S-1 + one decode step "
+          f"(ring of {cfg.window} slots): max |err| {err!r}, |err| / (atol "
+          f"+ rtol |want|) {ratio!r} (tolerance {DECODE_TOL['rtol']}/"
+          f"{DECODE_TOL['atol']})")
+    check(ratio <= 1.0, "decode after prefill differs from the prefill")
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def lm_profile(dev) -> None:
+    """Where the serve path's device time goes: one prefill and
+    LM_PROFILE_STEPS decode steps under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.serve import _grow
+    from repro_torch.models import init_params
+    from repro_torch.train.train_step import (make_decode_step,
+                                              make_prefill_step)
+    cfg = get_config(LM_ARCH)
+    params = init_params(LM_SEED, cfg, dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    tok = torch.from_numpy(make_batch(DataConfig(cfg.vocab_size, LM_PROMPT,
+                                                 LM_BATCH, seed=LM_SEED),
+                                      0)["tokens"]).to(dev)
+    with torch.inference_mode():
+        prefill(params, {"tokens": tok})          # warm
+        torch.cuda.synchronize()
+
+        def window(label, fn):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                host = time.perf_counter() - t0
+            # device-side entries only (kernels, copies, sets): the CPU
+            # ops that launched them carry the same time again.  "Command
+            # Buffer Full" is CUPTI's mark of a host stalled on a full
+            # launch queue, not device work.
+            evts = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and e.key != "Command Buffer Full"]
+            busy = sum(e.self_device_time_total for e in evts) / 1e3
+            top = sorted(evts, key=lambda e: -e.self_device_time_total)[:6]
+            print(f"[lm] profile, {label}: {host * 1e3!r} ms host clock, "
+                  f"{busy!r} ms of kernels, busy share "
+                  f"{busy / (host * 1e3)!r}, "
+                  f"{sum(e.count for e in evts)} device entries; top (name, ms, "
+                  f"calls) {[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}")
+            return out
+
+        logits, cache = window("prefill", lambda: prefill(params,
+                                                          {"tokens": tok}))
+        cache = _grow(cache, LM_PROMPT, LM_PROFILE_STEPS)
+        nxt = torch.argmax(logits, -1)[:, None]
+
+        def steps():
+            c, t = cache, nxt
+            for i in range(LM_PROFILE_STEPS):
+                lg, c = decode(params, t, c, LM_PROMPT + i)
+                t = torch.argmax(lg, -1)[:, None]
+            return t
+        window(f"{LM_PROFILE_STEPS} decode steps", steps)
+
+
+def bounds_flash(b, s, h, kh, hd, window, itemsize) -> tuple:
+    """Least time for one attention: the operations of the visible band
+    (4 hd per (query, key) pair: q.k and p.v, a multiply and an add each)
+    at the bfloat16 tensor-core rate, or q, k, v read and the output
+    written once."""
+    i = np.arange(s)
+    pairs = int(np.minimum(i + 1, window).sum() if window > 0
+                else (i + 1).sum())
+    t_ops = 4 * hd * pairs * b * h / H100_BF16_FLOPS * 1e3
+    t_bytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * itemsize \
+        / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def bounds_scan(b, t, w) -> tuple:
+    """Least time for one scan: a and gx read and h written (12 B per
+    element), h0 read; two float32 operations per element."""
+    t_bytes = (12 * b * t * w + 4 * b * w) / H100_BYTES_PER_S * 1e3
+    t_ops = 2 * b * t * w / H100_FP32_FLOPS * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def report_lm(dev, launches, errors) -> list:
+    """Times of both LM kernels at the serve path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as scan
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    b, s, h, kh, hd, w = (LM_BATCH, LM_PROMPT, cfg.num_heads,
+                          cfg.num_kv_heads, cfg.head_dim, cfg.window)
+    q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev)
+    o = torch.empty_like(q)
+    launch = raw_launch("flash_attention", [q, k, v, o, 1, b, s, s, h, kh,
+                                            hd, 1, w], flash._lib())
+    fa = {"ms": time_ms(launch, reps=10), "warm_ms": warm_ms(launch, reps=5,
+                                                             inner=3),
+          "wrapper_ms": time_ms(lambda: flash.flash_attention(
+              q, k, v, causal=True, window=w), reps=10, host=True),
+          "plain_ms": time_ms(lambda: ref.attention_ref(
+              q, k, v, causal=True, window=w), reps=3, host=True)}
+    # the library call: SDPA over the band as a boolean mask, on heads-first
+    # copies with the kv head expanded (layout set-up, untimed)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).expand(b, h, s, hd).contiguous()
+              for x in (k, v))
+    mask = ref.band_mask(s, s, True, w, dev)
+    fa["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), reps=10)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    diff = float((sdpa.transpose(1, 2).float()
+                  - flash.flash_attention(q, k, v, causal=True,
+                                          window=w).float()).abs().max())
+    fa["bound_ms"], fa["bound_by"] = bounds_flash(b, s, h, kh, hd, w, 2)
+    print(f"[report] flash_attention B={b} S={s} H={h} K={kh} hd={hd} "
+          f"window={w} bfloat16: {fa}; SDPA on the same band differs from "
+          f"it by at most {diff!r}")
+    del q, k, v, o, qt, kt, vt, sdpa
+
+    t, wd = LM_PROMPT, cfg.rglru_width
+    a = torch.rand((b, t, wd), generator=gen, device=dev) * 0.3 + 0.699
+    gx = torch.randn((b, t, wd), generator=gen, device=dev) * 0.1
+    h0 = torch.zeros((b, wd), device=dev)
+    hh = torch.empty_like(a)
+    launch = raw_launch("rglru_scan", [a, gx, h0, hh, b, t, wd],
+                        scan._lib())
+    rs = {"ms": time_ms(launch), "warm_ms": warm_ms(launch),
+          "wrapper_ms": time_ms(lambda: scan.rglru_scan(a, gx, h0),
+                                host=True),
+          "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, gx, h0), reps=3,
+                              host=True),
+          "library_ms": None}
+    rs["bound_ms"], rs["bound_by"] = bounds_scan(b, t, wd)
+    print(f"[report] rglru_scan B={b} T={t} W={wd}: {rs}")
+    return [
+        dict({"name": "flash_attention", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:84",
+              "launches": launches["flash_attention"],
+              "max_abs_err": errors["flash_attention"][0],
+              "tolerance": "rtol 1e-2 atol 4e-3 (bfloat16; also within "
+                           "5e-2/5e-2)",
+              "tol_ratio": errors["flash_attention"][1],
+              "shape": f"B={b} S={s} H={h} K={kh} hd={hd} window={w} bf16"},
+             **fa),
+        dict({"name": "rglru_scan", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+              "replaces": "src/repro/kernels/rglru_scan.py:48",
+              "launches": launches["rglru_scan"],
+              "max_abs_err": errors["rglru_scan"][0],
+              "tolerance": "bitwise", "tol_ratio": 0.0,
+              "shape": f"B={b} T={t} W={wd} f32"}, **rs),
+    ]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port is not beside this script ({SRC}/repro_torch)")
@@ -1255,8 +1628,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card: this script drives the port on a GPU")
     sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
     from repro_torch.kernels import bayes_fit as kernels
     from repro_torch.kernels import decision_plane as plane
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rglru_scan as scan
     from repro_torch.kernels.bayes_fit import pad_ragged
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain fit's Gram
     torch.backends.cudnn.allow_tf32 = False         # products in full fp32
@@ -1266,12 +1642,15 @@ def main() -> None:
     phase_build()
     fleet = pad_ragged(*fleet_buffers(np.random.default_rng(7), N_FLEET))
     errors = phase_kernels(dev, fleet)
+    errors.update(phase_lm_kernels(dev))
 
     counted = (("bayes_fit", kernels.bayes_fit),
                ("bayes_predict", kernels.bayes_predict),
                ("fused_cost", plane.fused_cost),
                ("eft_sweep", plane.eft_sweep),
-               ("nig_fold", kernels.nig_fold))
+               ("nig_fold", kernels.nig_fold),
+               ("flash_attention", flash.flash_attention),
+               ("rglru_scan", scan.rglru_scan))
     launches = dict.fromkeys((name for name, _ in counted), 0)
 
     def drive(path):
@@ -1298,6 +1677,13 @@ def main() -> None:
                                    "fused_cost", "eft_sweep")),
           "the ingest path launched nig_fold, bayes_predict, fused_cost "
           "or eft_sweep no time")
+    _, got = drive(lambda: phase_lm(dev))
+    print(f"[launches] lm: {got}")
+    kinds = get_config(LM_ARCH).layer_kinds()
+    check(got["flash_attention"] == kinds.count("local")
+          and got["rglru_scan"] == kinds.count("rglru"),
+          "the serve path did not launch flash_attention once per local "
+          "attention layer and rglru_scan once per RG-LRU layer")
     print(f"[launches] main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
@@ -1306,8 +1692,11 @@ def main() -> None:
     errors["eft_sweep"] = phase_plan_checks(dev, fleet_out, plan,
                                             pieces["args"])
     fold = phase_ingest_checks(dev, fleet_out, ingest)
+    lm_cut_checks(dev)
+    lm_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
                           pieces["args"], fold)
+    report += report_lm(dev, launches, errors)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

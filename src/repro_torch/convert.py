@@ -1,4 +1,5 @@
-"""Carry a fitted `LotaruPredictor` across packages and devices.
+"""Carry state across packages and devices: a fitted `LotaruPredictor`,
+and the LM side's parameters (`lm_params_from_jax`).
 
 The state is plain Python and numpy, so it names no framework:
 
@@ -23,10 +24,13 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.extrapolation import MachineBench
 from repro_torch.core.predictor import LotaruPredictor, TaskRuntimeModel
-from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.transformer import init_params
 
 _BENCH_FIELDS = ("name", "cpu", "mem", "io_read", "io_write")
 
@@ -81,3 +85,36 @@ def predictor_from_state(state: Mapping, device=DEFAULT_DEVICE
             fit_x=_array(m["fit_x"]), fit_y=_array(m["fit_y"]))
     pred.version += 1                 # fitted: bindings sync on first use
     return pred
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":          # numpy has no bfloat16 of its own
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _carry(src, want, device: torch.device, path: str):
+    if isinstance(want, torch.Tensor):
+        arr = np.asarray(src)
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, want "
+                             f"{tuple(want.shape)}")
+        t = _tensor(arr)
+        if t.dtype != want.dtype:
+            raise TypeError(f"{path}: dtype {t.dtype}, want {want.dtype}")
+        return t.to(device)
+    if not isinstance(src, Mapping) or set(src) != set(want):
+        got = sorted(src) if isinstance(src, Mapping) else type(src).__name__
+        raise ValueError(f"{path}: keys {got}, want {sorted(want)}")
+    return {k: _carry(src[k], want[k], device, f"{path}/{k}") for k in want}
+
+
+def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
+                       device=DEFAULT_DEVICE) -> dict:
+    """The JAX package's `init_params(key, cfg)` pytree, its leaves as
+    numpy arrays (the stacked `cycles` leaves and the `tail` blocks), ->
+    the port's parameters on `device`, leaf for leaf: the same keys,
+    shapes and dtypes, checked against the port's own layout."""
+    return _carry(tree, init_params(0, cfg, device="meta"),
+                  resolve_device(device), "params")

@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.kernels import bayes_fit as _kernels
 from repro_torch.kernels import decision_plane as _plane
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rglru
 
 
 def _route(t: torch.Tensor) -> str:
@@ -79,3 +81,23 @@ def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,
     if _route(W) == "cuda":
         return _plane.eft_sweep(*args, S=S)
     return ref.eft_sweep_ref(*args, S=S)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal (and, for window > 0, sliding-window) attention with grouped
+    kv heads: q (B, Sq, H, hd), k and v (B, Skv, K, hd) at their K heads,
+    never expanded -> (B, Sq, H, hd) in q's dtype.  Any Sq: nothing is
+    padded (the TPU form asserted tile multiples, a TPU tiling limit)."""
+    if _route(q) == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan(a: torch.Tensor, gx: torch.Tensor,
+               h0: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU recurrence h_t = a_t * h_{t-1} + gx_t over (B, T, W)
+    float32 from h0 (B, W) -> h (B, T, W) float32."""
+    if _route(a) == "cuda":
+        return _rglru.rglru_scan(a, gx, h0)
+    return ref.rglru_scan_ref(a, gx, h0)

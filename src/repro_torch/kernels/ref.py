@@ -5,6 +5,7 @@ only there) and are what the kernels are held against on the card: the
 same function on the same inputs, with no claim to speed."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -170,3 +171,52 @@ def eft_sweep_ref(W: torch.Tensor, order_arr: torch.Tensor,
         comm[iw] = torch.where(same[j], 0.0, gb8[i] / gbps_min[j])
     cnt = (b0 < inf).sum(dim=1).to(torch.int32)
     return assign[:T], est_a[:T], eft_a[:T], cnt
+
+
+NEG_INF = -1e30
+
+
+def band_mask(sq: int, skv: int, causal: bool, window: int,
+              device=None) -> torch.Tensor:
+    """(sq, skv) bool: query i sees key j when j <= i (causal) and
+    j > i - window (window > 0)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, hd); k, v (B, Skv, K, hd) with H % K == 0: query head
+    h reads kv head h // (H / K), as the JAX `ref.attention_ref` repeats
+    the kv heads (here the grouping is a reshape, nothing is copied).
+    Scores and softmax in float32, masked entries at -1e30 as in the
+    reference; the output in q's dtype.  It materializes the (Sq, Skv)
+    scores: the plain version, not a path for long sequences."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    qg = q.float().reshape(b, sq, kh, h // kh, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
+    mask = band_mask(sq, k.shape[1], causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, gx: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + gx_t over (B, T, W) float32, from h0 (B, W):
+    sequential in time, each step a separately rounded multiply and add,
+    the CUDA kernel's order (so the kernel is bitwise equal to it)."""
+    h = h0.float()
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + gx[:, t]
+        out[:, t] = h
+    return out

@@ -25,8 +25,16 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), leaked)
+print(len(names), leaked, ",".join(names))
 """
+
+# the LM serving slice: each of these must be among the modules imported
+LM_MODULES = (
+    "configs", "configs.base", "configs.recurrentgemma_9b", "data",
+    "data.pipeline", "models", "models.layers", "models.rglru",
+    "models.attention", "models.transformer", "train", "train.train_step",
+    "launch", "launch.serve", "kernels.flash_attention",
+    "kernels.rglru_scan", "convert")
 
 
 def _env():
@@ -38,9 +46,11 @@ def _env():
 def test_importing_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 30            # every module of the slice
-    assert out[1].strip() == "[]"
+                         check=True).stdout.split()
+    assert int(out[0]) >= 54            # every module of the slices
+    assert out[1] == "[]"
+    names = set(out[2].split(","))
+    assert {f"repro_torch.{m}" for m in LM_MODULES} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -113,3 +123,16 @@ def test_chip_smoke_refuses_without_card_or_package(no_card, tmp_path):
     for r in runs:
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_lm_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_decode_cache, init_params
+    cfg = get_reduced_config("recurrentgemma-9b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(cfg, 1, 4, 1)                      # device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_decode_cache(cfg, 1, 4)

@@ -8,7 +8,13 @@ kernel in interpret mode; `bayes_fit` against the Pallas kernel at the
 rtol 5e-3 / atol 5e-4 of tests/test_kernels.py (its closed-form 2x2
 algebra and its reduction order differ from the batched fit's) and against
 the reference's batched `fit_blr`, the same algorithm, at rtol 1e-3 /
-atol 1e-5.  Inputs are made with seeded numpy and fed to both."""
+atol 1e-5; the plain attention against the Pallas flash attention in
+interpret mode and the JAX `ref.attention_ref` at the tolerances of
+tests/test_kernels.py (2e-5 in float32, 5e-2 in bfloat16); the plain
+RG-LRU scan against the JAX associative-scan `ref.rglru_scan_ref` at 1e-5.
+Inputs are made with seeded numpy and fed to both."""
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +22,14 @@ import torch
 
 from repro.core import bayes as jbayes
 from repro.kernels import bayes_fit as jkernels
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.store import compute as jcompute
+from repro_torch.kernels import _build
 from repro_torch.kernels import bayes_fit as tkernels
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as trglru
 from repro_torch.store import compute as tcompute
 
 FIT_TOL = dict(rtol=5e-3, atol=5e-4)
@@ -175,3 +185,119 @@ def test_ops_refuse_other_devices():
     z = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="device"):
         ops.bayes_fit(z, z, z)
+
+
+def _qkv(shape_q, kh, dtype, seed):
+    b, s, h, hd = shape_q
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shp).astype(np.float32)
+               for shp in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    if dtype == "bfloat16":        # round once, then both packages read it
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                   for a in (q, k, v))
+    return q, k, v
+
+
+def _port_attention(q, k, v, dtype, window):
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    return out.float().numpy()
+
+
+# the sweep of tests/test_kernels.py::test_flash_attention_sweep
+@pytest.mark.parametrize("b,s,h,kh,hd", [
+    (1, 128, 4, 4, 32),      # MHA
+    (2, 128, 4, 2, 32),      # GQA 2:1
+    (1, 256, 8, 1, 64),      # MQA
+    (1, 128, 4, 2, 128),     # MXU-width head dim
+])
+@pytest.mark.parametrize("window", [0, 64])
+def test_attention_plain_vs_pallas_interpret_and_ref(b, s, h, kh, hd, window):
+    q, k, v = _qkv((b, s, h, hd), kh, "float32", seed=b * s + h + kh + hd)
+    got = _port_attention(q, k, v, "float32", window)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                  impl="interpret")
+    oracle = jref.attention_ref(jq, jk, jv, causal=True, window=window)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, np.asarray(oracle), rtol=2e-5, atol=2e-5)
+
+
+# S off every tile multiple: the Pallas wrapper asserts tile multiples (a
+# TPU tiling limit), so these are held against the JAX ref alone
+@pytest.mark.parametrize("s,window", [(200, 0), (200, 48), (37, 16)])
+def test_attention_plain_ragged_vs_ref(s, window):
+    q, k, v = _qkv((2, s, 4, 64), 1, "float32", seed=s + window)
+    got = _port_attention(q, k, v, "float32", window)
+    want = jref.attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=True, window=window)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_plain_bf16_vs_pallas_interpret_and_ref():
+    """The case of tests/test_kernels.py::test_flash_attention_bf16."""
+    q, k, v = _qkv((1, 128, 4, 64), 2, "bfloat16", seed=0)
+    got = _port_attention(q, k, v, "bfloat16", 0)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    for want in (jops.flash_attention(jq, jk, jv, impl="interpret"),
+                 jref.attention_ref(jq, jk, jv)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=5e-2, atol=5e-2)
+
+
+# the shapes of tests/test_kernels.py::test_rglru_scan_sweep (whose Pallas
+# interpret run fails under the installed JAX: pl.store is gone), and one
+# from a zero state, as at prefill
+@pytest.mark.parametrize("b,t,w,zero_h0", [
+    (1, 256, 128, False), (2, 512, 256, False), (1, 128, 384, False),
+    (2, 100, 64, True)])
+def test_rglru_scan_plain_vs_ref(b, t, w, zero_h0):
+    rng = np.random.default_rng(b * t + w)
+    a = rng.uniform(0.7, 0.999, (b, t, w)).astype(np.float32)
+    gx = (rng.standard_normal((b, t, w)) * 0.1).astype(np.float32)
+    h0 = np.zeros((b, w), np.float32) if zero_h0 else \
+        rng.standard_normal((b, w)).astype(np.float32)
+    got = ops.rglru_scan(*(torch.from_numpy(x) for x in (a, gx, h0)))
+    want = jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(gx),
+                               jnp.asarray(h0))
+    assert got.dtype == torch.float32 and got.shape == (b, t, w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_lm_cuda_wrappers_refuse_cpu_tensors():
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention(q, q, q)
+    a = torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        trglru.rglru_scan(a, a, torch.zeros(1, 4))
+    assert tflash.flash_attention.launches == 0
+    assert trglru.rglru_scan.launches == 0
+
+
+def test_library_path_tracks_sources_and_flags(monkeypatch, tmp_path):
+    """Every source builds without multiply-add contraction (the bitwise
+    kernels need it), and the library's name carries a hash of the flags
+    and of the sources, so a changed flag or an edited source never loads
+    a stale build."""
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    names = ("flash_attention", "rglru_scan")
+    before = {n: _build.library_path(n) for n in names}
+    assert len(set(before.values())) == len(names)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", tuple(
+        "--fmad=true" if f == "--fmad=false" else f
+        for f in _build.NVCC_FLAGS))
+    for name, path in before.items():
+        assert _build.library_path(name) != path
+    monkeypatch.undo()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    assert {n: _build.library_path(n) for n in names} == before
+    with open(csrc / "rglru_scan.cu", "a") as f:
+        f.write("\n")
+    assert _build.library_path("rglru_scan") != before["rglru_scan"]
+    assert _build.library_path("flash_attention") == before["flash_attention"]
