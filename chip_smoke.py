@@ -29,12 +29,17 @@ Phases (each fails loudly; nothing is caught):
                `fused_heft_schedule(engine="device")` (one eft_sweep launch
                per round), cold and warm (rank_cache reused), at q = None
                and 0.95 and as a constrained replan; each schedule
-               identical to the host `heft_schedule_matrix`.  Then the
-               sweep kernel against its plain version on the CPU: a round
-               whose slot retry doubles S, a direct launch at S = 192 and
-               N = 100 (307 KB of interval stacks), a pack padded with
-               masked rows, and a launch on 1500 nodes (more nodes than a
-               block has threads).
+               identical to the host `heft_schedule_matrix`, and every
+               sweep on the shared route (state in shared memory).  Then
+               the sweep kernel against its plain version on the CPU: a
+               round whose slot retry doubles S from 4 (shared route), and
+               direct launches, each on the route it must take: S = 48
+               (shared), S = 192 at N = 100 (307 KB of interval stacks:
+               global), a pack padded with masked rows (shared), 1500
+               nodes (more nodes than a block has threads: global), a
+               chain in which every task depends on the one placed just
+               before it, and a pack of exact ties across warps of nodes
+               (both shared).
   6. ingest  — the online write path on the card.  The workflow loop: the
                replan problem's predictor wrapped in
                `OnlinePredictor(device="cuda")`, fed 8 batches of local and
@@ -71,7 +76,8 @@ Phases (each fails loudly; nothing is caught):
                with the counts set to 0 just before it), errors, and times
                at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
-               C entry point (`ms`, the kernel), through the Python
+               C entry point (`ms`, the kernel; for the sweep also the
+               global route at S = 192, `global_ms`), through the Python
                wrapper (`wrapper_ms`, what a caller pays) and of the plain
                version on the card (`plain_ms`); `warm_ms` is the kernel
                back to back on the same operands.  For the fold also
@@ -696,13 +702,62 @@ def wide_pack(rng: np.random.Generator, t: int, n: int) -> list:
     nodes, and a random symmetric link-rate matrix."""
     dep = np.full((t, 3), -1, np.int32)
     for i in range(1, t):
-        k = int(rng.integers(0, 4))
-        dep[i, :k] = rng.choice(i, size=min(k, i), replace=False)
+        k = min(int(rng.integers(0, 4)), i)
+        dep[i, :k] = rng.choice(i, size=k, replace=False)
     rate = rng.uniform(1.0, 25.0, (n, n))
     avail = np.where(rng.random(n) < 1 / 3, rng.uniform(0.0, 50.0, n), 0.0)
     return [rng.uniform(1.0, 100.0, (t, n)), np.arange(t, dtype=np.int32),
             dep, rng.uniform(0.0, 16.0, t), np.zeros((t, n)), avail,
             np.eye(n, dtype=bool), np.minimum(rate, rate.T)]
+
+
+SWEEP_CASE_TASKS, SWEEP_CASE_NODES = 500, 100
+
+
+def chain_pack(rng: np.random.Generator, t: int, n: int) -> list:
+    """Sweep inputs in which every task depends on the task placed just
+    before it (rows in rank order, row i depending on i - 1 and i - 2, and
+    on one random earlier row half the time), so the sweep hands the task
+    it just placed to the next step on every step; random costs and link
+    rates spread the chain over the nodes."""
+    dep = np.full((t, 3), -1, np.int32)
+    for i in range(1, t):
+        dep[i, 0] = i - 1
+        if i > 1:
+            dep[i, 1] = i - 2
+        if i > 2 and rng.random() < 0.5:
+            dep[i, 2] = rng.integers(0, i - 2)
+    rate = rng.uniform(1.0, 25.0, (n, n))
+    return [rng.uniform(1.0, 100.0, (t, n)), np.arange(t, dtype=np.int32),
+            dep, rng.uniform(0.0, 16.0, t), np.zeros((t, n)), np.zeros(n),
+            np.eye(n, dtype=bool), np.minimum(rate, rate.T)]
+
+
+def tie_pack(rng: np.random.Generator, t: int, n: int) -> list:
+    """Sweep inputs full of exact ties: four node classes, node j of class
+    j % 4, so identical nodes sit in every warp of nodes; costs are small
+    integers times the class's factor, output sizes multiples of 0.5 over
+    one link rate of 4, so every sum is exact in float32 and float64 and
+    the argmin must keep np.argmin's lowest index across warps."""
+    dep = np.full((t, 3), -1, np.int32)
+    for i in range(1, t):
+        k = min(int(rng.integers(0, 4)), i)
+        dep[i, :k] = rng.choice(i, size=k, replace=False)
+    factor = np.array([1.0, 2.0, 3.0, 4.0])[np.arange(n) % 4]
+    w = rng.integers(1, 9, t).astype(np.float64)[:, None] * factor[None, :]
+    return [w, np.arange(t, dtype=np.int32), dep,
+            rng.integers(0, 8, t) * 0.5, np.zeros((t, n)), np.zeros(n),
+            np.eye(n, dtype=bool), np.full((n, n), 4.0)]
+
+
+def sweep_cases() -> dict:
+    """The chain and the tie-heavy sweep inputs the sweep kernel is held
+    to its plain version on (and the plain version, in the CPU tests, to
+    the JAX package's float32 sweep)."""
+    return {"chain": chain_pack(np.random.default_rng(23), SWEEP_CASE_TASKS,
+                                SWEEP_CASE_NODES),
+            "ties": tie_pack(np.random.default_rng(29), SWEEP_CASE_TASKS,
+                             SWEEP_CASE_NODES)}
 
 
 def phase_plan_checks(dev, fleet_out, plan, args) -> float:
@@ -742,14 +797,19 @@ def phase_plan_checks(dev, fleet_out, plan, args) -> float:
     cache: dict = {}
     ctx = fused._context(dag, nodes, cache)
     ctx.slot_cap = 4
+    before = dict(plane.eft_sweep.launches_by_route)
     got = fused.fused_heft_schedule(dag, nodes, None, W=plan["W_none"],
                                     rank_cache=cache, engine="device",
                                     device=dev)
+    retry = {k: plane.eft_sweep.launches_by_route[k] - before[k]
+             for k in before}
     check(same_schedule(got, host["none"]),
           "schedule after the slot retry differs from heft_schedule_matrix")
     check(ctx.slot_cap >= 8, "the slot retry did not run")
+    check(retry["global"] == 0 and retry["shared"] >= 2,
+          "the slot retry left the shared route")
     print(f"[plan] slot retry 4 -> {ctx.slot_cap}: schedule identical to "
-          f"heft_schedule_matrix")
+          f"heft_schedule_matrix; launches by route {retry}")
 
     # direct launches against the plain sweep on the CPU: S = 48, S = 192,
     # and a pack padded with masked rows to a multiple of 64
@@ -768,20 +828,39 @@ def phase_plan_checks(dev, fleet_out, plan, args) -> float:
                                               device=dev)])) + args[5:]
     wide = [torch.from_numpy(v).to(dev) for v in
             wide_pack(np.random.default_rng(19), 200, WIDE_NODES)]
+    cases = {k: [torch.from_numpy(v).to(dev) for v in pack]
+             for k, pack in sweep_cases().items()}
+    optin = plane.smem_optin(dev.index)
     err = 0.0
-    for label, a, s in (("S=48", args, 48), (f"S={S_DIRECT}", args, S_DIRECT),
-                        (f"padded T={t + pad} S=48", padded, 48),
-                        ("T=200 S=48, more nodes than threads", wide, 48)):
+    for label, a, s, route in (
+            ("S=48", args, 48, "shared"),
+            (f"S={S_DIRECT}", args, S_DIRECT, "global"),
+            (f"padded T={t + pad} S=48", padded, 48, "shared"),
+            ("T=200 S=48, more nodes than threads", wide, 48, "global"),
+            (f"chain T={SWEEP_CASE_TASKS} S=48", cases["chain"], 48,
+             "shared"),
+            (f"ties T={SWEEP_CASE_TASKS} S=48", cases["ties"], 48,
+             "shared")):
+        shape = (a[0].shape[0], a[0].shape[1], s, a[2].shape[1])
+        check(plane.sweep_smem_bytes(*shape)
+              == plane._lib().lotaru_eft_sweep_smem_bytes(*shape),
+              "the shared route's bytes differ between Python and C")
+        before = dict(plane.eft_sweep.launches_by_route)
         got = [g.cpu() for g in plane.eft_sweep(*a, S=s)]
         torch.cuda.synchronize()
+        took = [k for k, n in plane.eft_sweep.launches_by_route.items()
+                if n > before[k]]
         want = ref.eft_sweep_ref(*(x.cpu() for x in a), S=s)
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         e = max(float((got[k] - want[k]).abs().max()) for k in (1, 2))
         err = max(err, e)
-        print(f"[plan] eft_sweep {label} N={a[0].shape[1]}: identical to "
-              f"the plain "
-              f"sweep (CPU float64) {same}, max |err| {e!r}, max count "
+        print(f"[plan] eft_sweep {label} N={a[0].shape[1]}: {took} route "
+              f"({plane.sweep_smem_bytes(*shape)} B of shared state, "
+              f"opt-in {optin} B), identical to the plain sweep (CPU "
+              f"float64) {same}, max |err| {e!r}, max count "
               f"{int(got[3].max())}")
+        check(took == [route], f"eft_sweep ({label}) took the {took} route, "
+              f"want {route}")
         check(same, f"eft_sweep ({label}) differs from its plain version")
         if label.startswith("padded"):
             base = ref.eft_sweep_ref(*cpu, S=48)
@@ -1074,6 +1153,7 @@ def raw_launch(name: str, args, lib=None):
     def launch():
         rc = fn(*full)
         check(rc == 0, f"{name} launch failed with CUDA error {rc}")
+    launch.operands = args      # the tensors live as long as the callable
     return launch
 
 
@@ -1142,28 +1222,36 @@ def time_plane(dev, sweep_args) -> dict:
                               host=True),
         "plain_ms": time_ms(lambda: ref.fused_cost_ref(xd, pd, fd, z),
                             reps=5, host=True)}}
-    W = sweep_args[0]
-    t, n = W.shape
-    S = 48
-    scratch = [torch.empty((S, n), dtype=torch.float64, device=dev),
-               torch.empty((S, n), dtype=torch.float64, device=dev),
-               torch.empty(n, dtype=torch.int32, device=dev),
-               torch.zeros(t + 1, dtype=torch.float64, device=dev),
-               torch.zeros((t + 1, n), dtype=torch.float64, device=dev),
-               torch.zeros(t + 1, dtype=torch.int32, device=dev),
-               torch.zeros(t + 1, dtype=torch.float64, device=dev),
-               torch.zeros(t + 1, dtype=torch.float64, device=dev)]
     a = sweep_args
-    launch = raw_launch("eft_sweep", [a[0], a[1], a[2], a[2].shape[1], a[3],
-                                      a[4], a[5], a[6], a[7], t, n, S]
-                        + scratch, lib)
+    t, n = a[0].shape
+    f64, i32 = torch.float64, torch.int32
+
+    def sweep_launch(s, route):
+        """The sweep's C entry on `route` (0 shared, 1 global), with its
+        scratch and outputs allocated once."""
+        stacks = [None, None]
+        if route:
+            stacks = [torch.empty((s, n), dtype=f64, device=dev),
+                      torch.empty((s, n), dtype=f64, device=dev)]
+        outs = [torch.empty((t + 1, n), dtype=f64, device=dev),
+                torch.empty(n, dtype=i32, device=dev),
+                torch.zeros(t + 1, dtype=i32, device=dev),
+                torch.zeros(t + 1, dtype=f64, device=dev),
+                torch.zeros(t + 1, dtype=f64, device=dev)]
+        return raw_launch("eft_sweep", [a[0], a[1], a[2], a[2].shape[1],
+                                        a[3], a[4], a[5], a[6], a[7], t, n,
+                                        s, route] + stacks + outs, lib)
+
+    shared, glob = sweep_launch(48, 0), sweep_launch(S_DIRECT, 1)
     out["eft_sweep"] = {
-        "ms": time_ms(launch, reps=10),
-        "warm_ms": warm_ms(launch, reps=10, inner=5),
-        "wrapper_ms": time_ms(lambda: plane.eft_sweep(*a, S=S), reps=10,
+        "ms": time_ms(shared, reps=10),
+        "warm_ms": warm_ms(shared, reps=10, inner=5),
+        "wrapper_ms": time_ms(lambda: plane.eft_sweep(*a, S=48), reps=10,
                               host=True),
-        "plain_ms": time_ms(lambda: ref.eft_sweep_ref(*a, S=S), reps=3,
-                            host=True)}
+        "plain_ms": time_ms(lambda: ref.eft_sweep_ref(*a, S=48), reps=3,
+                            host=True),
+        "global_ms": time_ms(glob, reps=5),
+        "global_warm_ms": warm_ms(glob, reps=5, inner=3)}
     return out
 
 
@@ -1230,9 +1318,10 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
     t_plan = plan_args[0].shape[0]
     print(f"[report] fused_cost T={PLAN_TASKS} N={PLAN_NODES}: "
           f"{pl['fused_cost']} bound {c_bound!r} ms ({c_by})")
-    print(f"[report] eft_sweep T={t_plan} N={PLAN_NODES} S=48: "
-          f"{pl['eft_sweep']} bound {s_bound!r} ms ({s_by}), latency bound "
-          f"{s_step!r} ms, per step {pl['eft_sweep']['ms'] / t_plan!r} ms")
+    print(f"[report] eft_sweep T={t_plan} N={PLAN_NODES} S=48 (shared "
+          f"route; global route at S={S_DIRECT}): {pl['eft_sweep']} bound "
+          f"{s_bound!r} ms ({s_by}), latency bound {s_step!r} ms, per step "
+          f"{pl['eft_sweep']['ms'] / t_plan!r} ms")
     src = "src/repro_torch/kernels/csrc/bayes.cu"
     dsrc = "src/repro_torch/kernels/csrc/decision_plane.cu"
     return [
@@ -1272,7 +1361,10 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
          "bound_by": s_by, "library_ms": None,
          "warm_ms": pl["eft_sweep"]["warm_ms"],
          "wrapper_ms": pl["eft_sweep"]["wrapper_ms"],
-         "step_bound_ms": s_step,
+         "step_bound_ms": s_step, "sweep_route": "shared",
+         "global_ms": pl["eft_sweep"]["global_ms"],
+         "global_warm_ms": pl["eft_sweep"]["global_warm_ms"],
+         "global_shape": f"T={t_plan} N={PLAN_NODES} S={S_DIRECT}",
          "shape": f"T={t_plan} N={PLAN_NODES} S=48"},
         {"name": "nig_fold", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/bayes_fit.py:240",
@@ -1652,17 +1744,28 @@ def main() -> None:
                ("flash_attention", flash.flash_attention),
                ("rglru_scan", scan.rglru_scan))
     launches = dict.fromkeys((name for name, _ in counted), 0)
+    sweep_routes = dict.fromkeys(plane.SWEEP_ROUTES, 0)
 
     def drive(path):
         """Run one main path with every count set to 0 just before it and
         read just after it."""
         for _, fn in counted:
             fn.launches = 0
+        plane.eft_sweep.launches_by_route = dict.fromkeys(plane.SWEEP_ROUTES,
+                                                          0)
         out = path()
         got = {name: fn.launches for name, fn in counted}
         for name, n in got.items():
             launches[name] += n
+        for route, n in plane.eft_sweep.launches_by_route.items():
+            sweep_routes[route] += n
         return out, got
+
+    def on_shared_route(label):
+        routes = plane.eft_sweep.launches_by_route
+        print(f"[launches] {label} eft_sweep by route: {routes}")
+        check(routes["global"] == 0 and routes["shared"] > 0,
+              f"the {label} path's sweeps did not all take the shared route")
 
     (_, fleet_out), got = drive(lambda: (phase_paper(dev),
                                          phase_fleet(dev, fleet)))
@@ -1671,12 +1774,14 @@ def main() -> None:
     print(f"[launches] plan: {got}")
     check(got["fused_cost"] > 0 and got["eft_sweep"] > 0,
           "the plan path launched fused_cost or eft_sweep no time")
+    on_shared_route("plan")
     ingest, got = drive(lambda: phase_ingest(dev, fleet_out))
     print(f"[launches] ingest: {got}")
     check(all(got[k] > 0 for k in ("nig_fold", "bayes_predict",
                                    "fused_cost", "eft_sweep")),
           "the ingest path launched nig_fold, bayes_predict, fused_cost "
           "or eft_sweep no time")
+    on_shared_route("ingest")
     _, got = drive(lambda: phase_lm(dev))
     print(f"[launches] lm: {got}")
     kinds = get_config(LM_ARCH).layer_kinds()
@@ -1684,7 +1789,8 @@ def main() -> None:
           and got["rglru_scan"] == kinds.count("rglru"),
           "the serve path did not launch flash_attention once per local "
           "attention layer and rglru_scan once per RG-LRU layer")
-    print(f"[launches] main path: {launches}")
+    print(f"[launches] main path: {launches}; eft_sweep by route "
+          f"{sweep_routes}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 

@@ -73,63 +73,502 @@ fused_cost_kernel(const double* __restrict__ x,
 // dependency rows, searches its busy intervals for the earliest gap that
 // fits the task, and the node with the earliest finish wins (ties to the
 // lowest node index, as np.argmin).  The winner's interval is inserted in
-// (begin, end) order and its communication row is recorded for the task's
-// successors.
+// (begin, end) order.  The TPU kernel kept the interval stacks, the finish
+// times and a (T+1, N) row of communication times per placed task in VMEM
+// and ran the serial task loop inside one grid step.
 //
 // Bound on the H100: latency.  The T tasks are a serial chain (each
 // placement changes the intervals the next one searches), and the bytes
 // (W, ready times and dependency rows, read once) take microseconds.  A
-// step is a dependent sequence: dependency loads, the gap search, a
-// block-wide argmin, one thread's insert, and three barriers.  Design: one
-// thread block, one thread per node (a thread loops over nodes when N
-// exceeds the block), and the serial loop over tasks inside the block, so
-// the sweep costs one launch instead of T.  Each node's interval stack,
-// its live count and its column of the communication rows are touched
-// only by the node's own thread; the stacks live in device-memory scratch
-// laid out (S, N), so a warp's gap search reads consecutive addresses, and
-// they are right at every S the host's overflow retry reaches (at S = 192
-// and N = 100 they take 307 KB, past the 227 KB of shared memory a block
-// may use).  A node's live count bounds its gap search and insert: columns
-// at or past it are (inf, inf) pads, which change neither, so the result
-// is that of the full S-column search.  Only max, add, divide and compare
-// are used, so the float64 result is bitwise the host sweep's.
-constexpr int kSweepMaxThreads = 1024;
+// step costs its chain of dependent instructions (shared loads, shuffles,
+// float64 compares and divides, L2 hits: tens to hundreds of cycles each),
+// and a warp issues in order, so a warp alone on a scheduler waits out
+// each of them; the step ends when the last warp reaches its barrier.
+// Design: one thread block, the serial loop over tasks inside it (one
+// launch instead of T), and each link of a step's chain short:
+//
+//  * P lanes a node (4 up to 128 nodes, 2 up to 256, 1 up to 512).  The
+//    lanes of a node split its gap search into P runs of columns and its
+//    dependency terms into P shares, and combine them with xor shuffles;
+//    the extra warps fill each scheduler's waits.
+//  * State on chip.  The interval stacks, laid out (S, N) so that a warp's
+//    gap search reads consecutive doubles, the rank order, each step's
+//    dependency terms (compacted once, as the order is fixed, without the
+//    row placed the step before, which a flag marks), a three-slot ring of
+//    each node's W and ready0 cells for the task two steps ahead
+//    (cp.async) and, where they fit, the (N, N) link rates and locality
+//    live in dynamic shared memory; each node's live interval count lives
+//    in a register of its lanes.  A node's live count bounds
+//    its gap search and insert: columns at or past it are (inf, inf) pads,
+//    which change neither, so the result is that of the full S-column
+//    search.
+//  * Arrival times instead of communication rows.  When a task is placed,
+//    every lane of every node computes the time its output reaches the
+//    node, fin + (same ? 0 : gb8 / gbps) (the reference's fin[d] +
+//    comm[d, j]: the same IEEE operations on the same operands), and stores
+//    it in the node's column of a (T + 1) x N device row; each lane then
+//    reads only its own stores, so no barrier or fence guards the rows.  A
+//    step issues the loads of the next task's dependency terms when it
+//    starts and folds them into that task's ready time when it ends.  The
+//    task placed in the current step is not stored yet: the next step takes
+//    its arrival time from the register that computed it.
+//  * One barrier a step, and an argmin in integers.  np.argmin's order on
+//    (eft, node) is the order of an unsigned key (NaN first, -0.0 as +0.0)
+//    and the node index; three __reduce_min_sync give a warp's minimum.
+//    Each warp writes its minimum to a slot double-buffered on t & 1; after
+//    the step's one __syncthreads every warp reduces the slots itself and
+//    finds the same winner.
+//  * Insert on chip.  The winner's own warp inserts: its lanes cover the S
+//    columns, a ballot counts the searchsorted position, the lanes shift
+//    the tail one column up, and a __syncwarp precedes the next gap search.
+//
+// Shapes whose stacks and rows do not fit in the block's opt-in shared
+// memory, or with more than 512 nodes, take the global route: the same
+// step with one barrier, the integer argmin, the warp insert and the
+// arrival rows, but with a lane a node, the stacks and counts in device
+// scratch, the inputs read where they lie, and a thread looping over its
+// nodes.  The wrapper picks the route from the shapes and the device's
+// limit (decision_plane.sweep_route); the shared entry refuses a shape it
+// cannot hold.  Only max, add, divide and compare are used, so both routes
+// are bitwise the host sweep.
+//
+// Built with -DLOTARU_SWEEP_CLOCKS (sweep_clocks.py), the shared route adds
+// up clock64() cycles per phase of a step for each warp; otherwise
+// SWEEP_MARK is nothing.
+constexpr int kSweepMaxThreads = 1024;   // the global route's block
+constexpr int kOnChipMaxNodes = 512;     // the shared route's block
+constexpr int kCellSlots = 3;            // W, ready0 ring: this step, +1, +2
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kNoKey = ~0ull;
+constexpr int kHand = 1 << 30;           // a step's task depends on the last
+
+#ifdef LOTARU_SWEEP_CLOCKS
+constexpr int kClockPhases = 7;
+__device__ long long g_sweep_clocks[32 * kClockPhases + 1];
+#define SWEEP_MARK(p)                      \
+  {                                        \
+    const long long now_ = clock64();      \
+    clocks[p] += now_ - clock_last;        \
+    clock_last = now_;                     \
+  }
+#else
+#define SWEEP_MARK(p)
+#endif
 
 // numpy.maximum: NaN propagates
 __device__ __forceinline__ double np_max(double a, double b) {
   return (a > b || isnan(a)) ? a : b;
 }
 
-// np.argmin's order: the first NaN wins, else the smaller value, ties to
-// the lower index
-__device__ __forceinline__ bool before(double av, int aj, double bv,
-                                       int bj) {
-  const bool an = isnan(av), bn = isnan(bv);
-  if (an || bn) return an && (!bn || aj < bj);
-  return av < bv || (av == bv && aj < bj);
+// an 8-byte global -> shared copy, complete after cp_async_wait_all
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
 }
 
-__global__ void __launch_bounds__(kSweepMaxThreads)
-eft_sweep_kernel(const double* __restrict__ W,
-                 const int* __restrict__ order,
-                 const int* __restrict__ dep, int D,
-                 const double* __restrict__ gb8,
-                 const double* __restrict__ ready0,
-                 const double* __restrict__ avail,
-                 const unsigned char* __restrict__ same,
-                 const double* __restrict__ gbps, int T, int N, int S,
-                 double* b0, double* b1, int* cnt, double* fin, double* comm,
-                 int* assign, double* est_out, double* eft_out) {
-  __shared__ double s_v[32];
-  __shared__ int s_j[32];
-  __shared__ int s_sel;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// np.argmin's order on values as an unsigned key: NaN first (0), then the
+// values in order, -0.0 equal to +0.0; ties then go to the lower node
+__device__ __forceinline__ unsigned long long argmin_key(double v) {
+  const long long b = __double_as_longlong(v == 0.0 ? 0.0 : v);
+  const unsigned long long k = b < 0 ? ~static_cast<unsigned long long>(b)
+                                     : static_cast<unsigned long long>(b) |
+                                           (1ull << 63);
+  return isnan(v) ? 0ull : k;
+}
+
+// the lexicographic minimum of (key, node) over the warp, in every lane
+__device__ __forceinline__ void warp_min(unsigned long long& key,
+                                         unsigned& node) {
+  const unsigned hi = static_cast<unsigned>(key >> 32);
+  const unsigned lo = static_cast<unsigned>(key);
+  const unsigned mh = __reduce_min_sync(kFull, hi);
+  const unsigned ml = __reduce_min_sync(kFull, hi == mh ? lo : ~0u);
+  node = __reduce_min_sync(kFull, hi == mh && lo == ml ? node : ~0u);
+  key = (static_cast<unsigned long long>(mh) << 32) | ml;
+}
+
+// the step's winner from the nw warp slots, in every lane of the calling
+// warp; the winner's (eft, est) come from the slot of the warp of its
+// first lane (thread node * P, or node % nt where a thread loops)
+__device__ __forceinline__ int block_winner(const unsigned long long* sk,
+                                            const unsigned* sj,
+                                            const double* sv,
+                                            const double* se, int nw,
+                                            int nt, int P, int lane,
+                                            double& v, double& est) {
+  unsigned long long key = lane < nw ? sk[lane] : kNoKey;
+  unsigned node = lane < nw ? sj[lane] : ~0u;
+  warp_min(key, node);
+  int owner = static_cast<int>(node) * P;
+  if (owner >= nt) owner %= nt;
+  v = sv[owner >> 5];
+  est = se[owner >> 5];
+  return static_cast<int>(node);
+}
+
+// earliest candidate start over stack columns [k0, k1) (column stride N)
+// of a task of duration dur, ready at `ready` (not NaN): the earliest
+// max(ready, end of the previous interval) whose [start, start + dur)
+// ends by the column's begin; inf if none
+__device__ __forceinline__ double gap_run(const double* b0,
+                                          const double* b1, int N, int k0,
+                                          int k1, double ready,
+                                          double dur) {
+  double e = INFINITY;
+  double prev = k0 > 0 ? b1[(long long)(k0 - 1) * N] : -INFINITY;
+  const double rd = ready + dur;
+#pragma unroll 1
+  for (int k = k0; k < k1; ++k) {
+    // cand = np_max(ready, prev), and cand + dur as the sum of whichever
+    // it is, both sums formed before the choice
+    const double begin = b0[(long long)k * N];
+    const bool from_prev = !(ready > prev);
+    const double cand = from_prev ? prev : ready;
+    const bool fits = from_prev ? prev + dur <= begin : rd <= begin;
+    if (fits && cand < e) e = cand;
+    prev = b1[(long long)k * N];
+  }
+  return e;
+}
+
+// the first of two candidates unless the second is smaller: the running
+// minimum's rule, so combining runs in column order keeps the earliest of
+// equal values
+__device__ __forceinline__ double first_min(double a, double b) {
+  return b < a ? b : a;
+}
+
+// earliest start of a task on a node whose stack holds `live` intervals,
+// the columns [0, live] split into P runs, one a lane, combined in column
+// order over the node's P lanes.  A NaN ready time makes every candidate
+// NaN, and nothing fits.
+__device__ __forceinline__ double gap_search(const double* b0,
+                                             const double* b1, int N,
+                                             int live, double ready,
+                                             double dur, int P, int sub,
+                                             int lane, bool own) {
+  double e = INFINITY;
+  if (own && !isnan(ready)) {
+    const int run = (live + P) / P;
+    const int k0 = min(sub * run, live + 1);
+    e = gap_run(b0, b1, N, k0, min(k0 + run, live + 1), ready, dur);
+  }
+  for (int off = 1; off < P; off <<= 1) {
+    const double other = __shfl_xor_sync(kFull, e, off);
+    e = (lane & off) ? first_min(other, e) : first_min(e, other);
+  }
+  return e;
+}
+
+// numpy.maximum over the P lanes of a node (aligned groups of P lanes)
+__device__ __forceinline__ double lanes_max(double x, int P) {
+  for (int off = 1; off < P; off <<= 1)
+    x = np_max(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// insert (ei, fi) into node js's stack of c intervals (c may exceed S: the
+// last column then drops), by the whole warp: a ballot counts the
+// searchsorted position in (begin, end) order, and each lane moves its
+// columns up one, from the top chunk down so no lane reads a column
+// another has written
+__device__ __forceinline__ void warp_insert(double* b0, double* b1, int N,
+                                            int S, int c, double ei,
+                                            double fi, int lane) {
+  const int live = min(c, S);
+  int pos = 0;
+#pragma unroll 1
+  for (int k0 = 0; k0 < live; k0 += 32) {
+    const int k = k0 + lane;
+    bool lt = false;
+    if (k < live) {
+      const double a = b0[(long long)k * N];
+      const double b = b1[(long long)k * N];
+      lt = a < ei || (a == ei && b < fi);
+    }
+    pos += __popc(__ballot_sync(kFull, lt));
+  }
+  const int top = min(c, S - 1);
+#pragma unroll 1
+  for (int k0 = top & ~31; k0 >= 0 && k0 + 31 >= pos; k0 -= 32) {
+    const int k = k0 + lane;
+    const bool mv = k > pos && k <= top;
+    double a = 0.0, b = 0.0;
+    if (mv) {
+      a = b0[(long long)(k - 1) * N];
+      b = b1[(long long)(k - 1) * N];
+    }
+    __syncwarp();
+    if (mv) {
+      b0[(long long)k * N] = a;
+      b1[(long long)k * N] = b;
+    } else if (k == pos && pos < S) {
+      b0[(long long)k * N] = ei;
+      b1[(long long)k * N] = fi;
+    }
+  }
+  __syncwarp();
+}
+
+// bytes of dynamic shared memory the shared route needs: 8-byte words for
+// the stacks, the W and ready0 ring, the slots' eft, est and key; 4-byte
+// words for the order, each step's count and compacted dependency terms,
+// and the slots' node
+__host__ __device__ inline long long sweep_smem_bytes(long long T,
+                                                      long long N,
+                                                      long long S,
+                                                      long long D) {
+  return 8 * (2 * S * N + 2 * kCellSlots * N + 3 * 64) +
+         4 * (2 * T + T * D + 64);
+}
+
+// bytes the (N, N) link rates and locality add, staged where they fit
+__host__ __device__ inline long long sweep_comm_bytes(long long N) {
+  return 9 * N * N;
+}
+
+// lanes a node on the shared route
+__host__ __device__ inline int sweep_lanes(int N) {
+  return N <= 128 ? 4 : N <= 256 ? 2 : 1;
+}
+
+__global__ void __launch_bounds__(kOnChipMaxNodes)
+eft_sweep_onchip_kernel(const double* __restrict__ W,
+                        const int* __restrict__ order,
+                        const int* __restrict__ dep, int D,
+                        const double* __restrict__ gb8,
+                        const double* __restrict__ ready0,
+                        const double* __restrict__ avail,
+                        const unsigned char* __restrict__ same,
+                        const double* __restrict__ gbps, int T, int N,
+                        int S, int P, int stage_comm, double* arr,
+                        int* cnt_out, int* assign, double* est_out,
+                        double* eft_out) {
+  extern __shared__ unsigned long long smem[];
+  double* b0 = reinterpret_cast<double*>(smem);
+  double* b1 = b0 + (long long)S * N;
+  double* cells = b1 + (long long)S * N;   // [slot][dur, r0][N]
+  double* sv = cells + 2 * kCellSlots * N;
+  double* se = sv + 64;
+  unsigned long long* sk = reinterpret_cast<unsigned long long*>(se + 64);
+  int* ord = reinterpret_cast<int*>(sk + 64);
+  int* nd = ord + T;          // each step's terms, | kHand if it hands over
+  int* dp = nd + T;           // each step's terms, clamped to T
+  unsigned* sj = reinterpret_cast<unsigned*>(dp + (long long)T * D);
+  double* s_gbps = reinterpret_cast<double*>(smem) +
+                   sweep_smem_bytes(T, N, S, D) / 8;
+  unsigned char* s_same = reinterpret_cast<unsigned char*>(s_gbps + N * N);
+
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const double inf = INFINITY;
+  const int sub = tid % P;           // this lane's share of its node
+  const bool own = tid / P < N;
+  const int j = own ? tid / P : 0;   // lanes past the nodes shadow node 0
+  const bool lead = own && sub == 0; // the lane that writes for the node
+
+  // Each step's dependency terms, fixed by the order alone: the terms of
+  // its task's row (row 0 for a masked step, as the reference) but the row
+  // placed in the step before (T for a masked one), whose arrival time the
+  // step takes from registers (kHand marks that it is a term).  A
+  // dependency index past T reads the dump row T (the reference clamps);
+  // -1 marks no dependency.
+  for (int t = tid; t < T; t += nt) {
+    ord[t] = order[t];
+    const long long r = order[t] >= 0 ? order[t] : 0;
+    const int skip = t == 0 ? -2 : order[t - 1] >= 0 ? order[t - 1] : T;
+    int c = 0, hand = 0;
+    for (int k = 0; k < D; ++k) {
+      const int d = min(dep[r * D + k], T);
+      if (d == skip)
+        hand = kHand;
+      else if (d >= 0)
+        dp[(long long)t * D + c++] = d;
+    }
+    nd[t] = c | hand;
+  }
+  if (stage_comm) {
+    for (int k = tid; k < N * N; k += nt) {
+      s_gbps[k] = gbps[k];
+      s_same[k] = same[k];
+    }
+  }
+  // node_available seeds a [0, avail) busy prefix; the rest are pads.
+  // Rows never placed arrive at 0.0 (a zero finish time and no transfer).
+  const bool has = own && avail[j] > 0.0;
+  int my_cnt = has ? 1 : 0;
+  if (lead) {
+    b0[j] = has ? 0.0 : inf;
+    b1[j] = has ? avail[j] : inf;
+    for (int k = 1; k < S; ++k) {
+      b0[(long long)k * N + j] = inf;
+      b1[(long long)k * N + j] = inf;
+    }
+  }
+  if (own)
+    for (int k = 0; k <= T; ++k) arr[(long long)k * N + j] = 0.0;
+  const double* rate_of = stage_comm ? s_gbps : gbps;
+  const unsigned char* same_of = stage_comm ? s_same : same;
+  __syncthreads();
+
+  auto row = [&](int t) { return ord[t] >= 0 ? ord[t] : 0; };
+  auto copy_cells = [&](int t) {   // task t's W and ready0 cells
+    if (lead && t < T) {
+      double* c = cells + (t % kCellSlots) * 2 * N;
+      const long long at = (long long)row(t) * N + j;
+      cp_async8(c + j, W + at);
+      cp_async8(c + N + j, ready0 + at);
+    }
+  };
+  auto cell = [&](int t, int which) {
+    return cells[(t % kCellSlots) * 2 * N + which * N + j];
+  };
+  // this lane's share of step t's dependency terms: the arrival times at
+  // node j of terms sub and sub + P, loaded into registers (-inf where
+  // none)
+  auto dep_load = [&](int t, double& x0, double& x1) {
+    const int* terms = dp + (long long)t * D;
+    const int n = nd[t] & ~kHand;
+    x0 = own && sub < n ? arr[(long long)terms[sub] * N + j] : -inf;
+    x1 = own && sub + P < n ? arr[(long long)terms[sub + P] * N + j] : -inf;
+  };
+  // ready0 folded with step t's terms: each lane's share (the two loaded,
+  // then any past them loaded now), then the node's P lanes together
+  auto dep_fold = [&](int t, double ready, double x0, double x1) {
+    const int* terms = dp + (long long)t * D;
+    const int n = nd[t] & ~kHand;
+    double m = np_max(x0, x1);
+#pragma unroll 1
+    for (int k = sub + 2 * P; k < n; k += P)
+      if (own) m = np_max(m, arr[(long long)terms[k] * N + j]);
+    return np_max(ready, lanes_max(m, P));
+  };
+
+  double part = 0.0;        // the step's ready time, less the hand-over
+  double arr_prev = 0.0;    // the last placed row's arrival at node j
+  copy_cells(0);
+  copy_cells(1);
+  cp_async_wait_all();
+  __syncthreads();
+  if (T > 0) {
+    double x0, x1;
+    dep_load(0, x0, x1);
+    part = dep_fold(0, cell(0, 1), x0, x1);
+  }
+
+#ifdef LOTARU_SWEEP_CLOCKS
+  long long clocks[kClockPhases] = {};
+  long long clock_last = clock64();
+  const long long clock_start = clock_last;
+#endif
+  for (int t = 0; t < T; ++t) {
+    const int o = ord[t];
+    const bool valid = o >= 0;
+    const int i = valid ? o : 0;
+    const int iw = valid ? o : T;   // row T: the masked rows' dump
+    const double dur = cell(t, 0);
+    const double out8 = __ldg(gb8 + i);
+    double ready = part;
+    if (nd[t] & kHand) ready = np_max(ready, arr_prev);
+    // in flight across the step: the next step's dependency terms and step
+    // t + 2's cells
+    const bool more = t + 1 < T;
+    double x0 = -inf, x1 = -inf;
+    if (more) dep_load(t + 1, x0, x1);
+    copy_cells(t + 2);
+    SWEEP_MARK(0)   // ready time, the next task's loads and copies issued
+
+    const double e = gap_search(b0 + j, b1 + j, N, min(my_cnt, S - 1),
+                                ready, dur, P, sub, lane, own);
+    SWEEP_MARK(1)   // gap search
+    const double eft = e + dur;
+    unsigned long long key = own ? argmin_key(eft) : kNoKey;
+    unsigned node = own ? static_cast<unsigned>(j) : ~0u;
+    warp_min(key, node);
+    const int buf = (t & 1) * 32;
+    if (lead && node == static_cast<unsigned>(j)) {
+      sk[buf + warp] = key;
+      sj[buf + warp] = node;
+      sv[buf + warp] = eft;
+      se[buf + warp] = e;
+    }
+    SWEEP_MARK(2)   // the warp's argmin and its slot
+    __syncthreads();
+    SWEEP_MARK(3)   // the barrier
+    double v, est;
+    const int js = block_winner(sk + buf, sj + buf, sv + buf, se + buf, nw,
+                                nt, P, lane, v, est);
+    SWEEP_MARK(4)   // the block's argmin
+    // this node's transfer time from the winner, overlapping the insert
+    const long long aj = (long long)js * N + j;
+    const bool local = same_of[aj];
+    const double comm = local ? 0.0 : out8 / rate_of[aj];
+    if (warp == (js * P) >> 5) {   // the winning node's warp
+      const int c = __shfl_sync(kFull, my_cnt, (js * P) & 31);
+      // masked rows insert (inf, inf): a no-op on the pad columns
+      warp_insert(b0 + js, b1 + js, N, S, c, valid ? est : inf,
+                  valid ? v : inf, lane);
+      if (own && j == js) my_cnt = c + 1;
+      if (lead && j == js) {
+        assign[iw] = js;
+        est_out[iw] = est;
+        eft_out[iw] = v;
+      }
+    }
+    SWEEP_MARK(5)   // transfer time and the winner warp's insert
+    // every lane of the node stores the row, so each reads its own stores
+    arr_prev = v + comm;
+    if (own) arr[(long long)iw * N + j] = arr_prev;
+    cp_async_wait_all();
+    if (more) part = dep_fold(t + 1, cell(t + 1, 1), x0, x1);
+    SWEEP_MARK(6)   // arrival time stored, the next task's ready folded
+  }
+#ifdef LOTARU_SWEEP_CLOCKS
+  if (lane == 0)
+    for (int p = 0; p < kClockPhases; ++p)
+      g_sweep_clocks[warp * kClockPhases + p] = clocks[p];
+  if (tid == 0) g_sweep_clocks[32 * kClockPhases] = clock64() - clock_start;
+#endif
+
+  // final interval count per node (begins below +inf)
+  if (lead) {
+    const int live = min(my_cnt, S);
+    int c = 0;
+    for (int k = 0; k < live; ++k) c += b0[(long long)k * N + j] < inf;
+    cnt_out[j] = c;
+  }
+}
+
+__global__ void __launch_bounds__(kSweepMaxThreads)
+eft_sweep_global_kernel(const double* __restrict__ W,
+                        const int* __restrict__ order,
+                        const int* __restrict__ dep, int D,
+                        const double* __restrict__ gb8,
+                        const double* __restrict__ ready0,
+                        const double* __restrict__ avail,
+                        const unsigned char* __restrict__ same,
+                        const double* __restrict__ gbps, int T, int N,
+                        int S, double* b0, double* b1, double* arr,
+                        int* cnt, int* assign, double* est_out,
+                        double* eft_out) {
+  __shared__ double sv[64], se[64];
+  __shared__ unsigned long long sk[64];
+  __shared__ unsigned sj[64];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
   const double inf = INFINITY;
 
-  // node_available seeds a [0, avail) busy prefix; the rest are pads
   for (int j = tid; j < N; j += nt) {
     const bool has = avail[j] > 0.0;
     b0[j] = has ? 0.0 : inf;
@@ -139,6 +578,7 @@ eft_sweep_kernel(const double* __restrict__ W,
       b1[(long long)k * N + j] = inf;
     }
     cnt[j] = has ? 1 : 0;
+    for (int k = 0; k <= T; ++k) arr[(long long)k * N + j] = 0.0;
   }
   __syncthreads();
 
@@ -146,108 +586,63 @@ eft_sweep_kernel(const double* __restrict__ W,
     const int o = order[t];
     const bool valid = o >= 0;
     const long long i = valid ? o : 0;
-    const long long iw = valid ? i : T;  // row T: the masked rows' dump
+    const int iw = valid ? o : T;
 
-    double best_v = 0.0, best_est = 0.0;
-    int best_j = -1;
+    // this thread's best node, by (key, node): its nodes come in order.
+    // A node's arrival rows are its own thread's stores.
+    unsigned long long key = kNoKey;
+    unsigned node = ~0u;
+    double bv = 0.0, be = 0.0;
     for (int j = tid; j < N; j += nt) {
       double ready = ready0[i * N + j];
       for (int k = 0; k < D; ++k) {
-        const int d = dep[i * D + k];
-        if (d >= 0) ready = np_max(ready, fin[d] + comm[(long long)d * N + j]);
+        const int d = min(dep[i * D + k], T);
+        if (d >= 0) ready = np_max(ready, arr[(long long)d * N + j]);
       }
       const double dur = W[i * N + j];
-      // gap search: the earliest candidate start max(ready, end of the
-      // previous interval) whose [start, start + dur) ends by the next
-      // interval's begin
-      const int live = min(cnt[j], S - 1);
-      double e = inf;
-      double prev = -inf;
-      for (int k = 0; k <= live; ++k) {
-        const double cand = np_max(ready, prev);
-        if (cand + dur <= b0[(long long)k * N + j] && cand < e) e = cand;
-        prev = b1[(long long)k * N + j];
-      }
-      const double eft = e + dur;
-      if (best_j < 0 || before(eft, j, best_v, best_j)) {
-        best_v = eft;
-        best_est = e;
-        best_j = j;
+      const double e =
+          isnan(ready) ? inf
+                       : gap_run(b0 + j, b1 + j, N, 0, min(cnt[j], S - 1) + 1,
+                                 ready, dur);
+      const unsigned long long kj = argmin_key(e + dur);
+      if (kj < key) {
+        key = kj;
+        node = j;
+        bv = e + dur;
+        be = e;
       }
     }
-
-    // block argmin of (eft, node)
-    double v = best_v;
-    int jj = best_j;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const double ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oj = __shfl_down_sync(0xffffffffu, jj, off);
-      if (oj >= 0 && (jj < 0 || before(ov, oj, v, jj))) {
-        v = ov;
-        jj = oj;
-      }
-    }
-    if (lane == 0) {
-      s_v[warp] = v;
-      s_j[warp] = jj;
+    const unsigned mine = node;
+    warp_min(key, node);
+    const int buf = (t & 1) * 32;
+    if (mine == node && node != ~0u) {
+      sk[buf + warp] = key;
+      sj[buf + warp] = node;
+      sv[buf + warp] = bv;
+      se[buf + warp] = be;
     }
     __syncthreads();
-    if (warp == 0) {
-      const int nw = (nt + 31) >> 5;
-      v = lane < nw ? s_v[lane] : 0.0;
-      jj = lane < nw ? s_j[lane] : -1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const double ov = __shfl_down_sync(0xffffffffu, v, off);
-        const int oj = __shfl_down_sync(0xffffffffu, jj, off);
-        if (oj >= 0 && (jj < 0 || before(ov, oj, v, jj))) {
-          v = ov;
-          jj = oj;
-        }
-      }
-      if (lane == 0) s_sel = jj;
-    }
-    __syncthreads();
-    const int js = s_sel;
-
-    if (best_j == js) {  // the winning node's own thread
-      const double estj = best_est, eftj = best_v;
-      // masked rows insert (inf, inf): a no-op on the pad columns
-      const double est_ins = valid ? estj : inf;
-      const double eft_ins = valid ? eftj : inf;
+    double v, est;
+    const int js = block_winner(sk + buf, sj + buf, sv + buf, se + buf, nw,
+                                nt, 1, lane, v, est);
+    const int owner = js % nt;      // the thread that owns the winner
+    if (warp == (owner >> 5)) {
       const int c = cnt[js];
-      const int live = min(c, S);
-      // counting searchsorted in (begin, end) order
-      int pos = 0;
-      for (int k = 0; k < live; ++k) {
-        const double a = b0[(long long)k * N + js];
-        const double b = b1[(long long)k * N + js];
-        pos += (a < est_ins) + (a == est_ins && b < eft_ins);
+      warp_insert(b0 + js, b1 + js, N, S, c, valid ? est : inf,
+                  valid ? v : inf, lane);
+      if (tid == owner) {
+        cnt[js] = c + 1;
+        assign[iw] = js;
+        est_out[iw] = est;
+        eft_out[iw] = v;
       }
-      for (int k = min(c, S - 1); k > pos; --k) {
-        b0[(long long)k * N + js] = b0[(long long)(k - 1) * N + js];
-        b1[(long long)k * N + js] = b1[(long long)(k - 1) * N + js];
-      }
-      if (pos < S) {
-        b0[(long long)pos * N + js] = est_ins;
-        b1[(long long)pos * N + js] = eft_ins;
-      }
-      cnt[js] = c + 1;
-      assign[iw] = js;
-      est_out[iw] = estj;
-      eft_out[iw] = eftj;
-      fin[iw] = eftj;
     }
-    const double g = gb8[i];
-    for (int k = tid; k < N; k += nt) {
-      const long long jk = (long long)js * N + k;
-      comm[iw * N + k] = same[jk] ? 0.0 : g / gbps[jk];
+    for (int j = tid; j < N; j += nt) {
+      const long long aj = (long long)js * N + j;
+      arr[(long long)iw * N + j] = v + (same[aj] ? 0.0 : gb8[i] / gbps[aj]);
     }
-    __syncthreads();
   }
 
-  // final interval count per node (begins below +inf)
   for (int j = tid; j < N; j += nt) {
     const int live = min(cnt[j], S);
     int c = 0;
@@ -284,18 +679,65 @@ int lotaru_fused_cost(const double* x, const double* mu, const double* sigma,
   return static_cast<int>(cudaGetLastError());
 }
 
+long long lotaru_eft_sweep_smem_bytes(int T, int N, int S, int D) {
+  return sweep_smem_bytes(T, N, S, D);
+}
+
+int lotaru_smem_optin(int device) {
+  int bytes = 0;
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  return bytes;
+}
+
+// route 0: the stacks, order, dependency rows and output sizes in shared
+// memory (b0 and b1 are not read and may be NULL); the shape must fit the
+// device's opt-in limit with at most 512 nodes, or the call returns
+// cudaErrorInvalidValue and launches nothing.  Route 1: the stacks in the
+// device scratch b0, b1 (S, N), a thread looping over nodes.  Both use
+// arr ((T + 1) x N float64 scratch, the arrival rows) and write the final
+// interval counts to cnt (N).
+#ifdef LOTARU_SWEEP_CLOCKS
+// the last shared-route launch's cycles: per warp and phase, then the total
+int lotaru_sweep_clocks(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_sweep_clocks, sizeof(g_sweep_clocks)));
+}
+#endif
+
 int lotaru_eft_sweep(const double* W, const int* order, const int* dep,
                      int D, const double* gb8, const double* ready0,
                      const double* avail, const unsigned char* same,
-                     const double* gbps, int T, int N, int S, double* b0,
-                     double* b1, int* cnt, double* fin, double* comm,
+                     const double* gbps, int T, int N, int S, int route,
+                     double* b0, double* b1, double* arr, int* cnt,
                      int* assign, double* est, double* eft, void* stream) {
   if (N <= 0 || S <= 0) return 0;
-  int threads = ((N + 31) / 32) * 32;
-  if (threads > kSweepMaxThreads) threads = kSweepMaxThreads;
-  eft_sweep_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      W, order, dep, D, gb8, ready0, avail, same, gbps, T, N, S, b0, b1, cnt,
-      fin, comm, assign, est, eft);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    const long long optin = lotaru_smem_optin(device);
+    long long bytes = sweep_smem_bytes(T, N, S, D);
+    if (N > kOnChipMaxNodes || bytes > optin)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int stage_comm = bytes + sweep_comm_bytes(N) <= optin;
+    if (stage_comm) bytes += sweep_comm_bytes(N);
+    const cudaError_t err = cudaFuncSetAttribute(
+        eft_sweep_onchip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int P = sweep_lanes(N);
+    const int threads = ((N * P + 31) / 32) * 32;
+    eft_sweep_onchip_kernel<<<1, threads, bytes, s>>>(
+        W, order, dep, D, gb8, ready0, avail, same, gbps, T, N, S, P,
+        stage_comm, arr, cnt, assign, est, eft);
+  } else {
+    int threads = ((N + 31) / 32) * 32;
+    if (threads > kSweepMaxThreads) threads = kSweepMaxThreads;
+    eft_sweep_global_kernel<<<1, threads, 0, s>>>(
+        W, order, dep, D, gb8, ready0, avail, same, gbps, T, N, S, b0, b1,
+        arr, cnt, assign, est, eft);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

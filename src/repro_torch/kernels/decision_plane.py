@@ -9,7 +9,9 @@ scratch with `torch.empty`/`torch.zeros`, launches on PyTorch's current
 stream, raises when the launch reports an error, and counts its launches
 in a plain integer attribute (`fused_cost.launches`,
 `eft_sweep.launches`) so a run can show that a path went through the
-kernel.
+kernel.  The sweep has two routes, chosen by `sweep_route` from the
+shapes and the device's shared-memory limit, and also counts its
+launches per route (`eft_sweep.launches_by_route`).
 """
 from __future__ import annotations
 
@@ -35,8 +37,12 @@ def _lib() -> ctypes.CDLL:
                                                    ctypes.c_double, _I, _P])
     lib.lotaru_fused_cost.restype = _I
     lib.lotaru_eft_sweep.argtypes = ([_P] * 3 + [_I] + [_P] * 5
-                                     + [_I] * 3 + [_P] * 8 + [_P])
+                                     + [_I] * 4 + [_P] * 7 + [_P])
     lib.lotaru_eft_sweep.restype = _I
+    lib.lotaru_eft_sweep_smem_bytes.argtypes = [_I] * 4
+    lib.lotaru_eft_sweep_smem_bytes.restype = ctypes.c_longlong
+    lib.lotaru_smem_optin.argtypes = [_I]
+    lib.lotaru_smem_optin.restype = _I
     return lib
 
 
@@ -78,6 +84,38 @@ def fused_cost(x: torch.Tensor, post: dict, factors: torch.Tensor,
 fused_cost.launches = 0
 
 
+SWEEP_ROUTES = ("shared", "global")
+SWEEP_SHARED_MAX_NODES = 512   # the shared route's block
+
+
+def sweep_smem_bytes(t: int, n: int, s: int, d: int) -> int:
+    """Dynamic shared memory of the sweep's shared route: the (S, N)
+    begin and end stacks, a three-slot ring of each node's W and ready0
+    cells and the argmin slots' eft, est and key in 8-byte words; the rank
+    order, each step's count and compacted dependency terms and the slots'
+    node in 4-byte words (`sweep_smem_bytes` in
+    csrc/decision_plane.cu; the kernel also stages the (N, N) link rates
+    and locality where they fit beside that)."""
+    return 8 * (2 * s * n + 2 * 3 * n + 3 * 64) + 4 * (2 * t + t * d + 64)
+
+
+def sweep_route(t: int, n: int, s: int, d: int, smem_optin: int) -> str:
+    """"shared" for at most 512 nodes whose sweep state fits the
+    `smem_optin` bytes of shared memory a block may opt in to; else
+    "global" (stacks in device memory, a thread looping over nodes)."""
+    if (n <= SWEEP_SHARED_MAX_NODES
+            and sweep_smem_bytes(t, n, s, d) <= smem_optin):
+        return "shared"
+    return "global"
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """cudaDevAttrMaxSharedMemoryPerBlockOptin of a card (232,448 bytes on
+    an H100)."""
+    return _lib().lotaru_smem_optin(device_index)
+
+
 def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,
               dep_rows: torch.Tensor, gb8: torch.Tensor,
               ready0: torch.Tensor, avail: torch.Tensor, same: torch.Tensor,
@@ -93,7 +131,9 @@ def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,
     float64 (`sched.heft.comm_structure`).  S is the number of interval
     columns per node.  Returns (assign (T,) int32, est (T,), eft (T,),
     cnt (N,) int32); cnt.max() > S - 1 means the interval stacks
-    overflowed and the caller must run again with a larger S."""
+    overflowed and the caller must run again with a larger S.  The route
+    is `sweep_route` of the shapes and the card: both are bitwise the
+    plain sweep."""
     dev = cuda_device(W, "W")
     if W.dim() != 2 or dep_rows.dim() != 2:
         raise ValueError(f"W must be (T, N) and dep_rows (T, D), got "
@@ -112,29 +152,35 @@ def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,
             (same, "same", torch.bool, (n, n)),
             (gbps_min, "gbps_min", f64, (n, n))):
         check(v, name, dtype, shape, dev)
-    # scratch: interval stacks (S, N), finish times and comm rows with a
-    # dump row T for masked tasks; outputs carry the same dump row
-    b0 = torch.empty((S, n), dtype=f64, device=dev)
-    b1 = torch.empty((S, n), dtype=f64, device=dev)
-    fin = torch.zeros(t + 1, dtype=f64, device=dev)
-    comm = torch.zeros((t + 1, n), dtype=f64, device=dev)
+    route = sweep_route(t, n, S, d, smem_optin(dev.index))
+    # outputs carry a dump row T for masked tasks; scratch: each row's
+    # arrival time at each node and, on the global route, the interval
+    # stacks (S, N)
     cnt = torch.empty(n, dtype=i32, device=dev)
     assign = torch.zeros(t + 1, dtype=i32, device=dev)
     est = torch.zeros(t + 1, dtype=f64, device=dev)
     eft = torch.zeros(t + 1, dtype=f64, device=dev)
     if n == 0:
         return assign[:t], est[:t], eft[:t], cnt
+    arr = torch.empty((t + 1, n), dtype=f64, device=dev)
+    stacks = []
+    if route == "global":
+        stacks = [torch.empty((S, n), dtype=f64, device=dev),
+                  torch.empty((S, n), dtype=f64, device=dev)]
+    ptrs = [x.data_ptr() for x in stacks] or [None, None]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().lotaru_eft_sweep(
             W.data_ptr(), order_arr.data_ptr(), dep_rows.data_ptr(), d,
             gb8.data_ptr(), ready0.data_ptr(), avail.data_ptr(),
-            same.data_ptr(), gbps_min.data_ptr(), t, n, S, b0.data_ptr(),
-            b1.data_ptr(), cnt.data_ptr(), fin.data_ptr(), comm.data_ptr(),
+            same.data_ptr(), gbps_min.data_ptr(), t, n, S,
+            SWEEP_ROUTES.index(route), *ptrs, arr.data_ptr(), cnt.data_ptr(),
             assign.data_ptr(), est.data_ptr(), eft.data_ptr(), stream)
-    raise_on(_lib(), rc, "eft_sweep")
+    raise_on(_lib(), rc, f"eft_sweep ({route} route)")
     eft_sweep.launches += 1
+    eft_sweep.launches_by_route[route] += 1
     return assign[:t], est[:t], eft[:t], cnt
 
 
 eft_sweep.launches = 0
+eft_sweep.launches_by_route = dict.fromkeys(SWEEP_ROUTES, 0)

@@ -153,6 +153,31 @@ def test_plain_sweep_bitwise_equals_reference_float32(seed, S):
         assert int(got[3].max()) > S - 1          # overflow flagged
 
 
+@pytest.mark.parametrize("case", ["chain", "ties"])
+def test_plain_sweep_bitwise_equals_reference_float32_on_smoke_cases(case):
+    """The chain (every task depends on the one placed just before it) and
+    the tie-heavy pack (identical nodes in every warp of nodes) on which
+    chip_smoke.py holds the sweep kernel to the plain sweep: the same
+    arrays, cast to float32, through both packages' sweeps."""
+    pack = chip_smoke.sweep_cases()[case]
+    f32 = [a.astype(np.float32) if a.dtype == np.float64 else a
+           for a in pack]
+    want = [np.asarray(a) for a in jdp.eft_sweep(*f32, S=48)]
+    got = ref.eft_sweep_ref(*(torch.from_numpy(a) for a in f32), S=48)
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == w.dtype
+        assert np.array_equal(_bits(g.numpy()), _bits(w))
+    assert int(got[3].max()) <= 47                 # no stack overflowed
+    if case == "chain":
+        dep, order = pack[2], pack[1]
+        assert (dep[order[1:], 0] == order[:-1]).all()
+    else:
+        # the first task's candidates tie on every node of class 0, which
+        # spans all four warps of nodes; np.argmin keeps node 0
+        first = pack[0][0]
+        assert (first == first.min()).sum() == 25 and int(got[0][0]) == 0
+
+
 # --- (c) fused_heft_schedule against the reference HEFT ---------------------
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
@@ -245,6 +270,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tdp.eft_sweep(torch.zeros((3, 2), dtype=torch.float64), *([x] * 7),
                       S=4)
+
+
+H100_SMEM_OPTIN = 232448        # cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((1000, 100, 48, 10), "shared"),   # the main path's replan round
+    ((1000, 100, 96, 10), "shared"),   # its first slot retry
+    ((1000, 100, 192, 10), "global"),  # 307 KB of interval stacks
+    ((200, 1500, 48, 3), "global"),    # more nodes than a block's threads
+    ((20000, 100, 48, 0), "global"),   # order and dependency rows too large
+    ((512, 512, 4, 3), "shared"),      # the most nodes the shared route takes
+    ((512, 513, 4, 3), "global"),
+])
+def test_sweep_route_is_a_function_of_shapes_and_the_limit(shape, route):
+    assert tdp.sweep_route(*shape, H100_SMEM_OPTIN) == route
+    fits = tdp.sweep_smem_bytes(*shape) <= H100_SMEM_OPTIN
+    assert (route == "shared") == (
+        fits and shape[1] <= tdp.SWEEP_SHARED_MAX_NODES)
+    # a card with less shared memory sends the same shape to global
+    assert tdp.sweep_route(*shape, tdp.sweep_smem_bytes(*shape) - 1) \
+        == "global"
 
 
 def test_device_engine_defaults_to_the_card():

@@ -55,7 +55,8 @@ def test_importing_every_module_leaves_jax_out():
 
 def test_no_source_line_imports_jax_or_repro():
     pat = re.compile(r"^\s*(import|from) (jax|repro)\b")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
+                                             "sweep_clocks.py")]
     for d, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bad = [f"{f}:{i}" for f in files
@@ -123,6 +124,13 @@ def test_chip_smoke_refuses_without_card_or_package(no_card, tmp_path):
     for r in runs:
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_sweep_clocks_refuses_without_card(no_card):
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "sweep_clocks.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "[clocks]" not in r.stdout
 
 
 def test_lm_entry_points_raise_without_a_card(no_card):
