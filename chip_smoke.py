@@ -59,14 +59,19 @@ Phases (each fails loudly; nothing is caught):
                through `repro_torch.launch.serve`: B = 2 prompts of 4096
                tokens (past the 2048 window, so the rings wrap), 16
                generated tokens; prefill time and prompt tokens/s, decode
-               ms/step and tokens/s, peak device memory, the Lotaru
-               next-token line, and exactly one `flash_attention` launch
-               per local-attention layer (12) and one `rglru_scan` per
-               RG-LRU layer (26).  Before it, each kernel against its plain
-               version on the card: `rglru_scan` bitwise at (2, 4096,
-               4096) from h0 != 0, `flash_attention` at the path's shape
-               in bfloat16 (5e-2) and float32 (2e-5), at ragged S, window
-               0 and GQA K = 2.  After it, at full width with the depth cut
+               ms/step and tokens/s, peak device memory (beside the
+               earlier mma.sync kernel's), the Lotaru next-token line,
+               and exactly one `flash_attention` launch per local-attention
+               layer (12, all on the wgmma kernel's heads pairing) and one
+               `rglru_scan` per RG-LRU layer (26).  Before it, each kernel against its
+               plain version on the card: `rglru_scan` bitwise at (2,
+               4096, 4096) from h0 != 0; `flash_attention`'s C shape
+               formulas against their Python mirrors, then the kernel at
+               the path's shape in bfloat16 (5e-2 and rtol 1e-2 / atol
+               4e-3) and float32 (2e-5), and at the edges: ragged S at
+               B = 2 (1000 and 4097), windows 0, 1 and 64, not causal,
+               GQA groups 8, 2 and 3, MHA, hd 64 and 128.  After it, at
+               full width with the depth cut
                to one (r, r, l) cycle in float32: prefill logits on the
                card against the port's CPU run on the same weights (1e-4),
                and prefill of S = 2100 against prefill of S - 1 plus one
@@ -84,7 +89,8 @@ Phases (each fails loudly; nothing is caught):
                `observe_many`'s split (kernel, copies, host) and the host
                numpy fold at the same size.  For `flash_attention` also
                `library_ms`: one SDPA call over the same band as a boolean
-               mask (kv heads expanded before it, untimed).  `tol_ratio` is
+               mask (kv heads expanded before it, untimed), and the
+               achieved TFLOP/s of `ms` and `warm_ms`.  `tol_ratio` is
                the worst |got - want| / (atol + rtol * |want|) over all
                outputs: at most 1 is within the stated tolerance.
 
@@ -144,6 +150,9 @@ LM_BATCH, LM_PROMPT, LM_GEN = 2, 4096, 16   # the prompt passes the 2048
 LM_SEED, LM_CUT_SEED = 0, 1
 LM_CUT_S = 2100                  # the full-width, cut-depth checks' length
 LM_PROFILE_STEPS = 4
+# the serve path's prefill and peak memory with the earlier mma.sync
+# flash_attention kernel (PERF.md section 5), printed beside this run's
+LM_MMA_PREFILL_S, LM_MMA_PEAK_GB = 0.568, 18.68
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)      # tests/test_kernels.py:31-41
 # The bf16 kernel's own limit, set from its error: one bf16 ulp is at most
 # 0.78 % of |want| (rtol), and P rounded to bf16 before P.V moves rows of
@@ -317,7 +326,8 @@ def phase_build() -> None:
     for path in paths:
         with open(path + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if ("entry function" in line or "registers" in line
+                        or "spill" in line):
                     print(f"[build] {line.strip()}")
 
 
@@ -1391,6 +1401,38 @@ def tol_check(got, want, tol) -> tuple:
             float((diff / (tol["atol"] + tol["rtol"] * w.abs())).max()))
 
 
+def flash_mirrors() -> None:
+    """The bf16 flash kernel's shape arithmetic in C against its Python
+    mirrors, which the CPU tests hold against ref.band_mask: shared memory
+    and stages per head dim, and the kind of every tile of the walk."""
+    from repro_torch.kernels import flash_attention as flash
+    lib = flash._lib()
+    smem = {}
+    for hd in flash.HEAD_DIMS:
+        st = flash.flash_stages(hd)
+        smem[hd] = flash.flash_smem_bytes(hd, st)
+        check(lib.lotaru_flash_stages(hd) == st
+              and lib.lotaru_flash_smem_bytes(hd, st) == smem[hd],
+              f"flash_smem_bytes or flash_stages differ from C at hd={hd}")
+    n = 0
+    for sq, skv in ((1, 1), (64, 64), (130, 130), (200, 200), (1000, 1000),
+                    (130, 200), (200, 130)):
+        for causal in (True, False):
+            for window in (0, 1, 63, 64, 65, 2048):
+                for consumers in (1, 2):
+                    for q_lo, q_hi, j0, kind in flash.flash_tile_plan(
+                            sq, skv, causal, window, consumers=consumers):
+                        got = lib.lotaru_flash_tile_kind(
+                            q_lo, q_hi, j0, skv, int(causal), window)
+                        check(flash.TILE_KINDS[got] == kind,
+                              f"tile_kind {got} != {kind} at {(sq, skv)} "
+                              f"rows {q_lo}-{q_hi} j0 {j0}")
+                        n += 1
+    print(f"[kernels] flash_attention: flash_smem_bytes {smem} and "
+          f"flash_stages equal to the C formulas; tile_kind equal to "
+          f"flash_tile_kind on {n} tiles")
+
+
 def attention_inputs(gen, b, s, h, kh, hd, dtype, dev, v_mean=0.0):
     """q, k, v from N(0, 1), v shifted by `v_mean` (1 makes every output
     O(1), where a zero-mean v averages to about 0.03 over 2048 keys)."""
@@ -1425,29 +1467,55 @@ def phase_lm_kernels(dev) -> dict:
     out = {"rglru_scan": (err, 0.0)}
     del a, gx, h0, got, want
 
+    flash_mirrors()
     h, kh, hd, win = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                       cfg.window)
     bf16, f32 = torch.bfloat16, torch.float32
-    for label, b, s, k_h, w, dt, v_mean in (
-            ("path", LM_BATCH, LM_PROMPT, kh, win, bf16, 0.0),
-            ("path, v mean 1", LM_BATCH, LM_PROMPT, kh, win, bf16, 1.0),
-            ("path", LM_BATCH, LM_PROMPT, kh, win, f32, 0.0),
-            ("ragged S", LM_BATCH, 1000, kh, win, bf16, 0.0),
-            ("window 0", 1, 1000, kh, 0, f32, 0.0),
-            ("GQA K=2", LM_BATCH, 1000, 2, 100, bf16, 0.0)):
-        q, k, v = attention_inputs(gen, b, s, h, k_h, hd, dt, dev, v_mean)
-        got = flash.flash_attention(q, k, v, causal=True, window=w)
-        want = ref.attention_ref(q, k, v, causal=True, window=w)
+    # (label, B, S, H, K, hd, window, causal, dtype, v mean): the serve
+    # path's shape, then the edges the path does not reach.  Every bf16 case
+    # is held at both limits; ragged S at B = 2 shows that no tile reads
+    # across batches (the maps zero-fill past S within a batch).
+    cases = (
+        ("path", LM_BATCH, LM_PROMPT, h, kh, hd, win, True, bf16, 0.0),
+        ("path, v mean 1", LM_BATCH, LM_PROMPT, h, kh, hd, win, True, bf16,
+         1.0),
+        ("path", LM_BATCH, LM_PROMPT, h, kh, hd, win, True, f32, 0.0),
+        ("ragged S", LM_BATCH, 1000, h, kh, hd, win, True, bf16, 0.0),
+        ("ragged S", LM_BATCH, LM_PROMPT + 1, h, kh, hd, win, True, bf16,
+         1.0),
+        ("window 0", 1, 1000, h, kh, hd, 0, True, f32, 0.0),
+        ("window 0", 1, 1000, h, kh, hd, 0, True, bf16, 0.0),
+        ("window 1", LM_BATCH, 1000, h, kh, hd, 1, True, bf16, 1.0),
+        ("window 64", LM_BATCH, 1000, h, kh, hd, 64, True, bf16, 0.0),
+        ("not causal", LM_BATCH, 1000, h, kh, hd, 0, False, bf16, 0.0),
+        ("not causal, window 64", 1, 1000, h, kh, hd, 64, False, bf16, 0.0),
+        ("GQA K=2", LM_BATCH, 1000, h, 2, hd, 100, True, bf16, 0.0),
+        ("GQA group 2", LM_BATCH, 1000, h, 8, hd, 100, True, bf16, 0.0),
+        ("GQA group 3", LM_BATCH, 1000, 12, 4, hd, 100, True, bf16, 0.0),
+        ("MHA K=16", LM_BATCH, 1000, h, h, hd, win, True, bf16, 0.0),
+        ("MHA K=16, window 1", LM_BATCH, 1000, h, h, hd, 1, True, bf16,
+         1.0),
+        ("hd 64", LM_BATCH, 1000, h, kh, 64, 100, True, bf16, 0.0),
+        ("hd 64, GQA group 3", LM_BATCH, 1000, 12, 4, 64, 64, True, bf16,
+         1.0),
+        ("hd 128", LM_BATCH, 1000, h, kh, 128, 100, True, bf16, 0.0),
+        ("hd 128, MHA, not causal", LM_BATCH, 1000, h, h, 128, 0, False,
+         bf16, 0.0))
+    for label, b, s, n_h, k_h, d, w, causal, dt, v_mean in cases:
+        q, k, v = attention_inputs(gen, b, s, n_h, k_h, d, dt, dev, v_mean)
+        got = flash.flash_attention(q, k, v, causal=causal, window=w)
+        want = ref.attention_ref(q, k, v, causal=causal, window=w)
         torch.cuda.synchronize()
         check(got.dtype == dt, "flash_attention output dtype")
+        route = flash.flash_route(dt, n_h, k_h)
         tols = (F32_TOL,) if dt == f32 else (BF16_TOL, BF16_KERNEL_TOL)
         for tol in tols:
             err, ratio = tol_check(got, want, tol)
-            print(f"[kernels] flash_attention {label} B={b} S={s} H={h} "
-                  f"K={k_h} hd={hd} window={w} {str(dt)[6:]}: vs plain (on "
-                  f"the card) within {tol['rtol']}/{tol['atol']} "
-                  f"{ratio <= 1.0}, max |err| {err!r}, |err| / (atol + "
-                  f"rtol |want|) {ratio!r}")
+            print(f"[kernels] flash_attention {label} B={b} S={s} H={n_h} "
+                  f"K={k_h} hd={d} window={w} causal={causal} "
+                  f"{str(dt)[6:]}, {route} route: vs plain (on the card) "
+                  f"within {tol['rtol']}/{tol['atol']} {ratio <= 1.0}, max "
+                  f"|err| {err!r}, |err| / (atol + rtol |want|) {ratio!r}")
             check(ratio <= 1.0, f"flash_attention ({label}, {dt}) outside "
                   f"{tol} of its plain version")
         if label == "path" and dt == bf16:
@@ -1463,6 +1531,7 @@ def phase_lm_kernels(dev) -> dict:
                   f"at 1e-2/4e-3")
             check(ratios[1] > 1.0, "the bf16 limit does not see a band one "
                   "key too wide")
+        del q, k, v, got, want
     return out
 
 
@@ -1497,6 +1566,9 @@ def phase_lm(dev) -> None:
           f"{float(dec.max())!r}, first {float(dec[0])!r}), "
           f"{LM_BATCH * 1e3 / med!r} tokens/s; the serve call {total!r} s "
           f"with making the weights; max_memory_allocated {peak} bytes")
+    print(f"[lm] prefill {out.prefill_s!r} s and peak {peak / 1e9!r} GB "
+          f"beside {LM_MMA_PREFILL_S} s and {LM_MMA_PEAK_GB} GB with the "
+          f"earlier mma.sync flash_attention (PERF.md)")
     print(f"[lm] lotaru next-token prediction {mean * 1e3!r} ms +- "
           f"{std * 1e3!r} ms (steps measured, ms: "
           f"{[round(float(x), 3) for x in dec]})")
@@ -1614,15 +1686,20 @@ def lm_profile(dev) -> None:
         window(f"{LM_PROFILE_STEPS} decode steps", steps)
 
 
-def bounds_flash(b, s, h, kh, hd, window, itemsize) -> tuple:
-    """Least time for one attention: the operations of the visible band
-    (4 hd per (query, key) pair: q.k and p.v, a multiply and an add each)
-    at the bfloat16 tensor-core rate, or q, k, v read and the output
-    written once."""
+def flops_flash(b, s, h, hd, window) -> int:
+    """Operations of one causal attention over the visible band: 4 hd per
+    (query, key) pair (q.k and p.v, a multiply and an add each)."""
     i = np.arange(s)
     pairs = int(np.minimum(i + 1, window).sum() if window > 0
                 else (i + 1).sum())
-    t_ops = 4 * hd * pairs * b * h / H100_BF16_FLOPS * 1e3
+    return 4 * hd * pairs * b * h
+
+
+def bounds_flash(b, s, h, kh, hd, window, itemsize) -> tuple:
+    """Least time for one attention: the operations of the visible band
+    at the bfloat16 tensor-core rate, or q, k, v read and the output
+    written once."""
+    t_ops = flops_flash(b, s, h, hd, window) / H100_BF16_FLOPS * 1e3
     t_bytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * itemsize \
         / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
@@ -1672,6 +1749,10 @@ def report_lm(dev, launches, errors) -> list:
                   - flash.flash_attention(q, k, v, causal=True,
                                           window=w).float()).abs().max())
     fa["bound_ms"], fa["bound_by"] = bounds_flash(b, s, h, kh, hd, w, 2)
+    fa["tflops"] = flops_flash(b, s, h, hd, w) / (fa["ms"] * 1e-3) / 1e12
+    fa["warm_tflops"] = (flops_flash(b, s, h, hd, w) / (fa["warm_ms"] * 1e-3)
+                         / 1e12)
+    fa["kernel_route"] = flash.flash_route(q.dtype, h, kh)
     print(f"[report] flash_attention B={b} S={s} H={h} K={kh} hd={hd} "
           f"window={w} bfloat16: {fa}; SDPA on the same band differs from "
           f"it by at most {diff!r}")
@@ -1753,6 +1834,7 @@ def main() -> None:
             fn.launches = 0
         plane.eft_sweep.launches_by_route = dict.fromkeys(plane.SWEEP_ROUTES,
                                                           0)
+        flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
         out = path()
         got = {name: fn.launches for name, fn in counted}
         for name, n in got.items():
@@ -1789,6 +1871,11 @@ def main() -> None:
           and got["rglru_scan"] == kinds.count("rglru"),
           "the serve path did not launch flash_attention once per local "
           "attention layer and rglru_scan once per RG-LRU layer")
+    routes = flash.flash_attention.route_launches
+    print(f"[launches] lm flash_attention by route: {routes}")
+    check(routes["wgmma_heads"] == got["flash_attention"],
+          "the serve path's flash_attention launches did not all take the "
+          "wgmma kernel's heads pairing")
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}")
     for name, n in launches.items():

@@ -255,6 +255,19 @@ def cost_view(service, dag: WorkflowDAG, nodes: List[NodeSpec],
         torch.from_numpy(np.ascontiguousarray(f, np.float64)).to(dev), z)
 
 
+def _check_finite(ctx: _PlanContext, W: np.ndarray) -> None:
+    """Refuse a cost matrix with a NaN or infinite cell.  The engines are
+    bitwise `heft_schedule_matrix` only for finite costs: on a NaN row
+    the reference HEFT, the numpy engine and the sweep each start the task
+    at a different time."""
+    bad = np.argwhere(~np.isfinite(W))
+    if bad.size:
+        i, j = (int(x) for x in bad[0])
+        raise ValueError(f"cost W[{i}, {j}] (task {ctx.order[i]!r} on node "
+                         f"{ctx.names[j]!r}) is {float(W[i, j])!r}: HEFT "
+                         f"placement needs finite costs")
+
+
 def fused_heft_schedule(dag: WorkflowDAG, nodes: List[NodeSpec],
                         matrix: Optional[PredictionMatrix],
                         ready_at=None,
@@ -273,7 +286,9 @@ def fused_heft_schedule(dag: WorkflowDAG, nodes: List[NodeSpec],
     = one `eft_sweep` launch on `device` ("cuda" by default; "cpu" runs
     its plain version); 'auto' picks by problem size.  `W` overrides the
     cost matrix (topo-row order, a numpy array or a tensor such as
-    `cost_view`'s), and then `matrix` may be None."""
+    `cost_view`'s), and then `matrix` may be None.  A W with a NaN or
+    infinite cell raises ValueError, on either engine, before the ranks
+    and before any launch."""
     ctx = _context(dag, nodes, rank_cache)
     if W is None:
         if matrix is None:
@@ -281,6 +296,7 @@ def fused_heft_schedule(dag: WorkflowDAG, nodes: List[NodeSpec],
         W = matrix.costs(ctx.order, ctx.names, quantile=quantile)  # (T, N)
     W_host = (W.cpu().numpy() if isinstance(W, torch.Tensor)
               else np.asarray(W, np.float64))
+    _check_finite(ctx, W_host)
     rank = ctx.ranks(dag, W_host)
     if engine == "auto":
         engine = "device" if W_host.size >= _DEVICE_MIN_CELLS else "numpy"

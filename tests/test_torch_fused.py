@@ -304,3 +304,53 @@ def test_device_engine_defaults_to_the_card():
     with pytest.raises(ValueError, match="engine"):
         tfused.fused_heft_schedule(tdag, tnodes, None, W=W, engine="jit",
                                    device="cpu")
+
+
+# --- non-finite costs are refused -------------------------------------------
+
+def _sink_row(dag):
+    """The topo row of the first task no other task depends on."""
+    used = {d for t in dag.tasks.values() for d in t.deps}
+    return next(i for i, u in enumerate(dag.topo_order()) if u not in used)
+
+
+@pytest.mark.parametrize("engine,bad,as_tensor", [
+    ("numpy", float("nan"), False),
+    ("device", float("nan"), True),
+    ("numpy", float("inf"), True),
+    ("device", float("inf"), False),
+])
+def test_non_finite_costs_are_refused(monkeypatch, engine, bad, as_tensor):
+    """A NaN or +inf cost row, on which the reference HEFT and each engine
+    would start the task at a different time, raises a ValueError that
+    names the first bad (task, node) before the ranks and any launch."""
+    _, (tdag, tnodes, tsvc) = _pair(23, 6, 2)
+    W = tfused.cost_view(tsvc, tdag, tnodes).clone()
+    i = _sink_row(tdag)
+    W[i, 2:] = bad
+    calls = []
+    monkeypatch.setattr(tfused._PlanContext, "ranks",
+                        lambda *a: calls.append("ranks"))
+    monkeypatch.setattr(tfused, "_schedule_device",
+                        lambda *a: calls.append("device"))
+    monkeypatch.setattr(tfused, "_schedule_numpy",
+                        lambda *a: calls.append("numpy"))
+    u, node = tdag.topo_order()[i], tnodes[2].name
+    with pytest.raises(ValueError, match=rf"W\[{i}, 2\] \(task '{u}' on "
+                       rf"node '{node}'\) is {bad!r}"):
+        tfused.fused_heft_schedule(tdag, tnodes, None,
+                                   W=W if as_tensor else W.numpy(),
+                                   engine=engine, device="cpu")
+    assert calls == []
+
+
+def test_finite_costs_still_schedule_as_the_reference():
+    """The check passes finite W through untouched: the same round as
+    above, unmodified, is identical to heft_schedule_matrix on both
+    engines."""
+    (jdag, jnodes, jsvc), (tdag, tnodes, tsvc) = _pair(23, 6, 2)
+    want = jheft(jdag, jnodes, _jmatrix(jdag, jnodes, jsvc))
+    W = tfused.cost_view(tsvc, tdag, tnodes)
+    for engine in ("numpy", "device"):
+        _same_schedule(tfused.fused_heft_schedule(
+            tdag, tnodes, None, W=W, engine=engine, device="cpu"), want)

@@ -301,3 +301,85 @@ def test_library_path_tracks_sources_and_flags(monkeypatch, tmp_path):
         f.write("\n")
     assert _build.library_path("rglru_scan") != before["rglru_scan"]
     assert _build.library_path("flash_attention") == before["flash_attention"]
+
+
+# --- the bf16 kernel's shape arithmetic (no CUDA library is built) ----------
+
+H100_SMEM_OPTIN = 232448        # cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+
+# flash_smem_bytes in csrc/flash_attention.cu:
+#   (2 + 2 * stages) * 64 * hd * 2 + 1024 + 128
+@pytest.mark.parametrize("hd,stages,want", [
+    (64, 4, 83072), (128, 4, 164992), (256, 2, 197760)])
+def test_flash_smem_bytes_fits_and_equals_the_c_formula(hd, stages, want):
+    assert tflash.flash_stages(hd) == stages
+    assert tflash.flash_smem_bytes(hd, stages) == want
+    assert want <= H100_SMEM_OPTIN
+    # one more stage at hd = 256 would not fit
+    if hd == 256:
+        assert tflash.flash_smem_bytes(hd, stages + 1) > H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("dtype,h,kh,route", [
+    (torch.bfloat16, 16, 1, "wgmma_heads"),    # RecurrentGemma-9B: MQA
+    (torch.bfloat16, 16, 2, "wgmma_heads"),    # GQA, group 8
+    (torch.bfloat16, 16, 8, "wgmma_heads"),    # GQA, group 2
+    (torch.bfloat16, 16, 16, "wgmma_tiles"),   # MHA
+    (torch.bfloat16, 6, 2, "wgmma_tiles"),     # GQA, group 3
+    (torch.bfloat16, 12, 4, "wgmma_tiles"),
+    (torch.float32, 16, 1, "f32"),
+])
+def test_flash_route_by_shape(dtype, h, kh, route):
+    assert tflash.flash_route(dtype, h, kh) == route
+    assert route in tflash.ROUTES
+
+
+def _hidden_padded(sq, skv, causal, window, pad):
+    """ref.band_mask, with `pad` more key columns past skv, all hidden."""
+    from repro_torch.kernels import ref
+    vis = torch.zeros((sq, skv + pad), dtype=torch.bool)
+    vis[:, :skv] = ref.band_mask(sq, skv, causal, window)
+    return vis
+
+
+# windows about the tile (0, 1, 63, 64, 65) and ones wide enough for full
+# tiles that start off the 64-key grid, next to the diagonal (127, 128)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 64, 130, 200])
+@pytest.mark.parametrize("window", [0, 1, 63, 64, 65, 127, 128])
+def test_flash_tile_plan_against_band_mask(window, s, causal):
+    """A tile the plan calls full is all visible, one it skips all
+    hidden, a masked one mixed (keys past S hidden); the walked tiles of
+    each consumer cover every visible pair exactly once.  Both pairings:
+    one query tile a block (heads) and two (tiles)."""
+    bq = bk = 64
+    vis = _hidden_padded(s, s, causal, window, bk)
+    for consumers in (1, 2):
+        plan = tflash.flash_tile_plan(s, s, causal, window, bq, bk,
+                                      consumers)
+        seen = torch.zeros_like(vis, dtype=torch.int32)
+        for q_lo, q_hi, j0, kind in plan:
+            sub = vis[q_lo:q_hi, j0:j0 + bk]
+            assert sub.shape == (q_hi - q_lo, bk)
+            want = ("full" if bool(sub.all()) else
+                    "skip" if not bool(sub.any()) else "masked")
+            assert kind == want, (consumers, q_lo, j0)
+            if kind != "skip":
+                seen[q_lo:q_hi, j0:j0 + bk] += 1
+        assert bool((seen[vis] == 1).all())
+        assert int(seen.max()) <= 1
+
+
+# the new kernel's edge shapes: a group of 3 (the tiles pairing), a window
+# of exactly one tile and one key more, S off the tile, hd = 64
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("window", [64, 65])
+def test_attention_plain_edge_shapes_vs_ref(dtype, tol, window):
+    q, k, v = _qkv((1, 130, 6, 64), 2, dtype, seed=window)
+    got = _port_attention(q, k, v, dtype, window)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jref.attention_ref(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                              causal=True, window=window)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
