@@ -6,12 +6,18 @@ card, end to end, and hold every kernel against its plain version.
 
 Phases (each fails loudly; nothing is caught):
   1. build   — nvcc builds the hand-written kernels from the checkout, one
-               process per source, all started together.
+               process per source, all started together; ptxas' registers
+               and spills per kernel, and the fit kernel's route, grid,
+               dynamic shared memory and blocks an SM at N = 64, 37, 1024.
   2. kernels — `bayes_predict` at 2**20 random posteriors, bitwise against
                its plain version evaluated on the CPU in float64 (and against
                core.bayes.predict_blr_np); `bayes_fit` on 65,536 ragged
                buffers of 3-64 points, within rtol 5e-3 / atol 5e-4 of its
-               plain version (the batched fit_blr) on the CPU; `fused_cost`
+               plain version (the batched fit_blr) on the CPU, and so on
+               low-noise rows, T = 1037, N = 37, N = 1024 (rows staged a
+               chunk at a time), one-point and fully masked rows and
+               operands off a 16-byte boundary, each line with its
+               tol_ratio and the kernel's route and launch shape; `fused_cost`
                at 1000 x 100 random posteriors (with rows under the 1e-3
                mean floor and rows whose var_s is <= 0), z = 0 and
                z(0.95), bitwise against its plain version on the CPU.
@@ -90,7 +96,11 @@ Phases (each fails loudly; nothing is caught):
                numpy fold at the same size.  For `flash_attention` also
                `library_ms`: one SDPA call over the same band as a boolean
                mask (kv heads expanded before it, untimed), and the
-               achieved TFLOP/s of `ms` and `warm_ms`.  `tol_ratio` is
+               achieved TFLOP/s of `ms` and `warm_ms`.  For
+               `bayes_predict` also the times at Q = 1, at the paper path's
+               median Q, at 100,000 and at 2**20, the launch floor (the
+               time at 100,000 less the slope to 2**20) and the main path's
+               launches by Q.  `tol_ratio` is
                the worst |got - want| / (atol + rtol * |want|) over all
                outputs: at most 1 is within the stated tolerance.
 
@@ -118,10 +128,8 @@ H100_FP64_FLOPS = 34e12          # non-tensor float64
 H100_CLOCK_HZ = 1.98e9           # SXM5 maximum boost clock
 
 FIT_TOL = dict(rtol=5e-3, atol=5e-4)
-# cuSOLVER's batched eigvalsh (inside the plain fit) refuses a batch of
-# 32,768 or more on an H100 (CUSOLVER_STATUS_INVALID_VALUE); 16,384 runs
-PLAIN_FIT_CHUNK = 16384
 N_FLEET = 65536
+FLEET_COLS = 64                  # pad_ragged's bucket of the fleet buffers
 N_TENANTS = 64
 Q_PREDICT_CHECK = 1 << 20
 MPE_REL_TOL = 1e-3
@@ -162,18 +170,6 @@ BF16_KERNEL_TOL = dict(rtol=1e-2, atol=4e-3)
 F32_TOL = dict(rtol=2e-5, atol=2e-5)       # tests/test_kernels.py:12-28
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_torch_lm.py
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_models_smoke.py:86
-
-
-def plain_fit_chunked(x, y, mask) -> dict:
-    """The plain batched fit over row slices of PLAIN_FIT_CHUNK tasks, so
-    that it runs on the card at the fleet's size."""
-    import torch
-    from repro_torch.kernels import ref
-    parts = [ref.bayes_fit_ref(x[i:i + PLAIN_FIT_CHUNK],
-                               y[i:i + PLAIN_FIT_CHUNK],
-                               mask[i:i + PLAIN_FIT_CHUNK])
-             for i in range(0, x.shape[0], PLAIN_FIT_CHUNK)]
-    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def fail(msg: str) -> None:
@@ -329,6 +325,11 @@ def phase_build() -> None:
                 if ("entry function" in line or "registers" in line
                         or "spill" in line):
                     print(f"[build] {line.strip()}")
+    from repro_torch.kernels import bayes_fit as kernels
+    for n in (FLEET_COLS, 37, 1024):
+        print(f"[build] bayes_fit_kernel at T={N_FLEET} N={n}: "
+              f"{kernels.fit_config(N_FLEET, n)} (smem_bytes: dynamic shared "
+              f"memory a block; ptxas reports no static shared memory)")
 
 
 def cost_inputs(rng: np.random.Generator, t: int, n: int):
@@ -339,6 +340,81 @@ def cost_inputs(rng: np.random.Generator, t: int, n: int):
     post["y_mu"][:q] = -rng.uniform(1e3, 1e4, q)
     post["sigma"][q:2 * q] = -np.abs(post["sigma"][q:2 * q]) - 5.0
     return x, post, rng.uniform(0.2, 5.0, (t, n))
+
+
+def fit_edge_cases(rng: np.random.Generator) -> dict:
+    """Direct-launch cases of the fit beside the fleet buffers: low-noise
+    rows (3-8 points, 1e-3 relative noise), T off any tile multiple,
+    N = 37 (T = 4097: the last tile's 37 floats an array are no 16-byte
+    multiple), rows of up to 1,024 points (staged a chunk at a time), and
+    one-point rows among fully masked ones."""
+    from repro_torch.kernels.bayes_fit import pad_ragged
+
+    def rows(lengths, noise):
+        base = rng.uniform(2.0, 30.0, len(lengths))
+        slope = rng.uniform(1.0, 60.0, len(lengths))
+        xs = [rng.uniform(0.05, 4.0, k) for k in lengths]
+        ys = [(b + s * x) * (1.0 + rng.normal(0.0, noise, len(x)))
+              for x, b, s in zip(xs, base, slope)]
+        return xs, ys
+
+    t = 4096
+    edge = rng.integers(0, 4, t)                  # 0: masked, 1: one point
+    edge = np.where(edge < 2, edge, rng.integers(2, 6, t))
+    return {
+        "low-noise": pad_ragged(*rows(rng.integers(3, 9, t), 1e-3)),
+        "T=1037": pad_ragged(*rows(rng.integers(3, 65, 1037), 0.05)),
+        "N=37": pad_ragged(*rows(rng.integers(1, 38, t + 1), 0.05),
+                           col_bucket=37),
+        "N=1024": pad_ragged(*rows(rng.integers(3, 1025, 512), 0.05),
+                             col_bucket=1024),
+        "one-point and masked": pad_ragged(*rows(edge, 0.05)),
+    }
+
+
+def fit_check(dev, label: str, xb, yb, mb, unaligned: bool = False
+              ) -> tuple:
+    """bayes_fit on (xb, yb, mb) against its plain version on the CPU, per
+    leaf within FIT_TOL; returns (max |err|, tol_ratio).  `unaligned`
+    places each operand 4 bytes past a 16-byte boundary (the cp.async
+    route at any N)."""
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import ref
+    t, n = xb.shape
+
+    def on_card(a):
+        if not unaligned:
+            return torch.from_numpy(a).to(dev)
+        buf = torch.empty(t * n + 1, dtype=torch.float32, device=dev)
+        return buf[1:].view(t, n).copy_(torch.from_numpy(a))
+
+    args = [on_card(a) for a in (xb, yb, mb)]
+    config = kernels.fit_config(t, n, *args)
+    got = kernels.bayes_fit(*args)
+    torch.cuda.synchronize()
+    got = {k: v.cpu() for k, v in got.items()}
+    want = ref.bayes_fit_ref(*(torch.from_numpy(a) for a in (xb, yb, mb)))
+    errs, ratios = {}, {}
+    for leaf, w in want.items():
+        g = got[leaf]
+        check(bool(torch.isfinite(g).all()),
+              f"bayes_fit {label}: {leaf} not finite")
+        diff = (g - w).abs()
+        errs[leaf] = float(diff.max())
+        ratios[leaf] = float((diff / (FIT_TOL["atol"]
+                                      + FIT_TOL["rtol"] * w.abs())).max())
+    ok = all(r <= 1.0 for r in ratios.values()) and all(
+        torch.allclose(got[leaf], w, **FIT_TOL) for leaf, w in want.items())
+    ratio = max(ratios.values())
+    print(f"[kernels] bayes_fit {label} (T={t} N={n}, "
+          f"{int((mb.sum(axis=1) == 0).sum())} fully masked rows, "
+          f"{config}) vs plain (CPU): within 5e-3/5e-4 "
+          f"{ok}, tol_ratio {ratio!r}, max |err| per leaf {errs}, "
+          f"tol_ratio per leaf {ratios}")
+    check(ok, f"bayes_fit {label} outside rtol 5e-3 / atol 5e-4 of its "
+              f"plain version")
+    return max(errs.values()), ratio
 
 
 def phase_kernels(dev, fleet) -> dict:
@@ -369,27 +445,16 @@ def phase_kernels(dev, fleet) -> dict:
     check(host, "bayes_predict differs from core.bayes.predict_blr_np")
     out["bayes_predict"] = (err, 0.0)
 
-    xb, yb, mb = fleet
-    got = kernels.bayes_fit(*(torch.from_numpy(a).to(dev)
-                              for a in (xb, yb, mb)))
-    torch.cuda.synchronize()
-    got = {k: v.cpu() for k, v in got.items()}
-    want = ref.bayes_fit_ref(*(torch.from_numpy(a) for a in (xb, yb, mb)))
-    errs, ratios = {}, {}
-    for leaf, w in want.items():
-        g = got[leaf]
-        check(bool(torch.isfinite(g).all()), f"bayes_fit {leaf} not finite")
-        diff = (g - w).abs()
-        errs[leaf] = float(diff.max())
-        ratios[leaf] = float((diff / (FIT_TOL["atol"]
-                                      + FIT_TOL["rtol"] * w.abs())).max())
-    ok = all(r <= 1.0 for r in ratios.values()) and all(
-        torch.allclose(got[leaf], w, **FIT_TOL) for leaf, w in want.items())
-    print(f"[kernels] bayes_fit T={xb.shape[0]} N={xb.shape[1]} vs plain "
-          f"(CPU): within 5e-3/5e-4 {ok}, max |err| per leaf {errs}, "
-          f"|err| / (atol + rtol |want|) per leaf {ratios}")
-    check(ok, "bayes_fit outside rtol 5e-3 / atol 5e-4 of its plain version")
-    out["bayes_fit"] = (max(errs.values()), max(ratios.values()))
+    cases = {"fleet": fleet}
+    cases.update(fit_edge_cases(np.random.default_rng(17)))
+    worst = (0.0, 0.0)
+    for label, bufs in cases.items():
+        err, ratio = fit_check(dev, label, *bufs)
+        worst = (max(worst[0], err), max(worst[1], ratio))
+    err, ratio = fit_check(dev, "T=1037 unaligned", *cases["T=1037"],
+                           unaligned=True)
+    worst = (max(worst[0], err), max(worst[1], ratio))
+    out["bayes_fit"] = worst
 
     from repro_torch.kernels import decision_plane as plane
     from repro_torch.sched.plane import quantile_z
@@ -1265,6 +1330,21 @@ def time_plane(dev, sweep_args) -> dict:
     return out
 
 
+def median_q(tally: dict) -> float:
+    """The median Q of a {Q: launches} tally, each launch counted."""
+    return float(np.median(np.repeat(list(tally), list(tally.values()))))
+
+
+def q_buckets(tally: dict) -> dict:
+    """Launches by Q (a {Q: launches} tally) in decades of Q."""
+    out = {}
+    for q, n in sorted(tally.items()):
+        lo = 10 ** (len(str(q)) - 1)
+        key = "1" if q == 1 else f"{max(lo, 2)}-{10 * lo - 1}"
+        out[key] = out.get(key, 0) + n
+    return out
+
+
 def time_predict(x, post) -> dict:
     import torch
     from repro_torch.kernels import bayes_fit as kernels
@@ -1281,9 +1361,10 @@ def time_predict(x, post) -> dict:
 
 
 def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
-                 fold) -> list:
+                 fold, predict_q) -> list:
     import torch
     from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import ref
     from repro_torch.store import TaskKey
     svc = fleet_out["replan_service"]
     queries = fleet_out["replan_queries"]
@@ -1296,30 +1377,46 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
     q = x.shape[0]
     pt = time_predict(x, pc)
     p_bound, p_by = bounds_predict(q)
+    q_paper = int(median_q(predict_q["paper"]))
 
-    xb, post_big = random_posteriors(np.random.default_rng(11),
-                                     Q_PREDICT_CHECK)
-    big = time_predict(torch.from_numpy(xb).to(dev),
-                       {k: torch.from_numpy(v).to(dev)
-                        for k, v in post_big.items()})
-    big_bound, _ = bounds_predict(Q_PREDICT_CHECK)
     print(f"[report] bayes_predict Q={q}: {pt} bound {p_bound!r} ms")
-    print(f"[report] bayes_predict Q={Q_PREDICT_CHECK}: {big} bound "
-          f"{big_bound!r} ms")
-
+    by_q = {q: dict(pt, bound_ms=p_bound)}
+    for qq, seed in ((1, 21), (q_paper, 22), (Q_PREDICT_CHECK, 11)):
+        xq, post_q = random_posteriors(np.random.default_rng(seed), qq)
+        tq = time_predict(torch.from_numpy(xq).to(dev),
+                          {k: torch.from_numpy(v).to(dev)
+                           for k, v in post_q.items()})
+        by_q[qq] = dict(tq, bound_ms=bounds_predict(qq)[0])
+        print(f"[report] bayes_predict Q={qq}: {tq} bound "
+              f"{by_q[qq]['bound_ms']!r} ms")
+    big = by_q[Q_PREDICT_CHECK]
+    slope = (big["ms"] - pt["ms"]) / (Q_PREDICT_CHECK - q)   # ms a query
+    floor = pt["ms"] - slope * q
+    print(f"[report] bayes_predict launch floor: {floor!r} ms (Q={q} less "
+          f"the slope to Q={Q_PREDICT_CHECK}); the body streams "
+          f"{112 / (slope * 1e-3) / 1e12!r} TB/s "
+          f"({112 / (slope * 1e-3) / H100_BYTES_PER_S!r} of the peak); at "
+          f"Q={Q_PREDICT_CHECK} the kernel reaches "
+          f"{big['bound_ms'] / big['ms']!r} of its bound; Q=1 takes "
+          f"{by_q[1]['ms']!r} ms")
     fx, fy, fm = (torch.from_numpy(a).to(dev) for a in fleet)
     t, n = fx.shape
     fout = [torch.empty(t, k, device=dev) for k in (2, 4, 1, 1, 1, 1, 1, 1,
                                                     1)]
     launch = raw_launch("bayes_fit", [fx, fy, fm, t, n] + fout)
     f_ms, f_warm = time_ms(launch), warm_ms(launch)
+    # the same buffers 4 bytes past a 16-byte boundary: the cp_async route
+    off = [torch.empty(t * n + 1, device=dev)[1:].view(t, n).copy_(a)
+           for a in (fx, fy, fm)]
+    f_cp = time_ms(raw_launch("bayes_fit", off + [t, n] + fout))
     f_wrapper = time_ms(lambda: kernels.bayes_fit(fx, fy, fm), host=True)
-    f_plain = time_ms(lambda: plain_fit_chunked(fx, fy, fm), reps=3,
+    f_plain = time_ms(lambda: ref.bayes_fit_ref(fx, fy, fm), reps=3,
                       host=True)
     f_bound, f_by = bounds_fit(fleet[2])
     print(f"[report] bayes_fit T={t} N={n}: ms {f_ms!r}, warm_ms "
           f"{f_warm!r}, wrapper_ms {f_wrapper!r}, plain_ms {f_plain!r}, "
-          f"bound {f_bound!r} ms")
+          f"bound {f_bound!r} ms; cp_async route (operands off a 16-byte "
+          f"boundary) ms {f_cp!r}")
     from repro_torch.kernels import decision_plane as plane
     pl = time_plane(dev, plan_args)
     c_bound, c_by = bounds_cost(PLAN_TASKS, PLAN_NODES, True)
@@ -1351,7 +1448,10 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
          "tol_ratio": errors["bayes_predict"][1], "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": p_bound, "bound_by": p_by,
          "library_ms": None, "warm_ms": pt["warm_ms"],
-         "wrapper_ms": pt["wrapper_ms"], "shape": f"Q={q}"},
+         "wrapper_ms": pt["wrapper_ms"], "shape": f"Q={q}",
+         "floor_ms": floor, "by_q": by_q,
+         "launches_by_q": {path: q_buckets(t)
+                           for path, t in predict_q.items()}},
         {"name": "fused_cost", "route": "cuda", "source": dsrc,
          "replaces": "src/repro/kernels/decision_plane.py:111",
          "launches": launches["fused_cost"],
@@ -1805,6 +1905,7 @@ def main() -> None:
     from repro_torch.kernels import bayes_fit as kernels
     from repro_torch.kernels import decision_plane as plane
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as scan
     from repro_torch.kernels.bayes_fit import pad_ragged
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain fit's Gram
@@ -1826,16 +1927,33 @@ def main() -> None:
                ("rglru_scan", scan.rglru_scan))
     launches = dict.fromkeys((name for name, _ in counted), 0)
     sweep_routes = dict.fromkeys(plane.SWEEP_ROUTES, 0)
+    predict_q = {}                   # path -> {Q: bayes_predict launches}
+    dispatch_predict = ops.bayes_predict
 
-    def drive(path):
+    def drive(path, label):
         """Run one main path with every count set to 0 just before it and
-        read just after it."""
+        read just after it; its bayes_predict launches are tallied by Q
+        (at kernels.ops, through which the store's predictive reaches the
+        kernel)."""
+        tally = predict_q.setdefault(label, {})
+
+        def tallied(x, post):
+            before = kernels.bayes_predict.launches
+            out = dispatch_predict(x, post)
+            if kernels.bayes_predict.launches > before:
+                tally[x.shape[0]] = tally.get(x.shape[0], 0) + 1
+            return out
+
         for _, fn in counted:
             fn.launches = 0
         plane.eft_sweep.launches_by_route = dict.fromkeys(plane.SWEEP_ROUTES,
                                                           0)
         flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
-        out = path()
+        ops.bayes_predict = tallied
+        try:
+            out = path()
+        finally:
+            ops.bayes_predict = dispatch_predict
         got = {name: fn.launches for name, fn in counted}
         for name, n in got.items():
             launches[name] += n
@@ -1849,22 +1967,26 @@ def main() -> None:
         check(routes["global"] == 0 and routes["shared"] > 0,
               f"the {label} path's sweeps did not all take the shared route")
 
-    (_, fleet_out), got = drive(lambda: (phase_paper(dev),
-                                         phase_fleet(dev, fleet)))
-    print(f"[launches] paper + fleet: {got}")
-    plan, got = drive(lambda: phase_plan(dev, fleet_out))
+    _, got = drive(lambda: phase_paper(dev), "paper")
+    print(f"[launches] paper: {got}")
+    check(got["bayes_fit"] == 0, "the paper path launched bayes_fit")
+    fleet_out, got = drive(lambda: phase_fleet(dev, fleet), "fleet")
+    print(f"[launches] fleet: {got}")
+    check(got["bayes_fit"] == 1,
+          "the fleet refit did not make exactly one bayes_fit launch")
+    plan, got = drive(lambda: phase_plan(dev, fleet_out), "plan")
     print(f"[launches] plan: {got}")
     check(got["fused_cost"] > 0 and got["eft_sweep"] > 0,
           "the plan path launched fused_cost or eft_sweep no time")
     on_shared_route("plan")
-    ingest, got = drive(lambda: phase_ingest(dev, fleet_out))
+    ingest, got = drive(lambda: phase_ingest(dev, fleet_out), "ingest")
     print(f"[launches] ingest: {got}")
     check(all(got[k] > 0 for k in ("nig_fold", "bayes_predict",
                                    "fused_cost", "eft_sweep")),
           "the ingest path launched nig_fold, bayes_predict, fused_cost "
           "or eft_sweep no time")
     on_shared_route("ingest")
-    _, got = drive(lambda: phase_lm(dev))
+    _, got = drive(lambda: phase_lm(dev), "lm")
     print(f"[launches] lm: {got}")
     kinds = get_config(LM_ARCH).layer_kinds()
     check(got["flash_attention"] == kinds.count("local")
@@ -1878,6 +2000,10 @@ def main() -> None:
           "wgmma kernel's heads pairing")
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}")
+    for label, tally in predict_q.items():
+        print(f"[launches] {label} bayes_predict by Q: {q_buckets(tally)} "
+              f"(median Q {median_q(tally)!r})" if tally
+              else f"[launches] {label} bayes_predict: none")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -1888,7 +2014,7 @@ def main() -> None:
     lm_cut_checks(dev)
     lm_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
-                          pieces["args"], fold)
+                          pieces["args"], fold, predict_q)
     report += report_lm(dev, launches, errors)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

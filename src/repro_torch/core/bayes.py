@@ -29,6 +29,19 @@ import torch
 
 N_ITERS = 30
 EPS = 1e-9
+# cuSOLVER refuses a batched eigvalsh of 32,768 or more 2x2 matrices on an
+# H100 (CUSOLVER_STATUS_INVALID_VALUE); fit_blr_batch takes it in slices
+# of at most this many matrices, which each give what one call would
+EIGVALSH_SLICE = 16384
+
+
+def _eigvalsh(a: torch.Tensor) -> torch.Tensor:
+    """torch.linalg.eigvalsh over a (T, 2, 2) batch, EIGVALSH_SLICE
+    matrices a call."""
+    if a.shape[0] <= EIGVALSH_SLICE:
+        return torch.linalg.eigvalsh(a)
+    return torch.cat([torch.linalg.eigvalsh(a[i:i + EIGVALSH_SLICE])
+                      for i in range(0, a.shape[0], EIGVALSH_SLICE)])
 
 
 def fit_blr_batch(x: torch.Tensor, y: torch.Tensor,
@@ -69,7 +82,7 @@ def fit_blr_batch(x: torch.Tensor, y: torch.Tensor,
     for _ in range(N_ITERS):
         sigma, mu = posterior(alpha, beta)
         # effective number of well-determined parameters
-        lam = torch.linalg.eigvalsh(beta[:, None, None] * gram)
+        lam = _eigvalsh(beta[:, None, None] * gram)
         gamma = (lam / (alpha[:, None] + lam)).sum(-1)
         resid = ((ys - (phi @ mu[..., None])[..., 0]) ** 2 * m).sum(-1)
         alpha = gamma / torch.clamp_min((mu * mu).sum(-1), EPS)

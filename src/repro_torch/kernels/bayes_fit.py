@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check, cuda_device, raise_on
 
 _P = ctypes.c_void_p
+_IP = ctypes.POINTER(ctypes.c_int)
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,6 +37,9 @@ def _lib() -> ctypes.CDLL:
     lib.lotaru_bayes_fit.argtypes = ([_P] * 3 + [ctypes.c_int] * 2
                                      + [_P] * 9 + [_P])
     lib.lotaru_bayes_fit.restype = ctypes.c_int
+    lib.lotaru_bayes_fit_config.argtypes = ([_P] * 3 + [ctypes.c_int] * 2
+                                            + [_IP] * 5)
+    lib.lotaru_bayes_fit_config.restype = ctypes.c_int
     lib.lotaru_nig_fold.argtypes = ([_P] * 3
                                     + [ctypes.c_longlong, ctypes.c_int]
                                     + [_P] * 8 + [_P])
@@ -45,9 +49,10 @@ def _lib() -> ctypes.CDLL:
 
 def bayes_fit(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> dict:
     """x, y, mask: (T, N) float32 CUDA tensors -> posterior dict matching
-    core.bayes.fit_blr (leaves stacked over T).  Any T: the kernel takes
-    one warp per task and guards the tail itself, so no padding rows are
-    added."""
+    core.bayes.fit_blr (leaves stacked over T).  Any T and N: the kernel
+    takes one lane a task, guards the tail of T itself and stages rows
+    longer than its shared-memory chunk a chunk at a time, so nothing is
+    padded."""
     dev = cuda_device(x, "x")
     if x.dim() != 2:
         raise ValueError(f"x must be (T, N), got shape {tuple(x.shape)}")
@@ -75,6 +80,27 @@ def bayes_fit(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> dict:
 
 
 bayes_fit.launches = 0
+
+
+def fit_config(t: int, n: int, x: Optional[torch.Tensor] = None,
+               y: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None) -> dict:
+    """The fit kernel's launch shape at (T, N) on the current card, as
+    `bayes_fit` launches it for these operands (default: operands aligned
+    as torch allocates them): its route ("bulk": a tile's rows in one bulk
+    copy an array, for N <= 64 and 16-byte aligned operands; "cp_async":
+    4-byte copies from every lane, a 64-column chunk at a time), blocks in
+    the grid, dynamic shared memory a block, blocks an SM and column
+    chunks a row."""
+    ptrs = [0 if a is None else a.data_ptr() for a in (x, y, mask)]
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    rc = _lib().lotaru_bayes_fit_config(*ptrs, t, n,
+                                        *(ctypes.byref(v) for v in vals))
+    raise_on(_lib(), rc, "bayes_fit_config")
+    route, *rest = (v.value for v in vals)
+    return dict(route="bulk" if route else "cp_async",
+                **dict(zip(("grid", "smem_bytes", "blocks_per_sm", "chunks"),
+                           rest)))
 
 
 def pad_ragged(xs, ys, min_cols: int = 2, col_bucket: int = 64):

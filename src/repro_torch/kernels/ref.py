@@ -17,8 +17,10 @@ def bayes_fit_ref(x: torch.Tensor, y: torch.Tensor,
                   mask: torch.Tensor) -> dict:
     """Batched MacKay evidence fit: the batched `fit_blr` of core.bayes.
     (T, N) float32 x, y, mask -> posterior dict with leaves stacked over T.
-    The CUDA kernel, with its closed-form 2x2 algebra and its own reduction
-    order, matches it at rtol 5e-3 / atol 5e-4."""
+    The CUDA kernel, with its closed-form 2x2 algebra, its residual taken
+    from float64 moments of the row and its own reduction order, matches
+    it at rtol 5e-3 / atol 5e-4 (tests/test_torch_fit_design.py rehearses
+    that arithmetic on the CPU)."""
     return fit_blr_batch(x, y, mask)
 
 

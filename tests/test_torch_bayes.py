@@ -120,3 +120,16 @@ def test_pearson_gate_matches_reference(seed):
         float(jcorr.masked_median(jnp.asarray(y), jnp.asarray(mask))))
     assert float(tcorr.masked_median(y)) == pytest.approx(
         float(jcorr.masked_median(jnp.asarray(y))))
+
+
+def test_fit_blr_batch_eigvalsh_slices_bitwise(monkeypatch):
+    """A batch over EIGVALSH_SLICE (the slice size cuSOLVER takes on an
+    H100, lowered here to keep the test small) fits bitwise what one
+    unsliced eigvalsh gives."""
+    x, y, m = _tasks(11, t=45)
+    args = [torch.from_numpy(a) for a in (x, y, m)]
+    whole = tbayes.fit_blr_batch(*args)
+    monkeypatch.setattr(tbayes, "EIGVALSH_SLICE", 8)
+    sliced = tbayes.fit_blr_batch(*args)
+    for leaf, v in whole.items():
+        assert torch.equal(sliced[leaf], v), leaf
