@@ -60,7 +60,31 @@ Phases (each fails loudly; nothing is caught):
                state must equal the CPU numpy fold's, and `nig_fold` on
                the fold's operands must be bitwise its plain version on
                the CPU.
-  7. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
+  7. plane   — the resident decision plane on the card: the replan
+               problem's predictor wrapped in `OnlinePredictor(device=
+               "cuda")`, a `FusedPlane` over it, and rounds of
+               `plane.schedule(engine="device")` at q = 0.95: cold, warm
+               with nothing moved (no predictive launch, no factor matrix,
+               no new W), then one after each of phase 6's ingest batches
+               (one `bayes_predict` launch over the dirty rows, one
+               `eft_sweep`).  Each round's matrix bitwise
+               `PredictionMatrix.from_service` on a fresh service, each
+               schedule identical to `heft_schedule_matrix`.  Each round's
+               split (sync and gather, predict, scale and cost, ranks,
+               sweep, rebuild) from a replay on a second plane, in turns
+               with the old `cost_view` + `fused_heft_schedule` round on
+               the same state.
+  8. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
+               tenants of 1,024 tasks, each an `OnlinePredictor(device=
+               "cuda")` bound to one store, fed its share of phase 6's
+               fleet completions and synced in one generation; one
+               `FleetRefresher.refresh()`: one `bayes_fit` launch, one
+               store generation, its split (due, snapshot, pad, fit,
+               apply, put_many, cursor); then a `FusedPlane` over tenant
+               t00 re-predicts the rows the publish dirtied in one
+               `bayes_predict` launch.  The store's rows within rtol 1e-4
+               / atol 1e-5 of the same refresh on device="cpu".
+  9. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
                (bfloat16, weights made on the card from a seed) served
                through `repro_torch.launch.serve`: B = 2 prompts of 4096
                tokens (past the 2048 window, so the rings wrap), 16
@@ -83,7 +107,7 @@ Phases (each fails loudly; nothing is caught):
                and prefill of S = 2100 against prefill of S - 1 plus one
                decode step (2e-3); then one prefill and 4 decode steps
                under torch.profiler (device time by kernel, busy share).
-  8. report  — per-kernel launches on the main path (phases 3-7, each path
+ 10. report  — per-kernel launches on the main path (phases 3-9, each path
                with the counts set to 0 just before it), errors, and times
                at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -729,38 +753,49 @@ def phase_plan(dev, fleet_out) -> dict:
     return out
 
 
-def plan_breakdown(dev, fleet_out, plan) -> dict:
-    """Host clock of each piece of a warm device round, run piece by piece
-    as `fused_heft_schedule` runs them: W to the host and the ranks, the
-    packing and its copies to the card, the sweep launch (with the sync
-    for its overflow check), and the copies back plus the Schedule
-    rebuild."""
+def heft_pieces(dev, ctx, dag, nodes, W, W_host=None) -> tuple:
+    """One device placement run piece by piece as `fused_heft_schedule`
+    runs it, host clock around each: the ranks (with W's copy to the host
+    when W_host is not given, and the finite check), the packing and its
+    copies to the card, the sweep launch (with the sync for its overflow
+    check), and the copies back plus the Schedule rebuild.  -> (seconds
+    of the four pieces, schedule, the sweep's arguments)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.sched import fused
+    t0 = time.perf_counter()
+    if W_host is None:
+        W_host = W.cpu().numpy()
+    fused._check_finite(ctx, W_host)
+    rank = ctx.ranks(dag, W_host)
+    t1 = time.perf_counter()
+    order_arr, _, avail = fused._sweep_inputs(ctx, dag, nodes, rank, None,
+                                              None)
+    st = ctx.on_device(dev)
+    args = (W, torch.from_numpy(order_arr).to(dev), st["dep_rows"],
+            st["gb8"], st["zeros"], torch.from_numpy(avail).to(dev),
+            st["same"], st["gbps_min"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    assign, est, eft, cnt = ops.eft_sweep(*args, S=ctx.slot_cap)
+    check(int(cnt.max()) <= ctx.slot_cap - 1, "warm round overflowed")
+    t3 = time.perf_counter()
+    sched = fused._build_schedule(ctx, order_arr, assign.cpu().numpy(),
+                                  est.cpu().numpy(), eft.cpu().numpy())
+    t4 = time.perf_counter()
+    return (t1 - t0, t2 - t1, t3 - t2, t4 - t3), sched, args
+
+
+def plan_breakdown(dev, fleet_out, plan) -> dict:
+    """Host clock of each piece of a warm device round (`heft_pieces`),
+    median of 5."""
+    from repro_torch.sched import fused
     dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
-    W = plan["W_q"]
     ctx = fused._context(dag, nodes, plan["cache"])
     times = []
     for _ in range(5):
-        t0 = time.perf_counter()
-        rank = ctx.ranks(dag, W.cpu().numpy())
-        t1 = time.perf_counter()
-        order_arr, _, avail = fused._sweep_inputs(ctx, dag, nodes, rank,
-                                                  None, None)
-        st = ctx.on_device(dev)
-        args = (W, torch.from_numpy(order_arr).to(dev), st["dep_rows"],
-                st["gb8"], st["zeros"], torch.from_numpy(avail).to(dev),
-                st["same"], st["gbps_min"])
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        assign, est, eft, cnt = ops.eft_sweep(*args, S=ctx.slot_cap)
-        check(int(cnt.max()) <= ctx.slot_cap - 1, "warm round overflowed")
-        t3 = time.perf_counter()
-        sched = fused._build_schedule(ctx, order_arr, assign.cpu().numpy(),
-                                      est.cpu().numpy(), eft.cpu().numpy())
-        t4 = time.perf_counter()
-        times.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3))
+        pieces, sched, args = heft_pieces(dev, ctx, dag, nodes, plan["W_q"])
+        times.append(pieces)
     check(same_schedule(sched, plan["q"]), "breakdown round differs")
     keys = ("rank_s", "pack_s", "sweep_s", "rebuild_s")
     out = {k: float(np.median([x[i] for x in times]))
@@ -973,9 +1008,10 @@ def ingest_stream(rng: np.random.Generator, dag, base, benches, nodes
     return batches
 
 
-def fleet_state(post: dict) -> dict:
+def fleet_state(post: dict, rows=None) -> dict:
     """A fitted-predictor state (`repro_torch.convert`) carrying the
-    fleet's N_FLEET posteriors as regression tasks."""
+    fleet's posteriors `rows` (all N_FLEET by default) as regression
+    tasks."""
     from repro_torch.core.microbench import simulate_microbench
     from repro_torch.sched.cluster import LOCAL
     local = simulate_microbench(LOCAL, 1)
@@ -988,7 +1024,7 @@ def fleet_state(post: dict) -> dict:
                 "posterior": {k: post[k][i] for k in post},
                 "median_s": float(post["y_mu"][i]), "spread_s": 1.0,
                 "cpu_fraction": 0.5, "fit_x": None, "fit_y": None}
-                for i in range(N_FLEET)}}
+                for i in (range(N_FLEET) if rows is None else rows)}}
 
 
 def fleet_completions(rng: np.random.Generator, names) -> list:
@@ -1191,6 +1227,355 @@ def phase_ingest_checks(dev, fleet_out, ing) -> dict:
           f"{numpy_fold_s!r} s; the CPU predictor's observe_many "
           f"{cpu_observe_s!r} s")
     return out
+
+
+PLANE_SPLIT = ("sync_gather_s", "predict_s", "scale_cost_s", "rank_s",
+               "pack_s", "sweep_s", "rebuild_s")
+
+
+def plane_rounds(dag, batches) -> list:
+    """The plane phase's rounds: (label, completions to observe first)."""
+    return ([("cold", None), ("warm", None)]
+            + [(f"batch{b}", batch) for b, batch in enumerate(batches)])
+
+
+def phase_plane(dev, fleet_out) -> dict:
+    """The main path of the resident decision plane on the card: the
+    fleet's replan problem wrapped in `OnlinePredictor(device="cuda")`, a
+    `FusedPlane` over it, and rounds of `plane.schedule(engine="device")`
+    at q = PLAN_QUANTILE: cold, warm with nothing moved, then one after
+    each of phase 6's ingest batches (the same seeded stream).  Each
+    round's launches and `PlaneStats` are read around it; the checks run
+    after the launch counts are read."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import decision_plane as plane_k
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.fused import FusedPlane
+    svc = fleet_out["replan_service"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    benches = dict(svc.benches)
+    batches = ingest_stream(np.random.default_rng(23), dag, svc.predictor,
+                            benches, nodes)
+    online = OnlinePredictor(svc.predictor, benches, device=dev)
+    plane = FusedPlane(PredictionService(online, benches, device=dev), nodes,
+                       dag=dag)
+    binding = plane.binding
+    factor_builds = []
+    base_factor_matrix = binding.base_factor_matrix
+
+    def counted_factors(*a):
+        factor_builds.append(1)
+        return base_factor_matrix(*a)
+    binding.base_factor_matrix = counted_factors
+    rounds = []
+    for label, batch in plane_rounds(dag, batches):
+        before = (dataclasses.asdict(plane.stats),
+                  kernels.bayes_predict.launches, plane_k.eft_sweep.launches,
+                  len(factor_builds))
+        t0 = time.perf_counter()
+        if batch is not None:
+            online.observe_many(batch)
+        t1 = time.perf_counter()
+        sched = plane.schedule(dag, quantile=PLAN_QUANTILE, engine="device")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        stats = {k: v - before[0][k]
+                 for k, v in dataclasses.asdict(plane.stats).items()}
+        r = {"label": label, "observe_s": t1 - t0, "round_s": t2 - t1,
+             "sched": sched, "matrix": plane._matrix,
+             "stats": stats,
+             "predict_launches": kernels.bayes_predict.launches - before[1],
+             "sweep_launches": plane_k.eft_sweep.launches - before[2],
+             "factor_builds": len(factor_builds) - before[3]}
+        rounds.append(r)
+        print(f"[plane] round {label}: {r['round_s']!r} s (observe_many "
+              f"{r['observe_s']!r} s before it); rows refreshed "
+              f"{stats['rows_refreshed']} of {len(plane.uids)}; launches "
+              f"bayes_predict {r['predict_launches']}, eft_sweep "
+              f"{r['sweep_launches']}; factor-matrix builds "
+              f"{r['factor_builds']}; PlaneStats delta {stats}")
+    print(f"[plane] PlaneStats after {len(rounds)} rounds: {plane.stats}")
+    return {"rounds": rounds, "batches": batches, "benches": benches,
+            "online": online, "stats": plane.stats}
+
+
+def plane_split(dev, plane, dag) -> tuple:
+    """One plane round run piece by piece as `FusedPlane.schedule` runs
+    it, with a sync after each piece: the binding sync, snapshot, dirty
+    detection, host gather and copies to the card; the bayes_predict
+    launch and the scatter; scaling, the host matrix, the cost view and
+    W's host copy; then `heft_pieces` (ranks, packing and its copies,
+    sweep, rebuild).
+    -> ({piece: seconds}, schedule)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sched import fused
+    t = [time.perf_counter()]
+    plane.stats.rounds += 1
+    snap, idx = plane.collect_dirty()
+    rows = plane.gather_rows(snap, idx) if len(idx) else None
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    if rows is None:
+        plane.apply_rows(snap, idx, None, None)
+    else:
+        mean, std = ops.bayes_predict(rows[1], rows[2])
+        plane.stats.predict_dispatches += 1
+        plane.apply_rows(snap, rows[0], mean, std)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    plane._scale()
+    W, W_host = plane._costs(dag, PLAN_QUANTILE)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ctx = fused._context(dag, plane.nodes, plane.rank_cache)
+    pieces, sched, _ = heft_pieces(dev, ctx, dag, plane.nodes, W, W_host)
+    split = dict(zip(PLANE_SPLIT, [b - a for a, b in zip(t, t[1:])]
+                     + list(pieces), strict=True))
+    return split, sched
+
+
+def phase_plane_checks(dev, fleet_out, pl) -> None:
+    """The plane's rounds against the reference, and their split.  The
+    rounds are replayed on a second plane over a second predictor fed the
+    same batches (launches outside the main path's counts): each round's
+    matrix, on both planes, bitwise `PredictionMatrix.from_service` on a
+    fresh service over the replayed predictor, and each schedule identical
+    to `heft_schedule_matrix` on it.  The replay runs each round piece by
+    piece (`plane_split`) and, in turns with it, the old round
+    (`cost_view` + `fused_heft_schedule(engine="device")`) on the same
+    state."""
+    import dataclasses
+    import torch
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.fused import (FusedPlane, cost_view,
+                                         fused_heft_schedule)
+    from repro_torch.sched.heft import heft_schedule_matrix
+    from repro_torch.sched.plane import PredictionMatrix
+    svc = fleet_out["replan_service"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    benches = pl["benches"]
+    entries = [(u, t.task_name, t.input_gb) for u, t in dag.tasks.items()]
+    online = OnlinePredictor(svc.predictor, benches, device=dev)
+    plane = FusedPlane(PredictionService(online, benches, device=dev), nodes,
+                       dag=dag)
+    old_svc = PredictionService(online, benches, device=dev)
+    old_cache: dict = {}
+
+    def old_round():
+        t0 = time.perf_counter()
+        W = cost_view(old_svc, dag, nodes, PLAN_QUANTILE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sched = fused_heft_schedule(dag, nodes, None, W=W,
+                                    rank_cache=old_cache, engine="device",
+                                    device=dev)
+        return {"cost_view_s": t1 - t0,
+                "heft_s": time.perf_counter() - t1}, sched
+
+    for i, (r, (label, batch)) in enumerate(zip(
+            pl["rounds"], plane_rounds(dag, pl["batches"]))):
+        if batch is not None:
+            online.observe_many(batch)
+        if i % 2:                          # in turns: old first, then new
+            old, old_sched = old_round()
+            split, sched = plane_split(dev, plane, dag)
+        else:
+            split, sched = plane_split(dev, plane, dag)
+            old, old_sched = old_round()
+        fresh = PredictionMatrix.from_service(
+            PredictionService(online, benches, device=dev), entries, nodes)
+        want = heft_schedule_matrix(dag, nodes, fresh, quantile=PLAN_QUANTILE)
+        for name, mat in (("main-path plane", r["matrix"]),
+                          ("replayed plane", plane._matrix)):
+            check(np.array_equal(mat.means, fresh.means)
+                  and np.array_equal(mat.stds, fresh.stds),
+                  f"plane round {label}: the {name}'s matrix is not bitwise "
+                  f"PredictionMatrix.from_service")
+        for name, got in (("main-path plane", r["sched"]),
+                          ("replayed plane", sched), ("old round", old_sched)):
+            check(same_schedule(got, want),
+                  f"plane round {label}: the {name}'s schedule differs from "
+                  f"heft_schedule_matrix")
+        st = r["stats"]
+        check(r["predict_launches"] == st["predict_dispatches"]
+              == (1 if st["rows_refreshed"] else 0),
+              f"plane round {label}: not one bayes_predict launch per round "
+              f"with dirty rows")
+        check(r["sweep_launches"] == st["sweep_dispatches"] >= 1,
+              f"plane round {label}: sweep launches and PlaneStats disagree")
+        if label == "warm":
+            check(r["predict_launches"] == 0 and r["factor_builds"] == 0
+                  and st["matrix_rebuilds"] == 0 and st["cost_rebuilds"] == 0,
+                  "the warm plane round with nothing moved predicted, built "
+                  "factors or rebuilt a view")
+        split_s = sum(split.values())
+        print(f"[plane] round {label} split (synced pieces, replayed): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+              + f"; sum {split_s:.6f} s; main-path round "
+              f"{r['round_s']:.6f} s; old round on the same state "
+              f"{old['cost_view_s'] + old['heft_s']:.6f} s (cost_view "
+              f"{old['cost_view_s']:.6f} s, HEFT {old['heft_s']:.6f} s)")
+    check(online.export_state() == pl["online"].export_state(),
+          "the replayed predictor's state differs from the main path's")
+    main = dict(dataclasses.asdict(pl["stats"]), sweep_dispatches=0)
+    check(dataclasses.asdict(plane.stats) == main,
+          "the replayed plane did other work than the main path's")
+    print(f"[plane] every round: both planes' matrices bitwise "
+          f"PredictionMatrix.from_service, schedules identical to "
+          f"heft_schedule_matrix (old round too); replayed PlaneStats "
+          f"{plane.stats}")
+
+
+def tol_np(got, want, tol) -> tuple:
+    """`tol_check` for float64 numpy arrays."""
+    check(bool(np.isfinite(got).all()), "an output is not finite")
+    diff = np.abs(got - want)
+    return (float(diff.max()),
+            float((diff / (tol["atol"] + tol["rtol"] * np.abs(want))).max()))
+
+
+REFRESH_POLICY = dict(every_n=4)         # due at 4 or more completions
+REFRESH_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_slice.py:41
+REFRESH_SPLIT = ("due", "snapshot", "pad", "fit", "apply", "put_many",
+                 "cursor")
+
+
+def refresh_fleet(dev, post, comps) -> dict:
+    """The fleet's 65,536 posteriors as N_TENANTS tenants of
+    N_FLEET / N_TENANTS tasks, each one `OnlinePredictor` on `dev` bound
+    to one store under tenant tNN / workflow "fleet", each fed its share
+    of `comps` in one `observe_many`, then every binding synced in one
+    generation (`sync_bindings`)."""
+    from repro_torch.convert import predictor_from_state
+    from repro_torch.core.microbench import simulate_microbench
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    from repro_torch.store import PosteriorStore
+    per = N_FLEET // N_TENANTS
+    store = PosteriorStore()
+    benches = {n.name: simulate_microbench(n, 1) for n in TARGET_MACHINES}
+    shares = [[] for _ in range(N_TENANTS)]
+    for c in comps:
+        shares[int(c.task[4:]) // per].append(c)
+    svcs = []
+    t0 = time.perf_counter()
+    for ten in range(N_TENANTS):
+        rows = range(ten * per, (ten + 1) * per)
+        pred = OnlinePredictor(predictor_from_state(fleet_state(post, rows),
+                                                    dev), device=dev)
+        svcs.append(PredictionService(pred, benches, store=store,
+                                      tenant=f"t{ten:02d}", workflow="fleet",
+                                      device=dev))
+    t1 = time.perf_counter()
+    for svc, share in zip(svcs, shares):
+        svc.predictor.observe_many(share)
+    t2 = time.perf_counter()
+    written = store.sync_bindings()
+    t3 = time.perf_counter()
+    return {"store": store, "svcs": svcs, "written": written,
+            "times": {"bind_s": t1 - t0, "observe_s": t2 - t1,
+                      "sync_bindings_s": t3 - t2}}
+
+
+def phase_refresh(dev, fleet_out, ingest) -> dict:
+    """The main path of the maintenance plane on the card: the refresh
+    fleet (`refresh_fleet`), a `FusedPlane` over tenant t00 made resident,
+    one `FleetRefresher.refresh()` (one bayes_fit launch, one store
+    generation), then a plane round that re-predicts only the rows the
+    publish dirtied.  The checks run after the launch counts are read."""
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.online import FleetRefresher, RefreshPolicy
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    from repro_torch.sched.fused import FusedPlane
+    fl = refresh_fleet(dev, fleet_out["fleet_post"], ingest["comps"])
+    store, svc0 = fl["store"], fl["svcs"][0]
+    rng = np.random.default_rng(31)
+    tasks = svc0.predictor.task_names()
+    plane = FusedPlane(svc0, TARGET_MACHINES[:4],
+                       entries=[(t, t, float(rng.uniform(0.05, 4.0)))
+                                for t in tasks])
+    plane.matrix()
+    gen0 = store.generation
+    refresher = FleetRefresher(store, RefreshPolicy(**REFRESH_POLICY),
+                               device=dev)
+    fits0 = kernels.bayes_fit.launches
+    report = refresher.refresh()
+    fits = kernels.bayes_fit.launches - fits0
+    torch.cuda.synchronize()
+    dirty = int(store.snapshot().rows_changed_since(plane._keys, gen0).sum())
+    before = (plane.stats.rows_refreshed, plane.stats.predict_dispatches,
+              kernels.bayes_predict.launches)
+    t0 = time.perf_counter()
+    plane.matrix()
+    torch.cuda.synchronize()
+    plane_s = time.perf_counter() - t0
+    after = (plane.stats.rows_refreshed - before[0],
+             plane.stats.predict_dispatches - before[1],
+             kernels.bayes_predict.launches - before[2])
+    print(f"[refresh] fleet of {N_TENANTS} tenants x {N_FLEET // N_TENANTS} "
+          f"tasks on the card: bind {fl['times']['bind_s']!r} s, "
+          f"{N_TENANTS} observe_many {fl['times']['observe_s']!r} s, "
+          f"sync_bindings ({fl['written']} rows, one generation) "
+          f"{fl['times']['sync_bindings_s']!r} s")
+    due = report.n_tasks + report.n_stale    # every due task is fitted
+    print(f"[refresh] FleetRefresher.refresh(): due {due} tasks, published {report.n_tasks} in "
+          f"{report.n_tenants} tenants, n_dispatches {report.n_dispatches}, "
+          f"n_stale {report.n_stale}, bayes_fit launches {fits}, generation "
+          f"{gen0} -> {report.generation}; {report.duration_s!r} s: "
+          + ", ".join(f"{k} {report.split_s[k]!r}" for k in REFRESH_SPLIT))
+    print(f"[refresh] plane over t00 after the publish: {dirty} of "
+          f"{len(plane.uids)} rows in blocks the publish rewrote; rows "
+          f"re-predicted {after[0]}, bayes_predict launches {after[2]}, "
+          f"{plane_s!r} s")
+    check(report.n_dispatches == 1 and fits == 1,
+          "the refresh did not make exactly one bayes_fit launch")
+    check(report.generation == gen0 + 1,
+          "the refresh did not publish in exactly one store generation")
+    check(report.n_tenants == N_TENANTS and report.n_stale == 0,
+          "the refresh did not publish into every tenant")
+    check(after[0] == dirty > 0 and after[1] == after[2] == 1,
+          "the plane did not re-predict exactly the dirtied rows in one "
+          "bayes_predict launch")
+    return {"report": report, "store": store}
+
+
+def phase_refresh_checks(dev, fleet_out, ingest, rf) -> None:
+    """The same refresh on device="cpu" (the plain fit), against the
+    card's: equal report counts and generation step, the synced rows
+    bitwise before the refresh, and every store row after it within
+    REFRESH_TOL (both fits are float32)."""
+    from repro_torch.online import FleetRefresher, RefreshPolicy
+    t0 = time.perf_counter()
+    fl = refresh_fleet("cpu", fleet_out["fleet_post"], ingest["comps"])
+    store = fl["store"]
+    keys = store.task_keys()
+    check(keys == rf["store"].task_keys(), "refresh: the stores' keys differ")
+    gen0 = store.generation
+    report = FleetRefresher(store, RefreshPolicy(**REFRESH_POLICY),
+                            device="cpu").refresh()
+    got, want = rf["store"].gather(keys), store.gather(keys)
+    card = rf["report"]
+    check((report.n_tasks, report.n_tenants, report.n_dispatches,
+           report.n_stale, report.generation - gen0)
+          == (card.n_tasks, card.n_tenants, card.n_dispatches, card.n_stale,
+              1),
+          "refresh: the card's report differs from the CPU run's")
+    worst = {leaf: tol_np(got[leaf], want[leaf], REFRESH_TOL)
+             for leaf in want}
+    kernel = {leaf: tol_np(got[leaf], want[leaf], FIT_TOL)[1]
+              for leaf in want}
+    print(f"[refresh] against the same refresh on the CPU (plain fit, "
+          f"{report.duration_s!r} s; this check {time.perf_counter() - t0!r} "
+          f"s): report equal; per leaf (max |err|, tol_ratio at rtol "
+          f"{REFRESH_TOL['rtol']} / atol {REFRESH_TOL['atol']}): {worst}; "
+          f"tol_ratio at the kernel's 5e-3/5e-4: {kernel}")
+    check(max(r for _, r in worst.values()) <= 1.0,
+          "refresh: the card's refreshed rows are not within rtol 1e-4 / "
+          "atol 1e-5 of the CPU run's")
 
 
 def bounds_predict(q: int) -> tuple:
@@ -1986,6 +2371,17 @@ def main() -> None:
           "the ingest path launched nig_fold, bayes_predict, fused_cost "
           "or eft_sweep no time")
     on_shared_route("ingest")
+    pl, got = drive(lambda: phase_plane(dev, fleet_out), "plane")
+    print(f"[launches] plane: {got}")
+    check(got["bayes_predict"] > 0 and got["eft_sweep"] > 0,
+          "the plane path launched bayes_predict or eft_sweep no time")
+    on_shared_route("plane")
+    rf, got = drive(lambda: phase_refresh(dev, fleet_out, ingest), "refresh")
+    print(f"[launches] refresh: {got}")
+    check(got["bayes_fit"] == 1 and got["nig_fold"] > 0
+          and got["bayes_predict"] == 2,
+          "the refresh path did not launch bayes_fit once, nig_fold, and "
+          "bayes_predict twice (the plane cold, then after the publish)")
     _, got = drive(lambda: phase_lm(dev), "lm")
     print(f"[launches] lm: {got}")
     kinds = get_config(LM_ARCH).layer_kinds()
@@ -2011,6 +2407,8 @@ def main() -> None:
     errors["eft_sweep"] = phase_plan_checks(dev, fleet_out, plan,
                                             pieces["args"])
     fold = phase_ingest_checks(dev, fleet_out, ingest)
+    phase_plane_checks(dev, fleet_out, pl)
+    phase_refresh_checks(dev, fleet_out, ingest, rf)
     lm_cut_checks(dev)
     lm_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,

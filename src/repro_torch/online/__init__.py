@@ -5,9 +5,14 @@ Layering: `events` is leaf-level (shared vocabulary); `predictor` wraps a
 fitted LotaruPredictor with exact conjugate updates, folding completion
 batches through the `nig_fold` kernel; `service` is a (tenant, workflow)
 view over the shared `repro_torch.store.PosteriorStore` that answers a
-batch of queries with one launch of the posterior predictive kernel.
+batch of queries with one launch of the posterior predictive kernel;
+`maintenance` is the posterior maintenance plane (fleet-wide periodic
+evidence refresh in one `bayes_fit` launch, published in one store
+generation).
 """
 from repro_torch.online.events import PredictionQuery, TaskCompletion  # noqa: F401
 from repro_torch.online.predictor import (IngestStats,                 # noqa: F401
                                           OnlinePredictor)
 from repro_torch.online.service import PredictionService              # noqa: F401
+from repro_torch.online.maintenance import (FleetRefresher,  # noqa: F401
+                                            RefreshPolicy, RefreshReport)

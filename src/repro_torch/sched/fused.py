@@ -1,5 +1,5 @@
-"""HEFT placement on the card: the single-workflow engine of the fused
-decision plane.
+"""HEFT placement on the card and the resident decision plane: the
+single-workflow engine of the fused decision plane.
 
   * `cost_view` builds a round's (T, N) quantile cost matrix W in
     `dag.topo_order()` rows and cluster column order, on the service's
@@ -22,6 +22,21 @@ decision plane.
     `rank_cache`, so a warm round pays only the w_avg sum, the reverse-topo
     recurrence and the sweep.
 
+  * `FusedPlane` keeps one workflow's decision plane resident on the
+    service's device across rounds: the raw (factor-free) predictive rows,
+    the static factor matrix, the scaled matrix and each quantile's W.  A
+    round asks the store which blocks moved since the last one
+    (`StoreSnapshot.rows_changed_since`) and re-predicts only those rows,
+    in ONE `bayes_predict` launch, scattering them in place; the
+    predictive is elementwise per row, so that is bitwise a full
+    re-gather.  Scaling and the cost view are float64 torch ops on the
+    device in `compute.scale` / `compute.cost_matrix` order, so its
+    matrices are bitwise `PredictionMatrix.from_service`.  A round in
+    which the store, the factors and the corrections did not move gathers
+    nothing, launches no predictive, builds no factor matrix and copies
+    no W; the host copy of W that the ranks and the finite check read is
+    kept beside the device W under the same key.
+
 Why the sweep is exact: the insertion policy keeps each node's busy
 intervals non-overlapping and sorted, so interval ends are non-decreasing;
 the candidate start before interval k is max(ready, end[k-1]) whatever the
@@ -33,7 +48,8 @@ expression, so schedules match bitwise, not approximately.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,10 +59,11 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.sched.heft import Schedule, comm_structure
 from repro_torch.sched.plane import PredictionMatrix, quantile_z
+from repro_torch.store import compute
 from repro_torch.store.compute import LEAVES
 from repro_torch.workflow.dag import WorkflowDAG
 
-__all__ = ["cost_view", "fused_heft_schedule"]
+__all__ = ["FusedPlane", "PlaneStats", "cost_view", "fused_heft_schedule"]
 
 _NEG_INF = float("-inf")
 
@@ -296,6 +313,17 @@ def fused_heft_schedule(dag: WorkflowDAG, nodes: List[NodeSpec],
         W = matrix.costs(ctx.order, ctx.names, quantile=quantile)  # (T, N)
     W_host = (W.cpu().numpy() if isinstance(W, torch.Tensor)
               else np.asarray(W, np.float64))
+    return _place(ctx, dag, nodes, W, W_host, ready_at, node_available,
+                  engine, device)[0]
+
+
+def _place(ctx: _PlanContext, dag: WorkflowDAG, nodes: List[NodeSpec], W,
+           W_host: np.ndarray, ready_at,
+           node_available: Optional[Dict[str, float]], engine: str,
+           device) -> Tuple[Schedule, int]:
+    """Rank and place off W (what the sweep reads: a numpy array or a
+    tensor) and W_host (its host copy, read by the finite check and the
+    ranks) -> (schedule, eft_sweep launches)."""
     _check_finite(ctx, W_host)
     rank = ctx.ranks(dag, W_host)
     if engine == "auto":
@@ -308,8 +336,8 @@ def fused_heft_schedule(dag: WorkflowDAG, nodes: List[NodeSpec],
     if engine != "numpy":
         raise ValueError(f"engine must be 'auto', 'numpy' or 'device', "
                          f"got {engine!r}")
-    return _schedule_numpy(ctx, dag, nodes, W_host, rank, ready_at,
-                           node_available)
+    return (_schedule_numpy(ctx, dag, nodes, W_host, rank, ready_at,
+                            node_available), 0)
 
 
 def _schedule_numpy(ctx: _PlanContext, dag: WorkflowDAG,
@@ -402,7 +430,10 @@ def _build_schedule(ctx: _PlanContext, order_arr: np.ndarray,
 def _schedule_device(ctx: _PlanContext, dag: WorkflowDAG,
                      nodes: List[NodeSpec], W: torch.Tensor,
                      rank: Dict[str, float], ready_at,
-                     node_available: Optional[Dict[str, float]]) -> Schedule:
+                     node_available: Optional[Dict[str, float]]
+                     ) -> Tuple[Schedule, int]:
+    """-> (schedule, eft_sweep launches: more than one after a slot
+    retry)."""
     dev = W.device
     order_arr, ready0, avail = _sweep_inputs(ctx, dag, nodes, rank, ready_at,
                                              node_available)
@@ -411,12 +442,230 @@ def _schedule_device(ctx: _PlanContext, dag: WorkflowDAG,
             st["gb8"],
             st["zeros"] if ready0 is None else torch.from_numpy(ready0).to(dev),
             torch.from_numpy(avail).to(dev), st["same"], st["gbps_min"])
+    launches = 0
     while True:
         S = ctx.slot_cap
         assign, est, eft, cnt = ops.eft_sweep(*args, S=S)
+        launches += 1
         if len(nodes) == 0 or int(cnt.max()) <= S - 1:
             break
         ctx.slot_cap = S * 2      # interval stacks overflowed: the gap
         # search needs >= 1 spare pad column per node — run again larger
     return _build_schedule(ctx, order_arr, assign.cpu().numpy(),
-                           est.cpu().numpy(), eft.cpu().numpy())
+                           est.cpu().numpy(), eft.cpu().numpy()), launches
+
+
+# ---------------------------------------------------------------------------
+# resident prediction plane
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PlaneStats:
+    """Residency telemetry: how much work each round actually did."""
+    rounds: int = 0
+    full_gathers: int = 0          # complete (re)builds of the row stack
+    rows_refreshed: int = 0        # dirty rows re-gathered + re-predicted
+    predict_dispatches: int = 0    # bayes_predict launches (one a dirty round)
+    matrix_rebuilds: int = 0       # scaled-view recomputations
+    cost_rebuilds: int = 0         # (T, N) quantile cost-view recomputations
+    sweep_dispatches: int = 0      # eft_sweep launches
+
+
+class FusedPlane:
+    """One workflow's slice of the decision plane, resident on
+    `service.device` across planning rounds (see module docstring).
+
+    `entries` are (uid, task_name, input_gb) triples, or `dag` gives them.
+    `matrix()` serves the scaled host `PredictionMatrix`, copied back only
+    when rows, factors or corrections moved; `cost_view` the (T, N)
+    quantile cost matrix on the device; `schedule` one replan round."""
+
+    def __init__(self, service, nodes: Sequence[NodeSpec],
+                 entries: Optional[Sequence[Tuple[str, str, float]]] = None,
+                 dag: Optional[WorkflowDAG] = None):
+        if entries is None:
+            if dag is None:
+                raise ValueError("FusedPlane needs `entries` or a `dag`")
+            entries = [(u, dag.tasks[u].task_name, dag.tasks[u].input_gb)
+                       for u in dag.tasks]
+        self.service = service
+        self.device = service.device
+        self.nodes = list(nodes)
+        self.node_names = [n.name for n in self.nodes]
+        self.entries = [(u, t, float(gb)) for u, t, gb in entries]
+        self.uids: Tuple[str, ...] = tuple(u for u, _, _ in self.entries)
+        self._tasks = [t for _, t, _ in self.entries]
+        self._x = torch.tensor([gb for _, _, gb in self.entries],
+                               dtype=torch.float64, device=self.device)
+        self._keys = [service._binding.key_str(t) for t in self._tasks]
+        self.stats = PlaneStats()
+        self.rank_cache: dict = {}
+        # resident state, on self.device
+        self._mean_raw: Optional[torch.Tensor] = None   # (T,) factor-free
+        self._std_raw: Optional[torch.Tensor] = None
+        self._generation = -1          # store generation the rows reflect
+        self._base_f: Optional[torch.Tensor] = None     # (T, N) static
+        self._base_f_version: Optional[int] = None
+        self._scaled: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._matrix: Optional[PredictionMatrix] = None  # its host copy
+        self._matrix_key = None
+        # the scaled pair reindexed to one dag's topo order, and per
+        # quantile (W on the device, W's host copy) off it
+        self._view: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._view_key = None
+        self._cost_cache: Dict[Optional[float],
+                               Tuple[torch.Tensor, np.ndarray]] = {}
+
+    @property
+    def binding(self):
+        return self.service._binding
+
+    # ---- dirty-row sync ----------------------------------------------------
+    def collect_dirty(self):
+        """Sync the binding, snapshot the store, and return
+        (snapshot, dirty row indices as a numpy array): the rows whose
+        backing blocks moved since this plane's last gather (all rows on
+        first use)."""
+        self.binding.sync()
+        snap = self.service.store.snapshot()
+        if self._mean_raw is None:
+            idx = np.arange(len(self._keys))
+            self.stats.full_gathers += 1
+        elif snap.generation == self._generation:
+            idx = np.empty(0, np.int64)
+        else:
+            dirty = snap.rows_changed_since(self._keys, self._generation)
+            idx = np.nonzero(dirty)[0]
+        return snap, idx
+
+    def gather_rows(self, snap, idx: np.ndarray):
+        """The rows `idx` as the predictive reads them on the device:
+        (row index, inputs, posterior leaves).  The leaves are gathered on
+        the host and copied once each, the index once; the inputs are
+        picked out of the resident ones."""
+        dev = self.device
+        post = snap.gather([self._keys[i] for i in idx])
+        idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
+        return (idx_t, self._x.index_select(0, idx_t),
+                {leaf: torch.from_numpy(post[leaf]).to(dev)
+                 for leaf in LEAVES})
+
+    def apply_rows(self, snap, idx, mean: Optional[torch.Tensor],
+                   std: Optional[torch.Tensor]) -> None:
+        """Scatter re-predicted rows in place (an index copy on the
+        device) and adopt the snapshot's generation.  The predictive is
+        elementwise per row, so the scattered values are bitwise what a
+        full re-gather would put there."""
+        if self._mean_raw is None:
+            self._mean_raw = torch.empty(len(self._keys), dtype=torch.float64,
+                                         device=self.device)
+            self._std_raw = torch.empty_like(self._mean_raw)
+        if len(idx):
+            idx_t = torch.as_tensor(idx, device=self.device)
+            self._mean_raw.index_copy_(0, idx_t, mean)
+            self._std_raw.index_copy_(0, idx_t, std)
+            self.stats.rows_refreshed += len(idx)
+        self._generation = snap.generation
+
+    def sync(self) -> int:
+        """One round's resident-row maintenance: the dirty rows gathered,
+        re-predicted in one `bayes_predict` launch and scattered in place.
+        Returns the number of rows refreshed."""
+        snap, idx = self.collect_dirty()
+        if len(idx):
+            idx_t, x, post = self.gather_rows(snap, idx)
+            mean, std = ops.bayes_predict(x, post)
+            self.stats.predict_dispatches += 1
+            self.apply_rows(snap, idx_t, mean, std)
+        else:
+            self.apply_rows(snap, idx, None, None)
+        return len(idx)
+
+    # ---- scaled matrix view ------------------------------------------------
+    def matrix(self) -> PredictionMatrix:
+        """The round's scaled (T, N) `PredictionMatrix`: resident raw rows
+        x (static factor matrix x streaming node corrections), bitwise
+        `PredictionMatrix.from_service`.  Cached until rows, factors or
+        corrections move."""
+        self.stats.rounds += 1
+        self.sync()
+        return self._scale()
+
+    def _scale(self) -> PredictionMatrix:
+        binding = self.binding
+        if self._base_f is None \
+                or binding.factor_version != self._base_f_version:
+            f = binding.base_factor_matrix(self._tasks, self.node_names)
+            self._base_f = torch.from_numpy(np.ascontiguousarray(
+                f, np.float64).reshape(len(self._tasks),
+                                       len(self.node_names))).to(self.device)
+            self._base_f_version = binding.factor_version
+        corr_map = binding.node_corrections(self.node_names)
+        corr = tuple(corr_map.get(n, 1.0) for n in self.node_names)
+        key = (self._generation, self._base_f_version, corr)
+        if self._matrix is None or key != self._matrix_key:
+            f = self._base_f * torch.tensor(corr, dtype=torch.float64,
+                                            device=self.device)[None, :]
+            mean, std = compute.scale(self._mean_raw[:, None],
+                                      self._std_raw[:, None], f)
+            self._scaled = (mean, std)
+            self._matrix = PredictionMatrix(self.uids, self.node_names,
+                                            mean.cpu().numpy(),
+                                            std.cpu().numpy())
+            self._matrix_key = key
+            self.stats.matrix_rebuilds += 1
+        return self._matrix
+
+    # ---- resident cost view ------------------------------------------------
+    def cost_view(self, dag: WorkflowDAG, quantile: Optional[float]
+                  ) -> Tuple[PredictionMatrix, torch.Tensor]:
+        """(matrix, W): the (T, N) quantile cost matrix in `dag`'s topo
+        order on the device, resident across rounds (same expressions as
+        `PredictionMatrix.costs`, hence bitwise-equal schedules)."""
+        mat = self.matrix()
+        return mat, self._costs(dag, quantile)[0]
+
+    def _costs(self, dag: WorkflowDAG, quantile: Optional[float]
+               ) -> Tuple[torch.Tensor, np.ndarray]:
+        """(W on the device, its host copy) off the current scaled pair,
+        rebuilt only when the matrix key, the dag's context or the
+        quantile moves."""
+        mat = self._matrix
+        ctx = _context(dag, self.nodes, self.rank_cache)
+        # the ctx object in the key pins the dag: id-recycling after a
+        # frontier dag dies can never alias a stale view
+        vkey = (self._matrix_key, ctx)
+        if self._view is None or self._view_key != vkey:
+            dev = self.device
+            rows = torch.tensor([mat.uid_index[u] for u in ctx.order],
+                                dtype=torch.int64, device=dev)
+            cols = torch.tensor([mat.node_index[n] for n in ctx.names],
+                                dtype=torch.int64, device=dev)
+            mean, std = self._scaled
+            self._view = (mean.index_select(0, rows).index_select(1, cols),
+                          std.index_select(0, rows).index_select(1, cols))
+            self._view_key = vkey
+            self._cost_cache.clear()
+        got = self._cost_cache.get(quantile)
+        if got is None:
+            z = None if quantile is None else quantile_z(quantile)
+            W = compute.cost_matrix(*self._view, z)
+            got = self._cost_cache[quantile] = (W, W.cpu().numpy())
+            self.stats.cost_rebuilds += 1
+        return got
+
+    # ---- scheduling --------------------------------------------------------
+    def schedule(self, dag: WorkflowDAG, ready_at=None,
+                 node_available: Optional[Dict[str, float]] = None,
+                 quantile: Optional[float] = None,
+                 engine: str = "auto") -> Schedule:
+        """One replan round off the resident rows and cost view, placed
+        as `fused_heft_schedule` places (the "device" engine on the
+        plane's device)."""
+        self.matrix()
+        W, W_host = self._costs(dag, quantile)
+        ctx = _context(dag, self.nodes, self.rank_cache)
+        sched, sweeps = _place(ctx, dag, self.nodes, W, W_host, ready_at,
+                               node_available, engine, self.device)
+        self.stats.sweep_dispatches += sweeps
+        return sched

@@ -93,24 +93,31 @@ def fold_kernel(nigs, xs, ys, device=DEFAULT_DEVICE):
     return bayes.fold_unpack(nigs, m, mu, v, prec, a, b, n_obs)
 
 
-def scale(mean: np.ndarray, std: np.ndarray, factors: np.ndarray
-          ) -> Tuple[np.ndarray, np.ndarray]:
+def scale(mean, std, factors):
     """Extrapolation-factor rescaling (with the mean floor) shared by the
     flat path (`finalize`) and the decision plane's matrix path — one
     definition, so the two can never drift apart (broadcasts, so factors
-    may be per-query (Q,) or a (T, N) matrix against (T, 1) predictions)."""
+    may be per-query (Q,) or a (T, N) matrix against (T, 1) predictions).
+    Float64 numpy arrays, or float64 tensors on one device (the resident
+    plane's rows): the same two elementwise ops either way, so the same
+    bits."""
+    if isinstance(mean, torch.Tensor):
+        return torch.clamp_min(mean, 1e-3) * factors, std * factors
     f = np.asarray(factors, np.float64)
     return np.maximum(mean, 1e-3) * f, std * f
 
 
-def cost_matrix(mean_s: np.ndarray, std_s: np.ndarray,
-                z: Optional[float]) -> np.ndarray:
-    """Quantile cost view over an already-scaled (T, N) mean/std pair:
-    `mean + z * std` at the requested band, or the mean itself when no
-    quantile is asked for.  Matches `plane.PredictionMatrix.costs`
-    term-for-term (same expressions, no reassociation) so a resident
-    plane serving this view schedules bitwise like the gather path."""
+def cost_matrix(mean_s, std_s, z: Optional[float]):
+    """Quantile cost view over an already-scaled (T, N) mean/std pair
+    (numpy arrays or tensors): `mean + z * std` at the requested band, or
+    a copy of the mean when no quantile is asked for.  Matches
+    `plane.PredictionMatrix.costs` term-for-term (same expressions, no
+    reassociation, and on a tensor two separate ops, which nothing
+    contracts into an FMA) so a resident plane serving this view schedules
+    bitwise like the gather path."""
     if z is None:
+        if isinstance(mean_s, torch.Tensor):
+            return mean_s.clone()
         return np.array(mean_s, np.float64, copy=True)
     return mean_s + z * std_s
 

@@ -12,6 +12,11 @@ this package yet).
     of one block and never restacks the rest.
   * **Shard-aware layout** — when the stack outgrows one block the store
     splits into more blocks; `gather` resolves rows block-by-block.
+  * **Dirty-block feed** — each block remembers the generation of its
+    last rewrite; `StoreSnapshot.rows_changed_since` tells a resident
+    consumer (`sched.fused.FusedPlane`) which of its rows moved since the
+    generation it last read.  `sync_bindings` lands several namespaces'
+    changed rows in one generation.
 
 The gathered rows are what the predictive kernel reads: a gather is one
 contiguous float64 array per leaf, copied to the card in one transfer each.
@@ -23,6 +28,7 @@ predictor has one) and the version-scoped static-factor cache.
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import threading
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -57,14 +63,21 @@ class StoreSnapshot:
     live index would silently resolve such a key to the evicted tenant's
     old row (`n_rows` still guards keys appended past the snapshot)."""
 
-    __slots__ = ("_blocks", "_rows", "_n_rows", "_block_size", "generation")
+    __slots__ = ("_blocks", "_rows", "_n_rows", "_block_size", "generation",
+                 "_block_gen")
 
-    def __init__(self, blocks, rows, n_rows, block_size, generation):
+    def __init__(self, blocks, rows, n_rows, block_size, generation,
+                 block_gen=None):
         self._blocks = tuple(blocks)
         self._rows = rows
         self._n_rows = n_rows
         self._block_size = block_size
         self.generation = generation
+        # block id -> generation of its last rewrite, captured with the
+        # snapshot: the dirty-row feed of the resident plane
+        # (sched.fused.FusedPlane).  A hand-built snapshot without it
+        # reads as "every row may have changed".
+        self._block_gen = dict(block_gen) if block_gen is not None else None
 
     def __contains__(self, key) -> bool:
         row = self._rows.get(str(key))
@@ -96,6 +109,25 @@ class StoreSnapshot:
         """One row's leaves (copies), as a predict_blr-compatible dict."""
         g = self.gather([key])
         return {leaf: v[0] for leaf, v in g.items()}
+
+    def rows_changed_since(self, keys: Sequence, generation: int
+                           ) -> np.ndarray:
+        """(len(keys),) bool mask: True where a key's backing block was
+        rewritten after `generation` — the dirty-row feed for consumers
+        that keep gathered rows resident across snapshots.  It works at
+        block granularity (a neighbour's write marks the whole block;
+        re-predicting a clean row gives the same bits).  A key unknown to
+        this snapshot, or a block with no generation tag, is dirty."""
+        out = np.empty(len(keys), bool)
+        for i, k in enumerate(keys):
+            row = self._rows.get(str(k))
+            if row is None or row >= self._n_rows or self._block_gen is None:
+                out[i] = True
+                continue
+            g = self._block_gen.get(row // self._block_size)
+            out[i] = g is None or g > generation
+        return out
+
 
 class TenantBinding:
     """One (tenant, workflow) namespace bound to the predictor that updates
@@ -141,6 +173,9 @@ class TenantBinding:
             s = self._key_strs[task] = str(self.key(task))
         return s
 
+    def keys(self) -> List[TaskKey]:
+        return [self.key(t) for t in self.predictor.task_names()]
+
     def add_benches(self, benches: Mapping) -> None:
         """Merge benchmark entries; replacing an existing node's bench with
         a different reading drops the factor cache (factors derived from
@@ -158,44 +193,60 @@ class TenantBinding:
         a complete rewrite (explicit `refresh()`), which also drops the
         factor cache so even out-of-band model edits (a swapped app_bench)
         are picked up."""
-        p = self.predictor
         with self._sync_lock:       # serialize concurrent syncs (frontend
-            if self._detached:      # checked under the lock: bind()/evict()
-                # detach under this same lock, so an in-flight sync either
-                # lands its rows BEFORE the displacing restack/purge or
-                # dies here
-                raise RuntimeError(self._detach_reason or (
-                    f"binding for {self.namespace!r} was detached from "
-                    f"the store; services holding it must be rebuilt"))
-            version = getattr(p, "version", 0)   # worker vs predict_batch:
-            # a sync in one thread must land its put before another thread
-            # concludes the namespace is clean and snapshots stale rows
-            changed_since = getattr(p, "changed_since", None)
-            cursor: Optional[float] = None
-            if full or self._synced_version is None:
-                if changed_since is not None:    # capture the feed position
-                    _, cursor = changed_since(float("inf"))   # BEFORE export
-                tasks = list(p.task_names())
-            elif changed_since is not None:
-                # the feed is non-destructive and per-binding (cursor), so
-                # one predictor can feed many bindings; a failed put keeps
-                # the old cursor and the rows stay due
-                tasks, cursor = changed_since(self._change_cursor)
-            else:
-                tasks = ([] if self._synced_version == version
-                         else list(p.task_names()))
-            if tasks:
-                self.store.put_many([(self.key(t), p.export_posterior(t))
-                                     for t in tasks])
-            if cursor is not None:
-                self._change_cursor = cursor
-            self._synced_version = version
-            base = getattr(p, "base", p)
-            base_version = getattr(base, "version", 0)
-            if full or base_version != self._factor_version:
-                self._factor_cache.clear()
-                self._factor_version = base_version
-            return len(tasks)
+            self._check_attached()  # worker vs predict_batch: a sync in one
+            # thread must land its put before another thread concludes the
+            # namespace is clean and snapshots stale rows)
+            items, cursor, version = self._pending(full)
+            if items:
+                self.store.put_many(items)
+            self._synced(cursor, version, full)
+            return len(items)
+
+    def _check_attached(self) -> None:
+        """Raise if detached (the caller holds `_sync_lock`: bind()/evict()
+        detach under this same lock, so an in-flight sync either lands its
+        rows BEFORE the displacing restack/purge or dies here)."""
+        if self._detached:
+            raise RuntimeError(self._detach_reason or (
+                f"binding for {self.namespace!r} was detached from "
+                f"the store; services holding it must be rebuilt"))
+
+    def _pending(self, full: bool):
+        """(store items of the rows due, feed cursor to adopt after the
+        put, predictor version) for one sync; the caller holds
+        `_sync_lock`."""
+        p = self.predictor
+        version = getattr(p, "version", 0)
+        changed_since = getattr(p, "changed_since", None)
+        cursor: Optional[float] = None
+        if full or self._synced_version is None:
+            if changed_since is not None:    # capture the feed position
+                _, cursor = changed_since(float("inf"))   # BEFORE export
+            tasks = list(p.task_names())
+        elif changed_since is not None:
+            # the feed is non-destructive and per-binding (cursor), so one
+            # predictor can feed many bindings; a failed put keeps the old
+            # cursor and the rows stay due
+            tasks, cursor = changed_since(self._change_cursor)
+        else:
+            tasks = ([] if self._synced_version == version
+                     else list(p.task_names()))
+        return ([(self.key(t), p.export_posterior(t)) for t in tasks],
+                cursor, version)
+
+    def _synced(self, cursor: Optional[float], version: int,
+                full: bool) -> None:
+        """Adopt a landed sync: the feed cursor, the synced version, and a
+        factor cache scoped to the live base-predictor version."""
+        if cursor is not None:
+            self._change_cursor = cursor
+        self._synced_version = version
+        base = getattr(self.predictor, "base", self.predictor)
+        base_version = getattr(base, "version", 0)
+        if full or base_version != self._factor_version:
+            self._factor_cache.clear()
+            self._factor_version = base_version
 
     def is_current(self) -> bool:
         """True when a sync would be a no-op: the change cursor sits at the
@@ -215,6 +266,27 @@ class TenantBinding:
                     return False
             base = getattr(p, "base", p)
             return getattr(base, "version", 0) == self._factor_version
+
+    def _advance_cursor(self, applied_seqs: Mapping) -> None:
+        """Move the change cursor past rows the maintenance plane already
+        published (the caller holds `_sync_lock` and did the put_many).
+        `applied_seqs` maps task -> the change seq captured when its row
+        was exported; the cursor advances only when every pending change
+        belongs to a published task whose seq has not moved since, so a
+        concurrent observe() (even on a published task) keeps its row due
+        for the next sync.  A never-synced binding is left alone: its
+        first sync must stay a full restack."""
+        p = self.predictor
+        changed_since = getattr(p, "changed_since", None)
+        seq_of = getattr(p, "change_seq", None)
+        if changed_since is None or seq_of is None \
+                or self._synced_version is None:
+            return
+        tasks, head = changed_since(self._change_cursor)
+        if all(t in applied_seqs and seq_of(t) <= applied_seqs[t]
+               for t in tasks):
+            self._change_cursor = head
+            self._synced_version = getattr(p, "version", 0)
 
     # ---- extrapolation factors ----------------------------------------------
     def base_factor(self, task: str, node: Optional[str]) -> float:
@@ -253,6 +325,21 @@ class TenantBinding:
             return {n: 1.0 for n in set(nodes)}
         return {n: corr_fn(n) for n in set(nodes)}
 
+    @property
+    def factor_version(self) -> Optional[int]:
+        """Base-predictor fit version the static-factor cache is scoped to
+        (moves on refit).  The resident plane keys its cached base-factor
+        matrix on it, so a refit invalidates both at once."""
+        return self._factor_version
+
+    def base_factor_matrix(self, tasks: Sequence[str],
+                           nodes: Sequence[Optional[str]]) -> np.ndarray:
+        """(T, N) static-factor matrix (no streaming corrections): the
+        slowly moving part of `factor_matrix`, cacheable against
+        `factor_version`."""
+        return np.asarray([[self.base_factor(t, n) for n in nodes]
+                           for t in tasks])
+
     def factor_matrix(self, tasks: Sequence[str],
                       nodes: Sequence[Optional[str]]) -> np.ndarray:
         """(T, N) multiplicative factor matrix for the decision plane: the
@@ -279,6 +366,9 @@ class PosteriorStore:
         self._next_row = 0                       # allocation cursor
         self._free_rows: List[int] = []          # heap of evicted row slots
         self._blocks: List[Dict[str, np.ndarray]] = []
+        self._block_gen: Dict[int, int] = {}     # block id -> generation of
+                                                 # its last rewrite (the
+                                                 # dirty-row feed)
         self._bindings: Dict[Tuple[str, str], TenantBinding] = {}
         self._snap: Optional[StoreSnapshot] = None
 
@@ -315,6 +405,32 @@ class PosteriorStore:
         these to find predictors with refresh-due tasks)."""
         with self._lock:
             return list(self._bindings.values())
+
+    def sync_bindings(self, bindings: Optional[Sequence[TenantBinding]]
+                      = None) -> int:
+        """Sync several namespaces' changed rows in ONE copy-on-write
+        generation: every binding's due rows land in a single `put_many`
+        instead of one generation bump per binding.  Returns rows written.
+
+        Binding sync locks are taken in namespace order, always before the
+        store lock inside put_many (the order `sync()` and the maintenance
+        plane's publish use), so concurrent syncs serialize instead of
+        deadlocking.  A detached binding raises, as `sync()` does."""
+        if bindings is None:
+            bindings = self.bindings()
+        bindings = sorted({id(b): b for b in bindings}.values(),
+                          key=lambda b: b.namespace)
+        with contextlib.ExitStack() as stack:
+            for b in bindings:
+                stack.enter_context(b._sync_lock)
+                b._check_attached()
+            pending = [(b,) + b._pending(False) for b in bindings]
+            items = [item for _, its, _, _ in pending for item in its]
+            if items:
+                self.put_many(items)        # ONE generation for the batch
+            for b, _, cursor, version in pending:
+                b._synced(cursor, version, False)
+            return len(items)
 
     def bind(self, tenant: str, workflow: str, predictor,
              benches: Optional[Mapping] = None, sync: bool = True
@@ -412,6 +528,8 @@ class PosteriorStore:
                         block[leaf][slot] = v
                 self._blocks[bid] = block
             self.generation += 1
+            for bid in touched:
+                self._block_gen[bid] = self.generation
             self._snap = None
 
     # ---- reads --------------------------------------------------------------
@@ -420,7 +538,7 @@ class PosteriorStore:
             if self._snap is None:
                 self._snap = StoreSnapshot(self._blocks, dict(self._rows),
                                            self._next_row, self.block_size,
-                                           self.generation)
+                                           self.generation, self._block_gen)
             return self._snap
 
     def get(self, key) -> Dict[str, np.ndarray]:
@@ -470,6 +588,7 @@ class PosteriorStore:
             for bid in range(len(self._blocks)):
                 if bid not in live_bids:
                     self._blocks[bid] = None
+                    self._block_gen.pop(bid, None)
             self.generation += 1
             self._snap = None
             return len(victims)

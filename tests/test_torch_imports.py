@@ -35,6 +35,8 @@ LM_MODULES = (
     "models.attention", "models.transformer", "train", "train.train_step",
     "launch", "launch.serve", "kernels.flash_attention",
     "kernels.rglru_scan", "convert")
+# the resident decision plane and the maintenance plane
+PLANE_MODULES = ("store.posterior", "sched.fused", "online.maintenance")
 
 
 def _env():
@@ -47,10 +49,10 @@ def test_importing_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 54            # every module of the slices
+    assert int(out[0]) >= 55            # every module of the slices
     assert out[1] == "[]"
     names = set(out[2].split(","))
-    assert {f"repro_torch.{m}" for m in LM_MODULES} <= names
+    assert {f"repro_torch.{m}" for m in LM_MODULES + PLANE_MODULES} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -65,13 +67,15 @@ def test_no_source_line_imports_jax_or_repro():
 
 
 def test_package_inits_import_only_ported_modules():
-    """store/__init__ and online/__init__ export the ported names and no
-    module of a later slice (frontend, maintenance, rescheduler)."""
+    """store/__init__ and online/__init__ export the ported names (the
+    maintenance plane's among them) and no module of a later slice
+    (frontend, rescheduler)."""
     code = ("import sys, repro_torch.store as s, repro_torch.online as o;"
             "print(s.PosteriorStore.__name__, s.TaskKey.__name__,"
             " s.predict_stacked.__name__, o.PredictionService.__name__,"
             " o.PredictionQuery.__name__, o.TaskCompletion.__name__,"
-            " o.OnlinePredictor.__name__, o.IngestStats.__name__);"
+            " o.OnlinePredictor.__name__, o.IngestStats.__name__,"
+            " o.FleetRefresher.__name__, o.RefreshPolicy.__name__);"
             "print(sorted(k for k in sys.modules if k.startswith("
             "'repro_torch.')))")
     lines = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -80,8 +84,10 @@ def test_package_inits_import_only_ported_modules():
     assert lines[0].split() == ["PosteriorStore", "TaskKey",
                                 "predict_stacked", "PredictionService",
                                 "PredictionQuery", "TaskCompletion",
-                                "OnlinePredictor", "IngestStats"]
-    for later in ("frontend", "maintenance", "rescheduler"):
+                                "OnlinePredictor", "IngestStats",
+                                "FleetRefresher", "RefreshPolicy"]
+    assert "repro_torch.online.maintenance" in lines[1]
+    for later in ("frontend", "rescheduler"):
         assert later not in lines[1]
 
 
