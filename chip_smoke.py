@@ -32,8 +32,9 @@ Phases (each fails loudly; nothing is caught):
                tenants and served per tenant.
   5. plan    — the same replan round through HEFT placement on the card:
                `cost_view` (one fused_cost launch) and
-               `fused_heft_schedule(engine="device")` (one eft_sweep launch
-               per round), cold and warm (rank_cache reused), at q = None
+               `fused_heft_schedule(engine="device")` (one upward_rank and
+               one eft_sweep launch per round, the rank order sorted on the
+               card), cold and warm (rank_cache reused), at q = None
                and 0.95 and as a constrained replan; each schedule
                identical to the host `heft_schedule_matrix`, and every
                sweep on the shared route (state in shared memory).  Then
@@ -67,14 +68,38 @@ Phases (each fails loudly; nothing is caught):
                with nothing moved (no predictive launch, no factor matrix,
                no new W), then one after each of phase 6's ingest batches
                (one `bayes_predict` launch over the dirty rows, one
-               `eft_sweep`).  Each round's matrix bitwise
+               `upward_rank`, one `eft_sweep`; no host copy of W in any
+               round).  Each round's matrix bitwise
                `PredictionMatrix.from_service` on a fresh service, each
                schedule identical to `heft_schedule_matrix`.  Each round's
                split (sync and gather, predict, scale and cost, ranks,
                sweep, rebuild) from a replay on a second plane, in turns
                with the old `cost_view` + `fused_heft_schedule` round on
                the same state.
-  8. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
+  8. replan  — many workflows a round: 32 DAGs of the replan problem's
+               generator (1000 tasks) on its 100-node cluster and 6 DAGs
+               of 300 tasks on a second, 30-node cluster (the reference
+               benchmark's megabatch, benchmarks/fused_plane.py:50), each
+               a `FusedPlane` over one `OnlinePredictor(device="cuda")`,
+               all 38 in one `replan_many` a round at q = 0.95: cold, warm
+               with nothing moved, then one after each of phase 6's first
+               two batches.  A round: one `bayes_predict` launch when rows
+               moved and none when none did, one `upward_rank` and one
+               `eft_sweep_many` launch a cluster, no host copy of W.  Every
+               schedule identical to replicas' replayed `replan_many` and
+               per-request `plane.schedule(engine="device")`, and in the
+               cold round to `heft_schedule_matrix`; each round's split
+               (sync and gather, predict, scale and cost, ranks, sweep and
+               rebuild) beside the 38 per-request rounds on the same state.
+               Then `upward_rank` bitwise `_PlanContext.ranks` and its
+               plain version on the replan DAG, a 1000-task chain and a
+               one-level fan (one lane a launch, then three in one), and
+               `eft_sweep_many` bitwise its plain version on the CPU for
+               lanes of T 1000, 850, 700 and 300, four tie packs, the first
+               at S = 4, and two lanes on 1500 nodes (the global route, a
+               launch a lane); the second cluster replanned from 4
+               interval columns (a slot retry on the shared route).
+  9. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
                tenants of 1,024 tasks, each an `OnlinePredictor(device=
                "cuda")` bound to one store, fed its share of phase 6's
                fleet completions and synced in one generation; one
@@ -84,7 +109,7 @@ Phases (each fails loudly; nothing is caught):
                t00 re-predicts the rows the publish dirtied in one
                `bayes_predict` launch.  The store's rows within rtol 1e-4
                / atol 1e-5 of the same refresh on device="cpu".
-  9. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
+ 10. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
                (bfloat16, weights made on the card from a seed) served
                through `repro_torch.launch.serve`: B = 2 prompts of 4096
                tokens (past the 2048 window, so the rings wrap), 16
@@ -107,9 +132,9 @@ Phases (each fails loudly; nothing is caught):
                and prefill of S = 2100 against prefill of S - 1 plus one
                decode step (2e-3); then one prefill and 4 decode steps
                under torch.profiler (device time by kernel, busy share).
- 10. report  — per-kernel launches on the main path (phases 3-9, each path
-               with the counts set to 0 just before it), errors, and times
-               at the main path's shapes beside their bounds: CUDA events
+ 11. report  — per-kernel launches on the main path (phases 3-10, each
+               path with the counts set to 0 just before it), errors, and
+               times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
                C entry point (`ms`, the kernel; for the sweep also the
                global route at S = 192, `global_ms`), through the Python
@@ -124,9 +149,12 @@ Phases (each fails loudly; nothing is caught):
                `bayes_predict` also the times at Q = 1, at the paper path's
                median Q, at 100,000 and at 2**20, the launch floor (the
                time at 100,000 less the slope to 2**20) and the main path's
-               launches by Q.  `tol_ratio` is
-               the worst |got - want| / (atol + rtol * |want|) over all
-               outputs: at most 1 is within the stated tolerance.
+               launches by Q.  For `upward_rank` (at one lane) and
+               `eft_sweep_many` (at 32 lanes) also the other lane count,
+               and beside the ranks the host ranks they replace.
+               `tol_ratio` is the worst |got - want| / (atol + rtol *
+               |want|) over all outputs: at most 1 is within the stated
+               tolerance.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit, and the `ok` JSON.  The script exits non-zero, printing no result,
@@ -245,7 +273,6 @@ def replan_problem(n_tasks: int, n_nodes: int, seed: int, device):
     from repro_torch.core.traces import TraceRow
     from repro_torch.online import PredictionService
     from repro_torch.sched.cluster import LOCAL, TARGET_MACHINES
-    from repro_torch.workflow.dag import TaskInstance, WorkflowDAG
     from repro_torch.workflow.simulator import random_cluster
     rng = np.random.default_rng(seed)
     traces = []
@@ -258,6 +285,13 @@ def replan_problem(n_tasks: int, n_nodes: int, seed: int, device):
     nodes = random_cluster(rng, list(TARGET_MACHINES), n_nodes=n_nodes)
     benches = {n.name: simulate_microbench(n, 1) for n in nodes}
     svc = PredictionService(lot, benches, device=device)
+    return replan_dag(rng, n_tasks), nodes, svc
+
+
+def replan_dag(rng: np.random.Generator, n_tasks: int):
+    """The replan problem's random DAG: task i of type i mod 6 depends on
+    each earlier task with probability min(3 / i, 0.5)."""
+    from repro_torch.workflow.dag import TaskInstance, WorkflowDAG
     dag = WorkflowDAG("replan")
     for i in range(n_tasks):
         deps = [f"t{j}" for j in range(i)
@@ -266,7 +300,7 @@ def replan_problem(n_tasks: int, n_nodes: int, seed: int, device):
                              "replan", float(rng.uniform(0.05, 4.0)),
                              output_gb=float(rng.uniform(0.0, 2.0)),
                              deps=deps))
-    return dag, nodes, svc
+    return dag
 
 
 # ---------------------------------------------------------------------------
@@ -753,35 +787,31 @@ def phase_plan(dev, fleet_out) -> dict:
     return out
 
 
-def heft_pieces(dev, ctx, dag, nodes, W, W_host=None) -> tuple:
+def heft_pieces(dev, ctx, dag, nodes, W) -> tuple:
     """One device placement run piece by piece as `fused_heft_schedule`
-    runs it, host clock around each: the ranks (with W's copy to the host
-    when W_host is not given, and the finite check), the packing and its
-    copies to the card, the sweep launch (with the sync for its overflow
-    check), and the copies back plus the Schedule rebuild.  -> (seconds
-    of the four pieces, schedule, the sweep's arguments)."""
+    runs it, host clock around each: the ranks (one upward_rank launch
+    and the read of its finite flag), the rank order (a stable sort on
+    the card), the sweep launch with the one copy back of the order,
+    placements and counts (and the overflow check on them), and the
+    Schedule rebuild.  -> (seconds of the four pieces, schedule, the
+    sweep's arguments)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.sched import fused
     t0 = time.perf_counter()
-    if W_host is None:
-        W_host = W.cpu().numpy()
-    fused._check_finite(ctx, W_host)
-    rank = ctx.ranks(dag, W_host)
+    rank = fused._device_ranks([ctx], [W])
     t1 = time.perf_counter()
-    order_arr, _, avail = fused._sweep_inputs(ctx, dag, nodes, rank, None,
-                                              None)
+    order = fused._rank_order(rank)
     st = ctx.on_device(dev)
-    args = (W, torch.from_numpy(order_arr).to(dev), st["dep_rows"],
-            st["gb8"], st["zeros"], torch.from_numpy(avail).to(dev),
-            st["same"], st["gbps_min"])
+    args = (W, order[0], st["dep_rows"], st["gb8"], st["zeros"],
+            st["avail0"], st["same"], st["gbps_min"])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    assign, est, eft, cnt = ops.eft_sweep(*args, S=ctx.slot_cap)
+    out = ops.eft_sweep(*args, S=ctx.slot_cap)
+    o, assign, est, eft, cnt = fused._fetch(order, *(x[None] for x in out))
     check(int(cnt.max()) <= ctx.slot_cap - 1, "warm round overflowed")
     t3 = time.perf_counter()
-    sched = fused._build_schedule(ctx, order_arr, assign.cpu().numpy(),
-                                  est.cpu().numpy(), eft.cpu().numpy())
+    sched = fused._build_schedule(ctx, o[0], assign[0], est[0], eft[0])
     t4 = time.perf_counter()
     return (t1 - t0, t2 - t1, t3 - t2, t4 - t3), sched, args
 
@@ -1273,7 +1303,7 @@ def phase_plane(dev, fleet_out) -> dict:
     for label, batch in plane_rounds(dag, batches):
         before = (dataclasses.asdict(plane.stats),
                   kernels.bayes_predict.launches, plane_k.eft_sweep.launches,
-                  len(factor_builds))
+                  len(factor_builds), plane.w_host_copies)
         t0 = time.perf_counter()
         if batch is not None:
             online.observe_many(batch)
@@ -1288,14 +1318,18 @@ def phase_plane(dev, fleet_out) -> dict:
              "stats": stats,
              "predict_launches": kernels.bayes_predict.launches - before[1],
              "sweep_launches": plane_k.eft_sweep.launches - before[2],
-             "factor_builds": len(factor_builds) - before[3]}
+             "factor_builds": len(factor_builds) - before[3],
+             "w_host_copies": plane.w_host_copies - before[4]}
         rounds.append(r)
         print(f"[plane] round {label}: {r['round_s']!r} s (observe_many "
               f"{r['observe_s']!r} s before it); rows refreshed "
               f"{stats['rows_refreshed']} of {len(plane.uids)}; launches "
               f"bayes_predict {r['predict_launches']}, eft_sweep "
               f"{r['sweep_launches']}; factor-matrix builds "
-              f"{r['factor_builds']}; PlaneStats delta {stats}")
+              f"{r['factor_builds']}; host copies of W "
+              f"{r['w_host_copies']}; PlaneStats delta {stats}")
+        check(r["w_host_copies"] == 0,
+              f"plane round {label} copied W to the host")
     print(f"[plane] PlaneStats after {len(rounds)} rounds: {plane.stats}")
     return {"rounds": rounds, "batches": batches, "benches": benches,
             "online": online, "stats": plane.stats}
@@ -1305,9 +1339,9 @@ def plane_split(dev, plane, dag) -> tuple:
     """One plane round run piece by piece as `FusedPlane.schedule` runs
     it, with a sync after each piece: the binding sync, snapshot, dirty
     detection, host gather and copies to the card; the bayes_predict
-    launch and the scatter; scaling, the host matrix, the cost view and
-    W's host copy; then `heft_pieces` (ranks, packing and its copies,
-    sweep, rebuild).
+    launch and the scatter; scaling, the host matrix and the cost view
+    (W stays on the card); then `heft_pieces` (ranks, rank order, sweep
+    and its copy back, rebuild).
     -> ({piece: seconds}, schedule)."""
     import torch
     from repro_torch.kernels import ops
@@ -1327,11 +1361,11 @@ def plane_split(dev, plane, dag) -> tuple:
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     plane._scale()
-    W, W_host = plane._costs(dag, PLAN_QUANTILE)
+    W = plane._costs(dag, PLAN_QUANTILE)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     ctx = fused._context(dag, plane.nodes, plane.rank_cache)
-    pieces, sched, _ = heft_pieces(dev, ctx, dag, plane.nodes, W, W_host)
+    pieces, sched, _ = heft_pieces(dev, ctx, dag, plane.nodes, W)
     split = dict(zip(PLANE_SPLIT, [b - a for a, b in zip(t, t[1:])]
                      + list(pieces), strict=True))
     return split, sched
@@ -1427,6 +1461,584 @@ def phase_plane_checks(dev, fleet_out, pl) -> None:
           f"PredictionMatrix.from_service, schedules identical to "
           f"heft_schedule_matrix (old round too); replayed PlaneStats "
           f"{plane.stats}")
+
+
+# ---------------------------------------------------------------------------
+# replan: many workflows a round
+# ---------------------------------------------------------------------------
+REPLAN_A = 32                    # workflows of PLAN_TASKS tasks on the
+                                 # fleet's PLAN_NODES-node cluster
+REPLAN_B = (6, 300, 30)          # benchmarks/fused_plane.py:50: batch,
+                                 # batch_tasks, batch_nodes
+REPLAN_SEED = 31
+REPLAN_BATCHES = 2               # rounds after phase 6's first two batches
+REPLAN_SPLIT = ("sync_gather_s", "predict_s", "scale_cost_s", "rank_s",
+                "sweep_rebuild_s")
+
+
+def replan_problem_many(fleet_out) -> dict:
+    """The replan cell: group A, REPLAN_A DAGs of the replan problem's
+    generator (`replan_dag`, seeds REPLAN_SEED + 1 on) on the fleet's
+    cluster; group B, the reference benchmark's megabatch shape on a
+    second cluster drawn from seed REPLAN_SEED; and both clusters'
+    microbenchmarks (a node name names one machine in both)."""
+    from repro_torch.core.microbench import simulate_microbench
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    from repro_torch.workflow.simulator import random_cluster
+    svc = fleet_out["replan_service"]
+    nodes_a = fleet_out["replan_nodes"]
+    n_b, t_b, m_b = REPLAN_B
+    nodes_b = random_cluster(np.random.default_rng(REPLAN_SEED),
+                             list(TARGET_MACHINES), n_nodes=m_b)
+    by_name = {n.name: n for n in nodes_a}
+    check(all(by_name.get(n.name, n) == n for n in nodes_b),
+          "a node name names two machines in the replan cell")
+    benches = dict(svc.benches)
+    benches.update({n.name: simulate_microbench(n, 1) for n in nodes_b})
+    seeds = iter(range(REPLAN_SEED + 1, REPLAN_SEED + 1 + REPLAN_A + n_b))
+    work = ([(replan_dag(np.random.default_rng(next(seeds)), PLAN_TASKS),
+              nodes_a) for _ in range(REPLAN_A)]
+            + [(replan_dag(np.random.default_rng(next(seeds)), t_b),
+                nodes_b) for _ in range(n_b)])
+    return {"work": work, "benches": benches, "groups": 2}
+
+
+def replan_planes(dev, problem, online) -> tuple:
+    """A `FusedPlane` per workflow of the cell over one service of
+    `online`, and their requests at q = PLAN_QUANTILE."""
+    from repro_torch.online import PredictionService
+    from repro_torch.sched.fused import FusedPlane, ReplanRequest
+    service = PredictionService(online, problem["benches"], device=dev)
+    planes = [FusedPlane(service, nodes, dag=dag)
+              for dag, nodes in problem["work"]]
+    reqs = [ReplanRequest(p, dag, quantile=PLAN_QUANTILE)
+            for p, (dag, _) in zip(planes, problem["work"])]
+    return planes, reqs
+
+
+def replan_caps(reqs) -> list:
+    """The interval columns each group's sweep starts at (its members'
+    largest slot_cap), in the order of the groups' first members."""
+    from repro_torch.sched import fused
+    caps = {}
+    for req in reqs:
+        ctx = fused._context(req.dag, req.plane.nodes, req.plane.rank_cache)
+        caps[ctx.cluster] = max(caps.get(ctx.cluster, 0), ctx.slot_cap)
+    return list(caps.values())
+
+
+def phase_replan(dev, fleet_out) -> dict:
+    """The main path of replanning many workflows on the card: the replan
+    cell's 38 workflows (`replan_problem_many`), each a `FusedPlane` over
+    one `OnlinePredictor(device="cuda")` wrapping the fleet's predictor,
+    and one `replan_many` of all of them a round at q = PLAN_QUANTILE:
+    cold, warm with nothing moved, then one after each of the first
+    REPLAN_BATCHES of phase 6's ingest batches (the same seeded stream).
+    A round makes one bayes_predict launch when rows moved and none when
+    none did, one upward_rank and one eft_sweep_many launch a cluster
+    (more sweeps only on a slot retry), no single-workflow sweep and no
+    host copy of W.  The schedules are checked after the launch counts
+    are read."""
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import decision_plane as plane_k
+    from repro_torch.online import OnlinePredictor
+    from repro_torch.sched.fused import replan_many
+    svc = fleet_out["replan_service"]
+    problem = replan_problem_many(fleet_out)
+    batches = ingest_stream(np.random.default_rng(23), fleet_out["replan_dag"],
+                            svc.predictor, dict(svc.benches),
+                            fleet_out["replan_nodes"])[:REPLAN_BATCHES]
+    online = OnlinePredictor(svc.predictor, problem["benches"], device=dev)
+    planes, reqs = replan_planes(dev, problem, online)
+    fns = {"bayes_predict": kernels.bayes_predict,
+           "upward_rank": plane_k.upward_rank,
+           "eft_sweep_many": plane_k.eft_sweep_many,
+           "eft_sweep": plane_k.eft_sweep}
+    rounds = []
+    for label, batch in plane_rounds(None, batches):
+        before = ({k: f.launches for k, f in fns.items()},
+                  sum(p.w_host_copies for p in planes),
+                  sum(p.stats.rows_refreshed for p in planes),
+                  dict(plane_k.eft_sweep_many.launches_by_route),
+                  replan_caps(reqs))
+        t0 = time.perf_counter()
+        if batch is not None:
+            online.observe_many(batch)
+        t1 = time.perf_counter()
+        scheds = replan_many(reqs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {k: f.launches - before[0][k] for k, f in fns.items()}
+        routes = {k: v - before[3][k]
+                  for k, v in plane_k.eft_sweep_many.launches_by_route.items()}
+        retries = sum(int(np.log2(b / a))
+                      for a, b in zip(before[4], replan_caps(reqs)))
+        r = {"label": label, "observe_s": t1 - t0, "round_s": t2 - t1,
+             "scheds": scheds, "launches": launches, "retries": retries,
+             "rows": sum(p.stats.rows_refreshed for p in planes) - before[2],
+             "w_host_copies": sum(p.w_host_copies for p in planes)
+             - before[1]}
+        rounds.append(r)
+        print(f"[replan] round {label}: {len(reqs)} workflows in one "
+              f"replan_many, {r['round_s']!r} s (observe_many "
+              f"{r['observe_s']!r} s before it); rows refreshed "
+              f"{r['rows']}; launches {launches} (eft_sweep_many by route "
+              f"{routes}; slot retries {retries}); host copies of W "
+              f"{r['w_host_copies']}")
+        check(launches["bayes_predict"] == (1 if r["rows"] else 0),
+              f"replan round {label}: not one bayes_predict launch when rows "
+              f"moved and none when none did")
+        check(launches["upward_rank"] == problem["groups"]
+              and launches["eft_sweep_many"] == problem["groups"] + retries
+              and launches["eft_sweep"] == 0,
+              f"replan round {label}: not one upward_rank and one "
+              f"eft_sweep_many launch a cluster")
+        check(routes["global"] == 0, f"replan round {label}: a many-lane "
+              f"sweep left the shared route")
+        check(r["w_host_copies"] == 0,
+              f"replan round {label} copied W to the host")
+    check(rounds[1]["rows"] == 0, "the warm replan round refreshed rows")
+    return {"problem": problem, "batches": batches, "rounds": rounds,
+            "online": online, "planes": planes}
+
+
+def replan_split(dev, reqs) -> tuple:
+    """One `replan_many` round run piece by piece as it runs, a sync
+    after each piece: the bindings' sync, the dirty rows' collection,
+    host gather and copies; the one bayes_predict launch and the
+    scatters; each plane's scaling and cost view; each cluster's ranks
+    (one upward_rank launch and the read of its flags); each cluster's
+    rank order, sweep, copy back and Schedule rebuild.
+    -> ({piece: seconds}, schedules)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sched import fused
+    t = [time.perf_counter()]
+    for req in reqs:
+        req.plane.binding.sync()
+    collected = [(req.plane,) + req.plane.collect_dirty() for req in reqs]
+    dirty = [c for c in collected if len(c[2])]
+    rows = fused._gather_many(dirty, dev) if dirty else None
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    if dirty:
+        idx_t, x, post, counts = rows
+        mean, std = ops.bayes_predict(x, post)
+        off = 0
+        for (plane, snap, _), n in zip(dirty, counts):
+            sl = slice(off, off + n)
+            plane.apply_rows(snap, idx_t[sl], mean[sl], std[sl])
+            plane.stats.predict_dispatches += 1
+            off += n
+    for plane, snap, idx in collected:
+        if not len(idx):
+            plane.apply_rows(snap, idx, None, None)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    groups = {}
+    for pos, req in enumerate(reqs):
+        _, W = req.plane.cost_view(req.dag, req.quantile)
+        ctx = fused._context(req.dag, req.plane.nodes, req.plane.rank_cache)
+        groups.setdefault(ctx.cluster, []).append((pos, req, ctx, W))
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ranks = [fused._device_ranks([m[2] for m in g], [m[3] for m in g])
+             for g in groups.values()]
+    t.append(time.perf_counter())
+    out = [None] * len(reqs)
+    for g, rank in zip(groups.values(), ranks):
+        inputs = [fused._sweep_inputs(ctx, req.dag, req.plane.nodes,
+                                      req.ready_at, req.node_available)
+                  for _, req, ctx, _ in g]
+        scheds, _ = fused._sweep_lanes([m[2] for m in g], [m[3] for m in g],
+                                       rank, inputs)
+        for (pos, req, _, _), sched in zip(g, scheds):
+            req.plane.stats.sweep_dispatches += 1
+            out[pos] = sched
+    t.append(time.perf_counter())
+    return dict(zip(REPLAN_SPLIT, [b - a for a, b in zip(t, t[1:])],
+                    strict=True)), out
+
+
+def phase_replan_checks(dev, fleet_out, rp) -> dict:
+    """The replan rounds against the reference, their split, and the two
+    kernels of the path against their plain versions.  The rounds are
+    replayed on two replicas, each a second predictor fed the same
+    batches with its own planes: one runs `replan_many` piece by piece
+    (`replan_split`), the other the 38 per-request rounds
+    (`plane.schedule(engine="device")`), in turns.  Every schedule of the
+    main path equals both replicas'; in the cold round each equals
+    `heft_schedule_matrix` on a fresh service.  -> the kernel checks'
+    errors and the arguments the report times."""
+    import dataclasses
+    import torch
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.heft import heft_schedule_matrix
+    from repro_torch.sched.plane import PredictionMatrix
+    problem, benches = rp["problem"], rp["problem"]["benches"]
+    svc = fleet_out["replan_service"]
+    split_on = OnlinePredictor(svc.predictor, benches, device=dev)
+    twin_on = OnlinePredictor(svc.predictor, benches, device=dev)
+    split_planes, split_reqs = replan_planes(dev, problem, split_on)
+    twin_planes, twin_reqs = replan_planes(dev, problem, twin_on)
+
+    def per_request():
+        t0 = time.perf_counter()
+        out = [req.plane.schedule(req.dag, quantile=req.quantile,
+                                  engine="device") for req in twin_reqs]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    for i, (r, (label, batch)) in enumerate(zip(
+            rp["rounds"], plane_rounds(None, rp["batches"]))):
+        if batch is not None:
+            split_on.observe_many(batch)
+            twin_on.observe_many(batch)
+        if i % 2:                          # in turns: per-request first
+            one_s, twin = per_request()
+            split, got = replan_split(dev, split_reqs)
+        else:
+            split, got = replan_split(dev, split_reqs)
+            one_s, twin = per_request()
+        for k, (a, b, c) in enumerate(zip(r["scheds"], got, twin)):
+            check(same_schedule(a, b) and same_schedule(a, c),
+                  f"replan round {label}: workflow {k}'s schedule differs "
+                  f"from the replayed replan_many or from plane.schedule")
+        if label == "cold":
+            fresh = PredictionService(twin_on, benches, device=dev)
+            for k, (dag, nodes) in enumerate(problem["work"]):
+                entries = [(u, t.task_name, t.input_gb)
+                           for u, t in dag.tasks.items()]
+                want = heft_schedule_matrix(
+                    dag, nodes, PredictionMatrix.from_service(
+                        fresh, entries, nodes), quantile=PLAN_QUANTILE)
+                check(same_schedule(r["scheds"][k], want),
+                      f"replan cold round: workflow {k}'s schedule differs "
+                      f"from heft_schedule_matrix")
+        r["split"], r["per_request_s"] = split, one_s
+        print(f"[replan] round {label} split (synced pieces, replayed): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+              + f"; sum {sum(split.values()):.6f} s; main-path round "
+              f"{r['round_s']:.6f} s; the {len(twin_reqs)} per-request "
+              f"rounds on the same state {one_s:.6f} s")
+    check(split_on.export_state() == rp["online"].export_state(),
+          "the replayed predictor's state differs from the main path's")
+    for p, q in zip(split_planes, rp["planes"]):
+        check(dataclasses.asdict(p.stats) == dataclasses.asdict(q.stats),
+              "the replayed planes did other work than the main path's")
+    print(f"[replan] every round: each of the {len(twin_reqs)} schedules "
+          f"identical to the replayed replan_many's and to plane.schedule"
+          f"(engine='device') on twin planes; the cold round's identical to "
+          f"heft_schedule_matrix")
+    errors = replan_kernel_checks(dev, fleet_out, twin_planes, twin_reqs)
+    return dict(errors, planes=twin_planes, reqs=twin_reqs)
+
+
+def fan_dag(n_tasks: int):
+    """One task feeding n_tasks - 1 sinks: ranks of two levels, the sinks
+    of each task type tied."""
+    from repro_torch.workflow.dag import TaskInstance, WorkflowDAG
+    dag = WorkflowDAG("fan")
+    for i in range(n_tasks):
+        dag.add(TaskInstance(f"t{i}", TASK_TYPES[i % len(TASK_TYPES)], "fan",
+                             1.0, output_gb=0.5, deps=[] if i == 0
+                             else ["t0"]))
+    return dag
+
+
+def chain_dag(n_tasks: int):
+    """n_tasks in a chain: n_tasks levels, the rank kernel's longest
+    walk."""
+    from repro_torch.workflow.dag import TaskInstance, WorkflowDAG
+    dag = WorkflowDAG("chain")
+    for i in range(n_tasks):
+        dag.add(TaskInstance(f"t{i}", TASK_TYPES[i % len(TASK_TYPES)],
+                             "chain", 1.0, output_gb=1.0,
+                             deps=[f"t{i - 1}"] if i else []))
+    return dag
+
+
+def replan_kernel_checks(dev, fleet_out, planes, reqs) -> dict:
+    """upward_rank and eft_sweep_many on the card against their plain
+    versions.  The ranks bitwise `_PlanContext.ranks` (and the plain
+    version on the CPU) on the replan DAG with its W of the last round, a
+    chain of PLAN_TASKS tasks and a one-level fan, one lane a launch and
+    then all three in one launch.  The sweep bitwise its plain version on
+    the CPU for a group with lanes of different T, a group of tie packs,
+    the first group at S = 4 (stacks overflowing) and two lanes of
+    WIDE_NODES nodes (the global route, a launch a lane); then the cell's
+    second cluster replanned from slot_cap 4, its sweeps retried on the
+    shared route, schedules identical to `heft_schedule_matrix`."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane_k
+    from repro_torch.kernels import ref
+    from repro_torch.online import PredictionService
+    from repro_torch.sched import fused
+    from repro_torch.sched.fused import FusedPlane, ReplanRequest, replan_many
+    from repro_torch.sched.heft import heft_schedule_matrix
+    from repro_torch.sched.plane import PredictionMatrix
+    nodes = fleet_out["replan_nodes"]
+    rng = np.random.default_rng(37)
+    W0 = planes[0]._costs(reqs[0].dag, PLAN_QUANTILE)
+    cases = [("replan", reqs[0].dag, W0)] + [
+        (name, dag, torch.from_numpy(rng.uniform(
+            1.0, 100.0, (PLAN_TASKS, len(nodes)))).to(dev))
+        for name, dag in (("chain", chain_dag(PLAN_TASKS)),
+                          ("fan", fan_dag(PLAN_TASKS)))]
+    ctxs = [fused._PlanContext(dag, nodes) for _, dag, _ in cases]
+    tabs = [c.on_device(dev)["rank"] for c in ctxs]
+    wants, rank_err = [], 0.0
+    for (name, dag, W), ctx, tab in zip(cases, ctxs, tabs):
+        host = ctx.ranks(dag, W.cpu().numpy())
+        want = np.asarray([host[u] for u in ctx.order])
+        wants.append(want)
+        rank, bad = plane_k.upward_rank([W], [tab])
+        got = rank[0].cpu().numpy()
+        plain = ref.upward_rank_ref([W.cpu()], [ctx.rank_table])[0][0]
+        rank_err = max(rank_err, float(np.abs(got - want).max()))
+        same = (np.array_equal(got.view(np.int64), want.view(np.int64))
+                and np.array_equal(plain.numpy().view(np.int64),
+                                   want.view(np.int64)))
+        n_levels = tab.level_ptr.shape[0] - 1
+        print(f"[replan] upward_rank {name} T={PLAN_TASKS} N={len(nodes)} "
+              f"({n_levels} levels): bitwise _PlanContext.ranks and the "
+              f"plain version {same}, flag {int(bad[0])}")
+        check(same and int(bad[0]) == 0,
+              f"upward_rank ({name}) differs from its plain version")
+    rank, bad = plane_k.upward_rank([c[2] for c in cases], tabs)
+    same = all(np.array_equal(rank[k].cpu().numpy().view(np.int64),
+                              w.view(np.int64)) for k, w in enumerate(wants))
+    print(f"[replan] upward_rank all three in one launch (B=3): bitwise "
+          f"{same}, flags {bad.tolist()}")
+    check(same and bad.tolist() == [0, 0, 0],
+          "upward_rank over three lanes differs from one lane at a time")
+
+    def lanes(packs):
+        for p in packs:
+            p[1] = rng.permutation(p[1].shape[0]).astype(np.int32)
+            p[6], p[7] = packs[0][6], packs[0][7]
+        t = max(p[0].shape[0] for p in packs)
+        order = np.full((len(packs), t), -1, np.int32)
+        for k, p in enumerate(packs):
+            order[k, :p[0].shape[0]] = p[1]
+        c = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+        return ([c(p[0]) for p in packs], c(order), [c(p[2]) for p in packs],
+                [c(p[3]) for p in packs], [c(p[4]) for p in packs],
+                [c(p[5]) for p in packs], c(packs[0][6]), c(packs[0][7]))
+
+    mixed = lanes([wide_pack(rng, PLAN_TASKS, PLAN_NODES),
+                   chain_pack(rng, 850, PLAN_NODES),
+                   tie_pack(rng, 700, PLAN_NODES),
+                   wide_pack(rng, 300, PLAN_NODES)])
+    ties = lanes([tie_pack(np.random.default_rng(41 + k), SWEEP_CASE_TASKS,
+                           PLAN_NODES) for k in range(4)])
+    wide = lanes([wide_pack(rng, 200, WIDE_NODES),
+                  wide_pack(rng, 150, WIDE_NODES)])
+    err = 0.0
+    for label, a, s, route in (
+            ("lanes of T 1000, 850, 700, 300", mixed, 48, "shared"),
+            ("four tie packs", ties, 48, "shared"),
+            ("lanes of T 1000, 850, 700, 300", mixed, 4, "shared"),
+            (f"two lanes of T 200, 150 on {WIDE_NODES} nodes", wide, 48,
+             "global")):
+        on = [[x.to(dev) for x in v] if isinstance(v, list) else v.to(dev)
+              for v in a]
+        before = dict(plane_k.eft_sweep_many.launches_by_route)
+        got = [g.cpu() for g in plane_k.eft_sweep_many(*on, S=s)]
+        took = {k: n - before[k] for k, n in
+                plane_k.eft_sweep_many.launches_by_route.items()
+                if n > before[k]}
+        want = ref.eft_sweep_many_ref(*a, S=s)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        # equal cells (an overflowed lane's inf starts too) differ by 0
+        e = max(float(torch.where(got[k] == want[k], 0.0,
+                                  (got[k] - want[k]).abs()).max())
+                for k in (1, 2))
+        err = max(err, e)
+        print(f"[replan] eft_sweep_many {label} S={s}: launches by route "
+              f"{took}, identical to the plain version (CPU float64) "
+              f"{same}, max |err| {e!r}, max count {int(got[3].max())}")
+        # the global route runs the lanes in turn, a launch each
+        want_took = {route: 1 if route == "shared" else len(a[0])}
+        check(took == want_took and same,
+              f"eft_sweep_many ({label}, S={s}) differs from its plain "
+              f"version or did not launch {want_took}")
+        if s == 4:
+            check(int(got[3].max()) > 3, "the S = 4 group did not overflow")
+
+    # the second cluster's workflows replanned from 4 interval columns
+    names = [n.name for n in nodes]
+    b_reqs = [r for r in reqs if r.plane.node_names != names]
+    svc = b_reqs[0].plane.service
+    retry = [FusedPlane(svc, r.plane.nodes, dag=r.dag) for r in b_reqs]
+    for p, r in zip(retry, b_reqs):
+        fused._context(r.dag, p.nodes, p.rank_cache).slot_cap = 4
+    before = (plane_k.eft_sweep_many.launches,
+              dict(plane_k.eft_sweep_many.launches_by_route))
+    got = replan_many([ReplanRequest(p, r.dag, quantile=PLAN_QUANTILE)
+                       for p, r in zip(retry, b_reqs)])
+    n_sweeps = plane_k.eft_sweep_many.launches - before[0]
+    routes = {k: v - before[1][k]
+              for k, v in plane_k.eft_sweep_many.launches_by_route.items()}
+    fresh = PredictionService(svc.predictor, svc.benches, device=dev)
+    for k, (p, r) in enumerate(zip(retry, b_reqs)):
+        entries = [(u, t.task_name, t.input_gb)
+                   for u, t in r.dag.tasks.items()]
+        want = heft_schedule_matrix(
+            r.dag, p.nodes, PredictionMatrix.from_service(fresh, entries,
+                                                          p.nodes),
+            quantile=PLAN_QUANTILE)
+        check(same_schedule(got[k], want), f"replan slot retry: workflow "
+              f"{k}'s schedule differs from heft_schedule_matrix")
+    caps = replan_caps([ReplanRequest(p, r.dag) for p, r in zip(retry,
+                                                                 b_reqs)])
+    print(f"[replan] slot retry of the {len(b_reqs)}-workflow cluster from "
+          f"S=4 to {caps}: {n_sweeps} eft_sweep_many launches by route "
+          f"{routes}; schedules identical to heft_schedule_matrix")
+    check(n_sweeps >= 2 and routes["global"] == 0 and caps[0] > 4,
+          "the replan slot retry did not run on the shared route")
+    return {"upward_rank": (rank_err, 0.0), "eft_sweep_many": (err, 0.0)}
+
+
+def once_ms(fn) -> float:
+    """CUDA-event time of one call, the card idle and the L2 flushed
+    before it: for a plain version too slow to repeat."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flush_l2()
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_replan(dev, rpc) -> dict:
+    """Times of upward_rank and eft_sweep_many on the replan cell's first
+    cluster at its last round's state, for one lane and for all REPLAN_A
+    (1000 x 100, S = 48): through the C entry points with the L2 flushed
+    (`ms`) and back to back (`warm_ms`), through the wrappers
+    (`wrapper_ms`), and the plain versions on the card (`plain_ms`; the
+    many-lane sweep's once, at REPLAN_A lanes); for the ranks also the
+    host ranks they replace, with and without W's copy to the host; and
+    the bounds.  -> {lanes: {kernel: times}}."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane_k
+    from repro_torch.kernels import ref
+    from repro_torch.sched import fused
+    planes, reqs = rpc["planes"], rpc["reqs"]
+    group = [(p, r) for p, r in zip(planes, reqs)
+             if p.node_names == planes[0].node_names]
+    ctxs = [fused._context(r.dag, p.nodes, p.rank_cache) for p, r in group]
+    Ws = [p._costs(r.dag, PLAN_QUANTILE) for p, r in group]
+    sts = [c.on_device(dev) for c in ctxs]
+    tabs = [st["rank"] for st in sts]
+    order = fused._rank_order(fused._device_ranks(ctxs, Ws))
+    b, t = order.shape
+    n = Ws[0].shape[1]
+    dep = [st["dep_rows"] for st in sts]
+    gb8 = [st["gb8"] for st in sts]
+    ready0 = [st["zeros"] for st in sts]
+    avail = [st["avail0"] for st in sts]
+    same, gbps = sts[0]["same"], sts[0]["gbps_min"]
+    lib = plane_k._lib()
+    f64, i32 = torch.float64, torch.int32
+    out = {}
+    for nb in (1, b):
+        o = order[:nb].contiguous()
+        d = max(x.shape[1] for x in dep[:nb])
+        table = plane_k._lane_table(
+            [[Ws[k].data_ptr(), ready0[k].data_ptr(), dep[k].data_ptr(),
+              gb8[k].data_ptr(), avail[k].data_ptr(), dep[k].shape[1]]
+             for k in range(nb)], dev)
+        outs = [torch.empty((nb, t + 1, n), dtype=f64, device=dev),
+                torch.empty((nb, n), dtype=i32, device=dev),
+                torch.zeros((nb, t + 1), dtype=i32, device=dev),
+                torch.zeros((nb, t + 1), dtype=f64, device=dev),
+                torch.zeros((nb, t + 1), dtype=f64, device=dev)]
+        sweep = raw_launch("eft_sweep_many", [table, nb, o, d, same, gbps, t,
+                                              n, 48] + outs, lib)
+        args = (Ws[:nb], o, dep[:nb], gb8[:nb], ready0[:nb], avail[:nb],
+                same, gbps)
+        assign = plane_k.eft_sweep_many(*args, S=48)[0]
+        bound, by, step = bounds_sweep_many(
+            [(Ws[k], o[k], dep[k], gb8[k], ready0[k], avail[k], same, gbps)
+             for k in range(nb)], list(assign))
+        sw = {"ms": time_ms(sweep, reps=10),
+              "warm_ms": warm_ms(sweep, reps=10, inner=5),
+              "wrapper_ms": time_ms(lambda: plane_k.eft_sweep_many(
+                  *args, S=48), reps=10, host=True),
+              "bound_ms": bound, "bound_by": by, "step_bound_ms": step}
+        rtable = plane_k._lane_table(
+            [[Ws[k].data_ptr(), tabs[k].avg_comm.data_ptr(),
+              tabs[k].succ_ptr.data_ptr(), tabs[k].succ_idx.data_ptr(),
+              tabs[k].level_ptr.data_ptr(), tabs[k].level_rows.data_ptr(),
+              Ws[k].shape[0], tabs[k].level_ptr.shape[0] - 1]
+             for k in range(nb)], dev)
+        rank_launch = raw_launch(
+            "upward_rank", [rtable, None, nb, n, t,
+                            torch.empty((nb, t), dtype=f64, device=dev),
+                            torch.empty(nb, dtype=i32, device=dev)], lib)
+        r_bound, r_by = bounds_rank(Ws[:nb], tabs[:nb])
+        rk = {"ms": time_ms(rank_launch), "warm_ms": warm_ms(rank_launch),
+              "wrapper_ms": time_ms(lambda: plane_k.upward_rank(
+                  Ws[:nb], tabs[:nb]), host=True),
+              "plain_ms": time_ms(lambda: ref.upward_rank_ref(
+                  Ws[:nb], tabs[:nb]), reps=3, host=True),
+              "bound_ms": r_bound, "bound_by": r_by}
+        out[nb] = {"eft_sweep_many": sw, "upward_rank": rk}
+    dag0 = group[0][1].dag
+    W_host = Ws[0].cpu().numpy()
+    rk = out[1]["upward_rank"]
+    rk["host_ranks_ms"] = median_s(lambda: ctxs[0].ranks(dag0, W_host),
+                                   reps=5) * 1e3
+    rk["host_ranks_copy_ms"] = median_s(
+        lambda: ctxs[0].ranks(dag0, Ws[0].cpu().numpy()), reps=5) * 1e3
+    out[b]["eft_sweep_many"]["plain_ms"] = once_ms(
+        lambda: ref.eft_sweep_many_ref(Ws, order, dep, gb8, ready0, avail,
+                                       same, gbps, S=48))
+    return out
+
+
+def report_replan(launches, errors, times) -> list:
+    """The report lines and the kernels JSON rows of upward_rank (at one
+    lane, the plan and plane paths' shape) and eft_sweep_many (at
+    REPLAN_A lanes, the replan path's)."""
+    b = max(times)
+    for nb, tm in sorted(times.items()):
+        print(f"[report] upward_rank B={nb} T={PLAN_TASKS} N={PLAN_NODES}: "
+              f"{tm['upward_rank']}")
+        print(f"[report] eft_sweep_many B={nb} T={PLAN_TASKS} "
+              f"N={PLAN_NODES} S=48 (shared route): {tm['eft_sweep_many']}")
+    ur, sm = times[1]["upward_rank"], times[b]["eft_sweep_many"]
+    dsrc = "src/repro_torch/kernels/csrc/decision_plane.cu"
+    return [
+        {"name": "upward_rank", "route": "cuda", "source": dsrc,
+         "replaces": "src/repro/kernels/decision_plane.py:155",
+         "launches": launches["upward_rank"],
+         "max_abs_err": errors["upward_rank"][0], "tolerance": "bitwise",
+         "tol_ratio": 0.0, "ms": ur["ms"], "plain_ms": ur["plain_ms"],
+         "bound_ms": ur["bound_ms"], "bound_by": ur["bound_by"],
+         "library_ms": None, "warm_ms": ur["warm_ms"],
+         "wrapper_ms": ur["wrapper_ms"], "host_ranks_ms": ur["host_ranks_ms"],
+         "host_ranks_copy_ms": ur["host_ranks_copy_ms"],
+         "shape": f"B=1 T={PLAN_TASKS} N={PLAN_NODES}",
+         "by_lanes": {b: times[b]["upward_rank"]}},
+        {"name": "eft_sweep_many", "route": "cuda", "source": dsrc,
+         "replaces": "src/repro/kernels/decision_plane.py:268",
+         "launches": launches["eft_sweep_many"],
+         "max_abs_err": errors["eft_sweep_many"][0], "tolerance": "bitwise",
+         "tol_ratio": 0.0, "ms": sm["ms"], "plain_ms": sm["plain_ms"],
+         "bound_ms": sm["bound_ms"], "bound_by": sm["bound_by"],
+         "library_ms": None, "warm_ms": sm["warm_ms"],
+         "wrapper_ms": sm["wrapper_ms"], "step_bound_ms": sm["step_bound_ms"],
+         "sweep_route": "shared",
+         "shape": f"B={b} T={PLAN_TASKS} N={PLAN_NODES} S=48",
+         "by_lanes": {1: times[1]["eft_sweep_many"]}},
+    ]
 
 
 def tol_np(got, want, tol) -> tuple:
@@ -1628,21 +2240,14 @@ def bounds_cost(t: int, n: int, has_z: bool) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bounds_sweep(args, assign) -> tuple:
-    """Least time for one sweep.  Bytes: W and ready0 (8 B per cell), the
-    dep rows, order, output sizes, available times, the (N, N) comm
-    structure read once; assign, est, eft and the counts written once.
-    Operations, counted from this run's placements: per task and node two
-    per dependency (add, max), three per live interval plus the pad column
-    of the gap search (max, add, compare), the finish add, the argmin
-    compare and the comm divide; per task two per live interval of the
-    chosen node for the insert position.  Also the latency bound: T
-    dependent steps of SWEEP_STEP_CYCLES each at the maximum clock."""
+def sweep_work(args, assign) -> tuple:
+    """(bytes, float64 operations) of one workflow's sweep, as
+    `bounds_sweep` counts them, without the (N, N) comm structure's bytes
+    (a group of workflows on one cluster reads it once)."""
     W, order, dep, gb8, ready0, avail, same, gbps = args
     t, n = W.shape
     d = dep.shape[1]
-    t_bytes = (16 * t * n + 4 * t * d + 12 * t + 8 * n + 9 * n * n
-               + 20 * t + 4 * n) / H100_BYTES_PER_S * 1e3
+    n_bytes = 16 * t * n + 4 * t * d + 12 * t + 8 * n + 20 * t + 4 * n
     counts = (avail.cpu().numpy() > 0).astype(np.int64)
     ndeps = (dep.cpu().numpy() >= 0).sum(axis=1)
     assign = assign.cpu().numpy()
@@ -1654,10 +2259,59 @@ def bounds_sweep(args, assign) -> tuple:
         j = int(assign[i])
         ops += 2 * int(counts[j])
         counts[j] += 1
+    return n_bytes, ops
+
+
+def bounds_sweep(args, assign) -> tuple:
+    """Least time for one sweep.  Bytes: W and ready0 (8 B per cell), the
+    dep rows, order, output sizes, available times, the (N, N) comm
+    structure read once; assign, est, eft and the counts written once.
+    Operations, counted from this run's placements: per task and node two
+    per dependency (add, max), three per live interval plus the pad column
+    of the gap search (max, add, compare), the finish add, the argmin
+    compare and the comm divide; per task two per live interval of the
+    chosen node for the insert position.  Also the latency bound: T
+    dependent steps of SWEEP_STEP_CYCLES each at the maximum clock."""
+    t, n = args[0].shape
+    n_bytes, ops = sweep_work(args, assign)
+    t_bytes = (n_bytes + 9 * n * n) / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP64_FLOPS * 1e3
     step_ms = t * SWEEP_STEP_CYCLES / H100_CLOCK_HZ * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", step_ms)
+
+
+def bounds_sweep_many(lanes, assigns) -> tuple:
+    """Least time for one many-lane sweep: every lane's bytes and
+    operations (`sweep_work`) and the comm structure once, over the
+    card's rates; the latency bound is the longest lane's chain of steps
+    (`bounds_sweep`), since up to 132 lanes run side by side, a block an
+    SM."""
+    n = lanes[0][0].shape[1]
+    work = [sweep_work(a, x) for a, x in zip(lanes, assigns)]
+    t_bytes = (sum(w[0] for w in work) + 9 * n * n) / H100_BYTES_PER_S * 1e3
+    t_ops = sum(w[1] for w in work) / H100_FP64_FLOPS * 1e3
+    step_ms = max(a[0].shape[0] for a in lanes) * SWEEP_STEP_CYCLES \
+        / H100_CLOCK_HZ * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", step_ms)
+
+
+def bounds_rank(Ws, tables) -> tuple:
+    """Least time for one rank launch over B workflows: W read once (8 B
+    a cell), avg_comm and the successor and level tables read once, the
+    ranks written once; operations: an add a cell, a division a row, an
+    add and a max a successor."""
+    n_bytes = ops = 0
+    for w, tab in zip(Ws, tables):
+        t, n = w.shape
+        e = tab.succ_idx.shape[0]
+        n_bytes += 8 * t * n + 8 * t + 4 * (2 * t + 1 + e) \
+            + 4 * tab.level_ptr.shape[0] + 8 * t
+        ops += t * n + 2 * e
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP64_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_plane(dev, sweep_args) -> dict:
@@ -2307,6 +2961,8 @@ def main() -> None:
                ("bayes_predict", kernels.bayes_predict),
                ("fused_cost", plane.fused_cost),
                ("eft_sweep", plane.eft_sweep),
+               ("upward_rank", plane.upward_rank),
+               ("eft_sweep_many", plane.eft_sweep_many),
                ("nig_fold", kernels.nig_fold),
                ("flash_attention", flash.flash_attention),
                ("rglru_scan", scan.rglru_scan))
@@ -2331,8 +2987,8 @@ def main() -> None:
 
         for _, fn in counted:
             fn.launches = 0
-        plane.eft_sweep.launches_by_route = dict.fromkeys(plane.SWEEP_ROUTES,
-                                                          0)
+        for fn in (plane.eft_sweep, plane.eft_sweep_many):
+            fn.launches_by_route = dict.fromkeys(plane.SWEEP_ROUTES, 0)
         flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
         ops.bayes_predict = tallied
         try:
@@ -2361,8 +3017,10 @@ def main() -> None:
           "the fleet refit did not make exactly one bayes_fit launch")
     plan, got = drive(lambda: phase_plan(dev, fleet_out), "plan")
     print(f"[launches] plan: {got}")
-    check(got["fused_cost"] > 0 and got["eft_sweep"] > 0,
-          "the plan path launched fused_cost or eft_sweep no time")
+    check(got["fused_cost"] > 0 and got["eft_sweep"] > 0
+          and 0 < got["upward_rank"] <= got["eft_sweep"],
+          "the plan path launched fused_cost, eft_sweep or upward_rank no "
+          "time, or more ranks than sweeps")
     on_shared_route("plan")
     ingest, got = drive(lambda: phase_ingest(dev, fleet_out), "ingest")
     print(f"[launches] ingest: {got}")
@@ -2376,6 +3034,14 @@ def main() -> None:
     check(got["bayes_predict"] > 0 and got["eft_sweep"] > 0,
           "the plane path launched bayes_predict or eft_sweep no time")
     on_shared_route("plane")
+    rp, got = drive(lambda: phase_replan(dev, fleet_out), "replan")
+    print(f"[launches] replan: {got}")
+    print(f"[launches] replan eft_sweep_many by route: "
+          f"{plane.eft_sweep_many.launches_by_route}")
+    check(got["bayes_predict"] > 0 and got["upward_rank"] > 0
+          and got["eft_sweep_many"] > 0 and got["eft_sweep"] == 0,
+          "the replan path launched bayes_predict, upward_rank or "
+          "eft_sweep_many no time, or a single-workflow sweep")
     rf, got = drive(lambda: phase_refresh(dev, fleet_out, ingest), "refresh")
     print(f"[launches] refresh: {got}")
     check(got["bayes_fit"] == 1 and got["nig_fold"] > 0
@@ -2408,11 +3074,14 @@ def main() -> None:
                                             pieces["args"])
     fold = phase_ingest_checks(dev, fleet_out, ingest)
     phase_plane_checks(dev, fleet_out, pl)
+    rpc = phase_replan_checks(dev, fleet_out, rp)
+    errors.update({k: rpc[k] for k in ("upward_rank", "eft_sweep_many")})
     phase_refresh_checks(dev, fleet_out, ingest, rf)
     lm_cut_checks(dev)
     lm_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
                           pieces["args"], fold, predict_q)
+    report += report_replan(launches, errors, time_replan(dev, rpc))
     report += report_lm(dev, launches, errors)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -132,6 +132,14 @@ fused_cost_kernel(const double* __restrict__ x,
 // cannot hold.  Only max, add, divide and compare are used, so both routes
 // are bitwise the host sweep.
 //
+// eft_sweep_many (replacing the jitted TPU function eft_sweep_many, a vmap
+// of the sweep over B workflows padded to one shape) is the shared route's
+// kernel launched with B blocks: block b runs the step loop above on lane
+// b's operands, read from a lane table of pointers, so no operand is
+// stacked or padded but the rank order.  The lanes' steps are independent,
+// so B <= 132 lanes take about one lane's time at one block an SM (1000 x
+// 100, S = 48, D = 10: 131,392 bytes of shared memory a block).
+//
 // Built with -DLOTARU_SWEEP_CLOCKS (sweep_clocks.py), the shared route adds
 // up clock64() cycles per phase of a step for each warp; otherwise
 // SWEEP_MARK is nothing.
@@ -337,18 +345,52 @@ __host__ __device__ inline int sweep_lanes(int N) {
   return N <= 128 ? 4 : N <= 256 ? 2 : 1;
 }
 
+// One workflow's operands on the shared route, as the lane table holds
+// them (six 8-byte words a lane): W and ready0 (T_b, N), the dependency
+// rows (T_b, D_b), the output sizes (T_b) and the available times (N).
+// A lane's steps read only the rows its order names (row 0 for a masked
+// step), so T_b may be less than the launch's T.
+struct SweepLane {
+  const double* W;
+  const double* ready0;
+  const int* dep;
+  const double* gb8;
+  const double* avail;
+  long long D;
+};
+static_assert(sizeof(SweepLane) == 48, "the lane table's row");
+
+// Block b sweeps lane b: lanes[b], or lane0 when lanes is NULL (one
+// workflow, the lane passed by value).  The order is (B, T); the outputs
+// and the arrival rows are stacked a lane each: arr (B, T + 1, N), counts
+// (B, N), assign, est and eft (B, T + 1), row T of each lane its dump row
+// for masked steps.  D is the widest lane's dependency count: the stride
+// of the compacted terms in shared memory.
 __global__ void __launch_bounds__(kOnChipMaxNodes)
-eft_sweep_onchip_kernel(const double* __restrict__ W,
-                        const int* __restrict__ order,
-                        const int* __restrict__ dep, int D,
-                        const double* __restrict__ gb8,
-                        const double* __restrict__ ready0,
-                        const double* __restrict__ avail,
+eft_sweep_onchip_kernel(const SweepLane* __restrict__ lanes,
+                        const SweepLane lane0,
+                        const int* __restrict__ order, int D,
                         const unsigned char* __restrict__ same,
                         const double* __restrict__ gbps, int T, int N,
                         int S, int P, int stage_comm, double* arr,
                         int* cnt_out, int* assign, double* est_out,
                         double* eft_out) {
+  const SweepLane lane_ops = lanes ? lanes[blockIdx.x] : lane0;
+  const double* __restrict__ W = lane_ops.W;
+  const double* __restrict__ ready0 = lane_ops.ready0;
+  const int* __restrict__ dep = lane_ops.dep;
+  const double* __restrict__ gb8 = lane_ops.gb8;
+  const double* __restrict__ avail = lane_ops.avail;
+  const int Dl = static_cast<int>(lane_ops.D);
+  {
+    const long long b = blockIdx.x;
+    order += b * T;
+    arr += b * (T + 1) * N;
+    cnt_out += b * N;
+    assign += b * (T + 1);
+    est_out += b * (T + 1);
+    eft_out += b * (T + 1);
+  }
   extern __shared__ unsigned long long smem[];
   double* b0 = reinterpret_cast<double*>(smem);
   double* b1 = b0 + (long long)S * N;
@@ -386,8 +428,8 @@ eft_sweep_onchip_kernel(const double* __restrict__ W,
     const long long r = order[t] >= 0 ? order[t] : 0;
     const int skip = t == 0 ? -2 : order[t - 1] >= 0 ? order[t - 1] : T;
     int c = 0, hand = 0;
-    for (int k = 0; k < D; ++k) {
-      const int d = min(dep[r * D + k], T);
+    for (int k = 0; k < Dl; ++k) {
+      const int d = min(dep[r * Dl + k], T);
       if (d == skip)
         hand = kHand;
       else if (d >= 0)
@@ -651,6 +693,99 @@ eft_sweep_global_kernel(const double* __restrict__ W,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// upward_rank
+// ---------------------------------------------------------------------------
+// Replaces the jitted TPU function repro/kernels/decision_plane.py::
+// upward_rank (a fori_loop over the rows in reverse topo order, which the
+// sweep's host wrapper fed with w_avg from W's row sums): HEFT's upward
+// rank of every task, rank[i] = w_avg[i] + max(0, max over successors s of
+// (avg_comm[i] + rank[s])), with w_avg[i] = W[i].cumsum()[-1] / N.
+//
+// Bound on the H100: the recurrence's latency for a deep DAG, else the
+// bytes of W (T * N * 8 read once; 0.24 us at 1000 x 100).  Design: a block
+// a workflow, so B workflows on one cluster take one launch.  Phase 1: a
+// thread a row sums its W row left to right (numpy's cumsum order: the
+// first cell, then one add a cell), divides once by N, and notes a cell
+// that is not finite; __syncthreads_or gives the lane's flag.  Phase 2:
+// level by level from the sinks, the rows of a level being independent,
+// a thread a row folds its successors' ranks into best from 0.0 and stores
+// w_avg + best; one __syncthreads ends a level.  Only max and add touch the
+// ranks, with the reference's operands, and no NaN reaches them when the
+// flag is clear, so the order of the max does not matter: the ranks are
+// bitwise the host recurrence.  The ranks live in shared memory (T * 8
+// bytes) where they fit the block's opt-in limit, else in the output row
+// (device memory; __syncthreads orders a block's global stores too).
+constexpr int kRankMaxThreads = 1024;
+
+// One workflow's operands (eight 8-byte words a lane): W (T, N), avg_comm
+// (T), the successor CSR (T + 1, E) and the level CSR (L + 1, T).
+struct RankLane {
+  const double* W;
+  const double* avg_comm;
+  const int* succ_ptr;
+  const int* succ_idx;
+  const int* level_ptr;
+  const int* level_rows;
+  long long T;
+  long long L;
+};
+static_assert(sizeof(RankLane) == 64, "the lane table's row");
+
+__global__ void __launch_bounds__(kRankMaxThreads)
+upward_rank_kernel(const RankLane* __restrict__ lanes, const RankLane lane0,
+                   int N, int Tmax, int in_smem, double* rank_out,
+                   int* bad_out) {
+  extern __shared__ double srank[];
+  const RankLane L = lanes ? lanes[blockIdx.x] : lane0;
+  const int T = static_cast<int>(L.T);
+  double* out = rank_out + (long long)blockIdx.x * Tmax;
+  double* rk = in_smem ? srank : out;
+
+  int bad = 0;
+  for (int i = threadIdx.x; i < T; i += blockDim.x) {
+    const double* row = L.W + (long long)i * N;
+    double s = 0.0;                          // W.sum(1) of an empty row
+    if (N > 0) {
+      s = row[0];
+      bad |= !isfinite(s);
+#pragma unroll 4
+      for (int k = 1; k < N; ++k) {
+        const double w = row[k];
+        bad |= !isfinite(w);
+        s = s + w;
+      }
+      s = s / static_cast<double>(N);
+    }
+    rk[i] = s;
+  }
+  bad = __syncthreads_or(bad);
+
+  for (long long l = 0; l < L.L; ++l) {
+    const int lo = L.level_ptr[l], hi = L.level_ptr[l + 1];
+    for (int k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+      const int i = L.level_rows[k];
+      const double ac = L.avg_comm[i];
+      double best = 0.0;
+      for (int e = L.succ_ptr[i]; e < L.succ_ptr[i + 1]; ++e) {
+        const double c = ac + rk[L.succ_idx[e]];
+        best = c > best ? c : best;          // Python's max(best, c)
+      }
+      rk[i] = rk[i] + best;
+    }
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < Tmax; i += blockDim.x) {
+    if (i >= T)
+      out[i] = -INFINITY;
+    else if (in_smem)
+      out[i] = rk[i];
+  }
+  if (threadIdx.x == 0) bad_out[blockIdx.x] = bad;
+}
+
 }  // namespace
 
 extern "C" {
@@ -690,13 +825,6 @@ int lotaru_smem_optin(int device) {
   return bytes;
 }
 
-// route 0: the stacks, order, dependency rows and output sizes in shared
-// memory (b0 and b1 are not read and may be NULL); the shape must fit the
-// device's opt-in limit with at most 512 nodes, or the call returns
-// cudaErrorInvalidValue and launches nothing.  Route 1: the stacks in the
-// device scratch b0, b1 (S, N), a thread looping over nodes.  Both use
-// arr ((T + 1) x N float64 scratch, the arrival rows) and write the final
-// interval counts to cnt (N).
 #ifdef LOTARU_SWEEP_CLOCKS
 // the last shared-route launch's cycles: per warp and phase, then the total
 int lotaru_sweep_clocks(long long* out) {
@@ -705,6 +833,47 @@ int lotaru_sweep_clocks(long long* out) {
 }
 #endif
 
+}  // extern "C"
+
+namespace {
+
+// the shared route for B lanes: lanes (device) or, at B = 1, lane0
+int launch_onchip(const SweepLane* lanes, const SweepLane& lane0, int B,
+                  const int* order, int D, const unsigned char* same,
+                  const double* gbps, int T, int N, int S, double* arr,
+                  int* cnt, int* assign, double* est, double* eft,
+                  cudaStream_t s) {
+  int device = 0;
+  cudaGetDevice(&device);
+  const long long optin = lotaru_smem_optin(device);
+  long long bytes = sweep_smem_bytes(T, N, S, D);
+  if (N > kOnChipMaxNodes || bytes > optin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int stage_comm = bytes + sweep_comm_bytes(N) <= optin;
+  if (stage_comm) bytes += sweep_comm_bytes(N);
+  const cudaError_t err = cudaFuncSetAttribute(
+      eft_sweep_onchip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int P = sweep_lanes(N);
+  const int threads = ((N * P + 31) / 32) * 32;
+  eft_sweep_onchip_kernel<<<B, threads, bytes, s>>>(
+      lanes, lane0, order, D, same, gbps, T, N, S, P, stage_comm, arr, cnt,
+      assign, est, eft);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// route 0: the stacks, order, dependency rows and output sizes in shared
+// memory (b0 and b1 are not read and may be NULL); the shape must fit the
+// device's opt-in limit with at most 512 nodes, or the call returns
+// cudaErrorInvalidValue and launches nothing.  Route 1: the stacks in the
+// device scratch b0, b1 (S, N), a thread looping over nodes.  Both use
+// arr ((T + 1) x N float64 scratch, the arrival rows) and write the final
+// interval counts to cnt (N).
 int lotaru_eft_sweep(const double* W, const int* order, const int* dep,
                      int D, const double* gb8, const double* ready0,
                      const double* avail, const unsigned char* same,
@@ -714,30 +883,64 @@ int lotaru_eft_sweep(const double* W, const int* order, const int* dep,
   if (N <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
-    int device = 0;
-    cudaGetDevice(&device);
-    const long long optin = lotaru_smem_optin(device);
-    long long bytes = sweep_smem_bytes(T, N, S, D);
-    if (N > kOnChipMaxNodes || bytes > optin)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int stage_comm = bytes + sweep_comm_bytes(N) <= optin;
-    if (stage_comm) bytes += sweep_comm_bytes(N);
+    const SweepLane lane0{W, ready0, dep, gb8, avail, D};
+    return launch_onchip(nullptr, lane0, 1, order, D, same, gbps, T, N, S,
+                         arr, cnt, assign, est, eft, s);
+  }
+  int threads = ((N + 31) / 32) * 32;
+  if (threads > kSweepMaxThreads) threads = kSweepMaxThreads;
+  eft_sweep_global_kernel<<<1, threads, 0, s>>>(
+      W, order, dep, D, gb8, ready0, avail, same, gbps, T, N, S, b0, b1,
+      arr, cnt, assign, est, eft);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B workflows on one cluster on the shared route, block b sweeping lane b
+// of the device table `lanes` (B rows of SweepLane, 48 bytes each); order
+// (B, T), D the widest lane's dependency count, outputs stacked a lane each
+// (see eft_sweep_onchip_kernel).  Refuses a shape as route 0 of
+// lotaru_eft_sweep does.
+int lotaru_eft_sweep_many(const void* lanes, int B, const int* order,
+                          int D, const unsigned char* same,
+                          const double* gbps, int T, int N, int S,
+                          double* arr, int* cnt, int* assign, double* est,
+                          double* eft, void* stream) {
+  if (B <= 0 || N <= 0 || S <= 0) return 0;
+  const SweepLane none{};
+  return launch_onchip(static_cast<const SweepLane*>(lanes), none, B, order,
+                       D, same, gbps, T, N, S, arr, cnt, assign, est, eft,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// B workflows' upward ranks, block b on lane b of the device table `table`
+// (B rows of RankLane, 64 bytes each) or, when table is NULL and B = 1, on
+// the host row `host_row` (passed to the kernel by value).  rank (B, Tmax)
+// gets -inf past each lane's T; bad (B) gets 1 where the lane's W holds a
+// non-finite cell.
+int lotaru_upward_rank(const void* table, const void* host_row, int B,
+                       int N, int Tmax, double* rank, int* bad,
+                       void* stream) {
+  const RankLane* lanes = static_cast<const RankLane*>(table);
+  const RankLane* lane0 = static_cast<const RankLane*>(host_row);
+  if (B <= 0) return 0;
+  if (!lanes && (B != 1 || !lane0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  cudaGetDevice(&device);
+  const long long bytes = 8LL * Tmax;
+  const int in_smem = bytes <= lotaru_smem_optin(device);
+  if (in_smem && bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        eft_sweep_onchip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        upward_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int P = sweep_lanes(N);
-    const int threads = ((N * P + 31) / 32) * 32;
-    eft_sweep_onchip_kernel<<<1, threads, bytes, s>>>(
-        W, order, dep, D, gb8, ready0, avail, same, gbps, T, N, S, P,
-        stage_comm, arr, cnt, assign, est, eft);
-  } else {
-    int threads = ((N + 31) / 32) * 32;
-    if (threads > kSweepMaxThreads) threads = kSweepMaxThreads;
-    eft_sweep_global_kernel<<<1, threads, 0, s>>>(
-        W, order, dep, D, gb8, ready0, avail, same, gbps, T, N, S, b0, b1,
-        arr, cnt, assign, est, eft);
   }
+  int threads = ((Tmax + 31) / 32) * 32;
+  if (threads < 32) threads = 32;
+  if (threads > kRankMaxThreads) threads = kRankMaxThreads;
+  upward_rank_kernel<<<B, threads, in_smem ? bytes : 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      lanes, lanes ? RankLane{} : *lane0, N, Tmax, in_smem, rank, bad);
   return static_cast<int>(cudaGetLastError());
 }
 

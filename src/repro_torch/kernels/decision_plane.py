@@ -1,24 +1,34 @@
 """Launch wrappers for the hand-written CUDA kernels in
-`csrc/decision_plane.cu`: the fused cost matrix of a planning round
-(predictive -> factor scaling -> quantile shift) and the HEFT
-insertion sweep of one workflow, both in float64.
+`csrc/decision_plane.cu`, all in float64: the fused cost matrix of a
+planning round (predictive -> factor scaling -> quantile shift), HEFT's
+upward ranks of B workflows, and the HEFT insertion sweep of one workflow
+(`eft_sweep`) or of B workflows on one cluster (`eft_sweep_many`, a block
+a workflow; `eft_sweep` is the same kernel at B = 1).
 
 Each wrapper takes CUDA tensors only (device dispatch is `kernels.ops`),
 checks device, dtype, shape and contiguity, allocates its outputs and
 scratch with `torch.empty`/`torch.zeros`, launches on PyTorch's current
 stream, raises when the launch reports an error, and counts its launches
 in a plain integer attribute (`fused_cost.launches`,
-`eft_sweep.launches`) so a run can show that a path went through the
-kernel.  The sweep has two routes, chosen by `sweep_route` from the
-shapes and the device's shared-memory limit, and also counts its
-launches per route (`eft_sweep.launches_by_route`).
+`upward_rank.launches`, `eft_sweep.launches`, `eft_sweep_many.launches`)
+so a run can show that a path went through the kernel.  The sweeps have
+two routes, chosen by `sweep_route` from the shapes and the device's
+shared-memory limit, and also count their launches per route
+(`.launches_by_route`).
+
+The many-workflow kernels read each workflow's operands where they lie:
+a lane table of device pointers (one row of int64 words a workflow) is
+copied to the card once a launch, so nothing is stacked or padded but the
+(B, T) rank order.  At B = 1 the lane goes by value in the launch's
+parameters and no table is copied.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -39,6 +49,11 @@ def _lib() -> ctypes.CDLL:
     lib.lotaru_eft_sweep.argtypes = ([_P] * 3 + [_I] + [_P] * 5
                                      + [_I] * 4 + [_P] * 7 + [_P])
     lib.lotaru_eft_sweep.restype = _I
+    lib.lotaru_eft_sweep_many.argtypes = ([_P, _I, _P, _I, _P, _P]
+                                          + [_I] * 3 + [_P] * 6)
+    lib.lotaru_eft_sweep_many.restype = _I
+    lib.lotaru_upward_rank.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
+    lib.lotaru_upward_rank.restype = _I
     lib.lotaru_eft_sweep_smem_bytes.argtypes = [_I] * 4
     lib.lotaru_eft_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.lotaru_smem_optin.argtypes = [_I]
@@ -184,3 +199,218 @@ def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,
 
 eft_sweep.launches = 0
 eft_sweep.launches_by_route = dict.fromkeys(SWEEP_ROUTES, 0)
+
+
+def _lane_table(rows, dev: torch.device) -> torch.Tensor:
+    """A (B, k) int64 table of device pointers and counts on `dev`: staged
+    in pinned memory and copied without a synchronisation (the caching
+    host allocator keeps the staging buffer until the copy has run)."""
+    host = torch.tensor(rows, dtype=torch.int64).pin_memory()
+    return host.to(dev, non_blocking=True)
+
+
+def eft_sweep_many(W: Sequence[torch.Tensor], order_arr: torch.Tensor,
+                   dep_rows: Sequence[torch.Tensor],
+                   gb8: Sequence[torch.Tensor],
+                   ready0: Sequence[torch.Tensor],
+                   avail: Sequence[torch.Tensor], same: torch.Tensor,
+                   gbps_min: torch.Tensor, *, S: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """B workflows' HEFT insertion sweeps on one cluster in one launch,
+    lane b (thread block b) sweeping workflow b as `eft_sweep` does.
+
+    order_arr (B, T) int32: lane b's rows in rank order, -1 for a masked
+    step (so lanes of fewer tasks are padded with -1); lane b's entries
+    are rows of its own operands.  Per lane, as sequences of B tensors:
+    W[b], ready0[b] (T_b, N) float64 with T_b <= T; dep_rows[b] (T_b, D_b)
+    int32, -1 padded; gb8[b] (T_b,) float64; avail[b] (N,) float64.  A
+    (B, T, N) stack is such a sequence.  same (N, N) bool and gbps_min
+    (N, N) float64 are shared by the lanes.  Returns (assign, est, eft)
+    (B, T) and cnt (B, N) int32; cnt.max() > S - 1 means some lane's
+    stacks overflowed.  Each lane has its own dump row, arrival rows and
+    counts.  The route is `sweep_route` of (T, N, S, max D_b) and the
+    card: "shared" is one launch of B blocks; "global" runs the lanes in
+    turn, one global-route `eft_sweep` launch each, every one counted."""
+    dev = cuda_device(order_arr, "order_arr")
+    if order_arr.dim() != 2 or same.dim() != 2:
+        raise ValueError(f"order_arr must be (B, T) and same (N, N), got "
+                         f"{tuple(order_arr.shape)} and {tuple(same.shape)}")
+    b, t = order_arr.shape
+    n = same.shape[0]
+    if S < 1:
+        raise ValueError(f"S must be >= 1, got {S}")
+    f64, i32 = torch.float64, torch.int32
+    lanes = (W, dep_rows, gb8, ready0, avail)
+    if any(len(x) != b for x in lanes):
+        raise ValueError(f"W, dep_rows, gb8, ready0 and avail must hold "
+                         f"{b} lanes each, got {[len(x) for x in lanes]}")
+    check(order_arr, "order_arr", i32, (b, t), dev)
+    check(same, "same", torch.bool, (n, n), dev)
+    check(gbps_min, "gbps_min", f64, (n, n), dev)
+    d = 0
+    for k in range(b):
+        if W[k].dim() != 2 or dep_rows[k].dim() != 2:
+            raise ValueError(f"lane {k}: W must be (T_b, N) and dep_rows "
+                             f"(T_b, D_b)")
+        tk, dk = W[k].shape[0], dep_rows[k].shape[1]
+        if tk > t or (tk == 0 and t > 0):
+            raise ValueError(f"lane {k} has {tk} task rows; a lane needs "
+                             f"1 to {t} (T) of them")
+        for v, name, dtype, shape in (
+                (W[k], "W", f64, (tk, n)), (dep_rows[k], "dep_rows", i32,
+                                            (tk, dk)),
+                (gb8[k], "gb8", f64, (tk,)), (ready0[k], "ready0", f64,
+                                              (tk, n)),
+                (avail[k], "avail", f64, (n,))):
+            check(v, f"{name}[{k}]", dtype, shape, dev)
+        d = max(d, dk)
+    if n == 0 and t > 0:
+        raise ValueError("a sweep over tasks needs at least one node")
+    route = sweep_route(t, n, S, d, smem_optin(dev.index))
+    cnt = torch.empty((b, n), dtype=i32, device=dev)
+    assign = torch.zeros((b, t + 1), dtype=i32, device=dev)
+    est = torch.zeros((b, t + 1), dtype=f64, device=dev)
+    eft = torch.zeros((b, t + 1), dtype=f64, device=dev)
+    if n == 0:
+        return assign[:, :t], est[:, :t], eft[:, :t], cnt
+    arr = torch.empty((b, t + 1, n), dtype=f64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "shared":
+            table = _lane_table(
+                [[W[k].data_ptr(), ready0[k].data_ptr(),
+                  dep_rows[k].data_ptr(), gb8[k].data_ptr(),
+                  avail[k].data_ptr(), dep_rows[k].shape[1]]
+                 for k in range(b)], dev)
+            rc = _lib().lotaru_eft_sweep_many(
+                table.data_ptr(), b, order_arr.data_ptr(), d,
+                same.data_ptr(), gbps_min.data_ptr(), t, n, S,
+                arr.data_ptr(), cnt.data_ptr(), assign.data_ptr(),
+                est.data_ptr(), eft.data_ptr(), stream)
+            raise_on(_lib(), rc, "eft_sweep_many (shared route)")
+            eft_sweep_many.launches += 1
+            eft_sweep_many.launches_by_route[route] += 1
+        else:
+            # the lanes in turn on the global route, which holds one
+            # workflow's stacks in device scratch (reused: stream order)
+            b0 = torch.empty((S, n), dtype=f64, device=dev)
+            b1 = torch.empty((S, n), dtype=f64, device=dev)
+            for k in range(b):
+                rc = _lib().lotaru_eft_sweep(
+                    W[k].data_ptr(), order_arr[k].data_ptr(),
+                    dep_rows[k].data_ptr(), dep_rows[k].shape[1],
+                    gb8[k].data_ptr(), ready0[k].data_ptr(),
+                    avail[k].data_ptr(), same.data_ptr(),
+                    gbps_min.data_ptr(), t, n, S, 1, b0.data_ptr(),
+                    b1.data_ptr(), arr[k].data_ptr(), cnt[k].data_ptr(),
+                    assign[k].data_ptr(), est[k].data_ptr(),
+                    eft[k].data_ptr(), stream)
+                raise_on(_lib(), rc, "eft_sweep_many (global route)")
+                eft_sweep_many.launches += 1
+                eft_sweep_many.launches_by_route[route] += 1
+    return assign[:, :t], est[:, :t], eft[:, :t], cnt
+
+
+eft_sweep_many.launches = 0
+eft_sweep_many.launches_by_route = dict.fromkeys(SWEEP_ROUTES, 0)
+
+
+class RankTable(NamedTuple):
+    """One DAG's operands of the upward rank that W does not move, rows in
+    topo order: avg_comm (T,) float64, the average pairwise transfer time
+    of each row's output; the successors as a CSR, row i's in
+    succ_idx[succ_ptr[i]:succ_ptr[i + 1]] (int32); and the rows grouped by
+    level, their height above the sinks (a sink is level 0, a row one
+    above its highest successor), level l's in
+    level_rows[level_ptr[l]:level_ptr[l + 1]] (int32)."""
+    avg_comm: torch.Tensor
+    succ_ptr: torch.Tensor
+    succ_idx: torch.Tensor
+    level_ptr: torch.Tensor
+    level_rows: torch.Tensor
+
+    def to(self, device) -> "RankTable":
+        return RankTable(*(x.to(device) for x in self))
+
+
+def rank_table(succ_rows: Sequence[Sequence[int]],
+               avg_comm: np.ndarray) -> RankTable:
+    """The RankTable of a DAG on the CPU, from each topo row's successor
+    rows (all later rows) and avg_comm (T,)."""
+    t = len(succ_rows)
+    ptr = np.zeros(t + 1, np.int64)
+    ptr[1:] = np.cumsum([len(s) for s in succ_rows])
+    idx = np.fromiter((s for ss in succ_rows for s in ss), np.int64,
+                      count=int(ptr[-1]))
+    height = np.zeros(t, np.int64)
+    for i in range(t - 1, -1, -1):
+        if len(succ_rows[i]):
+            height[i] = 1 + max(height[s] for s in succ_rows[i])
+    rows = np.argsort(height, kind="stable")
+    per_level = np.bincount(height, minlength=1) if t else np.zeros(0,
+                                                                    np.int64)
+    level_ptr = np.concatenate([[0], np.cumsum(per_level)])
+    as_i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    return RankTable(torch.from_numpy(np.asarray(avg_comm, np.float64)),
+                     as_i32(ptr), as_i32(idx), as_i32(level_ptr),
+                     as_i32(rows))
+
+
+def upward_rank(W: Sequence[torch.Tensor], tables: Sequence[RankTable]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HEFT's upward ranks of B workflows on one cluster in one launch, a
+    block a workflow: rank[i] = w_avg[i] + max(0, max over successors s
+    of (avg_comm[i] + rank[s])), w_avg[i] = W[i].cumsum()[-1] / N (a
+    left-to-right sum, then one division), as `_PlanContext.ranks`.
+
+    W[b] (T_b, N) float64 and tables[b] (`RankTable`) per lane.  Returns
+    rank (B, T) float64, T = max T_b, with -inf past each lane's rows, and
+    bad (B,) int32, 1 where the lane's W holds a NaN or infinite cell."""
+    b = len(W)
+    if b == 0 or len(tables) != b:
+        raise ValueError(f"upward_rank needs one table per lane and at "
+                         f"least one lane, got {b} W and {len(tables)} "
+                         f"tables")
+    dev = cuda_device(W[0], "W[0]")
+    f64, i32 = torch.float64, torch.int32
+    n = W[0].shape[1] if W[0].dim() == 2 else -1
+    rows = []
+    for k, (w, tab) in enumerate(zip(W, tables)):
+        if w.dim() != 2:
+            raise ValueError(f"W[{k}] must be (T_b, N), got {tuple(w.shape)}")
+        tk = w.shape[0]
+        n_levels = tab.level_ptr.shape[0] - 1
+        for v, name, dtype, shape in (
+                (w, "W", f64, (tk, n)), (tab.avg_comm, "avg_comm", f64,
+                                         (tk,)),
+                (tab.succ_ptr, "succ_ptr", i32, (tk + 1,)),
+                (tab.succ_idx, "succ_idx", i32, (tab.succ_idx.shape[0],)),
+                (tab.level_ptr, "level_ptr", i32, (n_levels + 1,)),
+                (tab.level_rows, "level_rows", i32, (tk,))):
+            check(v, f"{name}[{k}]", dtype, shape, dev)
+        rows.append([w.data_ptr(), tab.avg_comm.data_ptr(),
+                     tab.succ_ptr.data_ptr(), tab.succ_idx.data_ptr(),
+                     tab.level_ptr.data_ptr(), tab.level_rows.data_ptr(),
+                     tk, n_levels])
+    t = max(w.shape[0] for w in W)
+    rank = torch.empty((b, t), dtype=f64, device=dev)
+    bad = torch.empty(b, dtype=i32, device=dev)
+    host = np.asarray(rows, np.int64)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if b == 1:          # the lane goes by value: no table to copy
+            rc = _lib().lotaru_upward_rank(None, host.ctypes.data, 1, n, t,
+                                           rank.data_ptr(), bad.data_ptr(),
+                                           stream)
+        else:
+            table = _lane_table(rows, dev)
+            rc = _lib().lotaru_upward_rank(table.data_ptr(), None, b, n, t,
+                                           rank.data_ptr(), bad.data_ptr(),
+                                           stream)
+    raise_on(_lib(), rc, "upward_rank")
+    upward_rank.launches += 1
+    return rank, bad
+
+
+upward_rank.launches = 0

@@ -5,7 +5,7 @@ fallback from one to the other: a caller that wants the plain version
 hands over CPU tensors."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -81,6 +81,35 @@ def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,
     if _route(W) == "cuda":
         return _plane.eft_sweep(*args, S=S)
     return ref.eft_sweep_ref(*args, S=S)
+
+
+def eft_sweep_many(W: Sequence[torch.Tensor], order_arr: torch.Tensor,
+                   dep_rows: Sequence[torch.Tensor],
+                   gb8: Sequence[torch.Tensor],
+                   ready0: Sequence[torch.Tensor],
+                   avail: Sequence[torch.Tensor], same: torch.Tensor,
+                   gbps_min: torch.Tensor, *, S: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """B workflows' sweeps on one cluster -> (assign, est, eft) (B, T) and
+    cnt (B, N) (see `kernels.decision_plane.eft_sweep_many`).  The lanes'
+    operands stay where they lie, at their own T_b and D_b: only the rank
+    order is padded, with -1 (the TPU form stacked every operand at one
+    padded shape because it vmapped one compiled sweep)."""
+    args = (W, order_arr, dep_rows, gb8, ready0, avail, same, gbps_min)
+    if _route(order_arr) == "cuda":
+        return _plane.eft_sweep_many(*args, S=S)
+    return ref.eft_sweep_many_ref(*args, S=S)
+
+
+def upward_rank(W: Sequence[torch.Tensor], tables: Sequence
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HEFT's upward ranks of B workflows -> (rank (B, T), -inf past each
+    lane's rows; bad (B,), 1 where a lane's W is not finite) (see
+    `kernels.decision_plane.upward_rank`)."""
+    if _route(W[0]) == "cuda":
+        return _plane.upward_rank(W, tables)
+    return ref.upward_rank_ref(W, tables)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

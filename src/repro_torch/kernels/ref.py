@@ -6,7 +6,7 @@ same function on the same inputs, with no claim to speed."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -173,6 +173,69 @@ def eft_sweep_ref(W: torch.Tensor, order_arr: torch.Tensor,
         comm[iw] = torch.where(same[j], 0.0, gb8[i] / gbps_min[j])
     cnt = (b0 < inf).sum(dim=1).to(torch.int32)
     return assign[:T], est_a[:T], eft_a[:T], cnt
+
+
+def eft_sweep_many_ref(W: Sequence[torch.Tensor], order_arr: torch.Tensor,
+                       dep_rows: Sequence[torch.Tensor],
+                       gb8: Sequence[torch.Tensor],
+                       ready0: Sequence[torch.Tensor],
+                       avail: Sequence[torch.Tensor], same: torch.Tensor,
+                       gbps_min: torch.Tensor, *, S: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """B workflows' sweeps on one cluster, with the arguments and results
+    of `kernels.decision_plane.eft_sweep_many`: `eft_sweep_ref` run lane
+    by lane on each lane's operands padded to the common (T, D), T rows of
+    order_arr and D the widest dep_rows (zero W, ready0 and gb8 rows, -1
+    dependencies).  A lane's steps read only rows its order names, and a
+    masked step row 0, so the pad rows are never read."""
+    b, t = order_arr.shape
+    d = max((x.shape[1] for x in dep_rows), default=0)
+    outs = []
+    for k in range(b):
+        pad = t - W[k].shape[0]
+        dk = dep_rows[k]
+        dep = torch.full((t, d), -1, dtype=dk.dtype, device=dk.device)
+        dep[:dk.shape[0], :dk.shape[1]] = dk
+        outs.append(eft_sweep_ref(
+            torch.nn.functional.pad(W[k], (0, 0, 0, pad)), order_arr[k], dep,
+            torch.nn.functional.pad(gb8[k], (0, pad)),
+            torch.nn.functional.pad(ready0[k], (0, 0, 0, pad)), avail[k],
+            same, gbps_min, S=S))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def upward_rank_ref(W: Sequence[torch.Tensor], tables: Sequence
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HEFT's upward ranks of B workflows, with the arguments and results
+    of `kernels.decision_plane.upward_rank`: per lane, w_avg =
+    W.cumsum(dim=1)[:, -1] / N (a left-to-right sum, then one IEEE
+    division; W.sum(1) when N = 0), then the recurrence in reverse topo
+    order on Python floats, term for term `_PlanContext.ranks`:
+    best = max(best, avg_comm[i] + rank[s]) over the successors from
+    best = 0.0, rank[i] = w_avg[i] + best.  -> (rank (B, T) with -inf past
+    each lane's rows, bad (B,) int32: 1 where W holds a non-finite
+    cell)."""
+    b = len(W)
+    t = max((w.shape[0] for w in W), default=0)
+    dev = W[0].device if b else torch.device("cpu")
+    rank = torch.full((b, t), float("-inf"), dtype=torch.float64,
+                      device=dev)
+    bad = torch.zeros(b, dtype=torch.int32, device=dev)
+    for k, (w, tab) in enumerate(zip(W, tables)):
+        tk, n = w.shape
+        w_avg = (w.cumsum(dim=1)[:, -1] / n if n else w.sum(1)).tolist()
+        avg_comm = tab.avg_comm.tolist()
+        ptr, idx = tab.succ_ptr.tolist(), tab.succ_idx.tolist()
+        r = [0.0] * tk
+        for i in range(tk - 1, -1, -1):
+            best = 0.0
+            for s in idx[ptr[i]:ptr[i + 1]]:
+                best = max(best, avg_comm[i] + r[s])
+            r[i] = w_avg[i] + best
+        rank[k, :tk] = torch.tensor(r, dtype=torch.float64)
+        bad[k] = int(not bool(torch.isfinite(w).all()))
+    return rank, bad
 
 
 NEG_INF = -1e30

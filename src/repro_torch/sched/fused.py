@@ -1,5 +1,5 @@
-"""HEFT placement on the card and the resident decision plane: the
-single-workflow engine of the fused decision plane.
+"""HEFT placement on the card and the resident decision plane: the fused
+decision plane, one workflow or a megabatch of them.
 
   * `cost_view` builds a round's (T, N) quantile cost matrix W in
     `dag.topo_order()` rows and cluster column order, on the service's
@@ -9,18 +9,20 @@ single-workflow engine of the fused decision plane.
 
   * `fused_heft_schedule` ranks and places off W.  It is bitwise
     `heft.heft_schedule_matrix` with either engine:
-      - "numpy": the host sweep on flat (N, S) busy-interval arrays, one
-        vectorized gap search over every node per task (the oracle);
-      - "device": the whole insertion sweep as ONE `eft_sweep` launch on
-        `device` (its plain version on "cpu");
+      - "numpy": host ranks, then the host sweep on flat (N, S)
+        busy-interval arrays, one vectorized gap search over every node
+        per task (the oracle);
+      - "device": on `device`, ONE `upward_rank` launch (which also flags
+        a non-finite W), the rank order as a stable sort of -rank, and the
+        whole insertion sweep as ONE `eft_sweep` launch; W stays on the
+        card and one copy brings the order and the placements back (the
+        plain versions on "cpu");
       - "auto": "device" from `_DEVICE_MIN_CELLS` (T x N) cells up, by
         size alone.
-    Upward ranks stay on the host: W is copied there once for them, while
-    the sweep reads the W already on the card.  The rank terms that do not
-    depend on W (the average pairwise comm per task) and the sweep's
-    static arrays are kept per (dag, cluster) in the caller's
-    `rank_cache`, so a warm round pays only the w_avg sum, the reverse-topo
-    recurrence and the sweep.
+    The rank terms that do not depend on W (the average pairwise comm per
+    task, the successor and level tables) and the sweep's static arrays
+    are kept per (dag, cluster) in the caller's `rank_cache`, on each
+    device used, so a warm round pays only the W-dependent work.
 
   * `FusedPlane` keeps one workflow's decision plane resident on the
     service's device across rounds: the raw (factor-free) predictive rows,
@@ -33,9 +35,15 @@ single-workflow engine of the fused decision plane.
     device in `compute.scale` / `compute.cost_matrix` order, so its
     matrices are bitwise `PredictionMatrix.from_service`.  A round in
     which the store, the factors and the corrections did not move gathers
-    nothing, launches no predictive, builds no factor matrix and copies
-    no W; the host copy of W that the ranks and the finite check read is
-    kept beside the device W under the same key.
+    nothing, launches no predictive, builds no factor matrix and makes no
+    W; W's host copy is made only when an engine that reads it (the numpy
+    engine) asks, and kept beside the device W under the same key.
+
+  * `replan_many` replans B workflows (tenants) at once: the dirty rows
+    of every plane in ONE `bayes_predict` launch, then, for each group of
+    requests on one cluster, ONE `upward_rank` and ONE `eft_sweep_many`
+    launch (a block a workflow).  Bitwise `plane.schedule(...)` per
+    request.
 
 Why the sweep is exact: the insertion policy keeps each node's busy
 intervals non-overlapping and sorted, so interval ends are non-decreasing;
@@ -44,7 +52,9 @@ earlier fit checks said, and the first k with `cand + dur <= begin[k]` is
 the slot the reference's sequential walk returns.  max, min and compare
 are exact in IEEE floats, and every arithmetic term (`cand + dur`,
 `est + dur`, comm charges) is a single add or divide in the reference's
-expression, so schedules match bitwise, not approximately.
+expression, so schedules match bitwise, not approximately.  The ranks use
+only the reference's adds, one division and max, so they are bitwise too,
+and a stable sort breaks their ties by topo row as `sorted` does.
 """
 from __future__ import annotations
 
@@ -57,13 +67,15 @@ import torch
 from repro_torch.core.microbench import NodeSpec
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.decision_plane import rank_table
 from repro_torch.sched.heft import Schedule, comm_structure
 from repro_torch.sched.plane import PredictionMatrix, quantile_z
 from repro_torch.store import compute
 from repro_torch.store.compute import LEAVES
 from repro_torch.workflow.dag import WorkflowDAG
 
-__all__ = ["FusedPlane", "PlaneStats", "cost_view", "fused_heft_schedule"]
+__all__ = ["FusedPlane", "PlaneStats", "ReplanRequest", "cost_view",
+           "fused_heft_schedule", "replan_many"]
 
 _NEG_INF = float("-inf")
 
@@ -75,14 +87,15 @@ _DEVICE_MIN_CELLS = 5000
 class _PlanContext:
     """Per-(dag, cluster) invariants cached across planning rounds: the
     topo order and row maps, the pairwise comm structure, successor
-    lists, the W-independent avg-comm rank terms, and the sweep's static
-    arrays (dep rows, output bits, and their copies on each device used).
-    All of it is derived data — cached values are bitwise what a cold
-    round recomputes, so warm and cold rounds schedule identically."""
+    lists, the W-independent avg-comm rank terms and the rank kernel's
+    successor and level tables, and the sweep's static arrays (dep rows,
+    output bits), with their copies on each device used.  All of it is
+    derived data — cached values are bitwise what a cold round
+    recomputes, so warm and cold rounds schedule identically."""
 
     __slots__ = ("dag", "order", "row_of", "names", "same", "gbps_min",
-                 "succ", "avg_comm", "dep_rows", "gb8", "slot_cap",
-                 "_on_device")
+                 "cluster", "succ", "avg_comm", "rank_table", "dep_rows",
+                 "gb8", "slot_cap", "_on_device")
 
     def __init__(self, dag: WorkflowDAG, nodes: List[NodeSpec]):
         self.dag = dag      # strong ref: the cache key includes id(dag),
@@ -91,6 +104,9 @@ class _PlanContext:
         self.row_of = {u: i for i, u in enumerate(self.order)}
         self.names = [n.name for n in nodes]
         self.same, self.gbps_min = comm_structure(nodes)
+        # what groups replans onto one sweep launch: one comm structure
+        self.cluster = (tuple(self.names), self.same.tobytes(),
+                        self.gbps_min.tobytes())
         self.succ = dag.successors()
         n_nodes = len(nodes)
         self.avg_comm: Dict[str, float] = {}
@@ -99,6 +115,9 @@ class _PlanContext:
             terms = np.where(self.same, 0.0, (gb * 8.0) / self.gbps_min)
             self.avg_comm[u] = (float(terms.ravel().cumsum()[-1])
                                 / (n_nodes ** 2))
+        self.rank_table = rank_table(
+            [[self.row_of[v] for v in self.succ[u]] for u in self.order],
+            np.asarray([self.avg_comm[u] for u in self.order], np.float64))
         n_tasks = len(self.order)
         depth = max((len(dag.tasks[u].deps) for u in self.order), default=0)
         self.dep_rows = np.full((n_tasks, max(depth, 1)), -1, np.int32)
@@ -126,16 +145,20 @@ class _PlanContext:
         return rank
 
     def on_device(self, dev: torch.device) -> dict:
-        """The sweep's static arrays on `dev`, copied once per device."""
+        """The rank tables and the sweep's static arrays on `dev`, copied
+        once per device."""
         st = self._on_device.get(dev)
         if st is None:
             st = self._on_device[dev] = {
+                "rank": self.rank_table.to(dev),
                 "dep_rows": torch.from_numpy(self.dep_rows).to(dev),
                 "gb8": torch.from_numpy(self.gb8).to(dev),
                 "same": torch.from_numpy(self.same).to(dev),
                 "gbps_min": torch.from_numpy(self.gbps_min).to(dev),
                 "zeros": torch.zeros((len(self.order), len(self.names)),
-                                     dtype=torch.float64, device=dev)}
+                                     dtype=torch.float64, device=dev),
+                "avail0": torch.zeros(len(self.names), dtype=torch.float64,
+                                      device=dev)}
         return st
 
 
@@ -299,43 +322,49 @@ def fused_heft_schedule(dag: WorkflowDAG, nodes: List[NodeSpec],
     `dag.topo_order()` order) so replans can charge external dependency
     comm without T x N Python callbacks.  `rank_cache` is an optional
     dict the caller keeps across rounds; per-(dag, cluster) invariants are
-    memoized in it.  `engine`: 'numpy' = flat-array host sweep; 'device'
-    = one `eft_sweep` launch on `device` ("cuda" by default; "cpu" runs
-    its plain version); 'auto' picks by problem size.  `W` overrides the
-    cost matrix (topo-row order, a numpy array or a tensor such as
-    `cost_view`'s), and then `matrix` may be None.  A W with a NaN or
-    infinite cell raises ValueError, on either engine, before the ranks
-    and before any launch."""
+    memoized in it.  `engine`: 'numpy' = host ranks and the flat-array
+    host sweep; 'device' = one `upward_rank` and one `eft_sweep` launch on
+    `device` ("cuda" by default; "cpu" runs their plain versions); 'auto'
+    picks by problem size.  `W` overrides the cost matrix (topo-row order,
+    a numpy array or a tensor such as `cost_view`'s), and then `matrix`
+    may be None.  A W with a NaN or infinite cell raises ValueError naming
+    the first bad cell: on the numpy engine before the ranks, on the
+    device engine from the rank launch's flag, before any sweep launch."""
     ctx = _context(dag, nodes, rank_cache)
     if W is None:
         if matrix is None:
             raise ValueError("fused_heft_schedule needs a matrix or W")
         W = matrix.costs(ctx.order, ctx.names, quantile=quantile)  # (T, N)
-    W_host = (W.cpu().numpy() if isinstance(W, torch.Tensor)
-              else np.asarray(W, np.float64))
-    return _place(ctx, dag, nodes, W, W_host, ready_at, node_available,
+    if isinstance(W, torch.Tensor):
+        host = lambda: W.cpu().numpy()
+    else:
+        W = np.asarray(W, np.float64)
+        host = lambda: W
+    return _place(ctx, dag, nodes, W, host, ready_at, node_available,
                   engine, device)[0]
 
 
 def _place(ctx: _PlanContext, dag: WorkflowDAG, nodes: List[NodeSpec], W,
-           W_host: np.ndarray, ready_at,
-           node_available: Optional[Dict[str, float]], engine: str,
-           device) -> Tuple[Schedule, int]:
-    """Rank and place off W (what the sweep reads: a numpy array or a
-    tensor) and W_host (its host copy, read by the finite check and the
-    ranks) -> (schedule, eft_sweep launches)."""
-    _check_finite(ctx, W_host)
-    rank = ctx.ranks(dag, W_host)
+           host, ready_at, node_available: Optional[Dict[str, float]],
+           engine: str, device) -> Tuple[Schedule, int]:
+    """Rank and place off W (a numpy array or a tensor); `host()` gives
+    W's host copy, asked for only by the numpy engine -> (schedule,
+    eft_sweep launches)."""
     if engine == "auto":
-        engine = "device" if W_host.size >= _DEVICE_MIN_CELLS else "numpy"
+        cells = int(np.prod(W.shape))
+        engine = "device" if cells >= _DEVICE_MIN_CELLS else "numpy"
     if engine == "device":
         dev = resolve_device(device)
         W_dev = torch.as_tensor(W, dtype=torch.float64).to(dev).contiguous()
+        rank = _device_ranks([ctx], [W_dev])
         return _schedule_device(ctx, dag, nodes, W_dev, rank, ready_at,
                                 node_available)
     if engine != "numpy":
         raise ValueError(f"engine must be 'auto', 'numpy' or 'device', "
                          f"got {engine!r}")
+    W_host = host()
+    _check_finite(ctx, W_host)
+    rank = ctx.ranks(dag, W_host)
     return (_schedule_numpy(ctx, dag, nodes, W_host, rank, ready_at,
                             node_available), 0)
 
@@ -385,23 +414,43 @@ def _schedule_numpy(ctx: _PlanContext, dag: WorkflowDAG,
     return sched
 
 
+def _device_ranks(ctxs: Sequence[_PlanContext],
+                  Ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The upward ranks of B workflows on one device in ONE `upward_rank`
+    launch -> (B, T), -inf past each workflow's rows.  The launch also
+    flags a W that holds a NaN or infinite cell; the flags are read here,
+    once, before any sweep, and a flagged W raises `_check_finite`'s
+    ValueError naming its first bad cell."""
+    dev = Ws[0].device
+    rank, bad = ops.upward_rank(Ws, [c.on_device(dev)["rank"] for c in ctxs])
+    for k in torch.nonzero(bad.cpu()).flatten().tolist():
+        _check_finite(ctxs[k], Ws[k].cpu().numpy())
+    return rank
+
+
+def _rank_order(rank: torch.Tensor) -> torch.Tensor:
+    """(B, T) ranks -> each workflow's rows in rank order, int32: a stable
+    sort of -rank, which is `np.argsort(-rank, kind="stable")` and
+    `sorted(order, key=-rank)` (ties keep topo order); the -inf pads sort
+    last and become -1, a masked step.  The reference sorts on the host,
+    so this sort stands in for no TPU kernel."""
+    neg, order = torch.sort(-rank, dim=-1, stable=True)
+    return torch.where(neg == float("inf"), -1, order).to(torch.int32)
+
+
 def _sweep_inputs(ctx: _PlanContext, dag: WorkflowDAG,
-                  nodes: List[NodeSpec], rank: Dict[str, float], ready_at,
+                  nodes: List[NodeSpec], ready_at,
                   node_available: Optional[Dict[str, float]]):
-    """One replan's per-round sweep inputs on the host: the rows in rank
-    order (int32), the (T, N) external ready times (None when
-    unconstrained) and the per-node available times.  Nothing is padded:
-    the TPU form padded T to a bucket to reuse one compiled sweep."""
-    rank_arr = np.asarray([rank[u] for u in ctx.order], np.float64)
-    # stable argsort == sorted(order, key=-rank): ties keep topo order
-    order_arr = np.argsort(-rank_arr, kind="stable").astype(np.int32)
+    """One replan's external constraints on the host: the (T, N) ready
+    times (None when unconstrained) and the per-node available times (None
+    when no node is busy).  Nothing is padded: the TPU form padded T to a
+    bucket to reuse one compiled sweep."""
     ready0 = _ready_rows(ctx, dag, nodes, ready_at)
+    avail = None
     if node_available:
         avail = np.asarray([node_available.get(name, 0.0)
                             for name in ctx.names], np.float64)
-    else:
-        avail = np.zeros(len(nodes))
-    return order_arr, ready0, avail
+    return ready0, avail
 
 
 def _build_schedule(ctx: _PlanContext, order_arr: np.ndarray,
@@ -429,30 +478,69 @@ def _build_schedule(ctx: _PlanContext, order_arr: np.ndarray,
 
 def _schedule_device(ctx: _PlanContext, dag: WorkflowDAG,
                      nodes: List[NodeSpec], W: torch.Tensor,
-                     rank: Dict[str, float], ready_at,
+                     rank: torch.Tensor, ready_at,
                      node_available: Optional[Dict[str, float]]
                      ) -> Tuple[Schedule, int]:
-    """-> (schedule, eft_sweep launches: more than one after a slot
-    retry)."""
-    dev = W.device
-    order_arr, ready0, avail = _sweep_inputs(ctx, dag, nodes, rank, ready_at,
-                                             node_available)
-    st = ctx.on_device(dev)
-    args = (W, torch.from_numpy(order_arr).to(dev), st["dep_rows"],
-            st["gb8"],
-            st["zeros"] if ready0 is None else torch.from_numpy(ready0).to(dev),
-            torch.from_numpy(avail).to(dev), st["same"], st["gbps_min"])
+    """One workflow placed off its (1, T) device ranks -> (schedule,
+    eft_sweep launches: more than one after a slot retry)."""
+    scheds, launches = _sweep_lanes(
+        [ctx], [W], rank, [_sweep_inputs(ctx, dag, nodes, ready_at,
+                                         node_available)])
+    return scheds[0], launches
+
+
+def _sweep_lanes(ctxs: Sequence[_PlanContext], Ws: Sequence[torch.Tensor],
+                 rank: torch.Tensor, inputs: Sequence[tuple]
+                 ) -> Tuple[List[Schedule], int]:
+    """Place B workflows on one cluster off their (B, T) device ranks:
+    the rank order, then ONE sweep launch for all of them (`eft_sweep` at
+    B = 1, `eft_sweep_many` above), run again at twice the interval
+    columns while any workflow's stacks overflow, which raises every
+    context's slot_cap.  `inputs` holds each workflow's `_sweep_inputs`.
+    One copy brings the order, the placements and the counts back.
+    -> (schedules, sweep launches)."""
+    dev = Ws[0].device
+    order = _rank_order(rank)
+    sts = [c.on_device(dev) for c in ctxs]
+    ready0 = [st["zeros"] if r is None else torch.from_numpy(r).to(dev)
+              for st, (r, _) in zip(sts, inputs)]
+    avail = [st["avail0"] if a is None else torch.from_numpy(a).to(dev)
+             for st, (_, a) in zip(sts, inputs)]
+    dep_rows = [st["dep_rows"] for st in sts]
+    gb8 = [st["gb8"] for st in sts]
+    same, gbps_min = sts[0]["same"], sts[0]["gbps_min"]
     launches = 0
     while True:
-        S = ctx.slot_cap
-        assign, est, eft, cnt = ops.eft_sweep(*args, S=S)
+        S = max(c.slot_cap for c in ctxs)
+        if len(ctxs) == 1:
+            out = ops.eft_sweep(Ws[0], order[0], dep_rows[0], gb8[0],
+                                ready0[0], avail[0], same, gbps_min, S=S)
+            out = [x[None] for x in out]
+        else:
+            out = ops.eft_sweep_many(Ws, order, dep_rows, gb8, ready0, avail,
+                                     same, gbps_min, S=S)
         launches += 1
-        if len(nodes) == 0 or int(cnt.max()) <= S - 1:
+        o, assign, est, eft, cnt = _fetch(order, *out)
+        if cnt.size == 0 or cnt.max() <= S - 1:
             break
-        ctx.slot_cap = S * 2      # interval stacks overflowed: the gap
-        # search needs >= 1 spare pad column per node — run again larger
-    return _build_schedule(ctx, order_arr, assign.cpu().numpy(),
-                           est.cpu().numpy(), eft.cpu().numpy()), launches
+        # interval stacks overflowed: the gap search needs >= 1 spare pad
+        # column per node — run again larger
+        for c in ctxs:
+            c.slot_cap = max(c.slot_cap, S * 2)
+    return [_build_schedule(c, o[b], assign[b], est[b], eft[b])
+            for b, c in enumerate(ctxs)], launches
+
+
+def _fetch(order: torch.Tensor, assign: torch.Tensor, est: torch.Tensor,
+           eft: torch.Tensor, cnt: torch.Tensor) -> List[np.ndarray]:
+    """The sweep's (B, T) order, assign, est, eft and (B, N) counts on the
+    host in ONE copy (the int32 columns ride as float64, exactly)."""
+    t = order.shape[1]
+    f64 = torch.float64
+    host = torch.cat([order.to(f64), assign.to(f64), est, eft, cnt.to(f64)],
+                     dim=1).cpu().numpy()
+    o, a, e, f, c = np.split(host, [t, 2 * t, 3 * t, 4 * t], axis=1)
+    return [o.astype(np.int64), a.astype(np.int64), e, f, c]
 
 
 # ---------------------------------------------------------------------------
@@ -465,10 +553,13 @@ class PlaneStats:
     rounds: int = 0
     full_gathers: int = 0          # complete (re)builds of the row stack
     rows_refreshed: int = 0        # dirty rows re-gathered + re-predicted
-    predict_dispatches: int = 0    # bayes_predict launches (one a dirty round)
+    predict_dispatches: int = 0    # bayes_predict launches carrying this
+    # plane's rows (one a dirty round; a megabatch's one launch counts on
+    # every plane it refreshed, as the reference counts)
     matrix_rebuilds: int = 0       # scaled-view recomputations
     cost_rebuilds: int = 0         # (T, N) quantile cost-view recomputations
-    sweep_dispatches: int = 0      # eft_sweep launches
+    sweep_dispatches: int = 0      # sweep launches (a megabatch: one a
+    # request, whatever its slot retries, as the reference counts)
 
 
 class FusedPlane:
@@ -478,7 +569,9 @@ class FusedPlane:
     `entries` are (uid, task_name, input_gb) triples, or `dag` gives them.
     `matrix()` serves the scaled host `PredictionMatrix`, copied back only
     when rows, factors or corrections moved; `cost_view` the (T, N)
-    quantile cost matrix on the device; `schedule` one replan round."""
+    quantile cost matrix on the device; `schedule` one replan round.
+    `w_host_copies` counts the host copies of W made (by the numpy
+    engine's asks): a device round makes none."""
 
     def __init__(self, service, nodes: Sequence[NodeSpec],
                  entries: Optional[Sequence[Tuple[str, str, float]]] = None,
@@ -495,8 +588,7 @@ class FusedPlane:
         self.entries = [(u, t, float(gb)) for u, t, gb in entries]
         self.uids: Tuple[str, ...] = tuple(u for u, _, _ in self.entries)
         self._tasks = [t for _, t, _ in self.entries]
-        self._x = torch.tensor([gb for _, _, gb in self.entries],
-                               dtype=torch.float64, device=self.device)
+        self._x = np.asarray([gb for _, _, gb in self.entries], np.float64)
         self._keys = [service._binding.key_str(t) for t in self._tasks]
         self.stats = PlaneStats()
         self.rank_cache: dict = {}
@@ -510,11 +602,12 @@ class FusedPlane:
         self._matrix: Optional[PredictionMatrix] = None  # its host copy
         self._matrix_key = None
         # the scaled pair reindexed to one dag's topo order, and per
-        # quantile (W on the device, W's host copy) off it
+        # quantile W on the device off it, with W's host copy once asked
         self._view: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._view_key = None
-        self._cost_cache: Dict[Optional[float],
-                               Tuple[torch.Tensor, np.ndarray]] = {}
+        self._cost_cache: Dict[Optional[float], torch.Tensor] = {}
+        self._host_cache: Dict[Optional[float], np.ndarray] = {}
+        self.w_host_copies = 0
 
     @property
     def binding(self):
@@ -540,15 +633,10 @@ class FusedPlane:
 
     def gather_rows(self, snap, idx: np.ndarray):
         """The rows `idx` as the predictive reads them on the device:
-        (row index, inputs, posterior leaves).  The leaves are gathered on
-        the host and copied once each, the index once; the inputs are
-        picked out of the resident ones."""
-        dev = self.device
-        post = snap.gather([self._keys[i] for i in idx])
-        idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
-        return (idx_t, self._x.index_select(0, idx_t),
-                {leaf: torch.from_numpy(post[leaf]).to(dev)
-                 for leaf in LEAVES})
+        (row index, inputs, posterior leaves), each gathered on the host
+        and copied once (`_gather_many` over this plane alone)."""
+        idx_t, x, post, _ = _gather_many([(self, snap, idx)], self.device)
+        return idx_t, x, post
 
     def apply_rows(self, snap, idx, mean: Optional[torch.Tensor],
                    std: Optional[torch.Tensor]) -> None:
@@ -623,13 +711,12 @@ class FusedPlane:
         order on the device, resident across rounds (same expressions as
         `PredictionMatrix.costs`, hence bitwise-equal schedules)."""
         mat = self.matrix()
-        return mat, self._costs(dag, quantile)[0]
+        return mat, self._costs(dag, quantile)
 
     def _costs(self, dag: WorkflowDAG, quantile: Optional[float]
-               ) -> Tuple[torch.Tensor, np.ndarray]:
-        """(W on the device, its host copy) off the current scaled pair,
-        rebuilt only when the matrix key, the dag's context or the
-        quantile moves."""
+               ) -> torch.Tensor:
+        """W on the device off the current scaled pair, rebuilt only when
+        the matrix key, the dag's context or the quantile moves."""
         mat = self._matrix
         ctx = _context(dag, self.nodes, self.rank_cache)
         # the ctx object in the key pins the dag: id-recycling after a
@@ -646,12 +733,22 @@ class FusedPlane:
                           std.index_select(0, rows).index_select(1, cols))
             self._view_key = vkey
             self._cost_cache.clear()
-        got = self._cost_cache.get(quantile)
-        if got is None:
+            self._host_cache.clear()
+        W = self._cost_cache.get(quantile)
+        if W is None:
             z = None if quantile is None else quantile_z(quantile)
-            W = compute.cost_matrix(*self._view, z)
-            got = self._cost_cache[quantile] = (W, W.cpu().numpy())
+            W = self._cost_cache[quantile] = compute.cost_matrix(*self._view,
+                                                                  z)
             self.stats.cost_rebuilds += 1
+        return W
+
+    def _host_costs(self, quantile: Optional[float]) -> np.ndarray:
+        """W's host copy, made at the first ask and kept under W's key."""
+        got = self._host_cache.get(quantile)
+        if got is None:
+            got = self._host_cache[quantile] = \
+                self._cost_cache[quantile].cpu().numpy()
+            self.w_host_copies += 1
         return got
 
     # ---- scheduling --------------------------------------------------------
@@ -663,9 +760,127 @@ class FusedPlane:
         as `fused_heft_schedule` places (the "device" engine on the
         plane's device)."""
         self.matrix()
-        W, W_host = self._costs(dag, quantile)
+        W = self._costs(dag, quantile)
         ctx = _context(dag, self.nodes, self.rank_cache)
-        sched, sweeps = _place(ctx, dag, self.nodes, W, W_host, ready_at,
+        sched, sweeps = _place(ctx, dag, self.nodes, W,
+                               lambda: self._host_costs(quantile), ready_at,
                                node_available, engine, self.device)
         self.stats.sweep_dispatches += sweeps
         return sched
+
+
+def _gather_many(items, dev: torch.device):
+    """The dirty rows of several planes, [(plane, snapshot, row indices)],
+    as one predictive batch on `dev`: (row indices, inputs, posterior
+    leaves, each plane's count), rows concatenated in the order given.
+    Everything is gathered and joined on the host, then copied once an
+    array."""
+    idx = [np.asarray(i, np.int64) for _, _, i in items]
+    posts = [snap.gather([p._keys[i] for i in ii])
+             for (p, snap, _), ii in zip(items, idx)]
+    post = {leaf: np.concatenate([q[leaf] for q in posts]) for leaf in LEAVES}
+    x = np.concatenate([p._x[ii] for (p, _, _), ii in zip(items, idx)])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (to(np.concatenate(idx)), to(x),
+            {leaf: to(v) for leaf, v in post.items()}, [len(i) for i in idx])
+
+
+# ---------------------------------------------------------------------------
+# megabatched replans
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ReplanRequest:
+    """One tenant's (workflow's) replan in a megabatch."""
+    plane: FusedPlane
+    dag: WorkflowDAG
+    ready_at: object = None
+    node_available: Optional[Dict[str, float]] = None
+    quantile: Optional[float] = None
+
+
+def replan_many(requests: Sequence[ReplanRequest],
+                fuse_sweeps: bool = True) -> List[Schedule]:
+    """Replan many tenants' workflows at once, on their planes' device
+    (requests on different devices raise ValueError).
+
+    The dirty rows of every plane go through ONE `bayes_predict` launch
+    and are scattered back into each plane's resident rows; then the
+    requests on one cluster (node names, `same`, `gbps_min`) are placed
+    as a group: ONE `upward_rank` launch and ONE `eft_sweep_many` launch
+    (a block a workflow), run again at twice the interval columns while
+    any lane overflows, which raises every member's slot_cap.  The
+    reference grouped only requests of one bucketed shape, because the
+    TPU compiled one sweep a shape; here a group's lanes keep their own T
+    and D and only the rank order is padded, with -1.  `fuse_sweeps=False`
+    schedules each request through `plane.schedule`.  Either way the
+    schedules are bitwise `plane.schedule(...)` per request: the
+    predictive is elementwise, and each lane runs the single sweep's
+    steps."""
+    devices = {req.plane.device for req in requests}
+    if len(devices) > 1:
+        raise ValueError(f"replan_many takes planes on one device, got "
+                         f"{sorted(str(d) for d in devices)}")
+    # every binding syncs BEFORE any snapshot is taken: planes sharing one
+    # store then collect against the same generation, so the scatter below
+    # leaves them all clean and the per-request rounds re-gather nothing
+    # (block-granular dirtiness would otherwise let tenant B's sync,
+    # landing after tenant A's snapshot, re-dirty a shared block)
+    for req in requests:
+        req.plane.binding.sync()
+    collected = [(req.plane,) + req.plane.collect_dirty()
+                 for req in requests]
+    dirty = [c for c in collected if len(c[2])]
+    if dirty:
+        idx_t, x, post, counts = _gather_many(dirty, dirty[0][0].device)
+        mean, std = ops.bayes_predict(x, post)
+        off = 0
+        for (plane, snap, _), n in zip(dirty, counts):
+            sl = slice(off, off + n)
+            plane.apply_rows(snap, idx_t[sl], mean[sl], std[sl])
+            plane.stats.predict_dispatches += 1
+            off += n
+    for plane, snap, idx in collected:
+        if not len(idx):
+            plane.apply_rows(snap, idx, None, None)
+    return _schedule_requests(requests, fuse_sweeps)
+
+
+def _schedule_requests(requests: Sequence[ReplanRequest],
+                       fuse_sweeps: bool) -> List[Schedule]:
+    """Schedule every (synced) request; with `fuse_sweeps`, the requests
+    of one cluster as one group (`_dispatch_group`)."""
+    if not fuse_sweeps:
+        return [req.plane.schedule(req.dag, ready_at=req.ready_at,
+                                   node_available=req.node_available,
+                                   quantile=req.quantile)
+                for req in requests]
+    results: List[Optional[Schedule]] = [None] * len(requests)
+    groups: Dict[tuple, list] = {}
+    for pos, req in enumerate(requests):
+        plane = req.plane
+        _, W = plane.cost_view(req.dag, req.quantile)
+        ctx = _context(req.dag, plane.nodes, plane.rank_cache)
+        if not ctx.order:           # nothing to place: no lane
+            results[pos] = Schedule(order={n: [] for n in ctx.names})
+            continue
+        groups.setdefault(ctx.cluster, []).append((pos, req, ctx, W))
+    for members in groups.values():
+        _dispatch_group(members, results)
+    return results
+
+
+def _dispatch_group(members: list, results: List[Optional[Schedule]]
+                    ) -> None:
+    """One cluster's requests, [(position, request, context, W)]: their
+    ranks in one launch, then their sweeps in one (`_sweep_lanes`)."""
+    ctxs = [m[2] for m in members]
+    Ws = [m[3] for m in members]
+    rank = _device_ranks(ctxs, Ws)
+    inputs = [_sweep_inputs(ctx, req.dag, req.plane.nodes, req.ready_at,
+                            req.node_available)
+              for _, req, ctx, _ in members]
+    scheds, _ = _sweep_lanes(ctxs, Ws, rank, inputs)
+    for (pos, req, _, _), sched in zip(members, scheds):
+        req.plane.stats.sweep_dispatches += 1
+        results[pos] = sched

@@ -61,14 +61,10 @@ def main() -> None:
     dag, nodes, svc = cs.replan_problem(args.tasks, args.nodes, 0, dev)
     W = fused.cost_view(svc, dag, nodes, cs.PLAN_QUANTILE)
     ctx = fused._context(dag, nodes, {})
-    rank = ctx.ranks(dag, W.cpu().numpy())
-    order_arr, _, avail = fused._sweep_inputs(ctx, dag, nodes, rank, None,
-                                              None)
+    order = fused._rank_order(fused._device_ranks([ctx], [W]))[0]
     st = ctx.on_device(dev)
-    cases = {"replan": [W, torch.from_numpy(order_arr).to(dev),
-                        st["dep_rows"], st["gb8"], st["zeros"],
-                        torch.from_numpy(avail).to(dev), st["same"],
-                        st["gbps_min"]],
+    cases = {"replan": [W, order, st["dep_rows"], st["gb8"], st["zeros"],
+                        st["avail0"], st["same"], st["gbps_min"]],
              "chain": [torch.from_numpy(v).to(dev)
                        for v in cs.sweep_cases()["chain"]]}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

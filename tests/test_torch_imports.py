@@ -37,6 +37,9 @@ LM_MODULES = (
     "kernels.rglru_scan", "convert")
 # the resident decision plane and the maintenance plane
 PLANE_MODULES = ("store.posterior", "sched.fused", "online.maintenance")
+# replanning many workflows: the rank and many-lane sweep kernels' wrappers,
+# their plain versions and dispatch
+REPLAN_MODULES = ("kernels.decision_plane", "kernels.ref", "kernels.ops")
 
 
 def _env():
@@ -52,7 +55,8 @@ def test_importing_every_module_leaves_jax_out():
     assert int(out[0]) >= 55            # every module of the slices
     assert out[1] == "[]"
     names = set(out[2].split(","))
-    assert {f"repro_torch.{m}" for m in LM_MODULES + PLANE_MODULES} <= names
+    assert {f"repro_torch.{m}" for m in
+            LM_MODULES + PLANE_MODULES + REPLAN_MODULES} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
