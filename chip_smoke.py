@@ -91,14 +91,23 @@ Phases (each fails loudly; nothing is caught):
                cold round to `heft_schedule_matrix`; each round's split
                (sync and gather, predict, scale and cost, ranks, sweep and
                rebuild) beside the 38 per-request rounds on the same state.
-               Then `upward_rank` bitwise `_PlanContext.ranks` and its
-               plain version on the replan DAG, a 1000-task chain and a
-               one-level fan (one lane a launch, then three in one), and
-               `eft_sweep_many` bitwise its plain version on the CPU for
-               lanes of T 1000, 850, 700 and 300, four tie packs, the first
-               at S = 4, and two lanes on 1500 nodes (the global route, a
-               launch a lane); the second cluster replanned from 4
-               interval columns (a slot retry on the shared route).
+               Then `upward_rank` bitwise `_PlanContext.ranks` and its plain
+               version on the replan DAG, a 1000-task chain, a fan, a DAG
+               whose levels alternate between more and at most 32 rows
+               (the shared route), a lane whose tables overflow shared
+               memory and the replan lane's tables off a 16-byte boundary
+               (the global route), one lane a launch and in two mixed-T
+               launches, each launch's route counted; a NaN lane among
+               finite ones flagged alone; and `eft_sweep_many` bitwise its
+               plain version on the CPU for lanes of T 1000, 850, 700 and
+               300, four tie packs, the first at S = 4, and two lanes on
+               1500 nodes (the global route, a launch a lane); the second
+               cluster replanned from 4 interval columns (a slot retry on
+               the shared route).  After every path's checks, the plane's
+               warm round (20 pairs) and this cell's (10 pairs), on fresh
+               planes after a cold round, are timed with the rank launch
+               on its own route and forced onto the global route (PR 28's
+               kernel and launch), in turns.
   9. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
                tenants of 1,024 tasks, each an `OnlinePredictor(device=
                "cuda")` bound to one store, fed its share of phase 6's
@@ -151,7 +160,10 @@ Phases (each fails loudly; nothing is caught):
                time at 100,000 less the slope to 2**20) and the main path's
                launches by Q.  For `upward_rank` (at one lane) and
                `eft_sweep_many` (at 32 lanes) also the other lane count,
-               and beside the ranks the host ranks they replace.
+               and beside the ranks the host ranks they replace, the
+               global route's time, the route and cluster size, the
+               latency bound beside the bytes bound, and a 1000-level
+               chain.
                `tol_ratio` is the worst |got - want| / (atol + rtol *
                |want|) over all outputs: at most 1 is within the stated
                tolerance.
@@ -196,6 +208,18 @@ WIDE_NODES = 1500                # > 1024 threads: a thread owns two nodes
 # reads (a dependency's finish time, then an interval; ~35 each) and a
 # chain of about eight float64 max/add/compare (~4 each)
 SWEEP_STEP_CYCLES = 3 * 20 + 10 * 25 + 2 * 35 + 8 * 4
+# the least latency of one level of the rank walk from shared memory, in
+# cycles (a reckoning, not a measurement): four dependent shared-memory
+# reads (a level's row, its successor range, a successor, that successor's
+# rank; ~30 each), a dependent float64 add, max and add (~4 each) and one
+# barrier (~20)
+RANK_LEVEL_CYCLES = 4 * 30 + 3 * 4 + 20
+SM_FILL_BYTES = 64               # a cycle from the L2 into one SM (reckoned)
+# the rank checks' DAG whose levels alternate between more and at most 32
+# rows (from the sources down; 950 tasks, so that the shared route's
+# mixed launch holds lanes of two T)
+NARROW_WIDE_LAYERS = (250, 4, 250, 32, 200, 1, 150, 12, 51)
+OVERFLOW_TASKS, OVERFLOW_FAN_IN = 3000, 25   # tables past shared memory
 INGEST_BATCHES, INGEST_BATCH = 8, 250
 INGEST_DRIFT = 1.6               # remote nodes run this much slower than
                                  # their static factor says
@@ -1759,15 +1783,168 @@ def chain_dag(n_tasks: int):
     return dag
 
 
+def layer_deps(rng: np.random.Generator, sizes) -> list:
+    """Each task's dependencies (task indices) in a layered DAG of these
+    layer sizes: every task of a layer but the last feeds a task of the
+    next one, every task past the first layer has a dependency in the
+    layer above, and a few edges skip a layer, so layer j is exactly level
+    len(sizes) - 1 - j of the rank walk."""
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    deps = [set() for _ in range(int(starts[-1]))]
+    for j in range(len(sizes) - 1):
+        here = range(starts[j], starts[j + 1])
+        nxt = range(starts[j + 1], starts[j + 2])
+        for u in here:
+            deps[int(rng.choice(nxt))].add(u)
+        for v in nxt:
+            if not deps[v]:
+                deps[v].add(int(rng.choice(here)))
+            if j and rng.random() < 0.2:
+                deps[v].add(int(rng.integers(starts[j - 1], starts[j])))
+    return [sorted(d) for d in deps]
+
+
+def deps_dag(name: str, deps: list):
+    """A DAG of len(deps) tasks, task i depending on tasks deps[i]."""
+    from repro_torch.workflow.dag import TaskInstance, WorkflowDAG
+    dag = WorkflowDAG(name)
+    for i, d in enumerate(deps):
+        dag.add(TaskInstance(f"t{i}", TASK_TYPES[i % len(TASK_TYPES)], name,
+                             1.0, output_gb=0.25 + (i % 7) / 4,
+                             deps=[f"t{j}" for j in d]))
+    return dag
+
+
+def overflow_dag(rng: np.random.Generator):
+    """OVERFLOW_TASKS tasks, each depending on up to OVERFLOW_FAN_IN of the
+    300 before it: about 75,000 edges, so the rank tables (~340 KB) do not
+    fit a block's shared memory and the ranks take the global route."""
+    return deps_dag("overflow", [
+        sorted(rng.choice(np.arange(max(0, i - 300), i),
+                          min(i, OVERFLOW_FAN_IN), replace=False).tolist())
+        for i in range(OVERFLOW_TASKS)])
+
+
+def misaligned(tab):
+    """The RankTable `tab` copied to storage one element past a 16-byte
+    boundary (the global route's case)."""
+    import torch
+    from repro_torch.kernels.decision_plane import RankTable
+
+    def shift(x):
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+        return y.copy_(x)
+    return RankTable(*(shift(x) for x in tab))
+
+
+def rank_checks(dev, nodes, W0, dag0, rng: np.random.Generator) -> float:
+    """upward_rank on the card bitwise `_PlanContext.ranks` and its plain
+    version (on the CPU), lane by lane and in mixed-T launches: the replan
+    DAG with its W of the last round, a chain, a fan, a DAG whose levels
+    alternate between more and at most 32 rows (shared route), a lane
+    whose tables overflow shared memory and the replan lane's tables off a
+    16-byte boundary (global route); each launch's route is
+    `rank_config`'s and is counted; a NaN lane among finite ones is flagged
+    alone.  The chain's and fan's W are `rng`'s next two draws of
+    (PLAN_TASKS, N); the other cases draw from a generator of their own.
+    -> the largest |err| (0.0 when bitwise)."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane_k
+    from repro_torch.kernels import ref
+    from repro_torch.sched import fused
+    n = len(nodes)
+    draws = [rng.uniform(1.0, 100.0, (PLAN_TASKS, n)) for _ in range(2)]
+    more = np.random.default_rng(38)
+    dags = [("replan", dag0, W0.cpu().numpy()),
+            ("chain", chain_dag(PLAN_TASKS), draws[0]),
+            ("fan", fan_dag(PLAN_TASKS), draws[1]),
+            ("narrow/wide", deps_dag("layers", layer_deps(
+                more, NARROW_WIDE_LAYERS)), None),
+            ("overflow", overflow_dag(more), None),
+            ("misaligned", dag0, W0.cpu().numpy())]
+    cases = []
+    for name, dag, w in dags:
+        ctx = fused._PlanContext(dag, nodes)
+        if w is None:
+            w = more.uniform(1.0, 100.0, (len(ctx.order), n))
+        W = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
+        tab = ctx.on_device(dev)["rank"]
+        if name == "misaligned":
+            tab = misaligned(tab)
+        host = ctx.ranks(dag, w)
+        want = np.asarray([host[u] for u in ctx.order])
+        cases.append((name, ctx, W, tab, want))
+    optin, sms = plane_k.smem_optin(dev.index), plane_k.sm_count(dev.index)
+    err = 0.0
+
+    def launch(idx, label, route):
+        nonlocal err
+        sel = [cases[k] for k in idx]
+        Ws, tabs = [c[2] for c in sel], [c[3] for c in sel]
+        before = dict(plane_k.upward_rank.launches_by_route)
+        rank, bad = plane_k.upward_rank(Ws, tabs)
+        took = {k: v - before[k]
+                for k, v in plane_k.upward_rank.launches_by_route.items()
+                if v > before[k]}
+        plain, plain_bad = ref.upward_rank_ref([w.cpu() for w in Ws],
+                                               [t.to("cpu") for t in tabs])
+        got = rank.cpu().numpy()
+        same = np.array_equal(got.view(np.int64),
+                              plain.numpy().view(np.int64))
+        for k, c in enumerate(sel):
+            t = c[3].T
+            same &= np.array_equal(got[k, :t].view(np.int64),
+                                   c[4].view(np.int64))
+            err = max(err, float(np.abs(got[k, :t] - c[4]).max()))
+        cfg = plane_k.rank_config(
+            max(t.T for t in tabs), max(t.E for t in tabs),
+            max(t.L for t in tabs), n, len(sel), optin, sms,
+            aligned=not any(x.data_ptr() & 15 for t in tabs for x in t))
+        levels = [c[3].L for c in sel]
+        print(f"[replan] upward_rank {label} T={[c[3].T for c in sel]} "
+              f"N={n} levels {levels}: route {took} (rank_config "
+              f"{cfg['route']}, cluster {cfg['cluster']}), bitwise "
+              f"_PlanContext.ranks and the plain version {same}, flags "
+              f"{bad.tolist()}")
+        check(same and bad.tolist() == [0] * len(sel)
+              and plain_bad.tolist() == [0] * len(sel)
+              and took == {route: 1} and cfg["route"] == route,
+              f"upward_rank ({label}) differs from its plain version or "
+              f"did not launch once on the {route} route")
+
+    for k, (name, *_rest) in enumerate(cases):
+        launch([k], name, "global" if k >= 4 else "shared")
+    launch([0, 1, 2, 3], "replan, chain, fan, narrow/wide in one launch",
+           "shared")
+    launch([4, 5, 2], "overflow, misaligned, fan in one launch", "global")
+    # a NaN lane among finite ones: its flag alone, the others bitwise
+    W_nan = cases[1][2].clone()
+    W_nan[PLAN_TASKS // 2, n // 3] = float("nan")
+    Ws = [cases[0][2], W_nan, cases[2][2]]
+    tabs = [cases[k][3] for k in (0, 1, 2)]
+    rank, bad = plane_k.upward_rank(Ws, tabs)
+    plain, plain_bad = ref.upward_rank_ref([w.cpu() for w in Ws],
+                                           [t.to("cpu") for t in tabs])
+    got = rank.cpu().numpy()
+    same = all(np.array_equal(got[k, :cases[c][3].T].view(np.int64),
+                              cases[c][4].view(np.int64))
+               for k, c in ((0, 0), (2, 2)))
+    same &= np.array_equal(got[1], plain.numpy()[1], equal_nan=True)
+    print(f"[replan] upward_rank a NaN lane among finite ones: flags "
+          f"{bad.tolist()} (plain {plain_bad.tolist()}), the finite lanes "
+          f"bitwise and the NaN lane equal to the plain version {same}")
+    check(same and bad.tolist() == [0, 1, 0]
+          and plain_bad.tolist() == [0, 1, 0],
+          "upward_rank did not flag the NaN lane alone")
+    return err
+
+
 def replan_kernel_checks(dev, fleet_out, planes, reqs) -> dict:
     """upward_rank and eft_sweep_many on the card against their plain
-    versions.  The ranks bitwise `_PlanContext.ranks` (and the plain
-    version on the CPU) on the replan DAG with its W of the last round, a
-    chain of PLAN_TASKS tasks and a one-level fan, one lane a launch and
-    then all three in one launch.  The sweep bitwise its plain version on
-    the CPU for a group with lanes of different T, a group of tie packs,
-    the first group at S = 4 (stacks overflowing) and two lanes of
-    WIDE_NODES nodes (the global route, a launch a lane); then the cell's
+    versions: `rank_checks` for the ranks.  The sweep
+    bitwise its plain version on the CPU for a group with lanes of
+    different T, a group of tie packs, the first group at S = 4 (stacks
+    overflowing) and two lanes of WIDE_NODES nodes (the global route, a launch a lane); then the cell's
     second cluster replanned from slot_cap 4, its sweeps retried on the
     shared route, schedules identical to `heft_schedule_matrix`."""
     import torch
@@ -1780,39 +1957,9 @@ def replan_kernel_checks(dev, fleet_out, planes, reqs) -> dict:
     from repro_torch.sched.plane import PredictionMatrix
     nodes = fleet_out["replan_nodes"]
     rng = np.random.default_rng(37)
-    W0 = planes[0]._costs(reqs[0].dag, PLAN_QUANTILE)
-    cases = [("replan", reqs[0].dag, W0)] + [
-        (name, dag, torch.from_numpy(rng.uniform(
-            1.0, 100.0, (PLAN_TASKS, len(nodes)))).to(dev))
-        for name, dag in (("chain", chain_dag(PLAN_TASKS)),
-                          ("fan", fan_dag(PLAN_TASKS)))]
-    ctxs = [fused._PlanContext(dag, nodes) for _, dag, _ in cases]
-    tabs = [c.on_device(dev)["rank"] for c in ctxs]
-    wants, rank_err = [], 0.0
-    for (name, dag, W), ctx, tab in zip(cases, ctxs, tabs):
-        host = ctx.ranks(dag, W.cpu().numpy())
-        want = np.asarray([host[u] for u in ctx.order])
-        wants.append(want)
-        rank, bad = plane_k.upward_rank([W], [tab])
-        got = rank[0].cpu().numpy()
-        plain = ref.upward_rank_ref([W.cpu()], [ctx.rank_table])[0][0]
-        rank_err = max(rank_err, float(np.abs(got - want).max()))
-        same = (np.array_equal(got.view(np.int64), want.view(np.int64))
-                and np.array_equal(plain.numpy().view(np.int64),
-                                   want.view(np.int64)))
-        n_levels = tab.level_ptr.shape[0] - 1
-        print(f"[replan] upward_rank {name} T={PLAN_TASKS} N={len(nodes)} "
-              f"({n_levels} levels): bitwise _PlanContext.ranks and the "
-              f"plain version {same}, flag {int(bad[0])}")
-        check(same and int(bad[0]) == 0,
-              f"upward_rank ({name}) differs from its plain version")
-    rank, bad = plane_k.upward_rank([c[2] for c in cases], tabs)
-    same = all(np.array_equal(rank[k].cpu().numpy().view(np.int64),
-                              w.view(np.int64)) for k, w in enumerate(wants))
-    print(f"[replan] upward_rank all three in one launch (B=3): bitwise "
-          f"{same}, flags {bad.tolist()}")
-    check(same and bad.tolist() == [0, 0, 0],
-          "upward_rank over three lanes differs from one lane at a time")
+    rank_err = rank_checks(dev, nodes, planes[0]._costs(reqs[0].dag,
+                                                       PLAN_QUANTILE),
+                           reqs[0].dag, rng)
 
     def lanes(packs):
         for p in packs:
@@ -1901,6 +2048,73 @@ def replan_kernel_checks(dev, fleet_out, planes, reqs) -> dict:
     return {"upward_rank": (rank_err, 0.0), "eft_sweep_many": (err, 0.0)}
 
 
+def rank_route_pairs(label: str, run, pairs: int) -> dict:
+    """`run` (one warm round; nothing moves between calls) timed on the
+    host clock, a sync before and after, in `pairs` pairs: once with
+    upward_rank on its own route (`rank_config`'s, the cluster launch)
+    and once forced onto the global route (PR 28's kernel and launch),
+    the order flipped every pair.  -> {route: [ms, ...]}."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane_k
+    config = plane_k.rank_config
+
+    def on_global(*a, **k):
+        return config(*a, **dict(k, aligned=False))
+    times = {"shared": [], "global": []}
+    for p in range(pairs):
+        for route in ("shared", "global")[::1 if p % 2 == 0 else -1]:
+            before = dict(plane_k.upward_rank.launches_by_route)
+            plane_k.rank_config = config if route == "shared" else on_global
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times[route].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                plane_k.rank_config = config
+            took = {k: v - before[k]
+                    for k, v in plane_k.upward_rank.launches_by_route.items()
+                    if v > before[k]}
+            check(list(took) == [route], f"{label}: a round meant for the "
+                  f"{route} route launched {took}")
+    q = {r: [float(x) for x in np.percentile(v, [25, 50, 75])]
+         for r, v in times.items()}
+    wins = sum(a < b for a, b in zip(times["shared"], times["global"]))
+    print(f"[{label.split()[0]}] {label}, {pairs} pairs in turns, ms "
+          f"(host clock): rank launch on its own route median "
+          f"{q['shared'][1]!r} (quartiles {q['shared'][0]!r}-"
+          f"{q['shared'][2]!r}); forced onto the global route median "
+          f"{q['global'][1]!r} ({q['global'][0]!r}-{q['global'][2]!r}); "
+          f"own route faster in {wins} of {pairs} pairs")
+    return times
+
+
+def warm_round_pairs(dev, fleet_out, problem) -> None:
+    """The warm rounds of phases 7 and 8 (nothing moved since a cold
+    round, on fresh planes over a fresh predictor, as before their first
+    ingest batch) by `rank_route_pairs`: the plane's 20 pairs, the replan
+    cell's 10."""
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.fused import FusedPlane, replan_many
+    svc = fleet_out["replan_service"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    benches = dict(svc.benches)
+    plane = FusedPlane(PredictionService(OnlinePredictor(
+        svc.predictor, benches, device=dev), benches, device=dev), nodes,
+        dag=dag)
+
+    def plane_round():
+        plane.schedule(dag, quantile=PLAN_QUANTILE, engine="device")
+    plane_round()                        # the cold round
+    rank_route_pairs("plane warm round", plane_round, pairs=20)
+    _, reqs = replan_planes(dev, problem, OnlinePredictor(
+        svc.predictor, problem["benches"], device=dev))
+    replan_many(reqs)                    # the cold round
+    rank_route_pairs("replan warm round of 38 workflows",
+                     lambda: replan_many(reqs), pairs=10)
+
+
 def once_ms(fn) -> float:
     """CUDA-event time of one call, the card idle and the L2 flushed
     before it: for a plain version too slow to repeat."""
@@ -1916,15 +2130,47 @@ def once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def time_rank(Ws, tabs, plain: bool = True) -> dict:
+    """upward_rank over these lanes: on its route (`rank_config`'s) through
+    the C entry point with the L2 flushed (`ms`) and back to back
+    (`warm_ms`), through the wrapper (`wrapper_ms`), on the global route
+    (PR 28's kernel, `global_ms`), the plain version on the card
+    (`plain_ms`, unless plain=False), the launch shape and both bounds."""
+    from repro_torch.kernels import decision_plane as plane_k
+    from repro_torch.kernels import ref
+    dev = Ws[0].device
+    b, n = len(Ws), Ws[0].shape[1]
+    cfg = plane_k.rank_config(
+        max(t.T for t in tabs), max(t.E for t in tabs),
+        max(t.L for t in tabs), n, b, plane_k.smem_optin(dev.index),
+        plane_k.sm_count(dev.index))
+    on_route = rank_launch(Ws, tabs, cfg["route"], cfg["cluster"])
+    bound, by, latency = bounds_rank(Ws, tabs, cfg["cluster"])
+    rk = {"ms": time_ms(on_route), "warm_ms": warm_ms(on_route),
+          "global_ms": time_ms(rank_launch(Ws, tabs, "global")),
+          "wrapper_ms": time_ms(lambda: plane_k.upward_rank(Ws, tabs),
+                                host=True),
+          "bound_ms": bound, "bound_by": by, "latency_bound_ms": latency,
+          "binds": "latency" if latency > bound else by,
+          "route": cfg["route"], "cluster": cfg["cluster"],
+          "tile_rows": cfg["tile_rows"], "smem_bytes": cfg["smem_bytes"],
+          "levels": max(t.L for t in tabs)}
+    if plain:
+        rk["plain_ms"] = time_ms(lambda: ref.upward_rank_ref(Ws, tabs),
+                                 reps=3, host=True)
+    return rk
+
+
 def time_replan(dev, rpc) -> dict:
     """Times of upward_rank and eft_sweep_many on the replan cell's first
     cluster at its last round's state, for one lane and for all REPLAN_A
     (1000 x 100, S = 48): through the C entry points with the L2 flushed
     (`ms`) and back to back (`warm_ms`), through the wrappers
     (`wrapper_ms`), and the plain versions on the card (`plain_ms`; the
-    many-lane sweep's once, at REPLAN_A lanes); for the ranks also the
-    host ranks they replace, with and without W's copy to the host; and
-    the bounds.  -> {lanes: {kernel: times}}."""
+    many-lane sweep's once, at REPLAN_A lanes); for the ranks (`time_rank`)
+    also the global route, a chain of PLAN_TASKS levels at one lane and
+    the host ranks they replace, with and without W's copy to the host;
+    and the bounds.  -> {lanes: {kernel: times}}."""
     import torch
     from repro_torch.kernels import decision_plane as plane_k
     from repro_torch.kernels import ref
@@ -1972,24 +2218,13 @@ def time_replan(dev, rpc) -> dict:
               "wrapper_ms": time_ms(lambda: plane_k.eft_sweep_many(
                   *args, S=48), reps=10, host=True),
               "bound_ms": bound, "bound_by": by, "step_bound_ms": step}
-        rtable = plane_k._lane_table(
-            [[Ws[k].data_ptr(), tabs[k].avg_comm.data_ptr(),
-              tabs[k].succ_ptr.data_ptr(), tabs[k].succ_idx.data_ptr(),
-              tabs[k].level_ptr.data_ptr(), tabs[k].level_rows.data_ptr(),
-              Ws[k].shape[0], tabs[k].level_ptr.shape[0] - 1]
-             for k in range(nb)], dev)
-        rank_launch = raw_launch(
-            "upward_rank", [rtable, None, nb, n, t,
-                            torch.empty((nb, t), dtype=f64, device=dev),
-                            torch.empty(nb, dtype=i32, device=dev)], lib)
-        r_bound, r_by = bounds_rank(Ws[:nb], tabs[:nb])
-        rk = {"ms": time_ms(rank_launch), "warm_ms": warm_ms(rank_launch),
-              "wrapper_ms": time_ms(lambda: plane_k.upward_rank(
-                  Ws[:nb], tabs[:nb]), host=True),
-              "plain_ms": time_ms(lambda: ref.upward_rank_ref(
-                  Ws[:nb], tabs[:nb]), reps=3, host=True),
-              "bound_ms": r_bound, "bound_by": r_by}
-        out[nb] = {"eft_sweep_many": sw, "upward_rank": rk}
+        out[nb] = {"eft_sweep_many": sw,
+                   "upward_rank": time_rank(Ws[:nb], tabs[:nb])}
+    chain = fused._PlanContext(chain_dag(PLAN_TASKS), group[0][0].nodes)
+    out[1]["upward_rank"]["chain"] = time_rank(
+        [torch.from_numpy(np.random.default_rng(43).uniform(
+            1.0, 100.0, (PLAN_TASKS, n))).to(dev)],
+        [chain.on_device(dev)["rank"]], plain=False)
     dag0 = group[0][1].dag
     W_host = Ws[0].cpu().numpy()
     rk = out[1]["upward_rank"]
@@ -2009,8 +2244,13 @@ def report_replan(launches, errors, times) -> list:
     REPLAN_A lanes, the replan path's)."""
     b = max(times)
     for nb, tm in sorted(times.items()):
+        rk = dict(tm["upward_rank"])
+        chain = rk.pop("chain", None)
         print(f"[report] upward_rank B={nb} T={PLAN_TASKS} N={PLAN_NODES}: "
-              f"{tm['upward_rank']}")
+              f"{rk}")
+        if chain:
+            print(f"[report] upward_rank chain B=1 T={PLAN_TASKS} "
+                  f"N={PLAN_NODES}: {chain}")
         print(f"[report] eft_sweep_many B={nb} T={PLAN_TASKS} "
               f"N={PLAN_NODES} S=48 (shared route): {tm['eft_sweep_many']}")
     ur, sm = times[1]["upward_rank"], times[b]["eft_sweep_many"]
@@ -2025,7 +2265,13 @@ def report_replan(launches, errors, times) -> list:
          "library_ms": None, "warm_ms": ur["warm_ms"],
          "wrapper_ms": ur["wrapper_ms"], "host_ranks_ms": ur["host_ranks_ms"],
          "host_ranks_copy_ms": ur["host_ranks_copy_ms"],
+         "rank_route": ur["route"], "cluster": ur["cluster"],
+         "latency_bound_ms": ur["latency_bound_ms"], "binds": ur["binds"],
+         "global_route_ms": ur["global_ms"],
          "shape": f"B=1 T={PLAN_TASKS} N={PLAN_NODES}",
+         "chain": {k: ur["chain"][k] for k in (
+             "ms", "global_ms", "bound_ms", "latency_bound_ms", "route",
+             "cluster")},
          "by_lanes": {b: times[b]["upward_rank"]}},
         {"name": "eft_sweep_many", "route": "cuda", "source": dsrc,
          "replaces": "src/repro/kernels/decision_plane.py:268",
@@ -2226,6 +2472,7 @@ def raw_launch(name: str, args, lib=None):
         rc = fn(*full)
         check(rc == 0, f"{name} launch failed with CUDA error {rc}")
     launch.operands = args      # the tensors live as long as the callable
+    launch.unchecked = lambda: fn(*full)    # -> the CUDA error code
     return launch
 
 
@@ -2297,21 +2544,64 @@ def bounds_sweep_many(lanes, assigns) -> tuple:
             else "operations", step_ms)
 
 
-def bounds_rank(Ws, tables) -> tuple:
-    """Least time for one rank launch over B workflows: W read once (8 B
-    a cell), avg_comm and the successor and level tables read once, the
-    ranks written once; operations: an add a cell, a division a row, an
-    add and a max a successor."""
+def bounds_rank(Ws, tables, cluster: int) -> tuple:
+    """Least time for one rank launch over B workflows.  Bytes: W read once
+    (8 B a cell), avg_comm and the successor and level tables read once,
+    the ranks written once; operations: an add a cell, a division a row,
+    an add and a max a successor.  Latency: the longest lane's L levels of
+    RANK_LEVEL_CYCLES each, plus one pass over its W from the SMs of its
+    cluster's workers (all blocks but the leader, or the one block of a
+    cluster of one) at SM_FILL_BYTES a cycle each, at the maximum clock.
+    -> (bytes or operations bound, which, latency bound)."""
     n_bytes = ops = 0
+    latency = 0.0
     for w, tab in zip(Ws, tables):
         t, n = w.shape
         e = tab.succ_idx.shape[0]
         n_bytes += 8 * t * n + 8 * t + 4 * (2 * t + 1 + e) \
             + 4 * tab.level_ptr.shape[0] + 8 * t
         ops += t * n + 2 * e
+        cycles = (tab.L * RANK_LEVEL_CYCLES
+                  + 8 * t * n / (max(cluster - 1, 1) * SM_FILL_BYTES))
+        latency = max(latency, cycles / H100_CLOCK_HZ * 1e3)
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP64_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", latency)
+
+
+def rank_launch(Ws, tables, route: str, cluster=None, lib=None):
+    """`raw_launch` of upward_rank over these lanes on `route` ("shared",
+    `cluster` blocks a lane or None for `rank_config`'s size; or "global"),
+    shaped by `rank_config` as the wrapper shapes it: the lane by value at
+    B = 1, else through a lane table.  The callable's `rank` and `bad` are
+    its outputs, `config` its shape."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane_k
+    dev = Ws[0].device
+    rows = [[w.data_ptr(), *(x.data_ptr() for x in tab), tab.T, tab.L]
+            for w, tab in zip(Ws, tables)]
+    b, n = len(Ws), Ws[0].shape[1]
+    t = max(tab.T for tab in tables)
+    cfg = plane_k.rank_config(
+        t, max(tab.E for tab in tables), max(tab.L for tab in tables), n, b,
+        plane_k.smem_optin(dev.index), plane_k.sm_count(dev.index),
+        aligned=route == "shared", cluster=cluster)
+    check(cfg["route"] == route, f"rank_config gives the {cfg['route']} "
+          f"route for these lanes, not the {route} route")
+    host = np.asarray(rows, np.int64)
+    layout = np.asarray(cfg["layout"] or [0], np.int32)
+    table = plane_k._lane_table(rows, dev) if b > 1 else None
+    rank = torch.empty((b, t), dtype=torch.float64, device=dev)
+    bad = torch.empty(b, dtype=torch.int32, device=dev)
+    fn = raw_launch("upward_rank", [
+        table, None if b > 1 else host.ctypes.data, b, n, t,
+        plane_k.RANK_ROUTES.index(route), cfg["cluster"], cfg["tile_rows"],
+        cfg["smem_bytes"], layout.ctypes.data if cfg["layout"] else None,
+        rank, bad], lib or plane_k._lib())
+    fn.host, fn.layout, fn.rank, fn.bad = host, layout, rank, bad
+    fn.config = cfg
+    return fn
 
 
 def time_plane(dev, sweep_args) -> dict:
@@ -2968,6 +3258,7 @@ def main() -> None:
                ("rglru_scan", scan.rglru_scan))
     launches = dict.fromkeys((name for name, _ in counted), 0)
     sweep_routes = dict.fromkeys(plane.SWEEP_ROUTES, 0)
+    rank_routes = dict.fromkeys(plane.RANK_ROUTES, 0)
     predict_q = {}                   # path -> {Q: bayes_predict launches}
     dispatch_predict = ops.bayes_predict
 
@@ -2989,6 +3280,8 @@ def main() -> None:
             fn.launches = 0
         for fn in (plane.eft_sweep, plane.eft_sweep_many):
             fn.launches_by_route = dict.fromkeys(plane.SWEEP_ROUTES, 0)
+        plane.upward_rank.launches_by_route = dict.fromkeys(
+            plane.RANK_ROUTES, 0)
         flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
         ops.bayes_predict = tallied
         try:
@@ -3000,6 +3293,8 @@ def main() -> None:
             launches[name] += n
         for route, n in plane.eft_sweep.launches_by_route.items():
             sweep_routes[route] += n
+        for route, n in plane.upward_rank.launches_by_route.items():
+            rank_routes[route] += n
         return out, got
 
     def on_shared_route(label):
@@ -3061,7 +3356,10 @@ def main() -> None:
           "the serve path's flash_attention launches did not all take the "
           "wgmma kernel's heads pairing")
     print(f"[launches] main path: {launches}; eft_sweep by route "
-          f"{sweep_routes}")
+          f"{sweep_routes}; upward_rank by route {rank_routes}")
+    check(rank_routes == {"shared": launches["upward_rank"], "global": 0},
+          "the main path's upward_rank launches did not all take the "
+          "shared route")
     for label, tally in predict_q.items():
         print(f"[launches] {label} bayes_predict by Q: {q_buckets(tally)} "
               f"(median Q {median_q(tally)!r})" if tally
@@ -3075,6 +3373,7 @@ def main() -> None:
     fold = phase_ingest_checks(dev, fleet_out, ingest)
     phase_plane_checks(dev, fleet_out, pl)
     rpc = phase_replan_checks(dev, fleet_out, rp)
+    warm_round_pairs(dev, fleet_out, rp["problem"])
     errors.update({k: rpc[k] for k in ("upward_rank", "eft_sweep_many")})
     phase_refresh_checks(dev, fleet_out, ingest, rf)
     lm_cut_checks(dev)

@@ -1,6 +1,7 @@
-// Hand-written Hopper kernels for HEFT placement: the fused cost matrix and
-// the insertion-based candidate-EFT sweep, in float64, built by nvcc into a
-// plain-C shared library and bound with ctypes (see kernels/_build.py).
+// Hand-written Hopper kernels for HEFT placement: the fused cost matrix,
+// the upward ranks and the insertion-based candidate-EFT sweep, in
+// float64, built by nvcc into a plain-C shared library and bound with
+// ctypes (see kernels/_build.py).
 //
 // Build flags: -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false.
 // Both kernels are held bitwise against host float64 references:
@@ -10,6 +11,7 @@
 // the caller's stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -703,21 +705,62 @@ eft_sweep_global_kernel(const double* __restrict__ W,
 // rank of every task, rank[i] = w_avg[i] + max(0, max over successors s of
 // (avg_comm[i] + rank[s])), with w_avg[i] = W[i].cumsum()[-1] / N.
 //
-// Bound on the H100: the recurrence's latency for a deep DAG, else the
-// bytes of W (T * N * 8 read once; 0.24 us at 1000 x 100).  Design: a block
-// a workflow, so B workflows on one cluster take one launch.  Phase 1: a
-// thread a row sums its W row left to right (numpy's cumsum order: the
-// first cell, then one add a cell), divides once by N, and notes a cell
-// that is not finite; __syncthreads_or gives the lane's flag.  Phase 2:
-// level by level from the sinks, the rows of a level being independent,
-// a thread a row folds its successors' ranks into best from 0.0 and stores
-// w_avg + best; one __syncthreads ends a level.  Only max and add touch the
-// ranks, with the reference's operands, and no NaN reaches them when the
-// flag is clear, so the order of the max does not matter: the ranks are
-// bitwise the host recurrence.  The ranks live in shared memory (T * 8
-// bytes) where they fit the block's opt-in limit, else in the output row
-// (device memory; __syncthreads orders a block's global stores too).
-constexpr int kRankMaxThreads = 1024;
+// Both routes are bitwise the host recurrence: each W row is summed left
+// to right (numpy's cumsum order: the first cell, then one add a cell) and
+// divided once by N; the walk goes level by level from the sinks, the rows
+// of a level being independent, and only max and add touch the ranks.  A
+// lane's flag is 1 where its W holds a cell that is not finite.
+//
+// Bound on the H100: latency.  W's bytes (T * N * 8 read once) take 0.24 us
+// at 1000 x 100; the walk is a chain of L dependent levels (30 on the replan
+// DAG, T on a chain), each a few dependent reads of the ranks and tables,
+// float64 adds and compares and a barrier.  So the design keeps the chain
+// on chip and short:
+//
+//   * The shared route (upward_rank_cluster_kernel) runs a lane on a
+//     thread-block cluster of C blocks (8 at one lane, fewer where B * C
+//     would oversubscribe the SMs).  The workers (every block but the
+//     leader; the leader alone in a cluster of one) stage contiguous tiles
+//     of their share of W's rows in shared memory with coalesced 8-byte
+//     cp.async copies, stored transposed at an odd row stride so that a
+//     thread a row then reads neighbouring words, sum each staged row in
+//     order and send w_avg and their flag into the leader's shared memory
+//     with st.async, which completes on the leader's mbarrier: no cluster
+//     barrier (and no device-wide fence) at the end.
+//   * Meanwhile one thread of the leader bulk-copies the lane's tables
+//     (avg_comm, succ_ptr, level_ptr, level_rows, succ_idx; cp.async.bulk,
+//     completing on an mbarrier), their 16-byte aligned bodies; the last
+//     < 16 bytes of each come by plain loads.  The leader then describes
+//     the rows in level order, (row, successor range, first successor,
+//     avg_comm), 24 bytes a row, so that the walk reads shared memory only
+//     and its reads of the tables never wait on a rank.
+//   * The walk: a level of more than 32 rows takes the whole block, a
+//     thread a row, and ends with one __syncthreads; a run of levels of at
+//     most 32 rows (every level of a chain) is walked by warp 0 alone, a
+//     lane a row, __syncwarp between levels, each lane's row of the next
+//     level read under this one.  A row's successors' ranks go
+//     into running maxima and avg_comm is added once: rounding to nearest
+//     is monotonic, so a + max(rank[s]) is max(a + rank[s]) bit for bit,
+//     and a NaN is never taken, as Python's max(best, c) never takes one.
+//   * The global route (upward_rank_kernel, PR 28's kernel) serves lanes
+//     whose tables, one W row and the row descriptors do not fit the
+//     opt-in shared memory, or whose tables are not 16-byte aligned: a
+//     block a lane, a thread a row summing W from device memory, the tables
+//     read from device memory, the ranks in shared memory where 8 * T bytes
+//     fit, one __syncthreads a level.
+//
+// The launch is shaped before it by kernels/decision_plane.py::
+// rank_config, from the shapes, the pointers and the card: the route, the
+// cluster size, the rows of a W tile, the dynamic shared memory and the
+// leader's layout (RankSmem), which the kernel takes as given.  CUDA
+// refuses a launch past the card's opt-in shared memory.
+//
+// Built with -DLOTARU_RANK_CLOCKS (rank_clocks.py), the shared route's
+// thread 0 of each block of lane 0 records clock64() at the ends of its
+// phases; otherwise RANK_MARK is nothing.
+constexpr int kRankMaxThreads = 1024;     // the global route's block
+constexpr int kRankThreads = 512;         // the shared route's block
+constexpr int kRankMaxCluster = 16;       // 16 is a non-portable size
 
 // One workflow's operands (eight 8-byte words a lane): W (T, N), avg_comm
 // (T), the successor CSR (T + 1, E) and the level CSR (L + 1, T).
@@ -733,15 +776,419 @@ struct RankLane {
 };
 static_assert(sizeof(RankLane) == 64, "the lane table's row");
 
+// Byte offsets of the leader's shared memory, each 16-byte aligned: the
+// head (the tables' and the sums' mbarriers at 0 and 8, a flag a block
+// from 16), rank (T float64: w_avg, then the ranks), avg_comm (T),
+// succ_ptr (T + 1), level_ptr (L + 1), level_rows (T) and succ_idx (E),
+// then `end`, where a worker's W tile or the leader's row descriptors
+// start (kernels/decision_plane.py::rank_layout, for the largest lane).
+struct RankSmem {
+  int rank, ac, sp, lp, lr, si, end;
+};
+
+#ifdef LOTARU_RANK_CLOCKS
+// per block of lane 0, in cycles: tables issued (from the start), W staging
+// and row sums (all tiles), sums sent (from the start), and for the leader
+// the rows described, the sums in, the walk's end and the output's end
+// (from the start), then the walk's cycles in wide levels and in narrow
+// runs
+constexpr int kRankPhases = 10;
+__device__ long long g_rank_clocks[kRankMaxCluster * kRankPhases];
+#define RANK_MARK(p) \
+  if (threadIdx.x == 0) clocks[p] = clock64() - clock_start;
+#define RANK_STORE()                                              \
+  if (lane_id == 0 && threadIdx.x == 0)                           \
+    for (int p_ = 0; p_ < kRankPhases; ++p_)                      \
+      g_rank_clocks[me * kRankPhases + p_] = clocks[p_];
+#else
+#define RANK_MARK(p)
+#define RANK_STORE()
+#endif
+
+// one thread: the 16-byte multiple at the head of `bytes` at src (its
+// body) into dst as a bulk copy completing on bar
+__device__ __forceinline__ void bulk_body(void* dst, const void* src,
+                                          long long bytes, unsigned bar) {
+  const unsigned body = static_cast<unsigned>(bytes & ~15LL);
+  if (body)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n"
+        ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+          "l"(src), "r"(body), "r"(bar)
+        : "memory");
+}
+
+// the elements of an array past its 16-byte body, by plain loads
+template <typename V>
+__device__ __forceinline__ void bulk_tail(V* dst, const V* src,
+                                          long long count) {
+  const long long first = (count * (long long)sizeof(V)) & ~15LL;
+  for (long long e = first / (long long)sizeof(V); e < count; ++e)
+    dst[e] = src[e];
+}
+
+__device__ __forceinline__ void mbar_wait_parity(unsigned bar,
+                                                 unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one row of the walk: rank[i] += max(0, max over successors of
+// (avg_comm[i] + rank[s]))
+__device__ __forceinline__ void rank_row(int i, double* rk, const double* ac,
+                                         const int* sp, const int* si) {
+  const double a = ac[i];
+  double best = 0.0;
+  const int e1 = sp[i + 1];
+  for (int e = sp[i]; e < e1; ++e) {
+    const double c = a + rk[si[e]];
+    best = c > best ? c : best;          // Python's max(best, c)
+  }
+  rk[i] = rk[i] + best;
+}
+
+// The leader's tables whose sizes need a read of device memory or that
+// end in a ragged tail: thread 0 the bulk copy of succ_idx's body (E =
+// succ_ptr[T]; the second arrival on bar), threads 32 and 64 every array's
+// last < 16 bytes by plain loads.
+__device__ __forceinline__ void rank_tables_rest(
+    const RankLane& L, int T, int NL, unsigned bar, double* sac, int* ssp,
+    int* slp, int* slr, int* ssi) {
+  if (threadIdx.x == 0) {
+    const long long size = 4LL * L.succ_ptr[T];
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(static_cast<unsigned>(size & ~15LL))
+                 : "memory");
+    bulk_body(ssi, L.succ_idx, size, bar);
+  } else if (threadIdx.x == 32) {
+    bulk_tail(sac, L.avg_comm, T);
+    bulk_tail(ssp, L.succ_ptr, T + 1);
+  } else if (threadIdx.x == 64) {
+    bulk_tail(slp, L.level_ptr, NL + 1);
+    bulk_tail(slr, L.level_rows, T);
+    bulk_tail(ssi, L.succ_idx, L.succ_ptr[T]);
+  }
+}
+
+// a remote store of the cluster's leader (rank 0): the value lands in its
+// shared memory at `addr` (a shared::cluster address) and completes
+// `bytes` on its mbarrier at `bar`
+__device__ __forceinline__ unsigned lead_addr(const void* p) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n"
+               : "=r"(a)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return a;
+}
+__device__ __forceinline__ void st_async_f64(unsigned addr, double v,
+                                             unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f64"
+      " [%0], %1, [%2];\n" ::"r"(addr), "d"(v), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async_b32(unsigned addr, int v,
+                                             unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
+      " [%0], %1, [%2];\n" ::"r"(addr), "r"(v), "r"(bar) : "memory");
+}
+
+// rank[i] = w_avg[i] + max(0, max over successors of (avg_comm[i] +
+// rank[s])) for a row described in level order: d = (i, the successors
+// past the first [d.y, d.z), the first successor or -1), a = avg_comm[i],
+// w = w_avg[i].  The successors' ranks go into four running maxima (NaN
+// is never taken), then a is added once: rounding to nearest is monotonic,
+// so a + max(rank[s]) is max(a + rank[s]) bit for bit (a tie of -0.0 and
+// +0.0 sums to at most +0.0 either way, which the max with 0.0 keeps).
+__device__ __forceinline__ void rank_desc(int4 d, double a, double w,
+                                          double* rk, const int* si) {
+  double m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
+  if (d.w >= 0) {
+    const double r = rk[d.w];
+    m0 = r > m0 ? r : m0;
+  }
+  int e = d.y;
+  for (; e + 4 <= d.z; e += 4) {
+    const double r0 = rk[si[e]], r1 = rk[si[e + 1]];
+    const double r2 = rk[si[e + 2]], r3 = rk[si[e + 3]];
+    m0 = r0 > m0 ? r0 : m0;
+    m1 = r1 > m1 ? r1 : m1;
+    m2 = r2 > m2 ? r2 : m2;
+    m3 = r3 > m3 ? r3 : m3;
+  }
+  for (; e < d.z; ++e) {
+    const double r = rk[si[e]];
+    m0 = r > m0 ? r : m0;
+  }
+  m0 = m1 > m0 ? m1 : m0;
+  m2 = m3 > m2 ? m3 : m2;
+  m0 = m2 > m0 ? m2 : m0;
+  const double c = a + m0;
+  rk[d.x] = w + (c > 0.0 ? c : 0.0);     // Python's max(0.0, c)
+}
+
+// The shared route: a cluster of C blocks a lane (grid B * C), its shared
+// memory laid out as `lay`; tile_rows the rows of a W tile (stored
+// transposed at stride tile_rows | 1).
+__global__ void __launch_bounds__(kRankThreads)
+upward_rank_cluster_kernel(const RankLane* __restrict__ lanes,
+                           const RankLane lane0, int N, int Tmax,
+                           const RankSmem lay, int tile_rows,
+                           double* rank_out, int* bad_out) {
+  extern __shared__ __align__(16) unsigned char rank_smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int me = static_cast<int>(cluster.block_rank());
+  const int lane_id = blockIdx.x / C;     // a cluster: C consecutive blocks
+  const RankLane L = lanes ? lanes[lane_id] : lane0;
+  const int T = static_cast<int>(L.T), NL = static_cast<int>(L.L);
+  const int tid = threadIdx.x, nt = blockDim.x;
+#ifdef LOTARU_RANK_CLOCKS
+  long long clocks[kRankPhases] = {};
+  const long long clock_start = clock64();
+#endif
+
+  // the head: the tables' mbarrier, the W sums' mbarrier, a flag a block
+  const unsigned bar =
+      static_cast<unsigned>(__cvta_generic_to_shared(rank_smem));
+  const unsigned bar_w = bar + 8;
+  int* sbad = reinterpret_cast<int*>(rank_smem + 16);
+  double* srank = reinterpret_cast<double*>(rank_smem + lay.rank);
+  double* sac = reinterpret_cast<double*>(rank_smem + lay.ac);
+  int* ssp = reinterpret_cast<int*>(rank_smem + lay.sp);
+  int* slp = reinterpret_cast<int*>(rank_smem + lay.lp);
+  int* slr = reinterpret_cast<int*>(rank_smem + lay.lr);
+  int* ssi = reinterpret_cast<int*>(rank_smem + lay.si);
+  // past the tables: a W tile (the workers) or the leader's row
+  // descriptors in level order, (i, successors past the first, the first)
+  // and avg_comm
+  double* tile = reinterpret_cast<double*>(rank_smem + lay.end);
+  int4* desc = reinterpret_cast<int4*>(rank_smem + lay.end);
+  double* desc_a = reinterpret_cast<double*>(desc + T);
+
+  // The workers sum W's rows: every block but the leader, or the leader
+  // alone in a cluster of one.  The leader bulk-copies its tables meanwhile
+  // and expects the workers' sums and flags on bar_w.
+  const int workers = C > 1 ? C - 1 : 1, wk = C > 1 ? me - 1 : 0;
+  if (me == 0 && tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 2;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_w)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const long long size[4] = {8LL * T, 4LL * (T + 1), 4LL * (NL + 1),
+                               4LL * T};
+    const long long bytes = (size[0] & ~15LL) + (size[1] & ~15LL) +
+                            (size[2] & ~15LL) + (size[3] & ~15LL);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(static_cast<unsigned>(bytes)) : "memory");
+    bulk_body(sac, L.avg_comm, size[0], bar);
+    bulk_body(ssp, L.succ_ptr, size[1], bar);
+    bulk_body(slp, L.level_ptr, size[2], bar);
+    bulk_body(slr, L.level_rows, size[3], bar);
+    const unsigned remote = C > 1 ? 8u * T + 4u * (C - 1) : 0u;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar_w), "r"(remote) : "memory");
+  }
+  RANK_MARK(0)   // tables issued
+  // every block has started once all have arrived: remote stores wait
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+  bool waited = false;
+  int bad = 0;
+  if (C == 1 || me > 0) {
+    const int per = (T + workers - 1) / workers;
+    const int r_lo = min(T, wk * per), r_hi = min(T, r_lo + per);
+    const int stride = tile_rows | 1;
+    const unsigned lead_rank = lead_addr(srank), lead_bar = lead_addr(
+        rank_smem + 8);
+#ifdef LOTARU_RANK_CLOCKS
+    long long t_stage = 0, t_sum = 0;
+#endif
+    for (int row0 = r_lo; row0 < r_hi; row0 += tile_rows) {
+#ifdef LOTARU_RANK_CLOCKS
+      const long long c0 = clock64();
+#endif
+      const int rows = min(tile_rows, r_hi - row0);
+      const double* src = L.W + (long long)row0 * N;
+      if (N > 0) {
+        // element e of the tile's row-major box: row e / N, column e % N;
+        // neighbouring threads read neighbouring words of W
+        const int dr = nt / N, dk = nt - dr * N;
+        int r = tid / N, k = tid - r * N;
+        for (int e = tid; e < rows * N; e += nt) {
+          cp_async8(tile + (long long)k * stride + r, src + e);
+          r += dr;
+          k += dk;
+          if (k >= N) {
+            k -= N;
+            ++r;
+          }
+        }
+      }
+      if (!waited) {
+        if (C == 1) rank_tables_rest(L, T, NL, bar, sac, ssp, slp, slr, ssi);
+        asm volatile("barrier.cluster.wait;\n" ::: "memory");
+        waited = true;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+#ifdef LOTARU_RANK_CLOCKS
+      const long long c1 = clock64();
+      t_stage += c1 - c0;
+#endif
+      // each row summed left to right (the first cell, then one add a
+      // cell), then one division
+      for (int r = tid; r < rows; r += nt) {
+        double s = 0.0;                  // W.sum(1) of an empty row
+        if (N > 0) {
+          s = tile[r];
+          bad |= !isfinite(s);
+#pragma unroll 8
+          for (int k = 1; k < N; ++k) {
+            const double w = tile[(long long)k * stride + r];
+            bad |= !isfinite(w);
+            s = s + w;
+          }
+          s = s / static_cast<double>(N);
+        }
+        if (C > 1)
+          st_async_f64(lead_rank + 8u * (row0 + r), s, lead_bar);
+        else
+          srank[row0 + r] = s;
+      }
+      __syncthreads();                   // the tile is free again
+#ifdef LOTARU_RANK_CLOCKS
+      t_sum += clock64() - c1;
+#endif
+    }
+#ifdef LOTARU_RANK_CLOCKS
+    if (tid == 0) {
+      clocks[1] = t_stage;
+      clocks[2] = t_sum;
+    }
+#endif
+    if (!waited) {
+      if (C == 1) rank_tables_rest(L, T, NL, bar, sac, ssp, slp, slr, ssi);
+      asm volatile("barrier.cluster.wait;\n" ::: "memory");
+      waited = true;
+    }
+    bad = __syncthreads_or(bad);
+    if (C > 1) {
+      if (tid == 0) st_async_b32(lead_addr(sbad + me), bad, lead_bar);
+      RANK_MARK(3)   // sums sent
+      RANK_STORE()
+      return;                            // a worker's part is done
+    }
+  }
+  RANK_MARK(3)   // sums done (a cluster of one)
+  if (!waited) {                         // the leader of a cluster of more
+    rank_tables_rest(L, T, NL, bar, sac, ssp, slp, slr, ssi);
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
+  }
+
+  // the rows described in level order, for a walk whose reads of the
+  // tables do not wait on the ranks (the tails' plain stores are in after
+  // the barrier)
+  mbar_wait_parity(bar, 0);
+  __syncthreads();
+  for (int k = tid; k < T; k += nt) {
+    const int i = slr[k], e0 = ssp[i], e1 = ssp[i + 1];
+    desc[k] = make_int4(i, e0 + 1, e1, e0 < e1 ? ssi[e0] : -1);
+    desc_a[k] = sac[i];
+  }
+  RANK_MARK(4)   // tables in, rows described
+  mbar_wait_parity(bar_w, 0);
+  __syncthreads();
+  for (int b = 1; b < C; ++b) bad |= sbad[b];
+  RANK_MARK(5)   // the workers' sums and flags in
+
+  // A wide level (more than 32 rows) takes the block, a thread a row, and
+  // one __syncthreads.  A run of narrow levels is warp 0's alone, a lane
+  // a row, __syncwarp between levels, each lane's row of the next level
+  // read under this one; the other warps
+  // find the run's end (32 levels a ballot) and wait at the run's one
+  // __syncthreads.
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int l = 0; l < NL;) {
+#ifdef LOTARU_RANK_CLOCKS
+    const long long w0 = clock64();
+#endif
+    const int lo = slp[l], hi = slp[l + 1];
+    if (hi - lo > 32) {
+      for (int k = lo + tid; k < hi; k += nt)
+        rank_desc(desc[k], desc_a[k], srank[desc[k].x], srank, ssi);
+      __syncthreads();
+      ++l;
+#ifdef LOTARU_RANK_CLOCKS
+      if (tid == 0) clocks[8] += clock64() - w0;
+#endif
+      continue;
+    }
+    int end = NL;                        // the first wide level past l
+    for (int m0 = l + 1; m0 < NL; m0 += 32) {
+      const int m = m0 + lane;
+      const unsigned wide =
+          __ballot_sync(kFull, m < NL && slp[m + 1] - slp[m] > 32);
+      if (wide) {
+        end = m0 + __ffs(wide) - 1;
+        break;
+      }
+    }
+    if (warp == 0) {
+      // level m's row of this lane in registers; the next level's end, and
+      // the one after's, read a level ahead
+      int hi_c = hi;
+      int hi_n = l + 1 < end ? slp[l + 2] : hi;
+      const int k = lo + lane;
+      bool v = k < hi_c;
+      int4 d = desc[v ? k : lo];
+      double a = desc_a[v ? k : lo];
+      for (int m = l; m < end; ++m) {
+        const int kn = hi_c + lane;
+        const bool nv = kn < hi_n;
+        const int4 nd = desc[nv ? kn : lo];
+        const double na = desc_a[nv ? kn : lo];
+        const int hi_nn = m + 2 < end ? slp[m + 3] : hi_n;
+        if (v) rank_desc(d, a, srank[d.x], srank, ssi);   // w_avg: unwalked
+        __syncwarp();
+        d = nd;
+        a = na;
+        v = nv;
+        hi_c = hi_n;
+        hi_n = hi_nn;
+      }
+    }
+    __syncthreads();
+    l = end;
+#ifdef LOTARU_RANK_CLOCKS
+    if (tid == 0) clocks[9] += clock64() - w0;
+#endif
+  }
+  RANK_MARK(6)   // walked
+  double* out = rank_out + (long long)lane_id * Tmax;
+  for (int i = tid; i < Tmax; i += nt) out[i] = i < T ? srank[i] : -INFINITY;
+  if (tid == 0) bad_out[lane_id] = bad;
+  RANK_MARK(7)   // written
+  RANK_STORE()
+}
+
 __global__ void __launch_bounds__(kRankMaxThreads)
 upward_rank_kernel(const RankLane* __restrict__ lanes, const RankLane lane0,
                    int N, int Tmax, int in_smem, double* rank_out,
                    int* bad_out) {
-  extern __shared__ double srank[];
+  extern __shared__ double srank_g[];
   const RankLane L = lanes ? lanes[blockIdx.x] : lane0;
   const int T = static_cast<int>(L.T);
   double* out = rank_out + (long long)blockIdx.x * Tmax;
-  double* rk = in_smem ? srank : out;
+  double* rk = in_smem ? srank_g : out;
 
   int bad = 0;
   for (int i = threadIdx.x; i < T; i += blockDim.x) {
@@ -764,16 +1211,8 @@ upward_rank_kernel(const RankLane* __restrict__ lanes, const RankLane lane0,
 
   for (long long l = 0; l < L.L; ++l) {
     const int lo = L.level_ptr[l], hi = L.level_ptr[l + 1];
-    for (int k = lo + threadIdx.x; k < hi; k += blockDim.x) {
-      const int i = L.level_rows[k];
-      const double ac = L.avg_comm[i];
-      double best = 0.0;
-      for (int e = L.succ_ptr[i]; e < L.succ_ptr[i + 1]; ++e) {
-        const double c = ac + rk[L.succ_idx[e]];
-        best = c > best ? c : best;          // Python's max(best, c)
-      }
-      rk[i] = rk[i] + best;
-    }
+    for (int k = lo + threadIdx.x; k < hi; k += blockDim.x)
+      rank_row(L.level_rows[k], rk, L.avg_comm, L.succ_ptr, L.succ_idx);
     __syncthreads();
   }
 
@@ -784,6 +1223,30 @@ upward_rank_kernel(const RankLane* __restrict__ lanes, const RankLane lane0,
       out[i] = rk[i];
   }
   if (threadIdx.x == 0) bad_out[blockIdx.x] = bad;
+}
+
+// cudaFuncSetAttribute once a device for the largest dynamic shared
+// memory asked so far (and for the non-portable cluster size, once), not
+// on every launch
+cudaError_t rank_cluster_attrs(int device, int smem_bytes, int cluster) {
+  static int smem_set[64];
+  static bool wide_set[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (smem_bytes > smem_set[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        upward_rank_cluster_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+    smem_set[device] = smem_bytes;
+  }
+  if (cluster > 8 && !wide_set[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        upward_rank_cluster_kernel,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    wide_set[device] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -912,36 +1375,77 @@ int lotaru_eft_sweep_many(const void* lanes, int B, const int* order,
                        static_cast<cudaStream_t>(stream));
 }
 
-// B workflows' upward ranks, block b on lane b of the device table `table`
-// (B rows of RankLane, 64 bytes each) or, when table is NULL and B = 1, on
-// the host row `host_row` (passed to the kernel by value).  rank (B, Tmax)
-// gets -inf past each lane's T; bad (B) gets 1 where the lane's W holds a
-// non-finite cell.
+// B workflows' upward ranks, lane b from row b of the device table `table`
+// (B rows of RankLane, 64 bytes each) or, when table is NULL and B = 1,
+// from the host row `host_row` (passed to the kernel by value).  rank (B,
+// Tmax) gets -inf past each lane's T; bad (B) gets 1 where the lane's W
+// holds a non-finite cell.  The launch comes shaped by
+// kernels/decision_plane.py::rank_config.  Route 0 (shared): a cluster of
+// `cluster` blocks a lane (1, 2, 4, 8 or 16, else cudaErrorInvalidValue),
+// W tiles of tile_rows rows, smem_bytes of dynamic shared memory laid out
+// as layout[7] (RankSmem's fields in order); every lane's tables must be
+// 16-byte aligned.  Route 1 (global): a block a lane, the ranks in
+// smem_bytes = 8 Tmax of shared memory, or in the output row when 0.
 int lotaru_upward_rank(const void* table, const void* host_row, int B,
-                       int N, int Tmax, double* rank, int* bad,
-                       void* stream) {
+                       int N, int Tmax, int route, int cluster,
+                       int tile_rows, int smem_bytes, const int* layout,
+                       double* rank, int* bad, void* stream) {
   const RankLane* lanes = static_cast<const RankLane*>(table);
   const RankLane* lane0 = static_cast<const RankLane*>(host_row);
   if (B <= 0) return 0;
   if (!lanes && (B != 1 || !lane0))
     return static_cast<int>(cudaErrorInvalidValue);
+  const RankLane by_value = lanes ? RankLane{} : *lane0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int device = 0;
   cudaGetDevice(&device);
-  const long long bytes = 8LL * Tmax;
-  const int in_smem = bytes <= lotaru_smem_optin(device);
-  if (in_smem && bytes > 48 * 1024) {
+  if (route == 0) {
+    if (!layout || tile_rows < 1 ||
+        (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 &&
+         cluster != kRankMaxCluster))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const RankSmem lay{layout[0], layout[1], layout[2], layout[3],
+                       layout[4], layout[5], layout[6]};
+    cudaError_t err = rank_cluster_attrs(device, smem_bytes, cluster);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(B * cluster));
+    cfg.blockDim = dim3(kRankThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, upward_rank_cluster_kernel, lanes,
+                             by_value, N, Tmax, lay, tile_rows, rank, bad);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         upward_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int threads = ((Tmax + 31) / 32) * 32;
   if (threads < 32) threads = 32;
   if (threads > kRankMaxThreads) threads = kRankMaxThreads;
-  upward_rank_kernel<<<B, threads, in_smem ? bytes : 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      lanes, lanes ? RankLane{} : *lane0, N, Tmax, in_smem, rank, bad);
+  upward_rank_kernel<<<B, threads, smem_bytes, s>>>(
+      lanes, by_value, N, Tmax, smem_bytes > 0, rank, bad);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef LOTARU_RANK_CLOCKS
+// the last shared-route launch's clocks: per block of lane 0 (its rank in
+// the cluster), kRankPhases values each
+int lotaru_rank_clocks(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_rank_clocks, sizeof(g_rank_clocks)));
+}
+#endif
 
 }  // extern "C"

@@ -13,8 +13,9 @@ in a plain integer attribute (`fused_cost.launches`,
 `upward_rank.launches`, `eft_sweep.launches`, `eft_sweep_many.launches`)
 so a run can show that a path went through the kernel.  The sweeps have
 two routes, chosen by `sweep_route` from the shapes and the device's
-shared-memory limit, and also count their launches per route
-(`.launches_by_route`).
+shared-memory limit, and the ranks two, chosen by `rank_config` from the
+shapes, the tables' alignment and the card; both also count their
+launches per route (`.launches_by_route`).
 
 The many-workflow kernels read each workflow's operands where they lie:
 a lane table of device pointers (one row of int64 words a workflow) is
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +53,7 @@ def _lib() -> ctypes.CDLL:
     lib.lotaru_eft_sweep_many.argtypes = ([_P, _I, _P, _I, _P, _P]
                                           + [_I] * 3 + [_P] * 6)
     lib.lotaru_eft_sweep_many.restype = _I
-    lib.lotaru_upward_rank.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
+    lib.lotaru_upward_rank.argtypes = [_P, _P] + [_I] * 7 + [_P] * 4
     lib.lotaru_upward_rank.restype = _I
     lib.lotaru_eft_sweep_smem_bytes.argtypes = [_I] * 4
     lib.lotaru_eft_sweep_smem_bytes.restype = ctypes.c_longlong
@@ -316,19 +317,56 @@ eft_sweep_many.launches = 0
 eft_sweep_many.launches_by_route = dict.fromkeys(SWEEP_ROUTES, 0)
 
 
-class RankTable(NamedTuple):
+class RankTable:
     """One DAG's operands of the upward rank that W does not move, rows in
     topo order: avg_comm (T,) float64, the average pairwise transfer time
     of each row's output; the successors as a CSR, row i's in
     succ_idx[succ_ptr[i]:succ_ptr[i + 1]] (int32); and the rows grouped by
     level, their height above the sinks (a sink is level 0, a row one
     above its highest successor), level l's in
-    level_rows[level_ptr[l]:level_ptr[l + 1]] (int32)."""
-    avg_comm: torch.Tensor
-    succ_ptr: torch.Tensor
-    succ_idx: torch.Tensor
-    level_ptr: torch.Tensor
-    level_rows: torch.Tensor
+    level_rows[level_ptr[l]:level_ptr[l + 1]] (int32).
+
+    Checked once, where it is built or moved: dtypes, shapes, contiguity
+    and one device for all five (and, on the CPU, that the CSRs end at E
+    and T), so `upward_rank` checks only W against it; its fields cannot
+    be rebound.  It unpacks as the five tensors in that order."""
+    __slots__ = ("avg_comm", "succ_ptr", "succ_idx", "level_ptr",
+                 "level_rows", "device", "T", "E", "L")
+
+    def __init__(self, avg_comm: torch.Tensor, succ_ptr: torch.Tensor,
+                 succ_idx: torch.Tensor, level_ptr: torch.Tensor,
+                 level_rows: torch.Tensor):
+        dev = avg_comm.device
+        if (avg_comm.dim() != 1 or succ_idx.dim() != 1
+                or level_ptr.dim() != 1 or level_ptr.shape[0] < 1):
+            raise ValueError("avg_comm, succ_idx and level_ptr must be 1-D, "
+                             "level_ptr of at least one entry")
+        t, e, n_levels = (avg_comm.shape[0], succ_idx.shape[0],
+                          level_ptr.shape[0] - 1)
+        f64, i32 = torch.float64, torch.int32
+        for v, name, dtype, shape in (
+                (avg_comm, "avg_comm", f64, (t,)),
+                (succ_ptr, "succ_ptr", i32, (t + 1,)),
+                (succ_idx, "succ_idx", i32, (e,)),
+                (level_ptr, "level_ptr", i32, (n_levels + 1,)),
+                (level_rows, "level_rows", i32, (t,))):
+            check(v, name, dtype, shape, dev)
+        if dev.type == "cpu" and (int(succ_ptr[-1]) != e
+                                  or int(level_ptr[-1]) != t):
+            raise ValueError(f"the CSRs must end at E = {e} and T = {t}, "
+                             f"got succ_ptr[-1] = {int(succ_ptr[-1])} and "
+                             f"level_ptr[-1] = {int(level_ptr[-1])}")
+        for name, v in zip(self.__slots__, (avg_comm, succ_ptr, succ_idx,
+                                            level_ptr, level_rows, dev, t,
+                                            e, n_levels)):
+            object.__setattr__(self, name, v)
+
+    def __setattr__(self, name, value):
+        raise AttributeError("a RankTable is checked once: build a new one")
+
+    def __iter__(self):
+        return iter((self.avg_comm, self.succ_ptr, self.succ_idx,
+                     self.level_ptr, self.level_rows))
 
     def to(self, device) -> "RankTable":
         return RankTable(*(x.to(device) for x in self))
@@ -357,60 +395,142 @@ def rank_table(succ_rows: Sequence[Sequence[int]],
                      as_i32(rows))
 
 
+RANK_ROUTES = ("shared", "global")
+RANK_CLUSTERS = (1, 2, 4, 8, 16)   # 16 is a non-portable cluster size
+RANK_DEFAULT_CLUSTER = 8
+_RANK_HEAD = 128                   # two mbarriers, then a flag a block
+
+
+def rank_layout(t: int, e: int, l: int) -> Tuple[int, ...]:
+    """The shared route's leader's shared memory for T rows, E edges and
+    L levels, as byte offsets (`RankSmem` in csrc/decision_plane.cu, which
+    takes them as given): rank and avg_comm (8 bytes a row), succ_ptr,
+    level_ptr, level_rows and succ_idx (4 bytes an entry), each 16-byte
+    aligned past a head of _RANK_HEAD bytes, then the tables' end, where a
+    W tile or the row descriptors start."""
+    offsets = [_RANK_HEAD]
+    for nbytes in (8 * t, 8 * t, 4 * (t + 1), 4 * (l + 1), 4 * t, 4 * e):
+        offsets.append(offsets[-1] + ((nbytes + 15) & ~15))
+    return tuple(offsets)
+
+
+def rank_config(t: int, e: int, l: int, n: int, b: int, smem_optin: int,
+                sm_count: int, aligned: bool = True,
+                cluster: Optional[int] = None) -> dict:
+    """The upward-rank launch for B lanes on N nodes whose largest lane has
+    T rows, E edges and L levels, on a card with `smem_optin` bytes of
+    opt-in shared memory a block and `sm_count` SMs; `aligned`: every
+    lane's tables start on a 16-byte boundary.  The C entry point launches
+    this shape as given.
+
+    Route "shared" where the tables are aligned and they fit with one W
+    row and with the leader's row descriptors (24 bytes a row): a cluster
+    of `cluster` blocks a lane (default 8, halved while B x cluster
+    exceeds the SMs), whose workers (every block but the leader, or the
+    leader alone in a cluster of one) stage their share of W's rows in
+    tiles of `tile_rows` (as few balanced tiles as fit beside the tables)
+    at an odd stride; `smem_bytes` a block, laid out as `layout`
+    (`rank_layout`).  Else route "global": a block a lane, the ranks in
+    `smem_bytes` = 8 T of shared memory where that fits (else 0: in the
+    output row)."""
+    if cluster is not None and cluster not in RANK_CLUSTERS:
+        raise ValueError(f"cluster must be one of {RANK_CLUSTERS}, got "
+                         f"{cluster}")
+    c = cluster
+    if c is None:
+        c = RANK_DEFAULT_CLUSTER
+        while c > 1 and b * c > sm_count:
+            c //= 2
+    layout = rank_layout(t, e, l)
+    tab = layout[-1]
+    rows = max(1, -(-t // (c - 1 if c > 1 else 1)))
+    described = 24 * t
+    fits = tab + described <= smem_optin
+    if n > 0 and fits:
+        cap = (smem_optin - tab) // (8 * n)
+        cap -= cap % 2 == 0
+        fits = cap >= 1
+        if fits:
+            tiles = -(-rows // cap)
+            rows = -(-rows // tiles)
+    if aligned and fits:
+        return dict(route="shared", cluster=c, tile_rows=rows,
+                    tables_bytes=tab, layout=layout,
+                    smem_bytes=tab + max(8 * n * (rows | 1), described))
+    return dict(route="global", cluster=1, tile_rows=0, tables_bytes=0,
+                layout=None, smem_bytes=8 * t if 8 * t <= smem_optin else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's streaming multiprocessors (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def upward_rank(W: Sequence[torch.Tensor], tables: Sequence[RankTable]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """HEFT's upward ranks of B workflows on one cluster in one launch, a
-    block a workflow: rank[i] = w_avg[i] + max(0, max over successors s
-    of (avg_comm[i] + rank[s])), w_avg[i] = W[i].cumsum()[-1] / N (a
-    left-to-right sum, then one division), as `_PlanContext.ranks`.
+    """HEFT's upward ranks of B workflows on one cluster in one launch: rank[i]
+    = w_avg[i] + max(0, max over successors s of (avg_comm[i] +
+    rank[s])), w_avg[i] = W[i].cumsum()[-1] / N (a left-to-right sum,
+    then one division), as `_PlanContext.ranks`.
 
-    W[b] (T_b, N) float64 and tables[b] (`RankTable`) per lane.  Returns
-    rank (B, T) float64, T = max T_b, with -inf past each lane's rows, and
-    bad (B,) int32, 1 where the lane's W holds a NaN or infinite cell."""
+    W[b] (T_b, N) float64 and tables[b] (`RankTable`, checked when it was
+    built) per lane; each call checks W and that each table lies on W's
+    device.  Returns rank (B, T) float64, T = max T_b, with -inf past
+    each lane's rows, and bad (B,) int32, 1 where the lane's W holds a NaN
+    or infinite cell.  The route and cluster size are `rank_config`'s for
+    the largest lane's shapes, the tables' alignment and the card; both
+    routes are bitwise the plain version, and `launches_by_route` counts
+    each."""
     b = len(W)
     if b == 0 or len(tables) != b:
         raise ValueError(f"upward_rank needs one table per lane and at "
                          f"least one lane, got {b} W and {len(tables)} "
                          f"tables")
     dev = cuda_device(W[0], "W[0]")
-    f64, i32 = torch.float64, torch.int32
-    n = W[0].shape[1] if W[0].dim() == 2 else -1
-    rows = []
+    f64 = torch.float64
+    if W[0].dim() != 2:
+        raise ValueError(f"W[0] must be (T_b, N), got {tuple(W[0].shape)}")
+    n = W[0].shape[1]
+    rows, misaligned = [], 0
     for k, (w, tab) in enumerate(zip(W, tables)):
-        if w.dim() != 2:
-            raise ValueError(f"W[{k}] must be (T_b, N), got {tuple(w.shape)}")
-        tk = w.shape[0]
-        n_levels = tab.level_ptr.shape[0] - 1
-        for v, name, dtype, shape in (
-                (w, "W", f64, (tk, n)), (tab.avg_comm, "avg_comm", f64,
-                                         (tk,)),
-                (tab.succ_ptr, "succ_ptr", i32, (tk + 1,)),
-                (tab.succ_idx, "succ_idx", i32, (tab.succ_idx.shape[0],)),
-                (tab.level_ptr, "level_ptr", i32, (n_levels + 1,)),
-                (tab.level_rows, "level_rows", i32, (tk,))):
-            check(v, f"{name}[{k}]", dtype, shape, dev)
-        rows.append([w.data_ptr(), tab.avg_comm.data_ptr(),
-                     tab.succ_ptr.data_ptr(), tab.succ_idx.data_ptr(),
-                     tab.level_ptr.data_ptr(), tab.level_rows.data_ptr(),
-                     tk, n_levels])
-    t = max(w.shape[0] for w in W)
+        if not isinstance(tab, RankTable):
+            raise TypeError(f"tables[{k}] must be a RankTable, got "
+                            f"{type(tab).__name__}")
+        if tab.device != dev:
+            raise ValueError(f"tables[{k}] is on {tab.device}, want {dev}")
+        check(w, f"W[{k}]", f64, (tab.T, n), dev)
+        ptrs = [x.data_ptr() for x in tab]
+        for p in ptrs:
+            misaligned |= p & 15
+        rows.append([w.data_ptr(), *ptrs, tab.T, tab.L])
+    t, e, l = (max(getattr(tab, k) for tab in tables) for k in "TEL")
+    cfg = rank_config(t, e, l, n, b, smem_optin(dev.index),
+                      sm_count(dev.index), aligned=not misaligned)
+    route = cfg["route"]
     rank = torch.empty((b, t), dtype=f64, device=dev)
-    bad = torch.empty(b, dtype=i32, device=dev)
-    host = np.asarray(rows, np.int64)
+    bad = torch.empty(b, dtype=torch.int32, device=dev)
+    layout = (None if cfg["layout"] is None
+              else np.asarray(cfg["layout"], np.int32))
+    shape = (b, n, t, RANK_ROUTES.index(route), cfg["cluster"],
+             cfg["tile_rows"], cfg["smem_bytes"],
+             None if layout is None else layout.ctypes.data,
+             rank.data_ptr(), bad.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if b == 1:          # the lane goes by value: no table to copy
-            rc = _lib().lotaru_upward_rank(None, host.ctypes.data, 1, n, t,
-                                           rank.data_ptr(), bad.data_ptr(),
+            host = np.asarray(rows, np.int64)
+            rc = _lib().lotaru_upward_rank(None, host.ctypes.data, *shape,
                                            stream)
         else:
             table = _lane_table(rows, dev)
-            rc = _lib().lotaru_upward_rank(table.data_ptr(), None, b, n, t,
-                                           rank.data_ptr(), bad.data_ptr(),
+            rc = _lib().lotaru_upward_rank(table.data_ptr(), None, *shape,
                                            stream)
-    raise_on(_lib(), rc, "upward_rank")
+    raise_on(_lib(), rc, f"upward_rank ({route} route)")
     upward_rank.launches += 1
+    upward_rank.launches_by_route[route] += 1
     return rank, bad
 
 
 upward_rank.launches = 0
+upward_rank.launches_by_route = dict.fromkeys(RANK_ROUTES, 0)

@@ -3,8 +3,9 @@ on the CPU: the device engine's upward ranks and rank order, the
 many-lane insertion sweep, and `replan_many`.
 
   * `upward_rank_ref` is bitwise the reference's jitted `upward_rank` in
-    float64 and its host `_PlanContext.ranks`, on a random DAG, a chain
-    and a pack of rank ties; the device engine's rank order (the stable
+    float64 and its host `_PlanContext.ranks`, on a random DAG, a chain,
+    a pack of rank ties, a fan and a DAG whose levels alternate between
+    more and at most 32 rows; the device engine's rank order (the stable
     sort of -rank) is `np.argsort(-rank, kind="stable")`.
   * `eft_sweep_many_ref`, lane by lane, is bitwise the reference's
     vmapped `eft_sweep_many` in float64 on lanes padded to one shape, and
@@ -16,7 +17,7 @@ many-lane insertion sweep, and `replan_many`.
     a round makes one predictive dispatch and, per cluster, one rank and
     one many-lane sweep dispatch.
 
-Fixed seeds, at most 60 tasks on 8 nodes, 4 requests."""
+Fixed seeds, at most 115 tasks on 8 nodes, 4 requests."""
 import dataclasses
 
 import jax
@@ -55,16 +56,29 @@ from repro_torch.workflow.dag import WorkflowDAG as TDAG
 TASK_TYPES = ("bwa", "idx", "dedup", "qc", "merge", "report")
 
 
+# the narrow/wide DAG's layers from the sources down: levels of more and
+# of at most 32 rows in turn (the rank kernel's block and warp walks)
+NARROW_WIDE = (34, 2, 33, 1, 40, 5)
+
+
 def _dags(rng, n_tasks, name, kind="random"):
     """The same DAG in both packages: random (the replan problem's
-    generator), a chain, or a tie pack (every task one type and input
-    size, so W rows repeat, with many sinks of equal rank)."""
+    generator), a chain, a tie pack (every task one type and input size,
+    so W rows repeat, with many sinks of equal rank), a fan (one task
+    feeding every other) or the narrow/wide layers (n_tasks must be
+    sum(NARROW_WIDE))."""
     jdag, tdag = JDAG(name), TDAG(name)
+    layered = (chip_smoke.layer_deps(rng, NARROW_WIDE)
+               if kind == "narrow_wide" else [])
     for i in range(n_tasks):
         if kind == "chain":
             deps = [f"t{i - 1}"] if i else []
         elif kind == "ties":
             deps = [f"t{i // 4 - 1}"] if i >= 4 else []
+        elif kind == "fan":
+            deps = ["t0"] if i else []
+        elif kind == "narrow_wide":
+            deps = [f"t{j}" for j in layered[i]]
         else:
             deps = [f"t{j}" for j in range(i)
                     if rng.random() < min(3.0 / max(i, 1), 0.5)]
@@ -89,7 +103,8 @@ def _bits(a):
 # --- upward ranks and the rank order -----------------------------------------
 
 @pytest.mark.parametrize("kind,n_tasks,n_nodes", [
-    ("random", 60, 8), ("chain", 40, 5), ("ties", 48, 6)])
+    ("random", 60, 8), ("chain", 40, 5), ("ties", 48, 6),
+    ("narrow_wide", sum(NARROW_WIDE), 7), ("fan", 45, 6)])
 def test_upward_rank_ref_bitwise_jax_and_host_ranks(kind, n_tasks, n_nodes):
     rng = np.random.default_rng(3)
     jdag, tdag = _dags(rng, n_tasks, "r", kind)
@@ -127,6 +142,11 @@ def test_upward_rank_ref_bitwise_jax_and_host_ranks(kind, n_tasks, n_nodes):
                           np.argsort(-want, kind="stable").astype(np.int32))
     if kind == "ties":
         assert len(np.unique(want)) < n_tasks // 2     # ties were there
+    widths = np.diff(tab.level_ptr.numpy()).tolist()
+    if kind == "narrow_wide":     # the levels alternate past and within 32
+        assert widths == list(NARROW_WIDE[::-1])
+    if kind == "fan":
+        assert widths == [n_tasks - 1, 1]
 
 
 def test_rank_table_levels_and_many_lanes():
