@@ -9,9 +9,13 @@ Phases (each fails loudly; nothing is caught):
                process per source, all started together; ptxas' registers
                and spills per kernel, and the fit kernel's route, grid,
                dynamic shared memory and blocks an SM at N = 64, 37, 1024.
-  2. kernels — `bayes_predict` at 2**20 random posteriors, bitwise against
-               its plain version evaluated on the CPU in float64 (and against
-               core.bayes.predict_blr_np); `bayes_fit` on 65,536 ragged
+  2. kernels — `bayes_predict` on packed batches (`pack_predict`) bitwise
+               against core.bayes.predict_blr_np at 2**20 random posteriors,
+               and against its plain version evaluated on the CPU in float64
+               at the main path's Q (1, 140, 1000, 33,800, 100,000, 2**20;
+               ragged last tiles) in both output forms: interleaved, and
+               scattered into 38 planes' resident rows through the slab's
+               target table; `bayes_fit` on 65,536 ragged
                buffers of 3-64 points, within rtol 5e-3 / atol 5e-4 of its
                plain version (the batched fit_blr) on the CPU, and so on
                low-noise rows, T = 1037, N = 37, N = 1024 (rows staged a
@@ -59,8 +63,11 @@ Phases (each fails loudly; nothing is caught):
                an OnlinePredictor over the 65,536 fleet posteriors takes
                1-8 local completions per task in one `observe_many`; its
                state must equal the CPU numpy fold's, and `nig_fold` on
-               the fold's operands must be bitwise its plain version on
-               the CPU.
+               the fold's ragged slab must be bitwise its plain version on
+               the CPU, and so on an ingest group (6 x 42), one row, a tile
+               whose last rows hold nothing, T = 1037 and a tile with rows
+               longer than a block's shared budget (walked from global
+               memory; each line counts them).
   7. plane   — the resident decision plane on the card: the replan
                problem's predictor wrapped in `OnlinePredictor(device=
                "cuda")`, a `FusedPlane` over it, and rounds of
@@ -107,7 +114,13 @@ Phases (each fails loudly; nothing is caught):
                warm round (20 pairs) and this cell's (10 pairs), on fresh
                planes after a cold round, are timed with the rank launch
                on its own route and forced onto the global route (PR 28's
-               kernel and launch), in turns.
+               kernel and launch), in turns.  Before them, under
+               torch.profiler on fresh planes: a plane's and the 38
+               workflows' dirty row sync (`FusedPlane.sync`,
+               `sync_planes`) make one copy up, one bayes_predict kernel
+               and no index_copy; the whole dirty round after the next
+               batch one bayes_predict kernel and no index_copy; a fold
+               one copy each way and one nig_fold kernel.
   9. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
                tenants of 1,024 tasks, each an `OnlinePredictor(device=
                "cuda")` bound to one store, fed its share of phase 6's
@@ -156,9 +169,16 @@ Phases (each fails loudly; nothing is caught):
                mask (kv heads expanded before it, untimed), and the
                achieved TFLOP/s of `ms` and `warm_ms`.  For
                `bayes_predict` also the times at Q = 1, at the paper path's
-               median Q, at 100,000 and at 2**20, the launch floor (the
-               time at 100,000 less the slope to 2**20) and the main path's
-               launches by Q.  For `upward_rank` (at one lane) and
+               median Q, at 1,000, at 100,000 and at 2**20, the launch
+               floor (the time at 100,000 less the slope to 2**20), an
+               empty kernel's times beside it (at one block and at the
+               Q = 100,000 grid), the main path's launches by Q, the
+               host's side of its operand at the main path's Q (filling
+               the slab in pinned memory, filling it with the one copy
+               up, and for reference eight pageable copies of the same
+               leaves) and
+               one scattering launch into 38 planes (Q = 33,800).  For
+               `upward_rank` (at one lane) and
                `eft_sweep_many` (at 32 lanes) also the other lane count,
                and beside the ranks the host ranks they replace, the
                global route's time, the route and cluster size, the
@@ -196,6 +216,11 @@ N_FLEET = 65536
 FLEET_COLS = 64                  # pad_ragged's bucket of the fleet buffers
 N_TENANTS = 64
 Q_PREDICT_CHECK = 1 << 20
+# the predictive's main-path shapes: one query, the paper path's median,
+# a paper-sized launch, the 38-workflow round after a batch, the fleet's
+# predict_batch and the 2**20 check
+PREDICT_CHECK_QS = (1, 140, 1000, 33800, 100000, Q_PREDICT_CHECK)
+PREDICT_PLANES = 38              # the replan cell's planes
 MPE_REL_TOL = 1e-3
 TASK_TYPES = ("bwa", "idx", "dedup", "qc", "merge", "report")
 PLAN_TASKS, PLAN_NODES = 1000, 100
@@ -499,6 +524,65 @@ def fit_check(dev, label: str, xb, yb, mb, unaligned: bool = False
     return max(errs.values()), ratio
 
 
+def bits_equal(a, b) -> bool:
+    """Two float64 tensors (on the CPU) equal bit for bit, NaNs too."""
+    import torch
+    return torch.equal(a.contiguous().view(torch.int64),
+                       b.contiguous().view(torch.int64))
+
+
+def nan_targets(lens, dev) -> list:
+    """Resident rows of the given lengths on `dev`, filled with NaN."""
+    from repro_torch.kernels.bayes_fit import PredictTarget
+    out = []
+    for n in lens:
+        t = PredictTarget(int(n), dev)
+        t.mean.fill_(float("nan"))
+        t.std.fill_(float("nan"))
+        out.append(t)
+    return out
+
+
+def predict_check(dev, q: int, seed: int) -> float:
+    """`bayes_predict` at q random rows against its plain version on the
+    CPU, bitwise, in both output forms: interleaved, and scattered into
+    min(q, PREDICT_PLANES) resident planes of ragged sizes (each a few
+    rows longer than its share, filled with NaN, destinations shuffled).
+    Returns the max |err|."""
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    x, post = random_posteriors(rng, q)
+    got = kernels.bayes_predict(kernels.pack_predict(dev, x, post)).cpu()
+    want = ref.bayes_predict_ref(kernels.pack_predict("cpu", x, post))
+    inter = bits_equal(got, want)
+    err = float((got - want).abs().max())
+    p = min(q, PREDICT_PLANES)
+    firsts = np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, q), p - 1, replace=False))]).astype(int)
+    share = np.diff(np.append(firsts, q))
+    lens = share + rng.integers(0, 50, p)
+    dest = np.concatenate([rng.permutation(n)[:k]
+                           for n, k in zip(lens, share)])
+    on_card, on_cpu = nan_targets(lens, dev), nan_targets(lens, "cpu")
+    kernels.bayes_predict(kernels.pack_predict(
+        dev, x, post, dest, list(zip(on_card, share))))
+    ref.bayes_predict_ref(kernels.pack_predict(
+        "cpu", x, post, dest, list(zip(on_cpu, share))))
+    torch.cuda.synchronize()
+    scat = all(bits_equal(a.cpu(), b) for t1, t2 in zip(on_card, on_cpu)
+               for a, b in ((t1.mean, t2.mean), (t1.std, t2.std)))
+    last = q - 256 * ((q - 1) // 256)
+    print(f"[kernels] bayes_predict Q={q}: bitwise vs plain (CPU float64) "
+          f"interleaved {inter}, scattered into {p} planes {scat} "
+          f"({(q + 255) // 256} tiles of 256, the last {last} rows), max "
+          f"|err| {err!r}")
+    check(inter and scat, f"bayes_predict Q={q} differs from its plain "
+                          f"version")
+    return err
+
+
 def phase_kernels(dev, fleet) -> dict:
     import torch
     from repro_torch.core.bayes import predict_blr_np
@@ -507,24 +591,16 @@ def phase_kernels(dev, fleet) -> dict:
     out = {}
     rng = np.random.default_rng(11)
     x, post = random_posteriors(rng, Q_PREDICT_CHECK)
-    xc = torch.from_numpy(x)
-    pc = {k: torch.from_numpy(v) for k, v in post.items()}
-    mean, std = kernels.bayes_predict(xc.to(dev),
-                                      {k: v.to(dev) for k, v in pc.items()})
-    torch.cuda.synchronize()
-    mean, std = mean.cpu(), std.cpu()
-    p_mean, p_std = ref.bayes_predict_ref(xc, pc)
+    got = kernels.bayes_predict(kernels.pack_predict(
+        dev, x, post)).cpu().numpy()
     n_mean, n_std = predict_blr_np(post, x)
-    err = max(float((mean - p_mean).abs().max()),
-              float((std - p_std).abs().max()))
-    bitwise = torch.equal(mean, p_mean) and torch.equal(std, p_std)
-    host = (np.array_equal(mean.numpy(), n_mean)
-            and np.array_equal(std.numpy(), n_std))
-    print(f"[kernels] bayes_predict Q={Q_PREDICT_CHECK}: bitwise vs plain "
-          f"(CPU float64) {bitwise}, vs predict_blr_np {host}, max |err| "
-          f"{err!r}")
-    check(bitwise, "bayes_predict differs from its plain version")
+    host = (np.array_equal(got[:, 0], n_mean)
+            and np.array_equal(got[:, 1], n_std))
+    print(f"[kernels] bayes_predict Q={Q_PREDICT_CHECK}: bitwise vs "
+          f"predict_blr_np {host}")
     check(host, "bayes_predict differs from core.bayes.predict_blr_np")
+    err = max(predict_check(dev, q, seed)
+              for seed, q in enumerate(PREDICT_CHECK_QS, 40))
     out["bayes_predict"] = (err, 0.0)
 
     cases = {"fleet": fleet}
@@ -1149,13 +1225,13 @@ def phase_ingest(dev, fleet_out) -> dict:
 
 
 def bounds_fold(counts: np.ndarray) -> tuple:
-    """Least time for one fold: per task its int32 count (4 B), x and y
-    for the observations it holds (16 B each; padded cells carry no
-    information), and the 88-byte state (mu, v, prec, b) read once and
-    written once; FOLD_STEP_OPS float64 operations per observation this
-    run's rows hold."""
+    """Least time for one fold: per task its count (8 B), x and y for the
+    observations it holds (16 B each), and the nine values of its state
+    that the fold reads and writes (mu, V and prec at [0,0], [0,1], [1,1],
+    b: 72 B) read once and written once; FOLD_STEP_OPS float64 operations
+    per observation this run's rows hold."""
     t, n = counts.size, float(counts.sum())
-    t_bytes = (n * 16 + t * 4 + t * 88 * 2) / H100_BYTES_PER_S * 1e3
+    t_bytes = (n * 16 + t * (8 + 72 + 72)) / H100_BYTES_PER_S * 1e3
     t_ops = n * FOLD_STEP_OPS / H100_FP64_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1227,37 +1303,34 @@ def phase_ingest_checks(dev, fleet_out, ing) -> dict:
     xs = [rows[n][0] for n in ing["names"]]
     ys = [rows[n][1] for n in ing["names"]]
     nigs0 = ing["nigs0"]
-    sx, sy, m, mu, v, prec, _, b, _ = bayes.fold_pack(nigs0, xs, ys)
-    counts = np.count_nonzero(m, axis=1).astype(np.int32)
-    host_args = (sx, sy, counts, mu, v, prec, b)
-    cpu_args = [torch.from_numpy(a) for a in host_args]
-    dev_args = [a.to(dev) for a in cpu_args]
-    got = [g.cpu() for g in kernels.nig_fold(*dev_args)]
-    want = ref.nig_fold_ref(*cpu_args)
-    same = all(torch.equal(g.view(torch.int64), w.view(torch.int64))
-               for g, w in zip(got, want))
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    t, k = m.shape
-    print(f"[ingest] nig_fold T={t} K={k} ({int(counts.sum())} "
-          f"observations): bitwise vs plain (CPU float64) {same}, max "
-          f"|err| {err!r}; fleet export_state equal to the CPU numpy fold")
-    check(same, "nig_fold differs from its plain version")
+    slab, counts, _, _ = bayes.fold_pack(nigs0, xs, ys)
+    t = len(nigs0)
+    err = fold_check(dev, "fleet", slab, t)
+    for label, (nigs, cx, cy) in fold_edge_cases(
+            np.random.default_rng(37), nigs0).items():
+        err = max(err, fold_check(dev, label,
+                                  bayes.fold_pack(nigs, cx, cy)[0],
+                                  len(nigs)))
+    print(f"[ingest] fleet export_state equal to the CPU numpy fold")
 
-    outs = [torch.empty_like(a) for a in dev_args[3:]]
-    launch = raw_launch("nig_fold", dev_args[:3] + [t, k] + dev_args[3:]
-                        + outs)
+    cpu_slab = torch.from_numpy(slab)
+    dev_slab = cpu_slab.to(dev)
+    state = torch.empty((t, bayes.FOLD_STATE), dtype=torch.float64,
+                        device=dev)
+    launch = raw_launch("nig_fold", [dev_slab, t, state])
     out = {"ms": time_ms(launch), "warm_ms": warm_ms(launch),
-           "wrapper_ms": time_ms(lambda: kernels.nig_fold(*dev_args),
+           "wrapper_ms": time_ms(lambda: kernels.nig_fold(dev_slab, t),
                                  host=True),
-           "plain_ms": time_ms(lambda: ref.nig_fold_ref(*dev_args), reps=5,
+           "plain_ms": time_ms(lambda: ref.nig_fold_ref(dev_slab, t), reps=5,
                                host=True),
-           "err": err, "shape": f"T={t} K={k}"}
+           "err": err, "shape": f"T={t} K={int(counts.max())}"}
     out["bound_ms"], out["bound_by"] = bounds_fold(counts)
-    # the fold's copies as the card sees them: the seven operands to the
-    # card, the four folded leaves back
-    h2d_ms = time_ms(lambda: [torch.from_numpy(a).to(dev)
-                              for a in host_args], reps=5, host=True)
-    d2h_ms = time_ms(lambda: [o.cpu() for o in outs], reps=5, host=True)
+    # the fold's copies as the card sees them: the slab up from pinned
+    # memory, the state slab back
+    pinned = cpu_slab.pin_memory()
+    h2d_ms = time_ms(lambda: pinned.to(dev, non_blocking=True), reps=5,
+                     host=True)
+    d2h_ms = time_ms(lambda: state.cpu(), reps=5, host=True)
     pack_s = median_s(lambda: bayes.fold_pack(nigs0, xs, ys))
     kernel_fold_s = median_s(lambda: compute.fold_kernel(nigs0, xs, ys,
                                                          dev))
@@ -1270,10 +1343,10 @@ def phase_ingest_checks(dev, fleet_out, ing) -> dict:
     print(f"[ingest] nig_fold through the wrapper {out['wrapper_ms']!r} ms; "
           f"plain version on the card {out['plain_ms']!r} ms")
     print(f"[ingest] fleet observe_many {obs_s!r} s on the card: the fold "
-          f"call {kernel_fold_s!r} s (packing {pack_s!r} s, copies to the "
-          f"card {h2d_ms / 1e3!r} s and back {d2h_ms / 1e3!r} s, the "
-          f"kernel {out['ms'] / 1e3!r} s, unpacking the rest), the "
-          f"grouping, ring appends and change feed "
+          f"call {kernel_fold_s!r} s (packing {pack_s!r} s, the slab to "
+          f"the card {h2d_ms / 1e3!r} s and the states back "
+          f"{d2h_ms / 1e3!r} s, the kernel {out['ms'] / 1e3!r} s, unpacking "
+          f"the rest), the grouping, ring appends and change feed "
           f"{obs_s - kernel_fold_s!r} s; share outside the kernel "
           f"{1.0 - out['ms'] / 1e3 / obs_s!r}, host share (outside the "
           f"kernel and the copies) {1.0 - device_s / obs_s!r}")
@@ -1281,6 +1354,55 @@ def phase_ingest_checks(dev, fleet_out, ing) -> dict:
           f"{numpy_fold_s!r} s; the CPU predictor's observe_many "
           f"{cpu_observe_s!r} s")
     return out
+
+
+def fold_edge_cases(rng: np.random.Generator, nigs0) -> dict:
+    """Fold cases beside the fleet fold, on the fleet's first states:
+    {label: (states, x rows, y rows)}.  An ingest group (6 tasks of 42
+    completions, the workflow loop's batch of 250), one row, a tile whose
+    last rows hold nothing, a ragged last tile (T = 1037, 13 rows past
+    eight tiles), and a tile with two rows of 6,000 and 5,000 completions,
+    longer than a block's shared budget (walked from global memory)."""
+    def case(lengths):
+        lengths = list(lengths)
+        xs = [rng.uniform(0.05, 4.0, k) for k in lengths]
+        ys = [rng.uniform(4.0, 120.0, k) for k in lengths]
+        return nigs0[:len(lengths)], xs, ys
+
+    empty = rng.integers(1, 9, 300)
+    empty[::3] = 0
+    empty[200:] = 0
+    long_rows = rng.integers(0, 9, 300)
+    long_rows[5], long_rows[100] = 6000, 5000
+    return {"ingest group": case([42] * 6), "T=1": case([8]),
+            "empty rows": case(empty), "T=1037": case(rng.integers(
+                1, 9, 1037)), "long rows": case(long_rows)}
+
+
+def fold_check(dev, label: str, slab: np.ndarray, t: int) -> float:
+    """`nig_fold` on a T-row fold slab against its plain version on the
+    CPU, bitwise; prints how many rows the kernel walks from global memory
+    (past its tile's shared budget).  Returns the max |err|."""
+    import torch
+    from repro_torch.core.bayes import FOLD_HEAD
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import ref
+    cpu = torch.from_numpy(slab)
+    got = kernels.nig_fold(cpu.to(dev), t).cpu()
+    want = ref.nig_fold_ref(cpu, t)
+    same = bits_equal(got, want)
+    err = float((got - want).abs().max()) if t else 0.0
+    shape = kernels.fold_config()
+    size = np.diff(slab[:t + 1].view(np.int64))
+    n_obs = int((size - FOLD_HEAD).sum() // 2)
+    wide = kernels.fold_global_rows(slab, t, **shape)
+    print(f"[ingest] nig_fold {label} (T={t}, {n_obs} observations, "
+          f"{int((size == FOLD_HEAD).sum())} rows with none; "
+          f"{wide} rows walked from global memory past the {shape} "
+          f"budget): bitwise vs plain (CPU float64) {same}, max |err| "
+          f"{err!r}")
+    check(same, f"nig_fold {label} differs from its plain version")
+    return err
 
 
 PLANE_SPLIT = ("sync_gather_s", "predict_s", "scale_cost_s", "rank_s",
@@ -1362,10 +1484,10 @@ def phase_plane(dev, fleet_out) -> dict:
 def plane_split(dev, plane, dag) -> tuple:
     """One plane round run piece by piece as `FusedPlane.schedule` runs
     it, with a sync after each piece: the binding sync, snapshot, dirty
-    detection, host gather and copies to the card; the bayes_predict
-    launch and the scatter; scaling, the host matrix and the cost view
-    (W stays on the card); then `heft_pieces` (ranks, rank order, sweep
-    and its copy back, rebuild).
+    detection, host gather into the packed slab and its copy to the card;
+    the bayes_predict launch, which writes the rows in place; scaling,
+    the host matrix and the cost view (W stays on the card); then
+    `heft_pieces` (ranks, rank order, sweep and its copy back, rebuild).
     -> ({piece: seconds}, schedule)."""
     import torch
     from repro_torch.kernels import ops
@@ -1376,12 +1498,10 @@ def plane_split(dev, plane, dag) -> tuple:
     rows = plane.gather_rows(snap, idx) if len(idx) else None
     torch.cuda.synchronize()
     t.append(time.perf_counter())
-    if rows is None:
-        plane.apply_rows(snap, idx, None, None)
-    else:
-        mean, std = ops.bayes_predict(rows[1], rows[2])
+    if rows is not None:
+        ops.bayes_predict(rows)
         plane.stats.predict_dispatches += 1
-        plane.apply_rows(snap, rows[0], mean, std)
+    plane.apply_rows(snap, idx)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     plane._scale()
@@ -1630,10 +1750,11 @@ def phase_replan(dev, fleet_out) -> dict:
 def replan_split(dev, reqs) -> tuple:
     """One `replan_many` round run piece by piece as it runs, a sync
     after each piece: the bindings' sync, the dirty rows' collection,
-    host gather and copies; the one bayes_predict launch and the
-    scatters; each plane's scaling and cost view; each cluster's ranks
-    (one upward_rank launch and the read of its flags); each cluster's
-    rank order, sweep, copy back and Schedule rebuild.
+    host gather into one packed slab and its copy; the one bayes_predict
+    launch, which writes every plane's rows in place; each plane's
+    scaling and cost view; each cluster's ranks (one upward_rank launch
+    and the read of its flags); each cluster's rank order, sweep, copy
+    back and Schedule rebuild.
     -> ({piece: seconds}, schedules)."""
     import torch
     from repro_torch.kernels import ops
@@ -1647,17 +1768,11 @@ def replan_split(dev, reqs) -> tuple:
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     if dirty:
-        idx_t, x, post, counts = rows
-        mean, std = ops.bayes_predict(x, post)
-        off = 0
-        for (plane, snap, _), n in zip(dirty, counts):
-            sl = slice(off, off + n)
-            plane.apply_rows(snap, idx_t[sl], mean[sl], std[sl])
+        ops.bayes_predict(rows)
+        for plane, _, _ in dirty:
             plane.stats.predict_dispatches += 1
-            off += n
     for plane, snap, idx in collected:
-        if not len(idx):
-            plane.apply_rows(snap, idx, None, None)
+        plane.apply_rows(snap, idx)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     groups = {}
@@ -1757,6 +1872,124 @@ def phase_replan_checks(dev, fleet_out, rp) -> dict:
           f"heft_schedule_matrix")
     errors = replan_kernel_checks(dev, fleet_out, twin_planes, twin_reqs)
     return dict(errors, planes=twin_planes, reqs=twin_reqs)
+
+
+def profiled_regions(steps) -> dict:
+    """Run `steps`, [(label or None, fn)], in order under ONE
+    torch.profiler session (CPU and CUDA; in a trial run a third session
+    in one process recorded no device event), the card's work
+    synchronised after each step -> per
+    labelled step what crossed and ran in it: host-to-device and
+    device-to-host copies, bayes_predict and nig_fold kernels, index_copy
+    ops or kernels, and all device events.  An event belongs to the step
+    whose span holds its start."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in steps:
+            if label is None:
+                fn()
+                torch.cuda.synchronize()
+                continue
+            with record_function(f"copies/{label}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name[len("copies/"):]: (e.time_range.start, e.time_range.end)
+             for e in events if e.device_type == DeviceType.CPU
+             and e.name.startswith("copies/")}
+    out = {label: dict.fromkeys(("h2d", "d2h", "bayes_predict", "nig_fold",
+                                 "index_copy", "device_events"), 0)
+           for label in spans}
+    for e in events:
+        if e.name.startswith("copies/"):
+            continue
+        label = next((k for k, (a, b) in spans.items()
+                      if a <= e.time_range.start <= b), None)
+        if label is None:
+            continue
+        c = out[label]
+        on_card = e.device_type == DeviceType.CUDA
+        c["device_events"] += on_card
+        c["h2d"] += on_card and e.name.startswith("Memcpy HtoD")
+        c["d2h"] += on_card and e.name.startswith("Memcpy DtoH")
+        c["bayes_predict"] += on_card and "bayes_predict_kernel" in e.name
+        c["nig_fold"] += on_card and "nig_fold_kernel" in e.name
+        c["index_copy"] += "index_copy" in e.name
+    return out
+
+
+def phase_copy_checks(dev, fleet_out) -> None:
+    """What a dirty round and a fold send across, under one torch.profiler
+    session, on fresh planes after a cold round.  A plane's row sync after
+    an ingest batch (`FusedPlane.sync`) and the 38 workflows'
+    (`sync_planes`, the replan round's first piece): one copy up, one
+    bayes_predict kernel, no index_copy; the whole dirty round after the
+    next batch: one bayes_predict kernel and no index_copy (its other
+    copies up, of the node corrections, view indices and sweep operands,
+    are printed).  A fold (`store.compute.fold_kernel`, the workflow
+    loop's group shape): one copy each way, one nig_fold kernel."""
+    from repro_torch.core.bayes import nig_from_blr
+    from repro_torch.online import OnlinePredictor, PredictionService
+    from repro_torch.sched.fused import FusedPlane, replan_many, sync_planes
+    from repro_torch.store import compute
+    svc = fleet_out["replan_service"]
+    dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
+    benches = dict(svc.benches)
+    batches = ingest_stream(np.random.default_rng(23), dag, svc.predictor,
+                            benches, nodes)
+    online = OnlinePredictor(svc.predictor, benches, device=dev)
+    plane = FusedPlane(PredictionService(online, benches, device=dev), nodes,
+                       dag=dag)
+    round_ = lambda: plane.schedule(dag, quantile=PLAN_QUANTILE,
+                                    engine="device")
+    round_()                                        # cold
+    problem = replan_problem_many(fleet_out)
+    many = OnlinePredictor(svc.predictor, problem["benches"], device=dev)
+    planes, reqs = replan_planes(dev, problem, many)
+    replan_many(reqs)                               # cold
+    post = fleet_out["fleet_post"]
+    nigs = [nig_from_blr({k: v[i] for k, v in post.items()})
+            for i in range(6)]
+    rng = np.random.default_rng(41)
+    xs = [rng.uniform(0.05, 4.0, 42) for _ in nigs]
+    ys = [rng.uniform(4.0, 120.0, 42) for _ in nigs]
+    rows = []
+    got = profiled_regions([
+        (None, lambda: online.observe_many(batches[0])),
+        ("plane row sync after an ingest batch",
+         lambda: rows.append(plane.sync())),
+        (None, lambda: online.observe_many(batches[1])),
+        ("plane whole round after the next batch", round_),
+        (None, lambda: many.observe_many(batches[0])),
+        (f"replan ({len(planes)} workflows) row sync after an ingest batch",
+         lambda: rows.append(sync_planes(planes))),
+        (None, lambda: many.observe_many(batches[1])),
+        (f"replan ({len(planes)} workflows) whole round after the next "
+         f"batch", lambda: replan_many(reqs)),
+        ("a fold of 6 tasks x 42 completions",
+         lambda: compute.fold_kernel(nigs, xs, ys, dev))])
+    for label, c in got.items():
+        print(f"[copies] {label}: {c}")
+        check(c["device_events"] > 0, f"{label}: the profiler recorded no "
+                                      f"device event")
+        check(c["index_copy"] == 0, f"{label}: an index_copy ran")
+    print(f"[copies] rows refreshed by the two syncs: {rows}")
+    check(all(rows), "a row sync found no dirty rows")
+    for label, c in got.items():
+        if "row sync" in label:
+            check(c["h2d"] == 1 and c["bayes_predict"] == 1,
+                  f"{label}: not one copy up and one bayes_predict kernel")
+        elif "whole round" in label:
+            check(c["bayes_predict"] == 1,
+                  f"{label}: not one bayes_predict kernel")
+        else:
+            check(c["h2d"] == 1 and c["d2h"] == 1 and c["nig_fold"] == 1,
+                  f"{label}: not one copy each way and one nig_fold kernel")
+    check(len(got) == 5, f"the profiler saw {len(got)} of 5 steps")
 
 
 def fan_dag(n_tasks: int):
@@ -2437,9 +2670,10 @@ def phase_refresh_checks(dev, fleet_out, ingest, rf) -> None:
 
 
 def bounds_predict(q: int) -> tuple:
-    """Least time for q predictive queries: 96 B read + 16 B written per
-    query; 20 float64 operations per query."""
-    t_bytes = q * 112 / H100_BYTES_PER_S * 1e3
+    """Least time for q predictive queries: the eleven values a query
+    needs (x and its posterior row, 88 B) read once and its mean and std
+    (16 B) written once; 20 float64 operations per query."""
+    t_bytes = q * (88 + 16) / H100_BYTES_PER_S * 1e3
     t_ops = q * 20 / H100_FP64_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -2674,19 +2908,73 @@ def q_buckets(tally: dict) -> dict:
     return out
 
 
-def time_predict(x, post) -> dict:
+def time_predict(batch) -> dict:
+    """bayes_predict's times on a packed batch on the card, the results
+    interleaved."""
     import torch
     from repro_torch.kernels import bayes_fit as kernels
     from repro_torch.kernels import ref
-    from repro_torch.store.compute import LEAVES
-    out = [torch.empty_like(x), torch.empty_like(x)]
-    launch = raw_launch("bayes_predict", [x] + [post[k] for k in LEAVES]
-                        + out + [x.shape[0]])
+    q = batch.q
+    out = torch.empty((q, 2), dtype=torch.float64, device=batch.slab.device)
+    launch = raw_launch("bayes_predict", [batch.slab, q, 0, out])
     return {"ms": time_ms(launch), "warm_ms": warm_ms(launch),
-            "wrapper_ms": time_ms(lambda: kernels.bayes_predict(x, post),
+            "wrapper_ms": time_ms(lambda: kernels.bayes_predict(batch),
                                   host=True),
-            "plain_ms": time_ms(lambda: ref.bayes_predict_ref(x, post),
+            "plain_ms": time_ms(lambda: ref.bayes_predict_ref(batch),
                                 reps=5, host=True)}
+
+
+def time_slabs(dev, qs) -> dict:
+    """The host's side of the predictive's operand at each q (random rows;
+    host clock, median of 20, each call ended by a sync): `fill_slab` into
+    a pinned buffer; `pack_predict`, the filling and its one copy up
+    together; and, for reference, the same x and seven posterior leaves
+    sent up as eight copies from pageable memory."""
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.store.compute import LEAVES
+    out = {}
+    for q in qs:
+        x, post = random_posteriors(np.random.default_rng(q), q)
+        pinned = torch.empty(kernels.predict_slots(q), dtype=torch.float64,
+                             pin_memory=True).numpy()
+
+        def leaves():
+            for a in [x] + [post[k] for k in LEAVES]:
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        out[q] = {name: median_s(fn, reps=20) * 1e3 for name, fn in (
+            ("fill_ms", lambda: kernels.fill_slab(pinned, q, x, post)),
+            ("fill_and_copy_ms", lambda: (kernels.pack_predict(dev, x, post),
+                                          torch.cuda.synchronize())),
+            ("leaf_copies_ms", lambda: (leaves(),
+                                        torch.cuda.synchronize())))}
+    return out
+
+
+def time_scatter(dev) -> dict:
+    """A scattering bayes_predict as the 38-workflow round after an ingest
+    batch makes it (Q = 33,800 random rows into PREDICT_PLANES resident
+    planes): the launch through its wrapper and through its C entry point,
+    and `pack_predict` of the batch with its table."""
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    q = PREDICT_CHECK_QS[3]
+    rng = np.random.default_rng(q + 1)
+    x, post = random_posteriors(rng, q)
+    share = np.full(PREDICT_PLANES, q // PREDICT_PLANES)
+    share[: q % PREDICT_PLANES] += 1
+    targets = nan_targets(share, dev)
+    dest = np.concatenate([np.arange(n) for n in share])
+    pairs = list(zip(targets, share))
+    batch = kernels.pack_predict(dev, x, post, dest, pairs)
+    launch = raw_launch("bayes_predict", [batch.slab, q, PREDICT_PLANES,
+                                          None])
+    return {"q": q, "planes": PREDICT_PLANES, "ms": time_ms(launch),
+            "wrapper_ms": time_ms(lambda: kernels.bayes_predict(batch),
+                                  host=True),
+            "fill_and_copy_ms": median_s(lambda: (kernels.pack_predict(
+                dev, x, post, dest, pairs), torch.cuda.synchronize()),
+                reps=20) * 1e3}
 
 
 def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
@@ -2699,22 +2987,18 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
     queries = fleet_out["replan_queries"]
     post = svc.store.snapshot().gather(
         [TaskKey(svc.tenant, svc.workflow, q.task) for q in queries])
-    x = torch.tensor([q.input_gb for q in queries], dtype=torch.float64,
-                     device=dev)
-    pc = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-          for k, v in post.items()}
-    q = x.shape[0]
-    pt = time_predict(x, pc)
+    q = len(queries)
+    pt = time_predict(kernels.pack_predict(
+        dev, [qu.input_gb for qu in queries], post))
     p_bound, p_by = bounds_predict(q)
     q_paper = int(median_q(predict_q["paper"]))
 
     print(f"[report] bayes_predict Q={q}: {pt} bound {p_bound!r} ms")
     by_q = {q: dict(pt, bound_ms=p_bound)}
-    for qq, seed in ((1, 21), (q_paper, 22), (Q_PREDICT_CHECK, 11)):
+    for qq, seed in ((1, 21), (q_paper, 22), (1000, 23), (Q_PREDICT_CHECK,
+                                                         11)):
         xq, post_q = random_posteriors(np.random.default_rng(seed), qq)
-        tq = time_predict(torch.from_numpy(xq).to(dev),
-                          {k: torch.from_numpy(v).to(dev)
-                           for k, v in post_q.items()})
+        tq = time_predict(kernels.pack_predict(dev, xq, post_q))
         by_q[qq] = dict(tq, bound_ms=bounds_predict(qq)[0])
         print(f"[report] bayes_predict Q={qq}: {tq} bound "
               f"{by_q[qq]['bound_ms']!r} ms")
@@ -2728,6 +3012,21 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
           f"Q={Q_PREDICT_CHECK} the kernel reaches "
           f"{big['bound_ms'] / big['ms']!r} of its bound; Q=1 takes "
           f"{by_q[1]['ms']!r} ms")
+    probe = {}
+    for blocks, threads in ((1, 32), ((q + 255) // 256, 256)):
+        empty = raw_launch("empty", [blocks, threads])
+        probe[f"{blocks}x{threads}"] = {"ms": time_ms(empty),
+                                        "warm_ms": warm_ms(empty)}
+    print(f"[report] launch floor probe (an empty kernel, blocks x threads; "
+          f"{blocks} blocks is the Q={q} grid): {probe}; of the floor "
+          f"{floor!r} ms the empty launch is "
+          f"{probe['1x32']['ms'] / floor!r}")
+    slabs = time_slabs(dev, (q_paper, 1000, PREDICT_CHECK_QS[3], q))
+    for qq, v in slabs.items():
+        print(f"[report] predictive slab Q={qq} (host clock): {v}")
+    scatter = time_scatter(dev)
+    print(f"[report] bayes_predict scattered into {scatter['planes']} "
+          f"planes, Q={scatter['q']}: {scatter}")
     fx, fy, fm = (torch.from_numpy(a).to(dev) for a in fleet)
     t, n = fx.shape
     fout = [torch.empty(t, k, device=dev) for k in (2, 4, 1, 1, 1, 1, 1, 1,
@@ -2778,7 +3077,8 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
          "plain_ms": pt["plain_ms"], "bound_ms": p_bound, "bound_by": p_by,
          "library_ms": None, "warm_ms": pt["warm_ms"],
          "wrapper_ms": pt["wrapper_ms"], "shape": f"Q={q}",
-         "floor_ms": floor, "by_q": by_q,
+         "floor_ms": floor, "by_q": by_q, "empty_probe": probe,
+         "slabs": slabs, "scatter": scatter,
          "launches_by_q": {path: q_buckets(t)
                            for path, t in predict_q.items()}},
         {"name": "fused_cost", "route": "cuda", "source": dsrc,
@@ -3269,11 +3569,11 @@ def main() -> None:
         kernel)."""
         tally = predict_q.setdefault(label, {})
 
-        def tallied(x, post):
+        def tallied(batch):
             before = kernels.bayes_predict.launches
-            out = dispatch_predict(x, post)
+            out = dispatch_predict(batch)
             if kernels.bayes_predict.launches > before:
-                tally[x.shape[0]] = tally.get(x.shape[0], 0) + 1
+                tally[batch.q] = tally.get(batch.q, 0) + 1
             return out
 
         for _, fn in counted:
@@ -3373,6 +3673,7 @@ def main() -> None:
     fold = phase_ingest_checks(dev, fleet_out, ingest)
     phase_plane_checks(dev, fleet_out, pl)
     rpc = phase_replan_checks(dev, fleet_out, rp)
+    phase_copy_checks(dev, fleet_out)
     warm_round_pairs(dev, fleet_out, rp["problem"])
     errors.update({k: rpc[k] for k in ("upward_rank", "eft_sweep_many")})
     phase_refresh_checks(dev, fleet_out, ingest, rf)

@@ -22,6 +22,7 @@ the scalar `nig_update` chain.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -260,19 +261,42 @@ def _nig_step(mu1, mu2, v11, v12, v22, p11, p12, p22, b, xs, ys):
     return nmu1, nmu2, nv11, nv12, nv22, np11, np12, np22, nb
 
 
-def _nig_fold_np(mu, v, prec, a, b, n_obs, xs, ys, m):
-    """Vectorized masked fold: apply K standardized observations to T NIG
-    states simultaneously, one step per observation column.
+# The fold's packed operands (`fold_pack`), one float64 slab: its head
+# holds the T + 1 row offsets (int64, in slots from the slab's start),
+# padded to an even count; row i, at offsets[i], holds a FOLD_HEAD-slot
+# header (its count, mu[0], mu[1], V at [0,0], [0,1], [1,1], prec at the
+# same three, b) and then its count standardized (x, y) pairs.  Every row
+# is an even number of slots, so each starts on a 16-byte boundary.  The
+# folded states come back as one (T, FOLD_STATE) slab: the header's
+# state, folded.
+FOLD_HEAD = 10
+FOLD_STATE = 9
+
+
+def fold_head(t: int) -> int:
+    """Slots of a T-row fold slab's offset head (T + 1, made even)."""
+    return (t + 2) & ~1
+
+
+def _nig_fold_np(slab: np.ndarray, t: int) -> np.ndarray:
+    """Vectorized fold of a T-row ragged slab (`fold_pack`) -> the
+    (T, FOLD_STATE) folded states, one step per observation column over
+    every row that still has one.
 
     Bit-identical to chaining `nig_update` per task: both evaluate the
     SAME `_nig_step` component expressions, and numpy float64 elementwise
-    ufuncs are IEEE-deterministic per lane.  Masked lanes keep their old
-    state via `where` selection."""
-    mu1, mu2 = mu[:, 0], mu[:, 1]
-    v11, v12, v22 = v[:, 0, 0], v[:, 0, 1], v[:, 1, 1]
-    p11, p12, p22 = prec[:, 0, 0], prec[:, 0, 1], prec[:, 1, 1]
-    for k in range(xs.shape[1]):
-        xk, yk, mk = xs[:, k], ys[:, k], m[:, k] > 0.0
+    ufuncs are IEEE-deterministic per lane.  Lanes past their count keep
+    their old state via `where` selection."""
+    off = slab[:t + 1].view(np.int64)
+    start = off[:-1]
+    hdr = slab[start[:, None] + np.arange(FOLD_HEAD)]
+    counts = np.minimum(hdr[:, 0], (off[1:] - start - FOLD_HEAD) // 2)
+    mu1, mu2, v11, v12, v22, p11, p12, p22, b = hdr[:, 1:].T
+    for k in range(int(counts.max(initial=0))):
+        mk = counts > k
+        at = np.where(mk, start + FOLD_HEAD + 2 * k, start)
+        xk = np.where(mk, slab[at], 0.0)
+        yk = np.where(mk, slab[at + 1], 0.0)
         (nmu1, nmu2, nv11, nv12, nv22, np11, np12, np22, nb) = _nig_step(
             mu1, mu2, v11, v12, v22, p11, p12, p22, b, xk, yk)
         nb = np.maximum(nb, 1e-12)
@@ -285,20 +309,15 @@ def _nig_fold_np(mu, v, prec, a, b, n_obs, xs, ys, m):
         p12 = np.where(mk, np12, p12)
         p22 = np.where(mk, np22, p22)
         b = np.where(mk, nb, b)
-    a, n_obs = fold_counts(a, n_obs, m)
-    mu = np.stack([mu1, mu2], axis=1)
-    v = np.stack([np.stack([v11, v12], 1), np.stack([v12, v22], 1)], axis=1)
-    prec = np.stack([np.stack([p11, p12], 1),
-                     np.stack([p12, p22], 1)], axis=1)
-    return mu, v, prec, a, b, n_obs
+    return np.stack([mu1, mu2, v11, v12, v22, p11, p12, p22, b], axis=1)
 
 
-def fold_counts(a, n_obs, m):
-    """a and n_obs after a masked fold, one masked +0.5 / +1.0 per column
-    as the vectorized fold adds them (the kernel leaves both on the
-    host)."""
-    for k in range(m.shape[1]):
-        mk = m[:, k] > 0.0
+def fold_counts(a, n_obs, counts):
+    """a and n_obs after a fold of counts[i] observations into row i, one
+    masked +0.5 / +1.0 per observation column as the vectorized fold adds
+    them (the kernel leaves both on the host)."""
+    for k in range(int(np.max(counts, initial=0))):
+        mk = counts > k
         a = np.where(mk, a + 0.5, a)
         n_obs = np.where(mk, n_obs + 1.0, n_obs)
     return a, n_obs
@@ -366,10 +385,10 @@ def nig_update_batch(nigs, xs, ys, impl: str = "numpy"):
                 for n, xr, yr in zip(nigs, xs, ys)]
     if impl != "vec":
         raise ValueError(f"unknown impl {impl!r}")
-    sx, sy, m, mu, v, prec, a, b, n_obs = fold_pack(nigs, xs, ys)
-    mu, v, prec, a, b, n_obs = _nig_fold_np(mu, v, prec, a, b, n_obs,
-                                            sx, sy, m)
-    return fold_unpack(nigs, m, mu, v, prec, a, b, n_obs)
+    slab, counts, a, n_obs = fold_pack(nigs, xs, ys)
+    state = _nig_fold_np(slab, len(nigs))
+    a, n_obs = fold_counts(a, n_obs, counts)
+    return fold_unpack(nigs, counts, state, a, n_obs)
 
 
 def check_rows(nigs, xs, ys) -> int:
@@ -386,50 +405,73 @@ def check_rows(nigs, xs, ys) -> int:
     return kmax
 
 
-def fold_pack(nigs, xs, ys):
-    """T states and their ragged observation rows -> the fold's float64
-    numpy operands, all C-contiguous: the standardized (T, K) observations
-    sx, sy and mask m (rows prefix-masked, K the longest row), and the
-    stacked mu (T, 2), v, prec (T, 2, 2), a, b, n_obs (T,).  A state lifted
-    from a fit on the card holds a column-major sigma (torch.linalg.inv's
-    layout there), and np.stack keeps its inputs' layout, hence the
-    explicit contiguity."""
-    t, kmax = len(nigs), max((len(r) for r in xs), default=0)
-    x = np.zeros((t, kmax), np.float64)
-    y = np.zeros((t, kmax), np.float64)
-    m = np.zeros((t, kmax), np.float64)
-    for i, (xi, yi) in enumerate(zip(xs, ys)):
-        k = len(xi)
-        x[i, :k] = np.asarray(xi, np.float64)
-        y[i, :k] = np.asarray(yi, np.float64)
-        m[i, :k] = 1.0
-    stats = np.array([[n["x_mu"], n["x_sd"], n["y_mu"], n["y_sd"]]
-                      for n in nigs], np.float64)
-    # standardize exactly as the scalar update does, per task
-    sx = (x - stats[:, 0:1]) / stats[:, 1:2]
-    sy = (y - stats[:, 2:3]) / stats[:, 3:4]
-    stack = lambda leaf: np.ascontiguousarray(
-        np.stack([np.asarray(n[leaf], np.float64) for n in nigs]))
-    mu, v, prec = stack("mu"), stack("v"), stack("prec")
-    a = np.array([n["a"] for n in nigs], np.float64)
-    b = np.array([n["b"] for n in nigs], np.float64)
-    n_obs = np.array([n["n_obs"] for n in nigs], np.float64)
-    return sx, sy, m, mu, v, prec, a, b, n_obs
+def fold_pack(nigs, xs, ys, alloc=None):
+    """T states and their ragged observation rows -> (slab, counts, a,
+    n_obs): the fold's one float64 slab (layout above FOLD_HEAD; written
+    into `alloc(n)`, n float64 slots, when given, else a new array), the
+    int64 per-row counts and the stacked a and n_obs, which stay on the
+    host.  Built with array operations over the chained rows: each
+    observation standardized as the scalar update does, (x - x_mu) / x_sd
+    and (y - y_mu) / y_sd, two IEEE operations.  V and prec are read at
+    [0, 0], [0, 1] and [1, 1] whatever their layout (a state lifted from a
+    fit on the card holds a column-major sigma)."""
+    t = len(nigs)
+    counts = np.fromiter(map(len, xs), np.int64, t)
+    if not np.array_equal(counts, np.fromiter(map(len, ys), np.int64, t)):
+        raise ValueError("every row needs as many y as x")
+    total = int(counts.sum())
+    x = np.fromiter(itertools.chain.from_iterable(xs), np.float64, total)
+    y = np.fromiter(itertools.chain.from_iterable(ys), np.float64, total)
+    stats = np.array([(n["x_mu"], n["x_sd"], n["y_mu"], n["y_sd"], n["a"],
+                       n["b"], n["n_obs"]) for n in nigs],
+                     np.float64).reshape(t, 7)
+    row = np.repeat(np.arange(t), counts)
+    sx = (x - stats[row, 0]) / stats[row, 1]
+    sy = (y - stats[row, 2]) / stats[row, 3]
+    stack = lambda leaf, k: np.array([n[leaf] for n in nigs],
+                                     np.float64).reshape(t, k)
+    mu, v, prec = stack("mu", 2), stack("v", 4), stack("prec", 4)
+    a, b, n_obs = stats[:, 4], stats[:, 5], stats[:, 6]
+
+    head = fold_head(t)
+    off = np.empty(t + 1, np.int64)
+    off[0] = head
+    np.cumsum(FOLD_HEAD + 2 * counts, out=off[1:])
+    off[1:] += head
+    slab = (np.empty if alloc is None else alloc)(int(off[-1]))
+    slab[:head] = 0.0
+    slab[:t + 1].view(np.int64)[:] = off
+    start = off[:-1]
+    hdr = np.column_stack((counts, mu, v[:, [0, 1, 3]], prec[:, [0, 1, 3]],
+                           b))
+    slab[start[:, None] + np.arange(FOLD_HEAD)] = hdr
+    first = np.cumsum(counts) - counts        # each row's first observation
+    at = np.repeat(start + FOLD_HEAD, counts) \
+        + 2 * (np.arange(total) - np.repeat(first, counts))
+    slab[at] = sx
+    slab[at + 1] = sy
+    return slab, counts, a, n_obs
 
 
-def fold_unpack(nigs, m, mu, v, prec, a, b, n_obs):
-    """The folded stacked leaves -> T state dicts.  Rows with no
-    observations pass through VERBATIM: restacking them would symmetrize
-    v/prec ([1,0] := [0,1]) and a fitted input matrix can be asymmetric in
-    the last ulp — the scalar chain (zero updates) leaves those bytes
-    untouched."""
-    counts = m.sum(axis=1)
+def fold_leaves(state: np.ndarray):
+    """A (T, FOLD_STATE) state slab -> (mu (T, 2), v (T, 2, 2), prec (T, 2,
+    2), b (T,)), v and prec symmetric."""
+    sym = lambda c: state[:, [c, c + 1, c + 1, c + 2]].reshape(-1, 2, 2)
+    return state[:, 0:2], sym(2), sym(5), state[:, 8]
+
+
+def fold_unpack(nigs, counts, state, a, n_obs):
+    """The folded (T, FOLD_STATE) states and a, n_obs -> T state dicts.
+    Rows with no observations pass through VERBATIM: restacking them would
+    symmetrize v/prec ([1,0] := [0,1]) and a fitted input matrix can be
+    asymmetric in the last ulp — the scalar chain (zero updates) leaves
+    those bytes untouched."""
+    mu, v, prec, b = fold_leaves(state)
     out = []
-    for i, nig in enumerate(nigs):
+    for nig, k, *row in zip(nigs, counts, mu, v, prec, a, b, n_obs):
         o = dict(nig)
-        if counts[i]:
-            o.update(mu=mu[i], v=v[i], prec=prec[i],
-                     a=a[i], b=b[i], n_obs=n_obs[i])
+        if k:
+            o.update(zip(("mu", "v", "prec", "a", "b", "n_obs"), row))
         out.append(o)
     return out
 

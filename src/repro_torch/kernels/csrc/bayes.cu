@@ -18,47 +18,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kFitIters = 30;
 constexpr float kEps = 1e-9f;
-
-// ---------------------------------------------------------------------------
-// bayes_predict
-// ---------------------------------------------------------------------------
-// Replaces the TPU kernel repro/kernels/bayes_fit.py::bayes_predict
-// (_predict_kernel): the elementwise posterior predictive, mean and std per
-// query, over posterior leaves already gathered per query.
-//
-// Bound on the H100: memory.  Each query reads 96 bytes (x, mu[2],
-// sigma[4], beta, x_mu, x_sd, y_mu, y_sd as float64) and writes 16, for
-// about 20 float64 operations: far below the card's operations-per-byte
-// line.  Design: one thread per query, grid-stride, so neighbouring threads
-// read neighbouring elements of every leaf (coalesced).  sigma stays in its
-// (Q, 2, 2) layout: the kernel reads [0,0], [0,1] and [1,1] at stride 4
-// instead of the host repacking it into planes, which would cost a copy per
-// call.  The TPU kernel ran float32 (the TPU has no fast float64); here
-// every term is float64 and evaluated in the host reference's order
-// (core.bayes.predict_blr_np, in predictive.cuh, shared with fused_cost),
-// so the result is bitwise equal to it.
-__global__ void __launch_bounds__(kThreads)
-bayes_predict_kernel(const double* __restrict__ x,
-                     const double* __restrict__ mu,
-                     const double* __restrict__ sigma,
-                     const double* __restrict__ beta,
-                     const double* __restrict__ x_mu,
-                     const double* __restrict__ x_sd,
-                     const double* __restrict__ y_mu,
-                     const double* __restrict__ y_sd,
-                     double* __restrict__ mean,
-                     double* __restrict__ std,
-                     long long q) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < q;
-       i += stride) {
-    lotaru_predictive(x, mu, sigma, beta, x_mu, x_sd, y_mu, y_sd, i,
-                      &mean[i], &std[i]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bayes_fit
@@ -452,56 +413,184 @@ cudaError_t fit_shape(const void* x, const void* y, const void* m,
   return cudaSuccess;
 }
 
+// One thread: arm the block's mbarrier `bar` (count 1) for `bytes` bytes
+// and bulk-copy them from global `src` into shared `dst` (cp.async.bulk:
+// 16-byte aligned ends, a 16-byte multiple, completion on the mbarrier).
+// The caller's __syncthreads() after it makes the initialised barrier
+// visible to the lanes that wait on it.
+__device__ __forceinline__ void bulk_stage(void* dst, const void* src,
+                                           int bytes, uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bayes_predict
+// ---------------------------------------------------------------------------
+// Replaces the TPU kernel repro/kernels/bayes_fit.py::bayes_predict
+// (_predict_kernel): the elementwise posterior predictive, mean and std per
+// query, over posterior rows already gathered per query.
+//
+// What binds it on the H100 is the launch, not the bytes.  A query needs
+// 88 bytes and writes 16 for about 20 float64 operations, so the body is
+// memory-bound, and the per-leaf kernel before this one already streamed
+// at 96 % of the card's rate; but nearly every main-path launch carries
+// at most a few thousand queries, where the 5.6 us between two events
+// around a launch is most of the kernel's time, and a caller paid more
+// again around it: ten operands copied up one array at a time from
+// pageable memory and, on the resident plane, two index copies a plane to
+// scatter the results.  So the design works on what a launch costs the
+// caller:
+//   * One packed slab in, in column groups (kernels.bayes_fit.pack_predict):
+//     for q queries and p = q rounded up to even, x at slot 0, mu (q, 2) at
+//     p, sigma (q, 2, 2) at 3p, beta_prec, x_mu, x_sd, y_mu and y_sd at 7p
+//     to 11p, the destination index (int64) at 12p; every group starts on
+//     a 16-byte boundary.  The host fills each group with one contiguous
+//     copy, or the store's gather writes straight into it, in pinned
+//     memory, and the slab goes up in one asynchronous copy.  Rows of
+//     interleaved values would cost the host a second, strided pass over
+//     the bytes, which at 100,000 queries took longer than the ten copies
+//     it replaced.
+//   * A lane a query reads its values from the groups, each load coalesced
+//     across the warp (mu and sigma[0, 0:2] as 16-byte loads).
+//   * Results where the caller keeps them.  With no target table, mean and
+//     std interleaved, (Q, 2), one 16-byte store a lane and one copy down.
+//     With one, the slab carries after its groups a table of PredictTarget
+//     (first query, mean and std pointers, length) a resident plane, and a
+//     lane writes its mean and std at its destination index in its plane's
+//     rows (the plane found by a binary search over the first queries): the
+//     scatter is the kernel's store, and no index copy follows.  A
+//     destination outside the plane's rows is not written.
+// The terms are float64 in the host reference's order
+// (core.bayes.predict_blr_np, in predictive.cuh, shared with fused_cost),
+// with --fmad=false and IEEE sqrt, so the result is bitwise equal to it.
+constexpr int kPredictTile = 256;   // queries (lanes) a block
+constexpr int kQuerySlots = 13;     // float64 slots a query takes in a slab
+
+struct PredictTarget {
+  long long first;                  // the plane's first query in the slab
+  double* mean;                     // its resident rows
+  double* std;
+  long long n;                      // their length
+};
+static_assert(sizeof(PredictTarget) == 32, "the target table's row");
+
+__global__ void __launch_bounds__(kPredictTile)
+bayes_predict_kernel(const double* __restrict__ slab, long long q,
+                     long long p, const PredictTarget* __restrict__ targets,
+                     int n_targets, double* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * kPredictTile + threadIdx.x;
+  if (i >= q) return;
+  const double2 mu = reinterpret_cast<const double2*>(slab + p)[i];
+  const double* sig = slab + 3 * p + 4 * i;
+  const double2 s = *reinterpret_cast<const double2*>(sig);   // [0,0], [0,1]
+  double mean, std;
+  lotaru_predictive(slab[i], mu.x, mu.y, s.x, s.y, sig[3], slab[7 * p + i],
+                    slab[8 * p + i], slab[9 * p + i], slab[10 * p + i],
+                    slab[11 * p + i], &mean, &std);
+  if (n_targets == 0) {
+    reinterpret_cast<double2*>(out)[i] = make_double2(mean, std);
+    return;
+  }
+  int lo = 0, hi = n_targets - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (targets[mid].first <= i) lo = mid; else hi = mid - 1;
+  }
+  const PredictTarget& t = targets[lo];
+  const long long dst = reinterpret_cast<const long long*>(slab + 12 * p)[i];
+  if (dst >= 0 && dst < t.n) {
+    t.mean[dst] = mean;
+    t.std[dst] = std;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // nig_fold
 // ---------------------------------------------------------------------------
 // Replaces the TPU kernel repro/kernels/bayes_fit.py::nig_fold
-// (_nig_fold_kernel): the masked fold of K standardized observations into
-// T Normal-Inverse-Gamma states (mu, V, prec, b), one Sherman-Morrison
+// (_nig_fold_kernel): the masked fold of standardized observations into T
+// Normal-Inverse-Gamma states (mu, V, prec, b), one Sherman-Morrison
 // rank-1 update per observation with the 2x2 algebra unrolled.
 //
-// Bound on the H100: memory.  Each task reads its count (4 bytes), 16
-// bytes (x, y as float64) per observation it holds and its 88-byte state,
-// and writes the 88-byte state back; a step is about 60 float64
-// operations, three of them divides, far below the card's
-// operations-per-byte line.  Design: one thread per task, grid-stride,
-// with a runtime loop over the task's own count, so any K runs without the
-// TPU form's column buckets and no padded cell is read.  The rows are
-// prefix-masked, so a per-row count (clamped to [0, K]) replaces the TPU
-// form's (T, K) mask.  The state lives in registers for the whole fold;
-// the row's x and y are read at stride K (adjacent threads share cache
-// lines across the loop, so each byte comes from device memory once).  The TPU kernel ran float32; here every term is
-// float64 in the order of core.bayes._nig_step, with no contraction, so
-// the fold is bitwise the host's float64 fold and the scalar nig_update
-// chain:
+// What binds it on the H100 is the launch, not the bytes: the fleet fold
+// (65,536 tasks, ~295,000 observations) moves about 15 MB, 4.5 us at the
+// card's rate, beside the 5.6 us a launch costs; the write path's usual
+// launch is a small observe_many group, all floor.  The kernel before
+// this one read (T, K) padded observations at a stride of K x 8 bytes and
+// its state at strides of 16 and 32 bytes, about 1.9x the bytes it needs,
+// and a caller paid seven copies up and four down around it.  So:
+//   * One ragged slab in (core.bayes.fold_pack).  Its head holds the T + 1
+//     row offsets (int64, in float64 slots from the slab's start, padded
+//     to an even count); row i holds a 10-slot header (its count, mu[0],
+//     mu[1], V at [0,0], [0,1], [1,1], prec at the same three, b), then its
+//     count standardized (x, y) pairs, with no padding column.  A row is
+//     an even number of slots, so every row starts on a 16-byte boundary.
+//   * A block takes a tile of kFoldTile rows and stages the first
+//     kFoldStage slots of their byte range with one bulk copy
+//     (cp.async.bulk on an mbarrier) while its lanes read their row
+//     bounds.  A lane whose row lies wholly inside the staged part folds
+//     it from shared memory; a row that ends past it (a tile whose rows
+//     are longer than the block's budget) is walked from global memory by
+//     its lane.  At the fleet's rows (at most 26 slots) a tile's range is
+//     at most 3,328 slots and is staged whole.
+//   * One lane a row, the state in registers for the whole fold, then one
+//     state slab out, (T, 9): mu (2), V and prec at [0,0], [0,1], [1,1],
+//     and b, put in shared memory and written by the block in coalesced
+//     stores, copied down once.
+// Every term is float64 in the order of core.bayes._nig_step, with no
+// contraction, so the fold is bitwise the host's float64 fold and the
+// scalar nig_update chain:
 //   * denom = 1 + (vp1 + x * vp2); vp1 * vp1 / denom is (vp1 * vp1) /
 //     denom; the parenthesization of r1, r2, qo and qn is the host's;
 //   * b is floored as numpy.maximum(nb, 1e-12), which lets a NaN through
 //     (fmax would drop it);
-//   * V and prec are read at [0, 0], [0, 1] and [1, 1] and written back
-//     symmetric;
-//   * a column past the task's count leaves the state as it is (the
-//     host's where).
-__global__ void __launch_bounds__(kThreads)
-nig_fold_kernel(const double* __restrict__ xs, const double* __restrict__ ys,
-                const int* __restrict__ counts, long long t_total, int k_cols,
-                const double* __restrict__ mu, const double* __restrict__ v,
-                const double* __restrict__ prec,
-                const double* __restrict__ b,
-                double* __restrict__ mu_out, double* __restrict__ v_out,
-                double* __restrict__ prec_out, double* __restrict__ b_out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < t_total; i += stride) {
-    double mu1 = mu[2 * i], mu2 = mu[2 * i + 1];
-    double v11 = v[4 * i], v12 = v[4 * i + 1], v22 = v[4 * i + 3];
-    double p11 = prec[4 * i], p12 = prec[4 * i + 1], p22 = prec[4 * i + 3];
-    double bb = b[i];
-    const long long row = i * k_cols;
-    const int n = min(counts[i], k_cols);
+//   * a row with no observation leaves its state as it is.
+constexpr int kFoldTile = 128;      // rows (lanes) a block
+constexpr int kFoldHead = 10;       // header slots a row
+constexpr int kFoldState = 9;       // state slots a row out
+constexpr int kFoldStage = 4608;    // slab slots staged a block (36 KB)
+
+__global__ void __launch_bounds__(kFoldTile)
+nig_fold_kernel(const double* __restrict__ slab, long long t_total,
+                double* __restrict__ out) {
+  __shared__ __align__(16) double stage[kFoldStage];
+  __shared__ __align__(16) double state[kFoldTile * kFoldState];
+  __shared__ __align__(8) unsigned long long bar_word;
+  const long long* off = reinterpret_cast<const long long*>(slab);
+  const long long row0 = (long long)blockIdx.x * kFoldTile;
+  const int rows = (int)min((long long)kFoldTile, t_total - row0);
+  const long long s0 = off[row0];
+  const long long staged = min(off[row0 + rows] - s0, (long long)kFoldStage);
+  const uint32_t bar = smem_u32(&bar_word);
+  if (threadIdx.x == 0)
+    bulk_stage(stage, slab + s0, (int)staged * (int)sizeof(double), bar);
+  const bool live = (int)threadIdx.x < rows;
+  long long a = 0, e = 0;
+  if (live) {
+    a = off[row0 + threadIdx.x];
+    e = off[row0 + threadIdx.x + 1];
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  if (live) {
+    const double* r = (e - s0 <= staged) ? stage + (a - s0) : slab + a;
+    const int n = (int)min((long long)r[0], (e - a - kFoldHead) / 2);
+    double mu1 = r[1], mu2 = r[2];
+    double v11 = r[3], v12 = r[4], v22 = r[5];
+    double p11 = r[6], p12 = r[7], p22 = r[8];
+    double bb = r[9];
     for (int k = 0; k < n; ++k) {
-      const double x = xs[row + k];
-      const double y = ys[row + k];
+      const double x = r[kFoldHead + 2 * k];
+      const double y = r[kFoldHead + 2 * k + 1];
       const double vp1 = v11 + v12 * x;
       const double vp2 = v12 + v22 * x;
       const double denom = 1.0 + (vp1 + x * vp2);
@@ -530,19 +619,31 @@ nig_fold_kernel(const double* __restrict__ xs, const double* __restrict__ ys,
       p22 = np22;
       bb = (nb < 1e-12) ? 1e-12 : nb;
     }
-    mu_out[2 * i] = mu1;
-    mu_out[2 * i + 1] = mu2;
-    v_out[4 * i] = v11;
-    v_out[4 * i + 1] = v12;
-    v_out[4 * i + 2] = v12;
-    v_out[4 * i + 3] = v22;
-    prec_out[4 * i] = p11;
-    prec_out[4 * i + 1] = p12;
-    prec_out[4 * i + 2] = p12;
-    prec_out[4 * i + 3] = p22;
-    b_out[i] = bb;
+    double* s = state + threadIdx.x * kFoldState;
+    s[0] = mu1;
+    s[1] = mu2;
+    s[2] = v11;
+    s[3] = v12;
+    s[4] = v22;
+    s[5] = p11;
+    s[6] = p12;
+    s[7] = p22;
+    s[8] = bb;
   }
+  __syncthreads();
+  double* o = out + row0 * kFoldState;
+  for (int j = threadIdx.x; j < rows * kFoldState; j += kFoldTile)
+    o[j] = state[j];
 }
+
+// ---------------------------------------------------------------------------
+// the launch floor probe
+// ---------------------------------------------------------------------------
+// Replaces no TPU kernel.  An empty kernel, timed as the others are, says
+// how much of the ~5.6 us between two events around a short launch is the
+// launch itself and how much the kernels' own latency (a load, a barrier,
+// a store).  It is not on any path and counts no launches.
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -552,22 +653,24 @@ const char* lotaru_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int lotaru_bayes_predict(const double* x, const double* mu,
-                         const double* sigma, const double* beta,
-                         const double* x_mu, const double* x_sd,
-                         const double* y_mu, const double* y_sd,
-                         double* mean, double* std, long long q,
-                         void* stream) {
+// The predictive over the packed slab (kernels.bayes_fit.pack_predict): q
+// queries in column groups of p = q rounded up to even slots, the slab
+// 16-byte aligned; with n_targets > 0 the slab holds after its groups (at
+// slot kQuerySlots * p) that many PredictTarget rows (first queries
+// ascending from 0) and the results are scattered into them, out is not
+// read; else out is (q, 2), mean and std interleaved.
+int lotaru_bayes_predict(const double* slab, long long q, int n_targets,
+                         double* out, void* stream) {
   if (q <= 0) return 0;
-  int device = 0;
-  cudaGetDevice(&device);
-  const int sms = sm_count(device);
-  long long blocks = (q + kThreads - 1) / kThreads;
-  const long long cap = 16LL * sms;  // enough resident warps to hide latency
-  if (blocks > cap) blocks = cap;
-  bayes_predict_kernel<<<(unsigned)blocks, kThreads, 0,
+  const long long p = q + (q & 1);
+  const long long blocks = (q + kPredictTile - 1) / kPredictTile;
+  const PredictTarget* targets =
+      n_targets > 0
+          ? reinterpret_cast<const PredictTarget*>(slab + kQuerySlots * p)
+          : nullptr;
+  bayes_predict_kernel<<<(unsigned)blocks, kPredictTile, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      x, mu, sigma, beta, x_mu, x_sd, y_mu, y_sd, mean, std, q);
+      slab, q, p, targets, n_targets, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,22 +708,26 @@ int lotaru_bayes_fit_config(const float* x, const float* y, const float* m,
   return 0;
 }
 
-int lotaru_nig_fold(const double* xs, const double* ys, const int* counts,
-                    long long t_total, int k_cols, const double* mu,
-                    const double* v, const double* prec, const double* b,
-                    double* mu_out, double* v_out, double* prec_out,
-                    double* b_out, void* stream) {
+// The fold of the ragged slab (core.bayes.fold_pack) of t_total rows,
+// 16-byte aligned, into out, (t_total, 9) float64.
+int lotaru_nig_fold(const double* slab, long long t_total, double* out,
+                    void* stream) {
   if (t_total <= 0) return 0;
-  int device = 0;
-  cudaGetDevice(&device);
-  const int sms = sm_count(device);
-  long long blocks = (t_total + kThreads - 1) / kThreads;
-  const long long cap = 16LL * sms;
-  if (blocks > cap) blocks = cap;
-  nig_fold_kernel<<<(unsigned)blocks, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      xs, ys, counts, t_total, k_cols, mu, v, prec, b, mu_out, v_out, prec_out,
-      b_out);
+  const long long blocks = (t_total + kFoldTile - 1) / kFoldTile;
+  nig_fold_kernel<<<(unsigned)blocks, kFoldTile, 0,
+                    static_cast<cudaStream_t>(stream)>>>(slab, t_total, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fold's tile: rows a block and float64 slots it stages.
+void lotaru_nig_fold_shape(int* tile_rows, int* stage_slots) {
+  *tile_rows = kFoldTile;
+  *stage_slots = kFoldStage;
+}
+
+// The launch floor probe: one empty launch of blocks x threads.
+int lotaru_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

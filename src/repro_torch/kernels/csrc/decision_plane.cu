@@ -54,9 +54,11 @@ fused_cost_kernel(const double* __restrict__ x,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        c < cells; c += stride) {
+    const long long i = c / n;
     double mean, std;
-    lotaru_predictive(x, mu, sigma, beta, x_mu, x_sd, y_mu, y_sd, c / n,
-                      &mean, &std);
+    lotaru_predictive(x[i], mu[2 * i], mu[2 * i + 1], sigma[4 * i],
+                      sigma[4 * i + 1], sigma[4 * i + 3], beta[i], x_mu[i],
+                      x_sd[i], y_mu[i], y_sd[i], &mean, &std);
     const double fc = f[c];
     const double m = (mean < 1e-3) ? 1e-3 : mean;
     double wc = m * fc;

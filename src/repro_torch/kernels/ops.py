@@ -30,30 +30,27 @@ def bayes_fit(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> dict:
     return ref.bayes_fit_ref(x, y, mask)
 
 
-def nig_fold(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
-             mu: torch.Tensor, v: torch.Tensor, prec: torch.Tensor,
-             b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor, torch.Tensor]:
-    """Float64 fold of (T, K) standardized observations, the first
-    counts[i] of row i, into T NIG states (mu, v, prec, b) -> the folded
-    four, bitwise equal to the scalar `nig_update` chain.  Any K: nothing
-    is padded (the TPU form bucketed columns because its kernel unrolled
-    K)."""
-    args = (xs, ys, counts, mu, v, prec, b)
-    if _route(xs) == "cuda":
-        return _kernels.nig_fold(*args)
-    return ref.nig_fold_ref(*args)
+def nig_fold(slab: torch.Tensor, t: int) -> torch.Tensor:
+    """Float64 fold of the T-row ragged slab (`core.bayes.fold_pack`: each
+    row its state and its standardized observations) -> the (T, 9) folded
+    states, bitwise equal to the scalar `nig_update` chain.  Any row
+    lengths: nothing is padded (the TPU form bucketed columns because its
+    kernel unrolled K)."""
+    if _route(slab) == "cuda":
+        return _kernels.nig_fold(slab, t)
+    return ref.nig_fold_ref(slab, t)
 
 
-def bayes_predict(x: torch.Tensor, post: dict
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched float64 posterior predictive: x (Q,), post leaves gathered
-    per query (Q, ...) -> (mean, std) each (Q,).  Any Q: nothing is padded
-    (the TPU form padded to a tile multiple to avoid recompiles, which
-    eager launches never pay)."""
-    if _route(x) == "cuda":
-        return _kernels.bayes_predict(x, post)
-    return ref.bayes_predict_ref(x, post)
+def bayes_predict(batch) -> Optional[torch.Tensor]:
+    """Batched float64 posterior predictive over the packed queries of
+    `batch` (`kernels.bayes_fit.pack_predict`) -> (Q, 2) mean and std
+    interleaved, or, when the batch has targets, each query's pair written
+    at its destination index in its target's resident rows (None
+    returned).  Any Q: nothing is padded (the TPU form padded to a tile
+    multiple to avoid recompiles, which eager launches never pay)."""
+    if _route(_kernels.slab_of(batch)) == "cuda":
+        return _kernels.bayes_predict(batch)
+    return ref.bayes_predict_ref(batch)
 
 
 def fused_cost(x: torch.Tensor, post: dict, factors: torch.Tensor,

@@ -10,7 +10,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.bayes import _nig_step, fit_blr_batch
+from repro_torch.core.bayes import (FOLD_HEAD, _nig_step, fit_blr_batch,
+                                    fold_head)
+from repro_torch.kernels.bayes_fit import (check_batch, check_slab,
+                                           slab_columns, slab_table)
 
 
 def bayes_fit_ref(x: torch.Tensor, y: torch.Tensor,
@@ -24,20 +27,45 @@ def bayes_fit_ref(x: torch.Tensor, y: torch.Tensor,
     return fit_blr_batch(x, y, mask)
 
 
-def bayes_predict_ref(x: torch.Tensor, post: dict
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference batched posterior predictive in float64, term for term the
-    expressions of core.bayes.predict_blr_np (so it is bitwise equal to it).
-    x: (Q,), post leaves gathered per query (Q, ...)."""
-    mu, sig = post["mu"], post["sigma"]
-    xs = (x - post["x_mu"]) / post["x_sd"]
-    mean_s = mu[:, 0] + mu[:, 1] * xs
-    var_s = 1.0 / post["beta_prec"] + sig[:, 0, 0] \
-        + 2.0 * sig[:, 0, 1] * xs + sig[:, 1, 1] * xs * xs
-    mean = mean_s * post["y_sd"] + post["y_mu"]
+def _predictive(x, mu0, mu1, s00, s01, s11, beta, x_mu, x_sd, y_mu, y_sd
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float64 predictive of rows given as eleven (Q,) columns, term
+    for term the expressions of core.bayes.predict_blr_np (so it is
+    bitwise equal to it)."""
+    xs = (x - x_mu) / x_sd
+    mean_s = mu0 + mu1 * xs
+    var_s = 1.0 / beta + s00 + 2.0 * s01 * xs + s11 * xs * xs
+    mean = mean_s * y_sd + y_mu
     # numpy.maximum(var_s, 0.0): NaN propagates, -0.0 becomes +0.0
     var_s = torch.where(var_s <= 0.0, 0.0, var_s)
-    return mean, _sqrt_rn(var_s) * post["y_sd"]
+    return mean, _sqrt_rn(var_s) * y_sd
+
+
+def bayes_predict_ref(batch) -> Optional[torch.Tensor]:
+    """Reference batched posterior predictive in float64 over the packed
+    queries of `batch` (`kernels.bayes_fit.pack_predict`), with the
+    argument and results of `kernels.bayes_fit.bayes_predict`: (Q, 2) mean
+    and std interleaved, or, with targets, each query's pair written at
+    its destination index in its target (the one whose first query, in the
+    slab's table, it reaches last; an index outside the target's rows is
+    not written) and None returned."""
+    c = slab_columns(check_batch(batch), batch.q)
+    mu, sig = c["mu"], c["sigma"]
+    mean, std = _predictive(c["x"], mu[:, 0], mu[:, 1], sig[:, 0, 0],
+                            sig[:, 0, 1], sig[:, 1, 1], c["beta_prec"],
+                            c["x_mu"], c["x_sd"], c["y_mu"], c["y_sd"])
+    if not batch.targets:
+        return torch.stack([mean, std], dim=1)
+    table = slab_table(batch)
+    dest = c["dest"]
+    owner = torch.searchsorted(table[:, 0].contiguous(),
+                               torch.arange(batch.q, device=dest.device),
+                               right=True) - 1
+    for k, t in enumerate(batch.targets):
+        sel = (owner == k) & (dest >= 0) & (dest < table[k, 3])
+        t.mean[dest[sel]] = mean[sel]
+        t.std[dest[sel]] = std[sel]
+    return None
 
 
 def _sqrt_rn(v: torch.Tensor) -> torch.Tensor:
@@ -58,7 +86,11 @@ def fused_cost_ref(x: torch.Tensor, post: dict, factors: torch.Tensor,
     max(mean, 1e-3) * f, then + z * (std * f) when z is neither None nor
     0.  Term for term `predict_blr_np`, then `store.compute.scale`, then
     `store.compute.cost_matrix`, so it is bitwise equal to them."""
-    mean, std = bayes_predict_ref(x, post)
+    mu, sig = post["mu"], post["sigma"]
+    mean, std = _predictive(x, mu[:, 0], mu[:, 1], sig[:, 0, 0],
+                            sig[:, 0, 1], sig[:, 1, 1], post["beta_prec"],
+                            post["x_mu"], post["x_sd"], post["y_mu"],
+                            post["y_sd"])
     # numpy.maximum(mean, 1e-3): NaN propagates, -0.0 becomes 1e-3
     mean = torch.where(mean < 1e-3, 1e-3, mean)
     w = mean[:, None] * factors
@@ -67,25 +99,28 @@ def fused_cost_ref(x: torch.Tensor, post: dict, factors: torch.Tensor,
     return w
 
 
-def nig_fold_ref(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
-                 mu: torch.Tensor, v: torch.Tensor, prec: torch.Tensor,
-                 b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                           torch.Tensor, torch.Tensor]:
-    """Fold of K standardized observations into T NIG states, term for
-    term `core.bayes._nig_fold_np` (the same `_nig_step` expressions, each
-    one IEEE add, multiply or divide per element), so it is bitwise equal
-    to it and to the scalar `nig_update` chain.  xs, ys (T, K), of which
-    row i holds its first counts[i] columns (column k's mask is
-    counts > k); mu (T, 2); v, prec (T, 2, 2), read at [0, 0], [0, 1] and
-    [1, 1]; b (T,).  Returns (mu, v, prec, b) with v and prec written back
-    symmetric; a and n_obs stay with the caller."""
-    mu1, mu2 = mu[:, 0], mu[:, 1]
-    v11, v12, v22 = v[:, 0, 0], v[:, 0, 1], v[:, 1, 1]
-    p11, p12, p22 = prec[:, 0, 0], prec[:, 0, 1], prec[:, 1, 1]
-    for k in range(xs.shape[1]):
+def nig_fold_ref(slab: torch.Tensor, t: int) -> torch.Tensor:
+    """Fold of the T-row ragged slab (`core.bayes.fold_pack`) into the
+    (T, FOLD_STATE) folded states, with the arguments and results of
+    `kernels.bayes_fit.nig_fold`: term for term `core.bayes._nig_fold_np`
+    (the same `_nig_step` expressions, each one IEEE add, multiply or
+    divide per element), so it is bitwise equal to it and to the scalar
+    `nig_update` chain.  Column k folds every row that holds more than k
+    observations; V and prec come back as [0, 0], [0, 1], [1, 1]."""
+    check_slab(slab, fold_head(t) + FOLD_HEAD * t, slab.device)
+    off = slab[:t + 1].view(torch.int64)
+    start = off[:-1]
+    hdr = slab[start[:, None] + torch.arange(FOLD_HEAD, device=slab.device)]
+    counts = torch.minimum(hdr[:, 0].long(),
+                           (off[1:] - start - FOLD_HEAD) // 2)
+    mu1, mu2, v11, v12, v22, p11, p12, p22, b = hdr[:, 1:].unbind(1)
+    for k in range(int(counts.max()) if t else 0):
         mk = counts > k
+        at = torch.where(mk, start + FOLD_HEAD + 2 * k, start)
+        xk = torch.where(mk, slab[at], 0.0)
+        yk = torch.where(mk, slab[at + 1], 0.0)
         (nmu1, nmu2, nv11, nv12, nv22, np11, np12, np22, nb) = _nig_step(
-            mu1, mu2, v11, v12, v22, p11, p12, p22, b, xs[:, k], ys[:, k])
+            mu1, mu2, v11, v12, v22, p11, p12, p22, b, xk, yk)
         # numpy.maximum(nb, 1e-12): NaN propagates
         nb = torch.where(nb < 1e-12, 1e-12, nb)
         mu1 = torch.where(mk, nmu1, mu1)
@@ -97,11 +132,7 @@ def nig_fold_ref(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
         p12 = torch.where(mk, np12, p12)
         p22 = torch.where(mk, np22, p22)
         b = torch.where(mk, nb, b)
-    t = mu.shape[0]
-    return (torch.stack([mu1, mu2], dim=1),
-            torch.stack([v11, v12, v12, v22], dim=1).reshape(t, 2, 2),
-            torch.stack([p11, p12, p12, p22], dim=1).reshape(t, 2, 2),
-            b.clone())
+    return torch.stack([mu1, mu2, v11, v12, v22, p11, p12, p22, b], dim=1)
 
 
 def eft_sweep_ref(W: torch.Tensor, order_arr: torch.Tensor,

@@ -84,9 +84,10 @@ class PredictionService:
             return np.zeros((0, 3), np.float32)
         self._binding.sync()
         snap = self.store.snapshot()
-        post = snap.gather([self._binding.key_str(q.task) for q in queries])
+        keys = [self._binding.key_str(q.task) for q in queries]
         x = np.asarray([q.input_gb for q in queries])
-        mean, std = predict_stacked(x, post, device=self.device)
+        mean, std = predict_stacked(x, lambda out: snap.gather(keys, out),
+                                    device=self.device)
         return finalize(mean, std, self._binding.factors(queries), self.z)
 
     def predict_matrix(self, tasks: Sequence[Tuple[str, float]],
@@ -107,9 +108,10 @@ class PredictionService:
                     np.zeros((len(tasks), len(nodes))))
         self._binding.sync()
         snap = self.store.snapshot()
-        post = snap.gather([self._binding.key_str(t) for t, _ in tasks])
+        keys = [self._binding.key_str(t) for t, _ in tasks]
         x = np.asarray([gb for _, gb in tasks])
-        mean, std = predict_stacked(x, post, device=self.device)
+        mean, std = predict_stacked(x, lambda out: snap.gather(keys, out),
+                                    device=self.device)
         f = self._binding.factor_matrix([t for t, _ in tasks], list(nodes))
         return scale(mean[:, None], std[:, None], f)
 

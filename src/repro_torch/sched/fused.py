@@ -28,10 +28,11 @@ decision plane, one workflow or a megabatch of them.
     service's device across rounds: the raw (factor-free) predictive rows,
     the static factor matrix, the scaled matrix and each quantile's W.  A
     round asks the store which blocks moved since the last one
-    (`StoreSnapshot.rows_changed_since`) and re-predicts only those rows,
-    in ONE `bayes_predict` launch, scattering them in place; the
-    predictive is elementwise per row, so that is bitwise a full
-    re-gather.  Scaling and the cost view are float64 torch ops on the
+    (`StoreSnapshot.rows_changed_since`) and re-predicts only those rows:
+    gathered into one packed slab, copied up once, and through ONE
+    `bayes_predict` launch that writes each row in place; the predictive
+    is elementwise per row, so that is bitwise a full re-gather.  Scaling
+    and the cost view are float64 torch ops on the
     device in `compute.scale` / `compute.cost_matrix` order, so its
     matrices are bitwise `PredictionMatrix.from_service`.  A round in
     which the store, the factors and the corrections did not move gathers
@@ -40,7 +41,8 @@ decision plane, one workflow or a megabatch of them.
     engine) asks, and kept beside the device W under the same key.
 
   * `replan_many` replans B workflows (tenants) at once: the dirty rows
-    of every plane in ONE `bayes_predict` launch, then, for each group of
+    of every plane in ONE slab and ONE `bayes_predict` launch, which
+    writes each plane's rows where it keeps them, then, for each group of
     requests on one cluster, ONE `upward_rank` and ONE `eft_sweep_many`
     launch (a block a workflow).  Bitwise `plane.schedule(...)` per
     request.
@@ -67,6 +69,8 @@ import torch
 from repro_torch.core.microbench import NodeSpec
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.bayes_fit import (PredictBatch, PredictTarget,
+                                           pack_predict)
 from repro_torch.kernels.decision_plane import rank_table
 from repro_torch.sched.heft import Schedule, comm_structure
 from repro_torch.sched.plane import PredictionMatrix, quantile_z
@@ -75,7 +79,7 @@ from repro_torch.store.compute import LEAVES
 from repro_torch.workflow.dag import WorkflowDAG
 
 __all__ = ["FusedPlane", "PlaneStats", "ReplanRequest", "cost_view",
-           "fused_heft_schedule", "replan_many"]
+           "fused_heft_schedule", "replan_many", "sync_planes"]
 
 _NEG_INF = float("-inf")
 
@@ -593,6 +597,7 @@ class FusedPlane:
         self.stats = PlaneStats()
         self.rank_cache: dict = {}
         # resident state, on self.device
+        self._rows: Optional[PredictTarget] = None       # the two below
         self._mean_raw: Optional[torch.Tensor] = None   # (T,) factor-free
         self._std_raw: Optional[torch.Tensor] = None
         self._generation = -1          # store generation the rows reflect
@@ -631,42 +636,39 @@ class FusedPlane:
             idx = np.nonzero(dirty)[0]
         return snap, idx
 
-    def gather_rows(self, snap, idx: np.ndarray):
-        """The rows `idx` as the predictive reads them on the device:
-        (row index, inputs, posterior leaves), each gathered on the host
-        and copied once (`_gather_many` over this plane alone)."""
-        idx_t, x, post, _ = _gather_many([(self, snap, idx)], self.device)
-        return idx_t, x, post
-
-    def apply_rows(self, snap, idx, mean: Optional[torch.Tensor],
-                   std: Optional[torch.Tensor]) -> None:
-        """Scatter re-predicted rows in place (an index copy on the
-        device) and adopt the snapshot's generation.  The predictive is
-        elementwise per row, so the scattered values are bitwise what a
-        full re-gather would put there."""
+    def _resident_rows(self) -> PredictTarget:
+        """The resident raw rows, allocated on first use as the target the
+        predictive writes into."""
         if self._mean_raw is None:
-            self._mean_raw = torch.empty(len(self._keys), dtype=torch.float64,
-                                         device=self.device)
-            self._std_raw = torch.empty_like(self._mean_raw)
-        if len(idx):
-            idx_t = torch.as_tensor(idx, device=self.device)
-            self._mean_raw.index_copy_(0, idx_t, mean)
-            self._std_raw.index_copy_(0, idx_t, std)
-            self.stats.rows_refreshed += len(idx)
+            self._rows = PredictTarget(len(self._keys), self.device)
+            self._mean_raw, self._std_raw = self._rows.mean, self._rows.std
+        return self._rows
+
+    def gather_rows(self, snap, idx: np.ndarray) -> PredictBatch:
+        """The rows `idx` as the predictive reads them on the device, ready
+        for `ops.bayes_predict`: the rows packed on the host with their
+        destination in this plane's resident rows and copied once
+        (`_gather_many` over this plane alone)."""
+        return _gather_many([(self, snap, idx)], self.device)
+
+    def apply_rows(self, snap, idx) -> None:
+        """Adopt the snapshot's generation after the rows `idx` were
+        re-predicted into the resident rows (the predictive writes them in
+        place).  The predictive is elementwise per row, so those values
+        are bitwise what a full re-gather would put there."""
+        self._resident_rows()
+        self.stats.rows_refreshed += len(idx)
         self._generation = snap.generation
 
     def sync(self) -> int:
-        """One round's resident-row maintenance: the dirty rows gathered,
-        re-predicted in one `bayes_predict` launch and scattered in place.
-        Returns the number of rows refreshed."""
+        """One round's resident-row maintenance: the dirty rows gathered
+        and re-predicted in one `bayes_predict` launch that writes them
+        into the resident rows.  Returns the number of rows refreshed."""
         snap, idx = self.collect_dirty()
         if len(idx):
-            idx_t, x, post = self.gather_rows(snap, idx)
-            mean, std = ops.bayes_predict(x, post)
+            ops.bayes_predict(self.gather_rows(snap, idx))
             self.stats.predict_dispatches += 1
-            self.apply_rows(snap, idx_t, mean, std)
-        else:
-            self.apply_rows(snap, idx, None, None)
+        self.apply_rows(snap, idx)
         return len(idx)
 
     # ---- scaled matrix view ------------------------------------------------
@@ -769,20 +771,24 @@ class FusedPlane:
         return sched
 
 
-def _gather_many(items, dev: torch.device):
+def _gather_many(items, dev: torch.device) -> PredictBatch:
     """The dirty rows of several planes, [(plane, snapshot, row indices)],
-    as one predictive batch on `dev`: (row indices, inputs, posterior
-    leaves, each plane's count), rows concatenated in the order given.
-    Everything is gathered and joined on the host, then copied once an
-    array."""
+    as one predictive batch on `dev` for `ops.bayes_predict`, the rows in
+    the order given: each plane's rows gathered by its snapshot straight
+    into its stretch of the slab (`pack_predict`), each with its index in
+    its plane's resident rows; the slab crosses in one copy (pinned on a
+    card)."""
     idx = [np.asarray(i, np.int64) for _, _, i in items]
-    posts = [snap.gather([p._keys[i] for i in ii])
-             for (p, snap, _), ii in zip(items, idx)]
-    post = {leaf: np.concatenate([q[leaf] for q in posts]) for leaf in LEAVES}
-    x = np.concatenate([p._x[ii] for (p, _, _), ii in zip(items, idx)])
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return (to(np.concatenate(idx)), to(x),
-            {leaf: to(v) for leaf, v in post.items()}, [len(i) for i in idx])
+    firsts = np.cumsum([0] + [len(i) for i in idx])
+
+    def gather(out):
+        for (plane, snap, _), ii, a in zip(items, idx, firsts):
+            snap.gather([plane._keys[i] for i in ii],
+                        {k: v[a:a + len(ii)] for k, v in out.items()})
+    x = np.concatenate([plane._x[ii] for (plane, _, _), ii in zip(items, idx)])
+    return pack_predict(dev, x, gather, np.concatenate(idx),
+                        [(plane._resident_rows(), len(ii))
+                         for (plane, _, _), ii in zip(items, idx)])
 
 
 # ---------------------------------------------------------------------------
@@ -804,8 +810,8 @@ def replan_many(requests: Sequence[ReplanRequest],
     """Replan many tenants' workflows at once, on their planes' device
     (requests on different devices raise ValueError).
 
-    The dirty rows of every plane go through ONE `bayes_predict` launch
-    and are scattered back into each plane's resident rows; then the
+    The dirty rows of every plane go through ONE `bayes_predict` launch,
+    which writes them into each plane's resident rows; then the
     requests on one cluster (node names, `same`, `gbps_min`) are placed
     as a group: ONE `upward_rank` launch and ONE `eft_sweep_many` launch
     (a block a workflow), run again at twice the interval columns while
@@ -817,33 +823,36 @@ def replan_many(requests: Sequence[ReplanRequest],
     schedules are bitwise `plane.schedule(...)` per request: the
     predictive is elementwise, and each lane runs the single sweep's
     steps."""
-    devices = {req.plane.device for req in requests}
+    sync_planes([req.plane for req in requests])
+    return _schedule_requests(requests, fuse_sweeps)
+
+
+def sync_planes(planes: Sequence[FusedPlane]) -> int:
+    """`FusedPlane.sync` for many planes on one device (planes on
+    different devices raise ValueError) in ONE predictive launch: the
+    dirty rows of every plane gathered into one slab, copied up once, and
+    re-predicted into each plane's resident rows.  Returns the rows
+    refreshed."""
+    devices = {plane.device for plane in planes}
     if len(devices) > 1:
         raise ValueError(f"replan_many takes planes on one device, got "
                          f"{sorted(str(d) for d in devices)}")
     # every binding syncs BEFORE any snapshot is taken: planes sharing one
-    # store then collect against the same generation, so the scatter below
+    # store then collect against the same generation, so the launch below
     # leaves them all clean and the per-request rounds re-gather nothing
     # (block-granular dirtiness would otherwise let tenant B's sync,
     # landing after tenant A's snapshot, re-dirty a shared block)
-    for req in requests:
-        req.plane.binding.sync()
-    collected = [(req.plane,) + req.plane.collect_dirty()
-                 for req in requests]
+    for plane in planes:
+        plane.binding.sync()
+    collected = [(plane,) + plane.collect_dirty() for plane in planes]
     dirty = [c for c in collected if len(c[2])]
     if dirty:
-        idx_t, x, post, counts = _gather_many(dirty, dirty[0][0].device)
-        mean, std = ops.bayes_predict(x, post)
-        off = 0
-        for (plane, snap, _), n in zip(dirty, counts):
-            sl = slice(off, off + n)
-            plane.apply_rows(snap, idx_t[sl], mean[sl], std[sl])
+        ops.bayes_predict(_gather_many(dirty, dirty[0][0].device))
+        for plane, _, _ in dirty:
             plane.stats.predict_dispatches += 1
-            off += n
     for plane, snap, idx in collected:
-        if not len(idx):
-            plane.apply_rows(snap, idx, None, None)
-    return _schedule_requests(requests, fuse_sweeps)
+        plane.apply_rows(snap, idx)
+    return sum(len(idx) for _, _, idx in collected)
 
 
 def _schedule_requests(requests: Sequence[ReplanRequest],

@@ -18,6 +18,8 @@ import torch
 from repro_torch.core import bayes
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.bayes_fit import pack_predict
+from repro_torch.kernels.staging import staged
 
 # the posterior leaves the serving stack stores and gathers, with their
 # per-row shapes ('n' is fit metadata, not needed by the predictive)
@@ -26,19 +28,19 @@ LEAF_SHAPES = {"mu": (2,), "sigma": (2, 2), "beta_prec": (), "x_mu": (),
                "x_sd": (), "y_mu": (), "y_sd": ()}
 
 
-def predict_stacked(x: np.ndarray, post: dict, device=DEFAULT_DEVICE
+def predict_stacked(x: np.ndarray, post, device=DEFAULT_DEVICE
                     ) -> Tuple[np.ndarray, np.ndarray]:
-    """(Q,) inputs + per-query gathered leaves (Q, ...) -> (mean, std) in
-    float64 numpy.  On "cuda" the rows go to the card and through the
-    `bayes_predict` kernel; on "cpu" through its plain version.  Both are
-    bit-exact against the scalar `predict_blr_np` path."""
-    dev = resolve_device(device)
-    xt = torch.as_tensor(np.asarray(x, np.float64)).to(dev)
-    pt = {leaf: torch.as_tensor(np.ascontiguousarray(post[leaf],
-                                                     np.float64)).to(dev)
-          for leaf in LEAVES}
-    mean, std = ops.bayes_predict(xt, pt)
-    return mean.cpu().numpy(), std.cpu().numpy()
+    """(Q,) inputs + per-query posterior leaves (Q, ...) -> (mean, std) in
+    float64 numpy.  The queries are packed into one slab (`pack_predict`,
+    in pinned memory on a card; `post` is the leaves, or a callable that
+    writes them into the slab, as `lambda out: snapshot.gather(keys, out)`
+    does) and cross in one copy; on "cuda" they go through the
+    `bayes_predict` kernel, on "cpu" through its plain version, and mean
+    and std come back interleaved in one copy.  Both are bit-exact against
+    the scalar `predict_blr_np` path."""
+    batch = pack_predict(resolve_device(device), x, post)
+    out = ops.bayes_predict(batch).cpu().numpy()
+    return out[:, 0], out[:, 1]
 
 
 def fit_stacked(x: np.ndarray, y: np.ndarray, mask: np.ndarray,
@@ -76,21 +78,21 @@ def fold_stacked(nigs, xs, ys, device=DEFAULT_DEVICE):
 
 
 def fold_kernel(nigs, xs, ys, device=DEFAULT_DEVICE):
-    """The fold as the card runs it: the rows packed once
-    (`core.bayes.fold_pack`), one `ops.nig_fold` over per-row counts on
-    `device` (the kernel on "cuda", its plain version on "cpu"), a and
+    """The fold as the card runs it: the rows packed once into one ragged
+    slab (`core.bayes.fold_pack`, in pinned memory on a card) and copied up
+    once, one `ops.nig_fold` on `device` (the kernel on "cuda", its plain
+    version on "cpu"), the (T, 9) folded states copied down once, a and
     n_obs counted on the host, and rows with no observation passed through
     verbatim (`core.bayes.fold_unpack`).  Inputs are not mutated."""
     if bayes.check_rows(nigs, xs, ys) == 0:
         return [dict(n) for n in nigs]
     dev = resolve_device(device)
-    sx, sy, m, mu, v, prec, a, b, n_obs = bayes.fold_pack(nigs, xs, ys)
-    counts = np.count_nonzero(m, axis=1).astype(np.int32)
-    t = lambda arr: torch.from_numpy(arr).to(dev)
-    got = ops.nig_fold(t(sx), t(sy), t(counts), t(mu), t(v), t(prec), t(b))
-    mu, v, prec, b = (g.cpu().numpy() for g in got)
-    a, n_obs = bayes.fold_counts(a, n_obs, m)
-    return bayes.fold_unpack(nigs, m, mu, v, prec, a, b, n_obs)
+    with staged(dev) as st:
+        _, counts, a, n_obs = bayes.fold_pack(nigs, xs, ys, alloc=st.host)
+        slab = st.send()
+    state = ops.nig_fold(slab, len(nigs)).cpu().numpy()
+    a, n_obs = bayes.fold_counts(a, n_obs, counts)
+    return bayes.fold_unpack(nigs, counts, state, a, n_obs)
 
 
 def scale(mean, std, factors):

@@ -19,7 +19,9 @@ this package yet).
     changed rows in one generation.
 
 The gathered rows are what the predictive kernel reads: a gather is one
-contiguous float64 array per leaf, copied to the card in one transfer each.
+contiguous float64 array per leaf, packed into the kernel's rows
+(`kernels.bayes_fit.pack_predict`), which cross to the card in one
+transfer.
 
 `TenantBinding` is the per-namespace glue: it owns the sync cursor between
 a predictor's mutable state and the store rows (incremental via the
@@ -89,16 +91,20 @@ class StoreSnapshot:
             raise KeyError(str(key))
         return row
 
-    def gather(self, keys: Sequence) -> Dict[str, np.ndarray]:
-        """Stack the posterior leaves of `keys` -> {leaf: (Q, ...)}.
+    def gather(self, keys: Sequence,
+               out: Optional[Dict[str, np.ndarray]] = None
+               ) -> Dict[str, np.ndarray]:
+        """Stack the posterior leaves of `keys` -> {leaf: (Q, ...)},
+        written into `out`'s float64 arrays when given.
         Rows are resolved block-by-block: with one block this is a single
         fancy index per leaf; with a sharded stack each block is touched at
         most once."""
         rows = np.asarray([self.row_of(k) for k in keys], np.int64)
         bids, slots = np.divmod(rows, self._block_size)
-        out = {}
+        given, out = out, {}
         for leaf in LEAVES:
-            res = np.empty((len(rows),) + LEAF_SHAPES[leaf], np.float64)
+            res = (np.empty((len(rows),) + LEAF_SHAPES[leaf], np.float64)
+                   if given is None else given[leaf])
             for b in np.unique(bids):
                 m = bids == b
                 res[m] = self._blocks[b][leaf][slots[m]]

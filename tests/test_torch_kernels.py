@@ -61,9 +61,9 @@ def _buffers(t, seed, lo=3, hi=11):
     return xs, ys
 
 
-def _torch_post(post):
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in post.items()}
+def _batch(x, post):
+    """The predictive's packed rows of (x, post), on the CPU."""
+    return tkernels.pack_predict("cpu", x, post)
 
 
 # Q values off any tile multiple: the port pads nothing (the reference
@@ -71,7 +71,7 @@ def _torch_post(post):
 @pytest.mark.parametrize("q", [0, 1, 7, 1023, 1025, 4099])
 def test_bayes_predict_plain_bitwise_vs_predict_blr_np(q):
     x, post = _posteriors(q, seed=q)
-    mean, std = ops.bayes_predict(torch.from_numpy(x), _torch_post(post))
+    mean, std = ops.bayes_predict(_batch(x, post)).unbind(1)
     want_mean, want_std = jbayes.predict_blr_np(post, x)
     assert mean.shape == (q,) and std.shape == (q,)
     assert np.array_equal(mean.numpy(), want_mean)
@@ -81,7 +81,7 @@ def test_bayes_predict_plain_bitwise_vs_predict_blr_np(q):
 @pytest.mark.parametrize("q", [5, 1000, 2500])
 def test_bayes_predict_plain_vs_pallas_interpret(q):
     x, post = _posteriors(q, seed=100 + q)
-    mean, std = ops.bayes_predict(torch.from_numpy(x), _torch_post(post))
+    mean, std = ops.bayes_predict(_batch(x, post)).unbind(1)
     jm, js = jkernels.bayes_predict(
         jnp.asarray(x, jnp.float32),
         {k: jnp.asarray(v, jnp.float32) for k, v in post.items()},
@@ -173,7 +173,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     before any build or launch (the CPU goes through kernels.ops)."""
     x, post = _posteriors(4, seed=0)
     with pytest.raises(ValueError, match="CUDA"):
-        tkernels.bayes_predict(torch.from_numpy(x), _torch_post(post))
+        tkernels.bayes_predict(_batch(x, post))
     z = torch.zeros(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tkernels.bayes_fit(z, z, z)

@@ -203,11 +203,18 @@ def _packed(seed, t, kmax):
 
 
 def _with_counts(args):
-    """A (sx, sy, mask, ...) pack as the port's fold takes it: tensors,
-    with the prefix mask as int32 per-row counts."""
-    sx, sy, m, *state = args
-    counts = np.count_nonzero(m, axis=1).astype(np.int32)
-    return [torch.from_numpy(a) for a in (sx, sy, counts, *state)]
+    """A (sx, sy, mask, ...) pack as the port's fold takes it: one ragged
+    slab of T rows (`core.bayes.fold_pack` of states whose standardization
+    is the identity, so the standardized values go in as they are) and
+    T."""
+    sx, sy, m, mu, v, prec, b = args
+    counts = np.count_nonzero(m, axis=1)
+    nigs = [dict(mu=mu[i], v=v[i], prec=prec[i], b=b[i], a=0.0, n_obs=0.0,
+                 x_mu=0.0, x_sd=1.0, y_mu=0.0, y_sd=1.0)
+            for i in range(len(counts))]
+    slab, *_ = tbayes.fold_pack(nigs, [r[:k] for r, k in zip(sx, counts)],
+                                [r[:k] for r, k in zip(sy, counts)])
+    return torch.from_numpy(slab), len(counts)
 
 
 @pytest.mark.parametrize("jax_form", ["interpret", "scan"])
@@ -218,7 +225,7 @@ def test_nig_fold_ref_within_jax_kernel_tolerance(seed, jax_form):
         want = jkernels.nig_fold(*args, interpret=True)
     else:
         want = jkernels.nig_fold_scan(*args)
-    got = ref.nig_fold_ref(*_with_counts(args))
+    got = tbayes.fold_leaves(ref.nig_fold_ref(*_with_counts(args)))
     for name, g, w in zip(("mu", "v", "prec", "b"), got, want):
         w = np.asarray(w, np.float64)
         assert g.shape == w.shape, name
@@ -229,14 +236,14 @@ def test_nig_fold_ref_within_jax_kernel_tolerance(seed, jax_form):
 def test_nig_fold_ref_equals_numpy_fold_and_routes_by_device():
     args = _packed(5, 80, 8)
     t = _with_counts(args)
-    got = ops.nig_fold(*t)
+    state = ops.nig_fold(*t)
+    got = tbayes.fold_leaves(state)
     a = np.zeros(80)
     want = jbayes._nig_fold_np(args[3], args[4], args[5], a, args[6], a,
                                args[0], args[1], args[2])
     for g, w in zip(got, (want[0], want[1], want[2], want[4])):
         assert np.array_equal(g.numpy(), w)
-    for g, a_ in zip(got, t[3:]):
-        assert g.data_ptr() != a_.data_ptr()      # nothing aliases an input
+    assert state.data_ptr() != t[0].data_ptr()   # nothing aliases an input
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernels.nig_fold(*t)                    # the wrapper takes no CPU
 
@@ -255,7 +262,8 @@ def test_kernel_form_hands_the_kernel_contiguous_operands(monkeypatch):
     seen = []
 
     def checked(*args):
-        seen.append([a.is_contiguous() for a in args])
+        seen.append([a.is_contiguous() for a in args
+                     if isinstance(a, torch.Tensor)])
         return ref.nig_fold_ref(*args)
     monkeypatch.setattr(ops, "nig_fold", checked)
     got = fold_kernel(nigs, xs, ys, device="cpu")

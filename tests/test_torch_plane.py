@@ -17,6 +17,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.microbench import simulate_microbench as jbench
 from repro.core.predictor import LotaruPredictor as JLotaru
@@ -37,6 +38,7 @@ from repro_torch import convert
 from repro_torch.core.microbench import NodeSpec as TNode
 from repro_torch.core.microbench import simulate_microbench as tbench
 from repro_torch.kernels import ops
+from repro_torch.kernels.bayes_fit import slab_table
 from repro_torch.online import OnlinePredictor as TOnline
 from repro_torch.online import PredictionService as TService
 from repro_torch.online.events import TaskCompletion as TComp
@@ -289,6 +291,45 @@ def test_dirty_row_update_matches_full_regather():
     assert tplane.stats.full_gathers == 1
     refreshed_after_first = tplane.stats.rows_refreshed - n_rows
     assert 0 < refreshed_after_first < 2 * n_rows
+
+
+def test_dirty_rounds_write_rows_in_the_predictive_not_an_index_copy(
+        monkeypatch):
+    """A dirty round is one predictive call that writes the rows into the
+    plane's resident rows (its one target) and returns nothing: no index
+    copy follows.  Matrices, schedules and PlaneStats stay the
+    reference plane's."""
+    (jdag, jnodes, jsvc), (tdag, tnodes, tsvc) = _build(36, 4, 7,
+                                                        block_size=1)
+    jplane = JPlane(jsvc, jnodes, dag=jdag)
+    tplane = TPlane(tsvc, tnodes, dag=tdag)
+
+    def refuse(*a, **k):
+        raise AssertionError("an index copy on the plane's path")
+    monkeypatch.setattr(torch.Tensor, "index_copy_", refuse)
+    calls = []
+    real = ops.bayes_predict
+
+    def predict(batch):
+        calls.append(batch)
+        out = real(batch)
+        assert out is None
+        return out
+    monkeypatch.setattr(ops, "bayes_predict", predict)
+    rng = np.random.default_rng(0)
+    for step in range(3):
+        _observe_both(jsvc, tsvc, (step, 4), rng)
+        _same_matrix(tplane.matrix(), jplane.matrix())
+        _same_schedule(tplane.schedule(tdag, quantile=0.95),
+                       jplane.schedule(jdag, quantile=0.95))
+    assert len(calls) == tplane.stats.predict_dispatches == 3
+    assert sum(b.q for b in calls) == tplane.stats.rows_refreshed
+    for batch in calls:
+        assert len(batch.targets) == 1 and slab_table(batch)[0, 0] == 0
+        assert batch.targets[0].mean is tplane._mean_raw
+        assert batch.targets[0].std is tplane._std_raw
+    assert dataclasses.asdict(tplane.stats) == \
+        dataclasses.asdict(jplane.stats)
 
 
 def test_plane_matrix_cached_until_store_moves():

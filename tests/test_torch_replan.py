@@ -46,6 +46,7 @@ from repro_torch.core.microbench import NodeSpec as TNode
 from repro_torch.core.microbench import simulate_microbench as tbench
 from repro_torch.kernels import decision_plane as tdp
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bayes_fit import slab_table
 from repro_torch.online import OnlinePredictor as TOnline
 from repro_torch.online import PredictionService as TService
 from repro_torch.online.events import TaskCompletion as TComp
@@ -386,7 +387,7 @@ def test_replan_many_dispatches_once_per_round_and_group(monkeypatch):
     assert n == {"bayes_predict": 1, "upward_rank": 2, "eft_sweep_many": 2,
                  "eft_sweep": 0}
     assert sorted(len(a[0]) for a in calls["eft_sweep_many"]) == [2, 2]
-    assert calls["bayes_predict"][0][0].shape[0] == sum(
+    assert calls["bayes_predict"][0][0].q == sum(
         len(p.uids) for p in planes)
     warm, n = round_()
     assert n == {"bayes_predict": 0, "upward_rank": 2, "eft_sweep_many": 2,
@@ -399,6 +400,49 @@ def test_replan_many_dispatches_once_per_round_and_group(monkeypatch):
     for p in planes:
         assert p.stats.predict_dispatches == 2
         assert p.stats.sweep_dispatches == 3
+
+
+def test_replan_many_writes_every_plane_in_one_predictive(monkeypatch):
+    """A round with dirty rows is one predictive call whose targets are
+    the dirty planes' resident rows, in request order, each at the first
+    of its rows in the slab; no index copy follows, and the schedules stay
+    the reference's."""
+    jsvc, tsvc, reqs = _fleet(19)
+    jplanes = [jfused.FusedPlane(jsvc, n, dag=d) for (d, n), _ in reqs]
+    tplanes = [tfused.FusedPlane(tsvc, n, dag=d) for _, (d, n) in reqs]
+
+    def refuse(*a, **k):
+        raise AssertionError("an index copy on the replan path")
+    monkeypatch.setattr(torch.Tensor, "index_copy_", refuse)
+    calls = []
+    real = ops.bayes_predict
+
+    def predict(batch):
+        calls.append(batch)
+        return real(batch)
+    monkeypatch.setattr(ops, "bayes_predict", predict)
+    rng = np.random.default_rng(8)
+    for rnd in range(3):
+        if rnd:
+            _observe(jsvc, tsvc, rng, ["local"], rnd)
+        calls.clear()
+        jgot = jfused.replan_many(
+            [jfused.ReplanRequest(p, d, quantile=0.95)
+             for p, ((d, _), _) in zip(jplanes, reqs)], fuse_sweeps=False)
+        tgot = tfused.replan_many(
+            [tfused.ReplanRequest(p, d, quantile=0.95)
+             for p, (_, (d, _)) in zip(tplanes, reqs)])
+        for a, b in zip(tgot, jgot):
+            _same_schedule(a, b)
+        batch, = calls
+        firsts = np.cumsum([0] + [len(p.uids) for p in tplanes])
+        assert batch.q == firsts[-1]
+        assert slab_table(batch)[:, 0].tolist() == firsts[:-1].tolist()
+        assert all(t.mean is p._mean_raw and t.std is p._std_raw
+                   for t, p in zip(batch.targets, tplanes))
+    for jp, tp in zip(jplanes, tplanes):
+        assert dataclasses.asdict(tp.stats) == dict(
+            dataclasses.asdict(jp.stats), sweep_dispatches=3)
 
 
 def test_replan_many_refuses_mixed_devices():
