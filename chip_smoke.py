@@ -22,9 +22,11 @@ Phases (each fails loudly; nothing is caught):
                chunk at a time), one-point and fully masked rows and
                operands off a 16-byte boundary, each line with its
                tol_ratio and the kernel's route and launch shape; `fused_cost`
-               at 1000 x 100 random posteriors (with rows under the 1e-3
-               mean floor and rows whose var_s is <= 0), z = 0 and
-               z(0.95), bitwise against its plain version on the CPU.
+               on a cost slab (`pack_cost`) and a static factor matrix on
+               the card, at 1000 x 100 random posteriors (with rows under
+               the 1e-3 mean floor and rows whose var_s is <= 0), 1037 x
+               7, 1 x 1 and 1000 x 101, z = 0 and z(0.95), bitwise
+               against its plain version on the CPU.
   3. paper   — the paper's pipeline for the five nf-core workflows, training
                sets 0 and 1, Lotaru-G/A/W: profile, fit, predict to the
                target machines, HEFT on a 20-node cluster, simulate.  Held
@@ -35,13 +37,18 @@ Phases (each fails loudly; nothing is caught):
                65,536 buffers in one bayes_fit launch, stored under 64
                tenants and served per tenant.
   5. plan    — the same replan round through HEFT placement on the card:
-               `cost_view` (one fused_cost launch) and
+               `cost_view` (one cost slab up, one fused_cost launch over
+               it and the resident static factors) and
                `fused_heft_schedule(engine="device")` (one upward_rank and
                one eft_sweep launch per round, the rank order sorted on the
                card), cold and warm (rank_cache reused), at q = None
                and 0.95 and as a constrained replan; each schedule
                identical to the host `heft_schedule_matrix`, and every
-               sweep on the shared route (state in shared memory).  Then
+               sweep on the shared route (state in shared memory).  A
+               warm round piece by piece, after the launch counts are
+               read: `cost_view`'s split (order, sync, node corrections,
+               the store's gather into the pinned slab, its copy up, the
+               resident factors, the launch) and the placement's.  Then
                the sweep kernel against its plain version on the CPU: a
                round whose slot retry doubles S from 4 (shared route), and
                direct launches, each on the route it must take: S = 48
@@ -82,7 +89,8 @@ Phases (each fails loudly; nothing is caught):
                split (sync and gather, predict, scale and cost, ranks,
                sweep, rebuild) from a replay on a second plane, in turns
                with the old `cost_view` + `fused_heft_schedule` round on
-               the same state.
+               the same state, and that round's `cost_view` split (order,
+               sync, node corrections, gather, copy up, factors, launch).
   8. replan  — many workflows a round: 32 DAGs of the replan problem's
                generator (1000 tasks) on its 100-node cluster and 6 DAGs
                of 300 tasks on a second, 30-node cluster (the reference
@@ -120,7 +128,8 @@ Phases (each fails loudly; nothing is caught):
                `sync_planes`) make one copy up, one bayes_predict kernel
                and no index_copy; the whole dirty round after the next
                batch one bayes_predict kernel and no index_copy; a fold
-               one copy each way and one nig_fold kernel.
+               one copy each way and one nig_fold kernel; a warm
+               `cost_view` one copy up and one fused_cost kernel.
   9. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
                tenants of 1,024 tasks, each an `OnlinePredictor(device=
                "cuda")` bound to one store, fed its share of phase 6's
@@ -178,6 +187,8 @@ Phases (each fails loudly; nothing is caught):
                up, and for reference eight pageable copies of the same
                leaves) and
                one scattering launch into 38 planes (Q = 33,800).  For
+               `fused_cost` also `pack_ms`, packing its cost slab and the
+               copy up.  For
                `upward_rank` (at one lane) and
                `eft_sweep_many` (at 32 lanes) also the other lane count,
                and beside the ranks the host ranks they replace, the
@@ -224,6 +235,8 @@ PREDICT_PLANES = 38              # the replan cell's planes
 MPE_REL_TOL = 1e-3
 TASK_TYPES = ("bwa", "idx", "dedup", "qc", "merge", "report")
 PLAN_TASKS, PLAN_NODES = 1000, 100
+COST_CHECK_SHAPES = ((PLAN_TASKS, PLAN_NODES), (1037, 7), (1, 1),
+                     (PLAN_TASKS, 101))
 PLAN_QUANTILE = 0.95
 S_DIRECT = 192                   # 2 x 192 x 100 float64 stacks: 307 KB
 WIDE_NODES = 1500                # > 1024 threads: a thread owns two nodes
@@ -441,12 +454,33 @@ def phase_build() -> None:
 
 def cost_inputs(rng: np.random.Generator, t: int, n: int):
     """t posterior rows (a quarter with a mean under the 1e-3 floor, a
-    quarter with var_s <= 0), their inputs and a (t, n) factor matrix."""
+    quarter with var_s <= 0), their inputs, a (t, n) static factor matrix
+    and n node corrections (every third 1)."""
     x, post = random_posteriors(rng, t)
     q = t // 4
     post["y_mu"][:q] = -rng.uniform(1e3, 1e4, q)
     post["sigma"][q:2 * q] = -np.abs(post["sigma"][q:2 * q]) - 5.0
-    return x, post, rng.uniform(0.2, 5.0, (t, n))
+    base = rng.uniform(0.2, 5.0, (t, n))
+    corr = rng.uniform(0.25, 4.0, n)
+    corr[::3] = 1.0
+    return x, post, base, corr
+
+
+def cost_pair(dev, x, post, base, corr, z):
+    """`fused_cost` on the card, on a slab `pack_cost` packed and a static
+    factor matrix allocated as the binding allocates it, and its plain
+    version on the CPU on the same values -> (got, want), both on the
+    CPU."""
+    import torch
+    from repro_torch.kernels import decision_plane as plane
+    from repro_torch.kernels import ref
+    bd = torch.empty(base.shape, dtype=torch.float64, device=dev)
+    bd.copy_(torch.from_numpy(base))
+    got = plane.fused_cost(plane.pack_cost(dev, x, post, corr), bd, z)
+    torch.cuda.synchronize()
+    want = ref.fused_cost_ref(plane.pack_cost("cpu", x, post, corr),
+                              torch.from_numpy(base), z)
+    return got.cpu(), want
 
 
 def fit_edge_cases(rng: np.random.Generator) -> dict:
@@ -614,36 +648,31 @@ def phase_kernels(dev, fleet) -> dict:
     worst = (max(worst[0], err), max(worst[1], ratio))
     out["bayes_fit"] = worst
 
-    from repro_torch.kernels import decision_plane as plane
     from repro_torch.sched.plane import quantile_z
-    x, post, f = cost_inputs(np.random.default_rng(13), PLAN_TASKS,
-                             PLAN_NODES)
-    xs = (x - post["x_mu"]) / post["x_sd"]
-    var_s = (1.0 / post["beta_prec"] + post["sigma"][:, 0, 0]
-             + 2.0 * post["sigma"][:, 0, 1] * xs
-             + post["sigma"][:, 1, 1] * xs * xs)
-    n_floor = int((predict_blr_np(post, x)[0] < 1e-3).sum())
-    n_var = int((var_s <= 0.0).sum())
-    check(n_floor > 0 and n_var > 0,
-          "fused_cost inputs lack rows under the floor or with var_s <= 0")
-    xc, fc = torch.from_numpy(x), torch.from_numpy(f)
-    pc = {k: torch.from_numpy(v) for k, v in post.items()}
     err = 0.0
-    for z in (0.0, quantile_z(PLAN_QUANTILE)):
-        got = plane.fused_cost(xc.to(dev), {k: v.to(dev)
-                                            for k, v in pc.items()},
-                               fc.to(dev), z)
-        torch.cuda.synchronize()
-        got = got.cpu()
-        want = ref.fused_cost_ref(xc, pc, fc, z)
-        bitwise = torch.equal(got.view(torch.int64), want.view(torch.int64))
-        e = float((got - want).abs().max())
-        err = max(err, e)
-        print(f"[kernels] fused_cost T={PLAN_TASKS} N={PLAN_NODES} z={z!r}: "
-              f"bitwise vs plain (CPU float64) {bitwise}, max |err| {e!r}, "
-              f"rows under the mean floor {n_floor}, rows with var_s <= 0 "
-              f"{n_var}")
-        check(bitwise, f"fused_cost (z={z}) differs from its plain version")
+    for seed, (t, n) in enumerate(COST_CHECK_SHAPES, 13):
+        x, post, base, corr = cost_inputs(np.random.default_rng(seed), t, n)
+        mean, _ = predict_blr_np(post, x)
+        xs = (x - post["x_mu"]) / post["x_sd"]
+        var_s = (1.0 / post["beta_prec"] + post["sigma"][:, 0, 0]
+                 + 2.0 * post["sigma"][:, 0, 1] * xs
+                 + post["sigma"][:, 1, 1] * xs * xs)
+        n_floor, n_var = int((mean < 1e-3).sum()), int((var_s <= 0.0).sum())
+        if t >= 4:
+            check(n_floor > 0 and n_var > 0, f"fused_cost inputs at {t} x "
+                  f"{n} lack rows under the floor or with var_s <= 0")
+        for z in (0.0, quantile_z(PLAN_QUANTILE)):
+            got, want = cost_pair(dev, x, post, base, corr, z)
+            bitwise = torch.equal(got.view(torch.int64),
+                                  want.view(torch.int64))
+            e = float((got - want).abs().max())
+            err = max(err, e)
+            print(f"[kernels] fused_cost T={t} N={n} z={z!r}: bitwise vs "
+                  f"plain (CPU float64) {bitwise}, max |err| {e!r}, rows "
+                  f"under the mean floor {n_floor}, rows with var_s <= 0 "
+                  f"{n_var}")
+            check(bitwise, f"fused_cost at {t} x {n} (z={z}) differs from "
+                           f"its plain version")
     out["fused_cost"] = (err, 0.0)
     return out
 
@@ -916,17 +945,84 @@ def heft_pieces(dev, ctx, dag, nodes, W) -> tuple:
     return (t1 - t0, t2 - t1, t3 - t2, t4 - t3), sched, args
 
 
+COST_SPLIT = ("order_s", "sync_s", "corr_s", "gather_s", "copy_s",
+              "factors_s", "launch_s")
+
+
+def cost_view_split(svc, dag, nodes, quantile) -> tuple:
+    """One `cost_view` run piece by piece as it runs, with a sync after
+    each piece: the DAG's topological order and the row and column
+    names; the binding's sync, the snapshot, keys and inputs; the node
+    corrections; the store's gather into the pinned slab (`fill_slab`,
+    as `pack_cost` does); the slab's one copy up; the resident static
+    factors (`device_base_factors`); the `fused_cost` launch.  ->
+    ({piece: seconds}, W), W checked bitwise against `cost_view`'s."""
+    import torch
+    from repro_torch.kernels import ops, staging
+    from repro_torch.kernels.bayes_fit import fill_slab, predict_slots
+    from repro_torch.kernels.decision_plane import CostBatch, cost_slots
+    from repro_torch.sched.fused import cost_view
+    from repro_torch.sched.plane import quantile_z
+    t = [time.perf_counter()]
+    order = dag.topo_order()
+    names = [n.name for n in nodes]
+    tasks = [dag.tasks[u].task_name for u in order]
+    t.append(time.perf_counter())
+    binding = svc._binding
+    binding.sync()
+    snap = svc.store.snapshot()
+    keys = [binding.key_str(k) for k in tasks]
+    x = np.asarray([dag.tasks[u].input_gb for u in order], np.float64)
+    t.append(time.perf_counter())
+    corr = binding.node_corrections(names)
+    corr = [corr.get(n, 1.0) for n in names]
+    t.append(time.perf_counter())
+    with staging.staged(svc.device) as st:
+        buf = st.host(cost_slots(len(x), len(corr)))
+        fill_slab(buf, len(x), x, lambda out: snap.gather(keys, out))
+        buf[predict_slots(len(x)):] = corr
+        t.append(time.perf_counter())
+        slab = st.send()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    base = binding.device_base_factors(tasks, names, svc.device)
+    t.append(time.perf_counter())
+    z = None if quantile is None else quantile_z(quantile)
+    W = ops.fused_cost(CostBatch._packed(slab, len(x), len(corr)), base, z)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    want = cost_view(svc, dag, nodes, quantile)
+    check(torch.equal(W.view(torch.int64), want.view(torch.int64)),
+          "cost_view's pieces differ from cost_view")
+    return dict(zip(COST_SPLIT, [b - a for a, b in zip(t, t[1:])],
+                    strict=True)), W
+
+
+def print_cost_split(label: str, splits) -> None:
+    """Medians of `cost_view_split`'s pieces over rounds, and their sum."""
+    med = {k: float(np.median([s[k] for s in splits])) for k in COST_SPLIT}
+    print(f"[{label}] warm cost_view split (median of {len(splits)}, "
+          f"synced pieces, each right after a round on the same state): "
+          + ", ".join(f"{k} {v!r}" for k, v in med.items())
+          + f"; sum {sum(med.values())!r} s (its host-to-device copies: "
+          f"the [copies] line of a warm cost_view)")
+
+
 def plan_breakdown(dev, fleet_out, plan) -> dict:
-    """Host clock of each piece of a warm device round (`heft_pieces`),
-    median of 5."""
+    """Host clock of each piece of a warm device round: `cost_view`
+    (`cost_view_split`) and the placement (`heft_pieces`), median of 5."""
     from repro_torch.sched import fused
+    svc = fleet_out["replan_service"]
     dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
     ctx = fused._context(dag, nodes, plan["cache"])
-    times = []
+    times, splits = [], []
     for _ in range(5):
-        pieces, sched, args = heft_pieces(dev, ctx, dag, nodes, plan["W_q"])
+        split, W = cost_view_split(svc, dag, nodes, PLAN_QUANTILE)
+        splits.append(split)
+        pieces, sched, args = heft_pieces(dev, ctx, dag, nodes, W)
         times.append(pieces)
     check(same_schedule(sched, plan["q"]), "breakdown round differs")
+    print_cost_split("plan", splits)
     keys = ("rank_s", "pack_s", "sweep_s", "rebuild_s")
     out = {k: float(np.median([x[i] for x in times]))
            for i, k in enumerate(keys)}
@@ -1542,6 +1638,8 @@ def phase_plane_checks(dev, fleet_out, pl) -> None:
     old_svc = PredictionService(online, benches, device=dev)
     old_cache: dict = {}
 
+    old_splits = []
+
     def old_round():
         t0 = time.perf_counter()
         W = cost_view(old_svc, dag, nodes, PLAN_QUANTILE)
@@ -1550,8 +1648,10 @@ def phase_plane_checks(dev, fleet_out, pl) -> None:
         sched = fused_heft_schedule(dag, nodes, None, W=W,
                                     rank_cache=old_cache, engine="device",
                                     device=dev)
-        return {"cost_view_s": t1 - t0,
-                "heft_s": time.perf_counter() - t1}, sched
+        t2 = time.perf_counter()
+        old_splits.append(cost_view_split(old_svc, dag, nodes,
+                                          PLAN_QUANTILE)[0])
+        return {"cost_view_s": t1 - t0, "heft_s": t2 - t1}, sched
 
     for i, (r, (label, batch)) in enumerate(zip(
             pl["rounds"], plane_rounds(dag, pl["batches"]))):
@@ -1596,6 +1696,7 @@ def phase_plane_checks(dev, fleet_out, pl) -> None:
               f"{r['round_s']:.6f} s; old round on the same state "
               f"{old['cost_view_s'] + old['heft_s']:.6f} s (cost_view "
               f"{old['cost_view_s']:.6f} s, HEFT {old['heft_s']:.6f} s)")
+    print_cost_split("plane", old_splits)
     check(online.export_state() == pl["online"].export_state(),
           "the replayed predictor's state differs from the main path's")
     main = dict(dataclasses.asdict(pl["stats"]), sweep_dispatches=0)
@@ -1878,11 +1979,13 @@ def profiled_regions(steps) -> dict:
     """Run `steps`, [(label or None, fn)], in order under ONE
     torch.profiler session (CPU and CUDA; in a trial run a third session
     in one process recorded no device event), the card's work
-    synchronised after each step -> per
-    labelled step what crossed and ran in it: host-to-device and
-    device-to-host copies, bayes_predict and nig_fold kernels, index_copy
-    ops or kernels, and all device events.  An event belongs to the step
-    whose span holds its start."""
+    synchronised after each step -> per labelled step what crossed and
+    ran in it: host-to-device and device-to-host copies, bayes_predict,
+    nig_fold and fused_cost kernels, index_copy ops or kernels, and all
+    device events.  An event belongs to the step whose span holds its
+    start.  One unlabelled device op ends the session, so that no
+    labelled step does (a run lost the copy up of the session's last
+    step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1897,12 +2000,15 @@ def profiled_regions(steps) -> dict:
             with record_function(f"copies/{label}"):
                 fn()
                 torch.cuda.synchronize()
+        torch.ones(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
     events = prof.events()
     spans = {e.name[len("copies/"):]: (e.time_range.start, e.time_range.end)
              for e in events if e.device_type == DeviceType.CPU
              and e.name.startswith("copies/")}
     out = {label: dict.fromkeys(("h2d", "d2h", "bayes_predict", "nig_fold",
-                                 "index_copy", "device_events"), 0)
+                                 "fused_cost", "index_copy",
+                                 "device_events"), 0)
            for label in spans}
     for e in events:
         if e.name.startswith("copies/"):
@@ -1918,6 +2024,7 @@ def profiled_regions(steps) -> dict:
         c["d2h"] += on_card and e.name.startswith("Memcpy DtoH")
         c["bayes_predict"] += on_card and "bayes_predict_kernel" in e.name
         c["nig_fold"] += on_card and "nig_fold_kernel" in e.name
+        c["fused_cost"] += on_card and "fused_cost_kernel" in e.name
         c["index_copy"] += "index_copy" in e.name
     return out
 
@@ -1931,10 +2038,12 @@ def phase_copy_checks(dev, fleet_out) -> None:
     next batch: one bayes_predict kernel and no index_copy (its other
     copies up, of the node corrections, view indices and sweep operands,
     are printed).  A fold (`store.compute.fold_kernel`, the workflow
-    loop's group shape): one copy each way, one nig_fold kernel."""
+    loop's group shape): one copy each way, one nig_fold kernel.  A warm
+    `cost_view`: one copy up (the cost slab) and one fused_cost kernel."""
     from repro_torch.core.bayes import nig_from_blr
     from repro_torch.online import OnlinePredictor, PredictionService
-    from repro_torch.sched.fused import FusedPlane, replan_many, sync_planes
+    from repro_torch.sched.fused import (FusedPlane, cost_view, replan_many,
+                                         sync_planes)
     from repro_torch.store import compute
     svc = fleet_out["replan_service"]
     dag, nodes = fleet_out["replan_dag"], fleet_out["replan_nodes"]
@@ -1957,8 +2066,12 @@ def phase_copy_checks(dev, fleet_out) -> None:
     rng = np.random.default_rng(41)
     xs = [rng.uniform(0.05, 4.0, 42) for _ in nigs]
     ys = [rng.uniform(4.0, 120.0, 42) for _ in nigs]
+    cost_svc = PredictionService(online, benches, device=dev)
+    cost_view(cost_svc, dag, nodes, PLAN_QUANTILE)   # cold: the factors
     rows = []
     got = profiled_regions([
+        ("a warm cost_view",
+         lambda: cost_view(cost_svc, dag, nodes, PLAN_QUANTILE)),
         (None, lambda: online.observe_many(batches[0])),
         ("plane row sync after an ingest batch",
          lambda: rows.append(plane.sync())),
@@ -1980,7 +2093,10 @@ def phase_copy_checks(dev, fleet_out) -> None:
     print(f"[copies] rows refreshed by the two syncs: {rows}")
     check(all(rows), "a row sync found no dirty rows")
     for label, c in got.items():
-        if "row sync" in label:
+        if label == "a warm cost_view":
+            check(c["h2d"] == 1 and c["fused_cost"] == 1,
+                  f"{label}: not one copy up and one fused_cost kernel")
+        elif "row sync" in label:
             check(c["h2d"] == 1 and c["bayes_predict"] == 1,
                   f"{label}: not one copy up and one bayes_predict kernel")
         elif "whole round" in label:
@@ -1989,7 +2105,7 @@ def phase_copy_checks(dev, fleet_out) -> None:
         else:
             check(c["h2d"] == 1 and c["d2h"] == 1 and c["nig_fold"] == 1,
                   f"{label}: not one copy each way and one nig_fold kernel")
-    check(len(got) == 5, f"the profiler saw {len(got)} of 5 steps")
+    check(len(got) == 6, f"the profiler saw {len(got)} of 6 steps")
 
 
 def fan_dag(n_tasks: int):
@@ -2711,12 +2827,12 @@ def raw_launch(name: str, args, lib=None):
 
 
 def bounds_cost(t: int, n: int, has_z: bool) -> tuple:
-    """Least time for one fused cost matrix: x and the 88-byte posterior
-    row read once per task, the factor read and the cost written once per
-    cell (16 B); about 20 float64 operations per task and 2 (5 with the
-    quantile shift) per cell."""
-    t_bytes = (t * (8 + 88) + t * n * 16) / H100_BYTES_PER_S * 1e3
-    ops = t * 20 + t * n * (5 if has_z else 2)
+    """Least time for one fused cost matrix: the static factor read and
+    the cost written once a cell (16 B), x and the 80-byte posterior row
+    read once a task (88 B), a node's correction once (8 B); about 20
+    float64 operations a task and 3 (6 with the quantile shift) a cell."""
+    t_bytes = (t * n * 16 + t * 88 + n * 8) / H100_BYTES_PER_S * 1e3
+    ops = t * 20 + t * n * (6 if has_z else 3)
     t_ops = ops / H100_FP64_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -2844,21 +2960,22 @@ def time_plane(dev, sweep_args) -> dict:
     from repro_torch.kernels import decision_plane as plane
     from repro_torch.kernels import ref
     from repro_torch.sched.plane import quantile_z
-    from repro_torch.store.compute import LEAVES
     lib = plane._lib()
     z = quantile_z(PLAN_QUANTILE)
-    x, post, f = cost_inputs(np.random.default_rng(13), PLAN_TASKS,
-                             PLAN_NODES)
-    xd, fd = torch.from_numpy(x).to(dev), torch.from_numpy(f).to(dev)
-    pd = {k: torch.from_numpy(v).to(dev) for k, v in post.items()}
-    w = torch.empty_like(fd)
-    launch = raw_launch("fused_cost", [xd] + [pd[k] for k in LEAVES]
-                        + [fd, w, PLAN_TASKS, PLAN_NODES, z, 1], lib)
+    x, post, base, corr = cost_inputs(np.random.default_rng(13), PLAN_TASKS,
+                                      PLAN_NODES)
+    batch = plane.pack_cost(dev, x, post, corr)
+    bd = torch.from_numpy(base).to(dev)
+    w = torch.empty_like(bd)
+    launch = raw_launch("fused_cost", [batch.slab, bd, w, PLAN_TASKS,
+                                       PLAN_NODES, z, 1], lib)
     out = {"fused_cost": {
         "ms": time_ms(launch), "warm_ms": warm_ms(launch),
-        "wrapper_ms": time_ms(lambda: plane.fused_cost(xd, pd, fd, z),
+        "wrapper_ms": time_ms(lambda: plane.fused_cost(batch, bd, z),
                               host=True),
-        "plain_ms": time_ms(lambda: ref.fused_cost_ref(xd, pd, fd, z),
+        "pack_ms": time_ms(lambda: plane.pack_cost(dev, x, post, corr),
+                           host=True),
+        "plain_ms": time_ms(lambda: ref.fused_cost_ref(batch, bd, z),
                             reps=5, host=True)}}
     a = sweep_args
     t, n = a[0].shape
@@ -3090,6 +3207,7 @@ def phase_report(dev, launches, errors, fleet, fleet_out, plan_args,
          "bound_by": c_by, "library_ms": None,
          "warm_ms": pl["fused_cost"]["warm_ms"],
          "wrapper_ms": pl["fused_cost"]["wrapper_ms"],
+         "pack_ms": pl["fused_cost"]["pack_ms"],
          "shape": f"T={PLAN_TASKS} N={PLAN_NODES}"},
         {"name": "eft_sweep", "route": "cuda", "source": dsrc,
          "replaces": "src/repro/kernels/decision_plane.py:357",

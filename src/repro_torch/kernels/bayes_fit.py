@@ -179,16 +179,38 @@ class PredictTarget:
         self.device = self.mean.device
 
 
-class PredictBatch:
+class PackedBatch:
+    """A kernel's operand packed on a device, made by its packer alone
+    (`PACKER`): constructing one directly raises TypeError, so no route
+    meets a slab beside a description its packer did not write.  The check
+    runs when a batch is made, not when it is launched."""
+
+    __slots__ = ()
+    PACKER = ""
+
+    def __init__(self, *args, **kwargs):
+        raise TypeError(f"a {type(self).__name__} is made by {self.PACKER} "
+                        f"alone")
+
+    @classmethod
+    def _packed(cls, *values):
+        """The packer's constructor: the slots' values in order."""
+        batch = object.__new__(cls)
+        for name, v in zip(cls.__slots__, values, strict=True):
+            setattr(batch, name, v)
+        return batch
+
+
+class PredictBatch(PackedBatch):
     """The predictive's operand on a device: one slab of q packed queries
     and, when the results are scattered, the targets whose table follows
     them.  Made by `pack_predict` alone, which writes the table from the
-    same targets, so a batch's table is always that of its targets."""
+    same targets, so a batch's table is that of its targets.  What stays
+    the caller's contract: do not write into a batch's slab after packing
+    (the kernel follows the pointers of the table as it finds them)."""
 
     __slots__ = ("slab", "q", "targets")
-
-    def __init__(self, slab: torch.Tensor, q: int, targets: tuple):
-        self.slab, self.q, self.targets = slab, q, targets
+    PACKER = "pack_predict"
 
 
 def _even(q: int) -> int:
@@ -254,7 +276,7 @@ def pack_predict(device, x, post, dest=None, targets=None) -> PredictBatch:
         fill_slab(buf, q, x, post, dest)
         buf[predict_slots(q):].view(np.int64)[:] = table.ravel()
         slab = st.send()
-    return PredictBatch(slab, q, tuple(t for t, _ in targets or ()))
+    return PredictBatch._packed(slab, q, tuple(t for t, _ in targets or ()))
 
 
 def _target_table(targets, q: int, dest, dev: torch.device) -> np.ndarray:

@@ -472,8 +472,9 @@ __device__ __forceinline__ void bulk_stage(void* dst, const void* src,
 // The terms are float64 in the host reference's order
 // (core.bayes.predict_blr_np, in predictive.cuh, shared with fused_cost),
 // with --fmad=false and IEEE sqrt, so the result is bitwise equal to it.
+// The slab's layout and the row's reads are predictive.cuh's
+// (lotaru_slab_predictive), shared with fused_cost.
 constexpr int kPredictTile = 256;   // queries (lanes) a block
-constexpr int kQuerySlots = 13;     // float64 slots a query takes in a slab
 
 struct PredictTarget {
   long long first;                  // the plane's first query in the slab
@@ -489,13 +490,8 @@ bayes_predict_kernel(const double* __restrict__ slab, long long q,
                      int n_targets, double* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kPredictTile + threadIdx.x;
   if (i >= q) return;
-  const double2 mu = reinterpret_cast<const double2*>(slab + p)[i];
-  const double* sig = slab + 3 * p + 4 * i;
-  const double2 s = *reinterpret_cast<const double2*>(sig);   // [0,0], [0,1]
   double mean, std;
-  lotaru_predictive(slab[i], mu.x, mu.y, s.x, s.y, sig[3], slab[7 * p + i],
-                    slab[8 * p + i], slab[9 * p + i], slab[10 * p + i],
-                    slab[11 * p + i], &mean, &std);
+  lotaru_slab_predictive(slab, p, i, &mean, &std);
   if (n_targets == 0) {
     reinterpret_cast<double2*>(out)[i] = make_double2(mean, std);
     return;

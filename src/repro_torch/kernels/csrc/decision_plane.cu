@@ -25,46 +25,148 @@ namespace {
 // Replaces the TPU kernel repro/kernels/decision_plane.py::fused_cost
 // (_cost_kernel): the posterior predictive of each task row, then the
 // factor scaling with the mean floor, then the quantile shift, giving the
-// (T, N) HEFT cost matrix W = max(mean, 1e-3) * f [+ z * (std * f)].
+// (T, N) HEFT cost matrix W = max(mean, 1e-3) * fc [+ z * (std * fc)],
+// fc = base[i, j] * corr[j].
 //
-// Bound on the H100: memory.  A cell reads its factor and writes its cost
-// (16 bytes) for a handful of float64 operations; the 88 bytes of a task's
-// posterior row are read once per row and served from the cache for the
-// row's other cells.  Design: one thread per (task, node) cell,
-// grid-stride; a thread recomputes its row's predictive (about 20
-// operations) rather than staging it, which keeps the kernel one pass with
-// no shared memory.  The TPU kernel ran float32; here the predictive is the
-// float64 code of bayes_predict (predictive.cuh), so W is bitwise the
-// host's.  The mean floor is numpy.maximum's: NaN propagates and -0.0
-// becomes 1e-3 (CUDA's fmax would drop a NaN, so it is not used).
+// Bound on the H100: bytes in the body (the static factors read and W
+// written, 16 bytes a cell, for a few float64 operations), and the launch
+// at the main path's 1000 x 100, where the body is about half a
+// microsecond and a launch several.  So the design works on what a launch
+// costs its caller and on one short dependent chain inside it:
+//   * One packed slab in (kernels.decision_plane.pack_cost): the T task
+//     rows in the predictive's column groups (predictive.cuh), then the N
+//     node corrections, one copy up.  The static factor matrix `base`
+//     stays resident on the card between refits (TenantBinding.
+//     device_base_factors), so no (T, N) matrix is built on the host or
+//     copied up in a warm round; its cell times the node's correction is
+//     the factor, one IEEE multiply as on the host.
+//   * The predictive once a row.  A block takes kCostRows rows; that many
+//     lanes read their rows from the groups (coalesced) and leave the
+//     floored mean and the std in shared memory, while every lane has
+//     already issued the loads of its first cells of `base` and their
+//     corrections, so the two round trips to memory overlap.  One
+//     __syncthreads follows.
+//   * Then a streaming pass: each lane writes two cells at a time as a
+//     double2, reading `base` through the read-only path without
+//     allocating in L1 and storing W with streaming stores.  kCostRows is
+//     even, so a tile's first cell is even and every pair is on 16 bytes
+//     for any N; a pair may straddle two rows.  A ragged last tile, an odd
+//     cell count (one single cell at the end) and N = 1 are handled here.
+//   * Index arithmetic in 32 bits inside a tile (the wrapper takes fewer
+//     than 2^31 cells), one 32-bit divide a pair, no 64-bit divide.
+// The mean floor is numpy.maximum's: NaN propagates and -0.0 becomes 1e-3
+// (CUDA's fmax would drop a NaN, so it is not used).  Built with
+// --fmad=false, W is bitwise the host's.
+constexpr int kCostRows = 8;       // task rows a block (even)
 constexpr int kCostThreads = 256;
+constexpr int kCostEarly = 2;      // pairs a lane loads before the barrier
+
+__device__ __forceinline__ double2 ld_stream2(const double* p) {
+  double2 v;
+  asm("ld.global.nc.L1::no_allocate.v2.f64 {%0, %1}, [%2];"
+      : "=d"(v.x), "=d"(v.y)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ double ld_stream(const double* p) {
+  double v;
+  asm("ld.global.nc.L1::no_allocate.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
+}
+
+// One pair of a tile: its cells' factors' operands as loaded, and where
+// they go.  The second cell is absent at the end of an odd tile.
+struct CostPair {
+  double2 b;        // base at the two cells
+  double2 c;        // their nodes' corrections
+  int r0, r1;       // their rows in the tile
+  bool two;
+};
+
+__device__ __forceinline__ CostPair cost_load(const double* __restrict__ tb,
+                                              const double* __restrict__ corr,
+                                              int pr, int cells, int n) {
+  CostPair q;
+  const int c = 2 * pr;
+  q.r0 = c / n;
+  const int j0 = c - q.r0 * n;
+  int j1 = j0 + 1;
+  q.r1 = q.r0;
+  if (j1 == n) {
+    j1 = 0;
+    q.r1 += 1;
+  }
+  q.two = c + 1 < cells;
+  if (q.two) {
+    q.b = ld_stream2(tb + c);
+    q.c = make_double2(__ldg(corr + j0), __ldg(corr + j1));
+  } else {
+    q.b = make_double2(ld_stream(tb + c), 0.0);
+    q.c = make_double2(__ldg(corr + j0), 0.0);
+  }
+  return q;
+}
+
+__device__ __forceinline__ double cost_cell(double m, double s, double b,
+                                            double c, double z, int has_z) {
+  const double fc = b * c;
+  double w = m * fc;
+  if (has_z) w = w + z * (s * fc);
+  return w;
+}
+
+__device__ __forceinline__ void cost_store(double* __restrict__ tw,
+                                           const CostPair& q, int pr,
+                                           const double* m, const double* s,
+                                           double z, int has_z) {
+  const double w0 = cost_cell(m[q.r0], s[q.r0], q.b.x, q.c.x, z, has_z);
+  if (q.two) {
+    const double w1 = cost_cell(m[q.r1], s[q.r1], q.b.y, q.c.y, z, has_z);
+    __stcs(reinterpret_cast<double2*>(tw + 2 * pr), make_double2(w0, w1));
+  } else {
+    __stcs(tw + 2 * pr, w0);
+  }
+}
 
 __global__ void __launch_bounds__(kCostThreads)
-fused_cost_kernel(const double* __restrict__ x,
-                  const double* __restrict__ mu,
-                  const double* __restrict__ sigma,
-                  const double* __restrict__ beta,
-                  const double* __restrict__ x_mu,
-                  const double* __restrict__ x_sd,
-                  const double* __restrict__ y_mu,
-                  const double* __restrict__ y_sd,
-                  const double* __restrict__ f, double* __restrict__ w,
-                  long long t, int n, double z, int has_z) {
-  const long long cells = t * (long long)n;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       c < cells; c += stride) {
-    const long long i = c / n;
-    double mean, std;
-    lotaru_predictive(x[i], mu[2 * i], mu[2 * i + 1], sigma[4 * i],
-                      sigma[4 * i + 1], sigma[4 * i + 3], beta[i], x_mu[i],
-                      x_sd[i], y_mu[i], y_sd[i], &mean, &std);
-    const double fc = f[c];
-    const double m = (mean < 1e-3) ? 1e-3 : mean;
-    double wc = m * fc;
-    if (has_z) wc = wc + z * (std * fc);
-    w[c] = wc;
+fused_cost_kernel(const double* __restrict__ slab,
+                  const double* __restrict__ base, double* __restrict__ w,
+                  int t, int n, long long p, double z, int has_z) {
+  __shared__ double s_mean[kCostRows];
+  __shared__ double s_std[kCostRows];
+  const int i0 = blockIdx.x * kCostRows;
+  const int rows = min(kCostRows, t - i0);
+  const int cells = rows * n;
+  const int pairs = (cells + 1) >> 1;
+  const size_t off = static_cast<size_t>(i0) * n;   // even: 16-byte aligned
+  const double* tb = base + off;
+  double* tw = w + off;
+  const double* corr = slab + kQuerySlots * p;
+
+  CostPair early[kCostEarly];
+#pragma unroll
+  for (int k = 0; k < kCostEarly; ++k) {
+    const int pr = threadIdx.x + k * kCostThreads;
+    if (pr < pairs) early[k] = cost_load(tb, corr, pr, cells, n);
   }
+  if (threadIdx.x < rows) {
+    double mean, std;
+    lotaru_slab_predictive(slab, p, i0 + threadIdx.x, &mean, &std);
+    s_mean[threadIdx.x] = (mean < 1e-3) ? 1e-3 : mean;
+    s_std[threadIdx.x] = std;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kCostEarly; ++k) {
+    const int pr = threadIdx.x + k * kCostThreads;
+    if (pr < pairs) cost_store(tw, early[k], pr, s_mean, s_std, z, has_z);
+  }
+#pragma unroll 4
+  for (int pr = threadIdx.x + kCostEarly * kCostThreads; pr < pairs;
+       pr += kCostThreads)
+    cost_store(tw, cost_load(tb, corr, pr, cells, n), pr, s_mean, s_std, z,
+               has_z);
 }
 
 // ---------------------------------------------------------------------------
@@ -1259,23 +1361,18 @@ const char* lotaru_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int lotaru_fused_cost(const double* x, const double* mu, const double* sigma,
-                      const double* beta, const double* x_mu,
-                      const double* x_sd, const double* y_mu,
-                      const double* y_sd, const double* f, double* w,
-                      long long t, int n, double z, int has_z,
-                      void* stream) {
-  const long long cells = t * (long long)n;
-  if (cells <= 0) return 0;
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  long long blocks = (cells + kCostThreads - 1) / kCostThreads;
-  const long long cap = 16LL * sms;
-  if (blocks > cap) blocks = cap;
-  fused_cost_kernel<<<(unsigned)blocks, kCostThreads, 0,
+// The cost matrix of a packed slab (kernels.decision_plane.pack_cost: t
+// task rows in column groups of p = t rounded up to even slots, then n
+// node corrections at slot kQuerySlots * p) and the resident (t, n) static
+// factors `base`, both 16-byte aligned, into w (t, n); t * n < 2^31.
+int lotaru_fused_cost(const double* slab, const double* base, double* w,
+                      int t, int n, double z, int has_z, void* stream) {
+  if (t <= 0 || n <= 0) return 0;
+  const long long p = t + (t & 1);
+  const int blocks = (t + kCostRows - 1) / kCostRows;
+  fused_cost_kernel<<<blocks, kCostThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      x, mu, sigma, beta, x_mu, x_sd, y_mu, y_sd, f, w, t, n, z, has_z);
+      slab, base, w, t, n, p, z, has_z);
   return static_cast<int>(cudaGetLastError());
 }
 

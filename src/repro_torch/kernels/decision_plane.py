@@ -5,6 +5,10 @@ upward ranks of B workflows, and the HEFT insertion sweep of one workflow
 (`eft_sweep`) or of B workflows on one cluster (`eft_sweep_many`, a block
 a workflow; `eft_sweep` is the same kernel at B = 1).
 
+The cost matrix takes one packed slab (`pack_cost`: the task rows in the
+predictive's column groups, then the node corrections), copied up once,
+and the static factor matrix, which its caller keeps on the card.
+
 Each wrapper takes CUDA tensors only (device dispatch is `kernels.ops`),
 checks device, dtype, shape and contiguity, allocates its outputs and
 scratch with `torch.empty`/`torch.zeros`, launches on PyTorch's current
@@ -32,8 +36,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, staging
 from repro_torch.kernels._launch import check, cuda_device, raise_on
+from repro_torch.kernels.bayes_fit import (PackedBatch, check_slab,
+                                           fill_slab, predict_slots)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +50,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decision_plane")
     lib.lotaru_error_string.argtypes = [_I]
     lib.lotaru_error_string.restype = ctypes.c_char_p
-    lib.lotaru_fused_cost.argtypes = ([_P] * 10 + [ctypes.c_longlong, _I,
-                                                   ctypes.c_double, _I, _P])
+    lib.lotaru_fused_cost.argtypes = [_P] * 3 + [_I] * 2 + [
+        ctypes.c_double, _I, _P]
     lib.lotaru_fused_cost.restype = _I
     lib.lotaru_eft_sweep.argtypes = ([_P] * 3 + [_I] + [_P] * 5
                                      + [_I] * 4 + [_P] * 7 + [_P])
@@ -62,26 +68,79 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-_COST_LEAVES = (("mu", (2,)), ("sigma", (2, 2)), ("beta_prec", ()),
-                ("x_mu", ()), ("x_sd", ()), ("y_mu", ()), ("y_sd", ()))
+class CostBatch(PackedBatch):
+    """`fused_cost`'s operand on a device: one slab of the T task rows'
+    queries in the predictive's column groups (`kernels.bayes_fit.
+    slab_columns`; their destinations 0 and unused), then the N node
+    corrections, 16-byte aligned.  Made by `pack_cost` alone."""
+
+    __slots__ = ("slab", "t", "n")
+    PACKER = "pack_cost"
 
 
-def fused_cost(x: torch.Tensor, post: dict, factors: torch.Tensor,
+def cost_slots(t: int, n: int) -> int:
+    """float64 slots of a cost slab: T rows' column groups, then N
+    corrections (the groups end on 16 bytes, `predict_slots`)."""
+    return predict_slots(t) + n
+
+
+def pack_cost(device, x, post, corr) -> CostBatch:
+    """The operand of one `fused_cost` on `device`: the T = len(x) task
+    rows' inputs and posterior leaves (`fill_slab`: a dict of (T, ...)
+    leaves, or a callable that writes them, as the store's gather does)
+    and the N node corrections `corr`, packed into one slab in host memory
+    that `kernels.staging` sends up in one copy (pinned on a card)."""
+    t, n = len(x), len(corr)
+    with staging.staged(staging.resolve(device)) as st:
+        buf = st.host(cost_slots(t, n))
+        fill_slab(buf, t, x, post)
+        buf[predict_slots(t):] = corr
+        slab = st.send()
+    return CostBatch._packed(slab, t, n)
+
+
+def cost_slab(batch) -> torch.Tensor:
+    """`batch`'s slab; raise unless `batch` is a CostBatch."""
+    if not isinstance(batch, CostBatch):
+        raise TypeError(f"fused_cost takes a CostBatch (pack_cost: the task "
+                        f"rows and the node corrections packed together), "
+                        f"got {type(batch).__name__}")
+    return batch.slab
+
+
+def check_cost(batch, base: torch.Tensor) -> torch.Tensor:
+    """Raise unless `batch` is a CostBatch whose slab holds its rows and
+    corrections and `base` its (T, N) float64 static factors on the same
+    device, both on a 16-byte boundary; returns the slab."""
+    slab = cost_slab(batch)
+    t, n = batch.t, batch.n
+    check_slab(slab, cost_slots(t, n), slab.device)
+    check(base, "base", torch.float64, (t, n), slab.device)
+    if base.numel() and base.data_ptr() % 16:
+        raise ValueError("base must start on a 16-byte boundary")
+    return slab
+
+
+def cost_corr(batch: CostBatch) -> torch.Tensor:
+    """A cost batch's N node corrections, as a view of its slab."""
+    at = predict_slots(batch.t)
+    return batch.slab[at:at + batch.n]
+
+
+def fused_cost(batch: CostBatch, base: torch.Tensor,
                z: Optional[float] = None) -> torch.Tensor:
-    """x: (T,) float64 CUDA tensor; post: posterior leaves of the T task
-    rows (T, ...); factors: (T, N).  Returns the (T, N) float64 HEFT cost
-    matrix max(mean, 1e-3) * f, plus z * (std * f) when z is neither None
-    nor 0 — bitwise `store.compute.cost_matrix` over `store.compute.scale`
-    of the predictive."""
-    dev = cuda_device(x, "x")
-    if x.dim() != 1 or factors.dim() != 2:
-        raise ValueError(f"x must be (T,) and factors (T, N), got "
-                         f"{tuple(x.shape)} and {tuple(factors.shape)}")
-    t, n = factors.shape
-    check(x, "x", torch.float64, (t,), dev)
-    check(factors, "factors", torch.float64, (t, n), dev)
-    for leaf, shape in _COST_LEAVES:
-        check(post[leaf], leaf, torch.float64, (t,) + shape, dev)
+    """The (T, N) float64 HEFT cost matrix of the packed task rows of
+    `batch` (`pack_cost`, on the card) and the resident (T, N) static
+    factors `base`: with fc = base[i, j] * corr[j], max(mean_i, 1e-3) * fc,
+    plus z * (std_i * fc) when z is neither None nor 0 -- bitwise
+    `store.compute.cost_matrix` over `store.compute.scale` of the
+    predictive and `TenantBinding.factor_matrix`.  Any T and N: a block
+    takes 8 task rows and guards the ragged tail itself."""
+    dev = cuda_device(check_cost(batch, base), "slab")
+    t, n = batch.t, batch.n
+    if t * n >= 1 << 31:
+        raise ValueError(f"fused_cost takes fewer than 2**31 cells, got "
+                         f"{t} x {n}")
     w = torch.empty((t, n), dtype=torch.float64, device=dev)
     if t * n == 0:
         return w
@@ -89,8 +148,7 @@ def fused_cost(x: torch.Tensor, post: dict, factors: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().lotaru_fused_cost(
-            x.data_ptr(), *(post[leaf].data_ptr() for leaf, _ in _COST_LEAVES),
-            factors.data_ptr(), w.data_ptr(), t, n,
+            batch.slab.data_ptr(), base.data_ptr(), w.data_ptr(), t, n,
             float(z) if has_z else 0.0, int(has_z), stream)
     raise_on(_lib(), rc, "fused_cost")
     fused_cost.launches += 1

@@ -53,15 +53,16 @@ def bayes_predict(batch) -> Optional[torch.Tensor]:
     return ref.bayes_predict_ref(batch)
 
 
-def fused_cost(x: torch.Tensor, post: dict, factors: torch.Tensor,
+def fused_cost(batch, base: torch.Tensor,
                z: Optional[float] = None) -> torch.Tensor:
     """Fused predict -> scale -> quantile cost matrix for the decision
-    plane: x (T,), the T task rows' posterior leaves (T, ...) and the
-    (T, N) factor matrix in, the float64 (T, N) HEFT cost matrix out.
-    `z` None (or 0) schedules on the mean."""
-    if _route(x) == "cuda":
-        return _plane.fused_cost(x, post, factors, z)
-    return ref.fused_cost_ref(x, post, factors, z)
+    plane: one packed `CostBatch` (`kernels.decision_plane.pack_cost`: the
+    T task rows and the N node corrections) and the (T, N) static factor
+    matrix `base` in, the float64 (T, N) HEFT cost matrix out.  `z` None
+    (or 0) schedules on the mean."""
+    if _route(_plane.cost_slab(batch)) == "cuda":
+        return _plane.fused_cost(batch, base, z)
+    return ref.fused_cost_ref(batch, base, z)
 
 
 def eft_sweep(W: torch.Tensor, order_arr: torch.Tensor,

@@ -14,6 +14,7 @@ from repro_torch.core.bayes import (FOLD_HEAD, _nig_step, fit_blr_batch,
                                     fold_head)
 from repro_torch.kernels.bayes_fit import (check_batch, check_slab,
                                            slab_columns, slab_table)
+from repro_torch.kernels.decision_plane import check_cost, cost_corr
 
 
 def bayes_fit_ref(x: torch.Tensor, y: torch.Tensor,
@@ -79,23 +80,27 @@ def _sqrt_rn(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(v.to(torch.complex128)).real
 
 
-def fused_cost_ref(x: torch.Tensor, post: dict, factors: torch.Tensor,
+def fused_cost_ref(batch, base: torch.Tensor,
                    z: Optional[float] = None) -> torch.Tensor:
-    """(T,) inputs + posterior leaves of the T task rows + (T, N) factors
-    -> (T, N) float64 HEFT cost matrix: the predictive, then
-    max(mean, 1e-3) * f, then + z * (std * f) when z is neither None nor
+    """The (T, N) float64 HEFT cost matrix of the packed task rows of
+    `batch` (`kernels.decision_plane.pack_cost`) and the (T, N) static
+    factors `base`, with the arguments and results of
+    `kernels.decision_plane.fused_cost`: fc = base * corr (one multiply a
+    cell, as `TenantBinding.factor_matrix`), then the predictive, then
+    max(mean, 1e-3) * fc, then + z * (std * fc) when z is neither None nor
     0.  Term for term `predict_blr_np`, then `store.compute.scale`, then
     `store.compute.cost_matrix`, so it is bitwise equal to them."""
-    mu, sig = post["mu"], post["sigma"]
-    mean, std = _predictive(x, mu[:, 0], mu[:, 1], sig[:, 0, 0],
-                            sig[:, 0, 1], sig[:, 1, 1], post["beta_prec"],
-                            post["x_mu"], post["x_sd"], post["y_mu"],
-                            post["y_sd"])
+    c = slab_columns(check_cost(batch, base), batch.t)
+    mu, sig = c["mu"], c["sigma"]
+    mean, std = _predictive(c["x"], mu[:, 0], mu[:, 1], sig[:, 0, 0],
+                            sig[:, 0, 1], sig[:, 1, 1], c["beta_prec"],
+                            c["x_mu"], c["x_sd"], c["y_mu"], c["y_sd"])
+    f = base * cost_corr(batch)[None, :]
     # numpy.maximum(mean, 1e-3): NaN propagates, -0.0 becomes 1e-3
     mean = torch.where(mean < 1e-3, 1e-3, mean)
-    w = mean[:, None] * factors
+    w = mean[:, None] * f
     if z is not None and z != 0.0:
-        w = w + z * (std[:, None] * factors)
+        w = w + z * (std[:, None] * f)
     return w
 
 

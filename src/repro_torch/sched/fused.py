@@ -3,9 +3,11 @@ decision plane, one workflow or a megabatch of them.
 
   * `cost_view` builds a round's (T, N) quantile cost matrix W in
     `dag.topo_order()` rows and cluster column order, on the service's
-    device, from ONE `fused_cost` launch over the gathered posterior rows,
-    the input sizes and the factor matrix.  It is bitwise
-    `PredictionMatrix.from_service(...).costs(order, names, quantile)`.
+    device, from ONE `fused_cost` launch over one packed slab (the
+    gathered posterior rows, the input sizes and the node corrections,
+    one copy up) and the static factor matrix kept on the device.  It is
+    bitwise `PredictionMatrix.from_service(...).costs(order, names,
+    quantile)`.
 
   * `fused_heft_schedule` ranks and places off W.  It is bitwise
     `heft.heft_schedule_matrix` with either engine:
@@ -71,11 +73,10 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.bayes_fit import (PredictBatch, PredictTarget,
                                            pack_predict)
-from repro_torch.kernels.decision_plane import rank_table
+from repro_torch.kernels.decision_plane import pack_cost, rank_table
 from repro_torch.sched.heft import Schedule, comm_structure
 from repro_torch.sched.plane import PredictionMatrix, quantile_z
 from repro_torch.store import compute
-from repro_torch.store.compute import LEAVES
 from repro_torch.workflow.dag import WorkflowDAG
 
 __all__ = ["FusedPlane", "PlaneStats", "ReplanRequest", "cost_view",
@@ -277,26 +278,26 @@ def cost_view(service, dag: WorkflowDAG, nodes: List[NodeSpec],
               quantile: Optional[float] = None) -> torch.Tensor:
     """The round's (T, N) float64 quantile cost matrix W, rows in
     `dag.topo_order()` and columns in `nodes` order, on `service.device`:
-    the T task rows gathered once from the store, then ONE `fused_cost`
-    launch over them, their input sizes and the binding's factor matrix.
-    Bitwise `PredictionMatrix.from_service(service, entries, nodes)
-    .costs(order, names, quantile)`."""
+    the T task rows gathered by the store straight into one packed slab
+    with their input sizes and the N node corrections (`pack_cost`, one
+    copy up), then ONE `fused_cost` launch over it and the binding's
+    static factor matrix, which stays resident on the device until a refit
+    (`device_base_factors`).  Bitwise `PredictionMatrix.from_service(
+    service, entries, nodes).costs(order, names, quantile)`."""
     order = dag.topo_order()
     names = [n.name for n in nodes]
     tasks = [dag.tasks[u].task_name for u in order]
     binding = service._binding
     binding.sync()
-    post = service.store.snapshot().gather([binding.key_str(t)
-                                            for t in tasks])
-    dev = service.device
+    snap = service.store.snapshot()
+    keys = [binding.key_str(t) for t in tasks]
     x = np.asarray([dag.tasks[u].input_gb for u in order], np.float64)
-    f = binding.factor_matrix(tasks, names)
+    corr = binding.node_corrections(names)
+    batch = pack_cost(service.device, x, lambda out: snap.gather(keys, out),
+                      [corr.get(n, 1.0) for n in names])
+    base = binding.device_base_factors(tasks, names, service.device)
     z = None if quantile is None else quantile_z(quantile)
-    return ops.fused_cost(
-        torch.from_numpy(x).to(dev),
-        {leaf: torch.from_numpy(np.ascontiguousarray(post[leaf])).to(dev)
-         for leaf in LEAVES},
-        torch.from_numpy(np.ascontiguousarray(f, np.float64)).to(dev), z)
+    return ops.fused_cost(batch, base, z)
 
 
 def _check_finite(ctx: _PlanContext, W: np.ndarray) -> None:

@@ -36,12 +36,15 @@ import threading
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.kernels import staging
 from repro_torch.store.compute import LEAF_SHAPES, LEAVES
 from repro_torch.store.keys import (DEFAULT_TENANT, DEFAULT_WORKFLOW, SEP,
                                     TaskKey, namespace_str, resolve_bench)
 
 DEFAULT_BLOCK_SIZE = 512
+DEVICE_FACTOR_MATRICES = 8      # resident factor matrices a binding keeps
 
 # scale-like leaves default to 1 in unassigned slots so a stray read can
 # never divide by zero (assigned-row reads are guarded by the snapshot)
@@ -160,6 +163,9 @@ class TenantBinding:
                                                   # are fixed per binding)
         self._factor_cache: Dict[Tuple[str, str], float] = {}
         self._factor_version: Optional[int] = None
+        # (tasks, nodes, device) -> the static-factor matrix resident on
+        # that device; dropped with _factor_cache (`_drop_factors`)
+        self._device_factors: Dict[tuple, torch.Tensor] = {}
 
     @property
     def namespace(self) -> str:
@@ -190,7 +196,7 @@ class TenantBinding:
                       for k, v in benches.items())
         self.benches.update(benches)
         if changed:
-            self._factor_cache.clear()
+            self._drop_factors()
 
     # ---- predictor -> store sync -------------------------------------------
     def sync(self, full: bool = False) -> int:
@@ -251,8 +257,13 @@ class TenantBinding:
         base = getattr(self.predictor, "base", self.predictor)
         base_version = getattr(base, "version", 0)
         if full or base_version != self._factor_version:
-            self._factor_cache.clear()
+            self._drop_factors()
             self._factor_version = base_version
+
+    def _drop_factors(self) -> None:
+        """Forget every static factor, on the host and on the devices."""
+        self._factor_cache.clear()
+        self._device_factors.clear()
 
     def is_current(self) -> bool:
         """True when a sync would be a no-op: the change cursor sits at the
@@ -345,6 +356,30 @@ class TenantBinding:
         `factor_version`."""
         return np.asarray([[self.base_factor(t, n) for n in nodes]
                            for t in tasks])
+
+    def device_base_factors(self, tasks: Sequence[str],
+                            nodes: Sequence[Optional[str]],
+                            device) -> torch.Tensor:
+        """`base_factor_matrix` resident on `device`: float64, (T, N),
+        C-contiguous, 16-byte aligned (the cost kernel reads it in 16-byte
+        loads).  Built and copied once per (tasks, nodes, device) and kept
+        (the DEVICE_FACTOR_MATRICES newest) until the factor cache is
+        dropped (a refit moving `factor_version`, a full sync, a
+        re-benchmarked node), so a warm round builds and copies no factor
+        matrix."""
+        key = (tuple(tasks), tuple(nodes), staging.resolve(device))
+        f = self._device_factors.get(key)
+        if f is None:
+            host = np.asarray(self.base_factor_matrix(tasks, nodes),
+                              np.float64).reshape(len(tasks), len(nodes))
+            f = torch.empty(host.shape, dtype=torch.float64,
+                            device=key[2])
+            f.copy_(torch.from_numpy(host))
+            while len(self._device_factors) >= DEVICE_FACTOR_MATRICES:
+                self._device_factors.pop(next(iter(self._device_factors)),
+                                         None)
+            self._device_factors[key] = f
+        return f
 
     def factor_matrix(self, tasks: Sequence[str],
                       nodes: Sequence[Optional[str]]) -> np.ndarray:

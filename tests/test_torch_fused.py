@@ -19,6 +19,7 @@ Cases are fixed seeds (no hypothesis), so a failing case writes nothing
 under `.hypothesis/`."""
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -33,6 +34,7 @@ from repro.sched.plane import PredictionMatrix as JMatrix
 from repro.sched.plane import quantile_z as jquantile_z
 from repro.store import compute as jcompute
 from repro_torch import convert
+from repro_torch.kernels import bayes_fit as tkernels
 from repro_torch.kernels import decision_plane as tdp
 from repro_torch.kernels import ops, ref
 from repro_torch.online import PredictionService as TService
@@ -96,29 +98,92 @@ def test_cost_view_bitwise_equals_prediction_matrix_costs(seed, q):
     assert np.array_equal(_bits(got.numpy()), _bits(want))
 
 
-@pytest.mark.parametrize("z", [None, jquantile_z(0.95)])
+def _cost_case(t, n, seed):
+    """t posterior rows (from four rows up, a quarter under the 1e-3 mean
+    floor and a quarter with var_s <= 0), their inputs, a (t, n) static
+    factor matrix and n node corrections, every third 1."""
+    return chip_smoke.cost_inputs(np.random.default_rng(seed), t, n)
+
+
+def _cost_want(x, post, base, corr, z):
+    """The reference's chain: predict_blr_np, the factor matrix's
+    base * correction products, store.compute.scale, cost_matrix."""
+    mean, std = predict_blr_np(post, x)
+    f = np.asarray([[b * c for b, c in zip(row, corr)] for row in base])
+    mean_s, std_s = jcompute.scale(mean[:, None], std[:, None], f)
+    return jcompute.cost_matrix(mean_s, std_s, z)
+
+
+def _cost_got(x, post, base, corr, z):
+    batch = tdp.pack_cost("cpu", x, post, corr)
+    return ops.fused_cost(batch, torch.from_numpy(base), z)
+
+
+@pytest.mark.parametrize("z", [None, 0.0, jquantile_z(0.95)])
 def test_fused_cost_ref_is_predict_scale_cost_matrix(z):
     """Rows whose mean falls under the 1e-3 floor and rows whose var_s is
-    <= 0 (a non-PSD sigma) take numpy.maximum's path in both."""
-    rng = np.random.default_rng(5)
-    t, n = 64, 7
-    x, post = chip_smoke.random_posteriors(rng, t)
-    post["y_mu"][:16] = -rng.uniform(1e3, 1e4, 16)     # mean below the floor
-    post["sigma"][16:32] = -np.abs(post["sigma"][16:32]) - 5.0  # var_s < 0
-    f = rng.uniform(0.2, 5.0, (t, n))
-    mean, std = predict_blr_np(post, x)
+    <= 0 (a non-PSD sigma) take numpy.maximum's path in both; the node
+    corrections are not all 1."""
+    x, post, base, corr = _cost_case(64, 7, 5)
+    mean, _ = predict_blr_np(post, x)
     assert (mean < 1e-3).sum() >= 16
     xs = (x - post["x_mu"]) / post["x_sd"]
     var_s = (1.0 / post["beta_prec"] + post["sigma"][:, 0, 0]
              + 2.0 * post["sigma"][:, 0, 1] * xs
              + post["sigma"][:, 1, 1] * xs * xs)
     assert (var_s <= 0.0).sum() >= 16
-    mean_s, std_s = jcompute.scale(mean[:, None], std[:, None], f)
-    want = jcompute.cost_matrix(mean_s, std_s, z)
-    got = ops.fused_cost(torch.from_numpy(x),
-                         {k: torch.from_numpy(v) for k, v in post.items()},
-                         torch.from_numpy(f), z)
-    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    assert (corr != 1.0).sum() >= 4
+    got = _cost_got(x, post, base, corr, z)
+    assert got.dtype == torch.float64 and got.shape == (64, 7)
+    assert np.array_equal(_bits(got.numpy()),
+                          _bits(_cost_want(x, post, base, corr, z)))
+
+
+@pytest.mark.parametrize("z", [None, 0.0, jquantile_z(0.95)])
+@pytest.mark.parametrize("t,n", [(37, 7), (37, 1), (1, 1), (9, 101)])
+def test_fused_cost_ref_ragged_shapes(t, n, z):
+    """T and N odd, one node, one cell, more nodes than a tile's rows:
+    the plain version on the cost slab stays bitwise the reference's
+    chain (the card's kernel is held to it by chip_smoke.py)."""
+    x, post, base, corr = _cost_case(t, n, 100 + t + n)
+    got = _cost_got(x, post, base, corr, z)
+    assert np.array_equal(_bits(got.numpy()),
+                          _bits(_cost_want(x, post, base, corr, z)))
+
+
+@pytest.mark.parametrize("z", [0.0, jquantile_z(0.95)])
+def test_fused_cost_ref_matches_jax_pallas_interpret(z):
+    """The JAX Pallas `fused_cost` in interpret mode computes in float32:
+    held at rtol 1e-5 and an atol of 1e-5 of the largest cost (float32
+    operands, a cancellation in mean_s * y_sd + y_mu)."""
+    x, post, base, corr = _cost_case(37, 7, 7)
+    f = np.asarray([[b * c for b, c in zip(row, corr)] for row in base])
+    want = np.asarray(jdp.fused_cost(
+        jnp.asarray(x, jnp.float32),
+        {k: jnp.asarray(v, jnp.float32) for k, v in post.items()},
+        jnp.asarray(f, jnp.float32), z=z, interpret=True))
+    got = _cost_got(x, post, base, corr, z).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(got).max())
+
+
+def test_cost_slab_layout():
+    """The cost slab: the rows' column groups as `pack_predict` lays them
+    out (destinations 0), then the corrections on a 16-byte boundary; a
+    callable `post` (the store's gather) writes the leaves in place."""
+    x, post, base, corr = _cost_case(5, 3, 9)
+    batch = tdp.pack_cost("cpu", x, lambda out: [
+        v.__setitem__(slice(None), post[k]) for k, v in out.items()], corr)
+    assert (batch.t, batch.n) == (5, 3)
+    assert batch.slab.numel() == tdp.cost_slots(5, 3)
+    at = tkernels.predict_slots(5)
+    assert at % 2 == 0
+    cols = tkernels.slab_columns(batch.slab, 5)
+    assert torch.equal(cols["x"], torch.from_numpy(x))
+    assert torch.equal(cols["sigma"], torch.from_numpy(post["sigma"]))
+    assert (cols["dest"] == 0).all()
+    assert torch.equal(tdp.cost_corr(batch), torch.from_numpy(corr))
+    assert torch.equal(batch.slab[at:], torch.from_numpy(corr))
 
 
 # --- (b) the plain sweep against the reference's float32 sweep --------------
@@ -265,8 +330,10 @@ def test_auto_engine_policy_is_size_based(monkeypatch):
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(3, dtype=torch.float64)
+    _, post, base, corr = _cost_case(3, 2, 3)
+    batch = tdp.pack_cost("cpu", np.zeros(3), post, corr)
     with pytest.raises(ValueError, match="CUDA"):
-        tdp.fused_cost(x, {}, torch.zeros((3, 2), dtype=torch.float64))
+        tdp.fused_cost(batch, torch.from_numpy(base))
     with pytest.raises(ValueError, match="CUDA"):
         tdp.eft_sweep(torch.zeros((3, 2), dtype=torch.float64), *([x] * 7),
                       S=4)

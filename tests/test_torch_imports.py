@@ -62,7 +62,8 @@ def test_importing_every_module_leaves_jax_out():
 def test_no_source_line_imports_jax_or_repro():
     pat = re.compile(r"^\s*(import|from) (jax|repro)\b")
     files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
-                                             "sweep_clocks.py")]
+                                             "sweep_clocks.py",
+                                             "cost_split.py")]
     for d, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bad = [f"{f}:{i}" for f in files
@@ -141,6 +142,13 @@ def test_sweep_clocks_refuses_without_card(no_card):
                        cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert "[clocks]" not in r.stdout
+
+
+def test_cost_split_refuses_without_card(no_card):
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "cost_split.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "[cost_split]" not in r.stdout
 
 
 def test_lm_entry_points_raise_without_a_card(no_card):

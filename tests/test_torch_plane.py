@@ -37,12 +37,14 @@ from repro.workflow.simulator import random_cluster as jcluster
 from repro_torch import convert
 from repro_torch.core.microbench import NodeSpec as TNode
 from repro_torch.core.microbench import simulate_microbench as tbench
+from repro_torch.core.traces import TraceRow as TTrace
 from repro_torch.kernels import ops
 from repro_torch.kernels.bayes_fit import slab_table
 from repro_torch.online import OnlinePredictor as TOnline
 from repro_torch.online import PredictionService as TService
 from repro_torch.online.events import TaskCompletion as TComp
 from repro_torch.sched.cluster import TARGET_MACHINES as TMACHINES
+from repro_torch.sched import fused as tfused
 from repro_torch.sched.fused import FusedPlane as TPlane
 from repro_torch.sched.heft import heft_schedule_matrix as theft
 from repro_torch.sched.plane import PredictionMatrix as TMatrix
@@ -423,6 +425,65 @@ def test_device_engine_and_cost_view_match_reference(quantile):
                                            engine=engine), want)
     assert tplane.stats.sweep_dispatches == 2
     assert tsvc.predictor.node_correction(tnodes[1].name) != 1.0
+
+
+@pytest.mark.parametrize("quantile", [None, 0.95])
+def test_cost_view_bitwise_after_node_corrections_move(quantile):
+    """`cost_view` (one cost slab, the resident static factors, the
+    corrections multiplied in by the cost kernel's plain version) is
+    bitwise the reference's `PredictionMatrix.from_service(...).costs`
+    before and after remote completions move node corrections in both
+    packages."""
+    (jdag, jnodes, jsvc), (tdag, tnodes, tsvc) = _build(30, 6, 17,
+                                                        benches=True)
+    rng = np.random.default_rng(4)
+    order, names = jdag.topo_order(), [n.name for n in jnodes]
+    for step in range(3):
+        if step:
+            _observe_both(jsvc, tsvc, (step, 6), rng,
+                          nodes=(jnodes[0].name, jnodes[2].name, "local"))
+        want = JMatrix.from_service(jsvc, _entries(jdag), jnodes).costs(
+            order, names, quantile)
+        got = tfused.cost_view(tsvc, tdag, tnodes, quantile)
+        assert got.dtype == torch.float64 and got.shape == want.shape
+        assert np.array_equal(got.numpy(), want)
+    assert tsvc.predictor.node_correction(tnodes[0].name) != 1.0
+
+
+def test_cost_view_keeps_its_static_factors_resident(monkeypatch):
+    """Three warm `cost_view` rounds build the static factor matrix once
+    and never the full factor matrix; a refit that moves
+    `factor_version` builds it again, and W stays bitwise
+    `PredictionMatrix.costs`."""
+    _, (tdag, tnodes, tsvc) = _build(20, 5, 11, benches=True)
+    calls = {"base": 0, "full": 0}
+    real_base = TenantBinding.base_factor_matrix
+    real_full = TenantBinding.factor_matrix
+
+    def base(self, *a, **k):
+        calls["base"] += 1
+        return real_base(self, *a, **k)
+
+    def full(self, *a, **k):
+        calls["full"] += 1
+        return real_full(self, *a, **k)
+
+    monkeypatch.setattr(TenantBinding, "base_factor_matrix", base)
+    cold = tfused.cost_view(tsvc, tdag, tnodes, 0.95)
+    monkeypatch.setattr(TenantBinding, "factor_matrix", full)
+    for _ in range(3):
+        assert torch.equal(tfused.cost_view(tsvc, tdag, tnodes, 0.95), cold)
+    assert calls == {"base": 1, "full": 0}
+    version = tsvc._binding.factor_version
+    tsvc.predictor.base.fit(_traces(TTrace, TASK_TYPES))
+    got = tfused.cost_view(tsvc, tdag, tnodes, 0.95)
+    assert tsvc._binding.factor_version != version
+    assert calls == {"base": 2, "full": 0}
+    monkeypatch.setattr(TenantBinding, "factor_matrix", real_full)
+    order = tdag.topo_order()
+    want = TMatrix.from_service(tsvc, _entries(tdag), tnodes).costs(
+        order, [n.name for n in tnodes], 0.95)
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_plane_needs_entries_or_dag():

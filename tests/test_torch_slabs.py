@@ -31,6 +31,7 @@ from repro.core import bayes as jbayes
 from repro.kernels import bayes_fit as jkernels
 from repro_torch.core import bayes as tbayes
 from repro_torch.kernels import bayes_fit as tkernels
+from repro_torch.kernels import decision_plane as tdp
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.staging import staged
 from repro_torch.store import PosteriorStore as TStore
@@ -224,7 +225,7 @@ def test_bayes_predict_ref_scatters_into_resident_rows(q):
 def test_predict_argument_checks():
     x, post = _posteriors(4, seed=0)
     slab = tkernels.pack_predict("cpu", x, post).slab
-    batch = lambda s: tkernels.PredictBatch(s, 4, ())
+    batch = lambda s: tkernels.PredictBatch._packed(s, 4, ())
     with pytest.raises(ValueError, match="at least"):
         ops.bayes_predict(batch(slab[:40]))            # a short slab
     spare = torch.cat([torch.zeros(1, dtype=torch.float64), slab])
@@ -271,6 +272,59 @@ def test_a_slab_and_targets_packed_apart_are_refused_on_both_routes():
     # packed together, the rows land in the targets the table names
     assert ops.bayes_predict(good) is None
     assert not torch.isnan(resident.mean).any()
+
+
+@pytest.mark.parametrize("kind", ["predict", "cost"])
+def test_batches_are_made_by_their_packers_alone(kind):
+    """A `PredictBatch` or `CostBatch` constructed other than by its
+    packer is refused when it is made, before any route can read it: a
+    forged batch cannot pair a slab with targets its table does not
+    name."""
+    x, post = _posteriors(6, seed=2)
+    resident, other = _nan_target(6), _nan_target(6)
+    if kind == "predict":
+        good = tkernels.pack_predict("cpu", x, post, np.arange(6),
+                                     [(resident, 6)])
+        with pytest.raises(TypeError, match="pack_predict alone"):
+            tkernels.PredictBatch(good.slab, 6, (other,))
+        with pytest.raises(TypeError, match="pack_predict alone"):
+            tkernels.PredictBatch(slab=good.slab, q=6, targets=())
+        assert ops.bayes_predict(good) is None
+        assert not torch.isnan(resident.mean).any()
+    else:
+        good = tdp.pack_cost("cpu", x, post, [1.0, 1.5])
+        with pytest.raises(TypeError, match="pack_cost alone"):
+            tdp.CostBatch(good.slab, 6, 2)
+        with pytest.raises(TypeError, match="CostBatch"):
+            ops.fused_cost(good.slab, torch.ones((6, 2), dtype=torch.float64))
+        w = ops.fused_cost(good, torch.ones((6, 2), dtype=torch.float64))
+        assert w.shape == (6, 2) and torch.isfinite(w).all()
+    assert torch.isnan(other.mean).all()
+    assert tkernels.bayes_predict.launches == 0
+    assert tdp.fused_cost.launches == 0
+
+
+def test_cost_argument_checks():
+    """The cost routes' checks: a short slab, a slab off a 16-byte
+    boundary, and a static factor matrix of the wrong shape, type or
+    alignment are refused on the plain route as on the card's."""
+    x, post = _posteriors(4, seed=3)
+    good = tdp.pack_cost("cpu", x, post, [1.0, 2.0, 0.5])
+    base = torch.ones((4, 3), dtype=torch.float64)
+    batch = lambda s: tdp.CostBatch._packed(s, 4, 3)
+    with pytest.raises(ValueError, match="at least"):
+        ops.fused_cost(batch(good.slab[:40]), base)
+    spare = torch.cat([torch.zeros(1, dtype=torch.float64), good.slab])
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.fused_cost(batch(spare[1:]), base)
+    with pytest.raises(ValueError, match="shape"):
+        ops.fused_cost(good, torch.ones((3, 4), dtype=torch.float64))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.fused_cost(good, base.float())
+    wide = torch.ones(13, dtype=torch.float64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.fused_cost(good, wide[1:].view(4, 3))
+    assert ops.fused_cost(good, base).shape == (4, 3)
 
 
 def test_predict_target_rows_are_what_the_table_says():
