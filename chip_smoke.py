@@ -130,7 +130,32 @@ Phases (each fails loudly; nothing is caught):
                batch one bayes_predict kernel and no index_copy; a fold
                one copy each way and one nig_fold kernel; a warm
                `cost_view` one copy up and one fused_cost kernel.
-  9. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
+  9. adaptive — in-flight rescheduling and speculation through
+               `execute_adaptive` with the port's
+               `OnlineReschedulingPlanner` (its `FusedPlane` and service
+               on the card, `engine="device"`): every completion one
+               scalar `observe` and one `bayes_predict` over the frontier;
+               a re-plan one `bayes_predict` for the running tasks, the
+               plane's dirty rows in one more, the frontier sub-DAG's cost
+               view taken on the card from the resident scaled pair, one
+               `upward_rank` and one `eft_sweep` (no host copy of W).
+               First the paper scenario of benchmarks/online_adaptation.py
+               (the five workflows on the five target machines, true
+               speeds drifted by class): static, adaptive and oracle
+               makespans.  Then the 1000 x 100 replan problem, true
+               runtimes the CPU service's mean x the drift x a seeded
+               lognormal (sigma 0.1), 8 % stragglers x 5, speculation at
+               q 0.95 every 15 s, a cooldown of 25 completions.  Every
+               `SimResult` identical to the port's CPU run (numpy engine)
+               over the same posteriors, and `RescheduleStats`, the
+               plane's counters and `predicted_cost_quantile` (q 0.95,
+               minute billing) of the last schedule equal; one
+               `upward_rank` and one `eft_sweep` a device round.  Printed:
+               the run's host time, a completion's without a re-plan, and
+               a re-plan's split (sub-DAG and context, running tasks'
+               estimate, ready rows, plane sync, cost view, ranks, sweep
+               and copy back, rebuild, the rest).
+ 10. refresh — the maintenance plane: the 65,536 fleet posteriors as 64
                tenants of 1,024 tasks, each an `OnlinePredictor(device=
                "cuda")` bound to one store, fed its share of phase 6's
                fleet completions and synced in one generation; one
@@ -140,7 +165,7 @@ Phases (each fails loudly; nothing is caught):
                t00 re-predicts the rows the publish dirtied in one
                `bayes_predict` launch.  The store's rows within rtol 1e-4
                / atol 1e-5 of the same refresh on device="cpu".
- 10. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
+ 11. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
                (bfloat16, weights made on the card from a seed) served
                through `repro_torch.launch.serve`: B = 2 prompts of 4096
                tokens (past the 2048 window, so the rings wrap), 16
@@ -163,7 +188,7 @@ Phases (each fails loudly; nothing is caught):
                and prefill of S = 2100 against prefill of S - 1 plus one
                decode step (2e-3); then one prefill and 4 decode steps
                under torch.profiler (device time by kernel, busy share).
- 11. report  — per-kernel launches on the main path (phases 3-10, each
+ 12. report  — per-kernel launches on the main path (phases 3-11, each
                path with the counts set to 0 just before it), errors, and
                times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -2636,6 +2661,346 @@ def report_replan(launches, errors, times) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# adaptive: in-flight rescheduling and speculation
+# ---------------------------------------------------------------------------
+# true runtime multiplier per machine class: benchmarks/online_adaptation.py
+ADAPTIVE_DRIFT = {"A1": 1.5, "A2": 0.7, "N1": 1.4, "N2": 0.6, "C2": 2.0}
+ADAPTIVE_SEED = 41
+ADAPTIVE_NOISE = 0.1             # sigma of the lognormal runtime factor
+ADAPTIVE_STRAGGLERS = (0.08, 5.0)  # share of tasks, runtime factor
+ADAPTIVE_SPEC = dict(q=0.95, check_interval_s=15.0)
+ADAPTIVE_COOLDOWN = 25
+ADAPTIVE_COST_Q = 0.95
+# a re-plan's pieces and a completion's (each exclusive of those inside it)
+ADAPTIVE_SPLIT = ("subdag_ctx_s", "running_s", "ready_s", "plane_sync_s",
+                  "cost_view_s", "rank_s", "sweep_s", "rebuild_s",
+                  "predict_s", "factors_s", "other_s")
+COMPLETION_SPLIT = ("observe_s", "predict_s", "factors_s", "other_s")
+
+
+def sim_key(res) -> tuple:
+    """What two runs of `execute_adaptive` must share to be identical."""
+    return ([(r.uid, r.node, r.start, r.finish, r.attempt)
+             for r in res.records], res.makespan, res.node_busy,
+            res.n_reschedules, res.n_backups, res.backup_waste_s)
+
+
+class AdaptiveSplit:
+    """Times one planner's run piece by piece, each piece ended by a
+    device sync and timed exclusive of the pieces inside it.  Every
+    `on_completion`: the scalar `observe`, the service's `predict_batch`
+    (the store's gather, the copy up, one `bayes_predict`, the copy back)
+    and its per-query factors (static x node correction); the rest (the
+    frontier, its queries, the band test) is `other_s`, a re-plan inside
+    it excluded.  Every re-plan: the sub-DAG and its context, the running
+    tasks' estimate, the ready rows, the plane's sync and host matrix,
+    the cost view, the rank launch and its flag read, the sweep with its
+    rank order and copy back, the Schedule rebuild; the rest (bands, rows
+    for speculation) is `other_s`.  Installed for the run and removed
+    after it."""
+
+    def __init__(self, planner, dev):
+        import torch
+        from repro_torch.sched import fused
+        self.planner, self.fused = planner, fused
+        self.sync = (torch.cuda.synchronize if dev.type == "cuda"
+                     else (lambda: None))
+        self.completions = []          # ({piece: seconds}, re-planned)
+        self.replans = []              # {piece: seconds}
+        self.last = None               # the last schedule handed out
+        self._cur = None               # the region being timed
+        self._frames = []
+        self._patched = []             # (object, attribute)
+        self._saved = {}
+
+    def _timed(self, piece, fn):
+        def run(*a, **kw):
+            cur = self._cur
+            if cur is None:
+                return fn(*a, **kw)
+            self._frames.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.sync()
+                spent = time.perf_counter() - t0
+                cur[piece] = (cur.get(piece, 0.0) + spent
+                              - self._frames.pop())
+                self._frames[-1] += spent
+        return run
+
+    def _region(self, fn, record):
+        """A top-level region (a completion or a re-plan): its pieces go
+        to a dict of its own, handed to `record(pieces, result)`."""
+        def run(*a, **kw):
+            outer, cur = self._cur, {}
+            self._cur = cur
+            self._frames.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                self.sync()
+                spent = time.perf_counter() - t0
+                cur["other_s"] = spent - self._frames.pop()
+                cur["total_s"] = spent
+                self._cur = outer
+                if self._frames:
+                    self._frames[-1] += spent
+            record(cur, out)
+            return out
+        return run
+
+    def _patch(self, obj, name, wrapped):
+        setattr(obj, name, wrapped)
+        self._patched.append((obj, name))
+
+    def __enter__(self):
+        planner, plane, fused = self.planner, self.planner._plane, self.fused
+        for obj, name, piece in (
+                (planner, "_frontier_dag", "subdag_ctx_s"),
+                (planner, "_running_ends", "running_s"),
+                (planner, "_ready_rows", "ready_s"),
+                (planner.online, "observe", "observe_s"),
+                (planner.service, "predict_batch", "predict_s"),
+                (planner.service._binding, "factors", "factors_s"),
+                (plane, "matrix", "plane_sync_s"),
+                (plane, "_costs", "cost_view_s")):
+            self._patch(obj, name, self._timed(piece, getattr(obj, name)))
+        for name, piece in (("_device_ranks", "rank_s"),
+                            ("_sweep_lanes", "sweep_s"),
+                            ("_build_schedule", "rebuild_s")):
+            self._saved[name] = getattr(fused, name)
+            setattr(fused, name, self._timed(piece, self._saved[name]))
+
+        def completed(cur, out):
+            self.completions.append((cur, out is not None))
+            if out is not None:
+                self.last = out
+        self._patch(planner, "_replan", self._region(
+            planner._replan, lambda cur, out: self.replans.append(cur)))
+        self._patch(planner, "on_completion",
+                    self._region(planner.on_completion, completed))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.fused, name, fn)
+        for obj, name in self._patched:
+            del obj.__dict__[name]
+
+
+def adaptive_planner(dag, nodes, lot, benches, dev, engine, **kw):
+    """The port's planner over a fresh `OnlinePredictor` of `lot` on
+    `dev`."""
+    from repro_torch.online import OnlinePredictor, OnlineReschedulingPlanner
+    return OnlineReschedulingPlanner(
+        dag, nodes, OnlinePredictor(lot, benches, device=dev),
+        benches=benches, engine=engine, device=dev, **kw)
+
+
+def adaptive_paper(dev) -> int:
+    """The paper's online scenario (benchmarks/online_adaptation.py,
+    `run_makespan_recovery`): each nf-core workflow on the five target
+    machines, whose true speeds drifted by ADAPTIVE_DRIFT, planned by the
+    port's planner on `dev` (device engine) and on the CPU (numpy engine)
+    over the same Lotaru-G posteriors (fitted on the CPU, carried to the
+    card).  The two `SimResult`s must be identical.  -> device rounds
+    (initial schedules and re-plans), their sweep launches (more than one
+    a round after a slot retry)."""
+    import torch
+    from repro_torch.convert import predictor_from_state, predictor_state
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    from repro_torch.sched.heft import heft_schedule
+    from repro_torch.workflow.generator import WORKFLOWS
+    from repro_torch.workflow.simulator import (execute_adaptive,
+                                                execute_schedule)
+    cpu = torch.device("cpu")
+    nodes = list(TARGET_MACHINES)
+    rounds = sweeps = 0
+    for wf in WORKFLOWS:
+        gt, dag, benches, preds = paper_experiment(wf, 0, "cpu")
+        lot = preds["lotaru-g"]
+        on_card = predictor_from_state(predictor_state(lot), dev)
+
+        def true_rt(u, n, gt=gt, dag=dag):
+            t = dag.tasks[u]
+            return (gt.runtime(t.task_name, t.input_gb, n, u)
+                    * ADAPTIVE_DRIFT.get(n.name, 1.0))
+
+        def pred_rt(u, n, lot=lot, dag=dag, benches=benches):
+            t = dag.tasks[u]
+            return lot.predict(t.task_name, t.input_gb, benches[n.name])[0]
+        static = execute_schedule(dag, heft_schedule(dag, nodes, pred_rt),
+                                  nodes, true_rt)
+        oracle = execute_schedule(dag, heft_schedule(dag, nodes, true_rt),
+                                  nodes, true_rt)
+        planner = adaptive_planner(dag, nodes, on_card, benches, dev,
+                                   "device")
+        t0 = time.perf_counter()
+        got = execute_adaptive(dag, nodes, planner, true_rt)
+        t1 = time.perf_counter()
+        want = execute_adaptive(dag, nodes,
+                                adaptive_planner(dag, nodes, lot, benches,
+                                                 cpu, "numpy"), true_rt)
+        check(sim_key(got) == sim_key(want),
+              f"adaptive {wf}: the SimResult on the card differs from the "
+              f"CPU run")
+        check(planner._plane.w_host_copies == 0,
+              f"adaptive {wf}: a device-engine pass copied W to the host")
+        rounds += 1 + got.n_reschedules
+        sweeps += planner._plane.stats.sweep_dispatches
+        print(f"[adaptive] paper {wf} ({len(dag.tasks)} tasks, 5 nodes): "
+              f"makespan static {float(static.makespan)!r} s, adaptive "
+              f"{float(got.makespan)!r} s ({got.n_reschedules} re-plans, "
+              f"{planner.stats}, {planner._plane.stats.sweep_dispatches} "
+              f"sweeps), oracle {float(oracle.makespan)!r} s; run "
+              f"{t1 - t0:.4f} s host clock; identical to the CPU run")
+    return rounds, sweeps
+
+
+def adaptive_problem(dev_cpu):
+    """The 1000 x 100 replan problem (`replan_problem`, seed 0) with true
+    runtimes: the CPU service's mean x ADAPTIVE_DRIFT by machine class x a
+    seeded lognormal factor, and ADAPTIVE_STRAGGLERS of the tasks slowed."""
+    from repro_torch.sched.plane import PredictionMatrix
+    dag, nodes, svc = replan_problem(PLAN_TASKS, PLAN_NODES, 0, dev_cpu)
+    entries = [(u, t.task_name, t.input_gb) for u, t in dag.tasks.items()]
+    mean = PredictionMatrix.from_service(svc, entries, nodes).means
+    rng = np.random.default_rng(ADAPTIVE_SEED)
+    drift = np.asarray([ADAPTIVE_DRIFT.get(n.name.rsplit("-", 1)[0], 1.0)
+                        for n in nodes])
+    truth = mean * drift[None, :] * rng.lognormal(0.0, ADAPTIVE_NOISE,
+                                                  mean.shape)
+    row = {u: i for i, u in enumerate(dag.tasks)}
+    col = {n.name: j for j, n in enumerate(nodes)}
+    frac, factor = ADAPTIVE_STRAGGLERS
+    slow = {u for u in dag.tasks if rng.random() < frac}
+    return {"dag": dag, "nodes": nodes, "lot": svc.predictor,
+            "benches": dict(svc.benches),
+            "true_rt": lambda u, n: float(truth[row[u], col[n.name]]),
+            "factor": lambda u: factor if u in slow else 1.0,
+            "n_slow": len(slow)}
+
+
+def adaptive_run(prob, dev, engine):
+    """One `execute_adaptive` of the full-width problem with speculation on
+    `dev` and `engine`, timed by an `AdaptiveSplit` -> (result, planner, host
+    seconds, the split)."""
+    from repro_torch.workflow.simulator import (SpeculationPolicy,
+                                                execute_adaptive)
+    planner = adaptive_planner(prob["dag"], prob["nodes"], prob["lot"],
+                               prob["benches"], dev, engine,
+                               cooldown=ADAPTIVE_COOLDOWN)
+    t0 = time.perf_counter()
+    with AdaptiveSplit(planner, dev) as timer:
+        res = execute_adaptive(prob["dag"], prob["nodes"], planner,
+                               prob["true_rt"],
+                               straggler_factor=prob["factor"],
+                               speculation=SpeculationPolicy(**ADAPTIVE_SPEC))
+    return res, planner, time.perf_counter() - t0, timer
+
+
+def phase_adaptive(dev) -> dict:
+    """In-flight rescheduling and speculation on the card through
+    `execute_adaptive` with the port's `OnlineReschedulingPlanner` (its
+    plane on `dev`, the device engine): the paper scenario, then the
+    1000 x 100 problem with 8 % stragglers, speculation and a cooldown,
+    each against the port's CPU run (numpy engine) of the same seed.  The
+    launch counts are read around the full-width run; the caller checks
+    the phase's totals.  -> {"device_rounds": initial schedules and
+    re-plans on the device engine, ...}."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import decision_plane as plane_k
+    from repro_torch.sched.cost import predicted_cost_quantile
+    rounds, sweeps = adaptive_paper(dev)
+    cpu = torch.device("cpu")
+    prob = adaptive_problem(cpu)
+    before = (kernels.bayes_predict.launches, plane_k.upward_rank.launches,
+              plane_k.eft_sweep.launches)
+    got, planner, host_s, timer = adaptive_run(prob, dev, "device")
+    launched = (kernels.bayes_predict.launches - before[0],
+                plane_k.upward_rank.launches - before[1],
+                plane_k.eft_sweep.launches - before[2])
+    want, cplanner, cpu_s, ctimer = adaptive_run(prob, cpu, "numpy")
+    check(sim_key(got) == sim_key(want),
+          "adaptive 1000x100: the SimResult on the card differs from the "
+          "CPU run")
+    check(dataclasses.asdict(planner.stats)
+          == dataclasses.asdict(cplanner.stats),
+          "adaptive 1000x100: RescheduleStats differ from the CPU run")
+    check(planner._plane.w_host_copies == 0,
+          "adaptive 1000x100: a device-engine pass copied W to the host")
+    check(dataclasses.asdict(planner._plane.stats)
+          == dict(dataclasses.asdict(cplanner._plane.stats),
+                  sweep_dispatches=planner._plane.stats.sweep_dispatches),
+          "adaptive 1000x100: the card's plane did other work than the "
+          "CPU run's")
+    costs = []
+    for p, t in ((planner, timer), (cplanner, ctimer)):
+        check(t.last is not None, "adaptive 1000x100: no re-plan was made")
+        costs.append(predicted_cost_quantile(t.last, p._plane.last_matrix,
+                                             prob["nodes"], "minute",
+                                             ADAPTIVE_COST_Q))
+    check(costs[0] == costs[1],
+          f"adaptive 1000x100: predicted_cost_quantile {costs[0]!r} on the "
+          f"card, {costs[1]!r} on the CPU")
+    n_re = got.n_reschedules
+    rounds += 1 + n_re
+    sweeps += planner._plane.stats.sweep_dispatches
+    idle = [c for c, re in timer.completions if not re]
+    idle_s = np.asarray([c["total_s"] for c in idle])
+    idle_split = {k: float(np.median([c.get(k, 0.0) for c in idle]))
+                  for k in COMPLETION_SPLIT}
+    split = {k: float(np.median([r.get(k, 0.0) for r in timer.replans]))
+             for k in ADAPTIVE_SPLIT + ("total_s",)}
+    cpu_split = float(np.median([r["total_s"] for r in ctimer.replans]))
+    cpu_idle = float(np.median([c["total_s"] for c, re in ctimer.completions
+                                if not re]))
+    print(f"[adaptive] 1000x100: {len(prob['dag'].tasks)} tasks, "
+          f"{prob['n_slow']} stragglers x {ADAPTIVE_STRAGGLERS[1]}, "
+          f"speculation {ADAPTIVE_SPEC}, cooldown {ADAPTIVE_COOLDOWN}: "
+          f"makespan {float(got.makespan)!r} s, {n_re} re-plans in "
+          f"{len(timer.completions)} completions, {got.n_backups} backups "
+          f"({got.backup_waste_s!r} s wasted); {planner.stats}; identical "
+          f"to the CPU run (records, makespan, counters, RescheduleStats); "
+          f"predicted_cost_quantile(q={ADAPTIVE_COST_Q}, minute) "
+          f"{costs[0]!r} on both")
+    print(f"[adaptive] 1000x100 host clock: the whole run {host_s:.4f} s "
+          f"on the card ({cpu_s:.4f} s on the CPU, numpy engine); a "
+          f"completion without a re-plan median "
+          f"{np.median(idle_s) * 1e3:.4f} ms (quartiles "
+          f"{np.percentile(idle_s, 25) * 1e3:.4f}, "
+          f"{np.percentile(idle_s, 75) * 1e3:.4f}; CPU "
+          f"{cpu_idle * 1e3:.4f} ms); a re-plan median "
+          f"{split['total_s'] * 1e3:.4f} ms (CPU numpy engine "
+          f"{cpu_split * 1e3:.4f} ms)")
+    print(f"[adaptive] 1000x100 completion split (medians over {len(idle)} "
+          f"completions without a re-plan, ms, each piece synced): "
+          + ", ".join(f"{k} {idle_split[k] * 1e3:.4f}"
+                      for k in COMPLETION_SPLIT))
+    print("[adaptive] 1000x100 re-plan split (medians over "
+          f"{len(timer.replans)} re-plans, ms, each piece synced): "
+          + ", ".join(f"{k} {split[k] * 1e3:.4f}" for k in ADAPTIVE_SPLIT))
+    print(f"[adaptive] 1000x100 launches: bayes_predict {launched[0]}, "
+          f"upward_rank {launched[1]}, eft_sweep {launched[2]} for "
+          f"{1 + n_re} device rounds (the initial schedule and {n_re} "
+          f"re-plans); PlaneStats card {planner._plane.stats}, CPU "
+          f"{cplanner._plane.stats}; host copies of W "
+          f"{planner._plane.w_host_copies}")
+    check(planner._plane.stats.sweep_dispatches == 1 + n_re,
+          "adaptive 1000x100: a device round retried its sweep")
+    if dev.type == "cuda":
+        check(launched[1] == launched[2] == 1 + n_re,
+              "adaptive 1000x100: not one upward_rank and one eft_sweep "
+              "launch per device round")
+    return {"device_rounds": rounds, "sweeps": sweeps}
+
+
 def tol_np(got, want, tol) -> tuple:
     """`tol_check` for float64 numpy arrays."""
     check(bool(np.isfinite(got).all()), "an output is not finite")
@@ -3755,6 +4120,18 @@ def main() -> None:
           and got["eft_sweep_many"] > 0 and got["eft_sweep"] == 0,
           "the replan path launched bayes_predict, upward_rank or "
           "eft_sweep_many no time, or a single-workflow sweep")
+    ad, got = drive(lambda: phase_adaptive(dev), "adaptive")
+    print(f"[launches] adaptive: {got}")
+    check(got["bayes_predict"] > 0
+          and got["upward_rank"] == ad["device_rounds"]
+          and got["eft_sweep"] == ad["sweeps"] >= ad["device_rounds"]
+          and all(got[k] == 0 for k in ("bayes_fit", "fused_cost",
+                                        "eft_sweep_many", "nig_fold")),
+          f"the adaptive path did not launch one upward_rank per device "
+          f"round ({ad['device_rounds']}) and one eft_sweep per sweep "
+          f"({ad['sweeps']}), bayes_predict, or launched a kernel off its "
+          f"path")
+    on_shared_route("adaptive")
     rf, got = drive(lambda: phase_refresh(dev, fleet_out, ingest), "refresh")
     print(f"[launches] refresh: {got}")
     check(got["bayes_fit"] == 1 and got["nig_fold"] > 0

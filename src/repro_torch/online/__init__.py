@@ -8,7 +8,9 @@ view over the shared `repro_torch.store.PosteriorStore` that answers a
 batch of queries with one launch of the posterior predictive kernel;
 `maintenance` is the posterior maintenance plane (fleet-wide periodic
 evidence refresh in one `bayes_fit` launch, published in one store
-generation).
+generation); `rescheduler` drives `workflow.simulator.execute_adaptive`
+(in-flight HEFT rescheduling and speculation off the resident decision
+plane).
 """
 from repro_torch.online.events import PredictionQuery, TaskCompletion  # noqa: F401
 from repro_torch.online.predictor import (IngestStats,                 # noqa: F401
@@ -16,3 +18,5 @@ from repro_torch.online.predictor import (IngestStats,                 # noqa: F
 from repro_torch.online.service import PredictionService              # noqa: F401
 from repro_torch.online.maintenance import (FleetRefresher,  # noqa: F401
                                             RefreshPolicy, RefreshReport)
+from repro_torch.online.rescheduler import (                        # noqa: F401
+    OnlineReschedulingPlanner, RescheduleStats)

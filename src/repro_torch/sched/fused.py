@@ -619,6 +619,12 @@ class FusedPlane:
     def binding(self):
         return self.service._binding
 
+    @property
+    def last_matrix(self) -> Optional[PredictionMatrix]:
+        """The host `PredictionMatrix` of the latest round (None before
+        the first)."""
+        return self._matrix
+
     # ---- dirty-row sync ----------------------------------------------------
     def collect_dirty(self):
         """Sync the binding, snapshot the store, and return

@@ -1,5 +1,13 @@
-"""The inverse normal of the decision plane (the speculation policy of the
-reference's straggler module is not part of this package yet).
+"""Uncertainty-driven straggler mitigation — the paper's Section 9 future
+work ("leverage uncertainty estimates in schedulers"), realized.
+
+Lotaru's Bayesian posterior gives a per-(task, node) predictive
+N(mean, std).  A running task is declared a straggler once its elapsed time
+exceeds the posterior q-quantile; a speculative copy is launched on the
+fastest idle node, and the first finisher wins (Mantri/Dryad-style, with a
+principled threshold instead of a heuristic multiple).  All of it is host
+float64 code in the reference's expressions, so thresholds and choices are
+bitwise the reference's.
 
 `ndtri` here is the shared inverse-normal of the whole decision plane: the
 quantile-HEFT path (`sched.plane.quantile_z`), carbon/cost confidence
@@ -7,9 +15,12 @@ bookings, and the speculation threshold all call it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.core.microbench import NodeSpec
 
 # Wichura's AS 241 (PPND16) rational approximations: exact to double
 # precision (|rel err| < 1e-15), unlike the ~1e-9 Acklam polynomial this
@@ -94,3 +105,62 @@ def normal_quantile(mean, std, q=0.95):
     z = cached_z(float(q)) if isinstance(q, (int, float)) else ndtri(q)
     out = np.asarray(mean, np.float64) + np.asarray(std, np.float64) * z
     return float(out) if out.ndim == 0 else out
+
+
+@dataclass
+class SpeculationPolicy:
+    """Knobs for uncertainty-driven speculative re-execution
+    (`workflow.simulator.execute_adaptive`): declare a running task a
+    straggler once its elapsed time exceeds the posterior q-quantile on
+    its node, and duplicate it on the best idle node (one backup per
+    task, first finisher wins).
+
+    The budget caps bound duplicate work cluster-wide (`None` = uncapped):
+
+    max_concurrent_backups: at most this many backups in flight at once —
+        further stragglers wait for a slot at the next progress-check
+        heartbeat instead of flooding idle nodes with copies.
+    max_total_backups: hard budget over the whole execution; once spent,
+        stragglers run to completion unduplicated.
+    """
+    q: float = 0.95
+    check_interval_s: float = 30.0
+    max_concurrent_backups: Optional[int] = None
+    max_total_backups: Optional[int] = None
+
+
+@dataclass
+class SpeculationDecision:
+    threshold_s: float
+    speculate: bool
+    backup_node: Optional[str] = None
+
+
+def straggler_threshold(pred_mean: float, pred_std: float,
+                        q: float = 0.95) -> float:
+    return normal_quantile(pred_mean, max(pred_std, 1e-9), q)
+
+
+def decide_speculation(elapsed_s: float, dist, node: str,
+                       idle_nodes: List[NodeSpec],
+                       q: float = 0.95) -> SpeculationDecision:
+    """Speculation decision from one decision-plane matrix row.
+
+    `dist` is a task's predictive distribution over nodes (anything with
+    `.on(node_name) -> (mean, std)`, e.g. `sched.plane.TaskDistribution`):
+    the straggler threshold comes from the posterior on the node the task
+    is running on, and the backup lands on the idle node with the lowest
+    predicted mean (the first such node on a tie)."""
+    mean, std = dist.on(node)
+    thr = straggler_threshold(mean, std, q)
+    if elapsed_s <= thr or not idle_nodes:
+        return SpeculationDecision(threshold_s=thr, speculate=False)
+    best = min(idle_nodes, key=lambda n: dist.on(n.name)[0])
+    return SpeculationDecision(threshold_s=thr, speculate=True,
+                               backup_node=best.name)
+
+
+def speculative_finish(elapsed_s: float, remaining_true_s: float,
+                       backup_true_s: float) -> float:
+    """first-finisher-wins completion time after launching a backup."""
+    return elapsed_s + min(remaining_true_s, backup_true_s)

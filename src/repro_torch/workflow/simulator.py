@@ -3,10 +3,20 @@ WorkSim-PredError role, Section 8): schedules are computed from *predicted*
 runtimes, execution advances with *true* runtimes.
 
 The core loop is a heap-ordered event queue — O(T log T + T N) — and every
-completion flows through an `on_complete` hook.  Node failures (fail-stop
-with re-execution) and the event loop's backup launches are kept from the
-reference; adaptive rescheduling and speculation (`execute_adaptive`) are
-not part of this package yet.
+completion flows through an `on_complete` hook: the attachment point for
+the online prediction service and, via `execute_adaptive`, for in-flight
+HEFT rescheduling of the not-yet-started frontier
+(`online.rescheduler.OnlineReschedulingPlanner`).
+
+Fault tolerance: node failures (fail-stop with re-execution) and
+uncertainty-driven speculative straggler duplication.  The event loop
+supports backup launches — a running task is duplicated on an idle node,
+the first finisher wins, the loser is cancelled and its slot freed — and
+`execute_adaptive(speculation=...)` consults the planner's
+`decide_speculation` (posterior-quantile thresholds from the decision
+plane, `sched.straggler`) on periodic progress-check events.  All of it
+runs on the host: the planner's predictions and replans are what reach the
+card.
 """
 from __future__ import annotations
 
@@ -43,6 +53,11 @@ class SimResult:
 
     def busy_seconds(self) -> Dict[str, float]:
         return {n: sum(b - a for a, b in iv) for n, iv in self.node_busy.items()}
+
+
+# SpeculationPolicy lives with the rest of the straggler decision plane;
+# re-exported here for the executor's callers.
+from repro_torch.sched.straggler import SpeculationPolicy  # noqa: E402,F401
 
 
 @dataclass
@@ -285,6 +300,97 @@ def execute_schedule(dag: WorkflowDAG, sched: Schedule,
             on_complete(rec, loop.state(rec.finish))
         loop.start_all_runnable()
     return loop.result()
+
+
+def _progress_check(loop: _EventLoop, planner,
+                    spec: SpeculationPolicy) -> None:
+    """Consult the planner's speculation policy for every running primary
+    without a backup; launch backups on idle nodes (greedily, fastest
+    predicted idle node per straggler), within the policy's budget caps
+    (`max_total_backups` lifetime, `max_concurrent_backups` in flight —
+    a straggler denied a slot stays a candidate on later heartbeats)."""
+    idle = loop.idle_nodes()
+    live = sum(1 for ls in loop._launches.values() if len(ls) > 1)
+    for uid, (name, start) in sorted(loop.running.items(),
+                                     key=lambda kv: kv[1][1]):
+        if not idle:
+            return
+        if (spec.max_total_backups is not None
+                and loop.n_backups >= spec.max_total_backups):
+            return                           # lifetime budget spent
+        if (spec.max_concurrent_backups is not None
+                and live >= spec.max_concurrent_backups):
+            return                           # every backup slot in use
+        if len(loop._launches.get(uid, ())) > 1:
+            continue                         # already speculated
+        dec = planner.decide_speculation(uid, name, loop.now - start, idle,
+                                         q=spec.q)
+        if dec.speculate and dec.backup_node:
+            if loop.launch_backup(uid, dec.backup_node):
+                live += 1
+                idle = [n for n in idle if n.name != dec.backup_node]
+
+
+def execute_adaptive(dag: WorkflowDAG, nodes: List[NodeSpec],
+                     planner,
+                     true_runtime: Callable[[str, NodeSpec], float],
+                     failures: Optional[Dict[str, float]] = None,
+                     straggler_factor: Optional[Callable[[str], float]] = None,
+                     speculation: Optional[SpeculationPolicy] = None
+                     ) -> SimResult:
+    """Event-driven execution with in-flight rescheduling.
+
+    `planner` must provide:
+      initial_schedule() -> Schedule                (covers the full DAG)
+      on_completion(record, state) -> Optional[Schedule]
+    The planner observes every completion (feeding its online predictor);
+    when it returns a new Schedule, the not-yet-started frontier is
+    re-queued accordingly (booked/running tasks are never recalled).
+
+    With a `SpeculationPolicy`, the loop fires a progress-check event every
+    `check_interval_s`; the planner must additionally provide
+      decide_speculation(uid, node, elapsed_s, idle_nodes, q)
+        -> sched.straggler.SpeculationDecision
+    (TypeError otherwise) and flagged stragglers are duplicated on idle
+    nodes via backup launches (first finisher wins; the loser is
+    cancelled, never recorded).
+    """
+    loop = _EventLoop(dag, nodes, true_runtime, failures, straggler_factor)
+    if speculation is not None and \
+            getattr(planner, "decide_speculation", None) is None:
+        raise TypeError("speculation needs a planner with "
+                        "decide_speculation(uid, node, elapsed_s, "
+                        "idle_nodes, q)")
+    sched = planner.initial_schedule()
+    loop.assigned_node.update(sched.assignment)
+    loop.set_queues(sched.order)
+    loop.start_all_runnable()
+    if speculation is not None:
+        loop.push_check(speculation.check_interval_s)
+    n_resched = 0
+    while True:
+        ev = loop.pop_event()
+        if ev is None:
+            break
+        if ev[0] == "check":
+            if loop._launches:       # tasks in flight -> keep the heartbeat
+                _progress_check(loop, planner, speculation)
+                loop.push_check(loop.now + speculation.check_interval_s)
+                loop.start_all_runnable()
+            continue
+        rec = ev[1]
+        new_sched = planner.on_completion(rec, loop.state(rec.finish))
+        if new_sched is not None:
+            n_resched += 1
+            # re-queue only the unbooked frontier; keep booked placements
+            for u, name in new_sched.assignment.items():
+                if u not in loop.started:
+                    loop.assigned_node[u] = name
+            loop.set_queues({
+                name: [u for u in uids if u not in loop.started]
+                for name, uids in new_sched.order.items()})
+        loop.start_all_runnable()
+    return loop.result(n_resched)
 
 
 def random_cluster(rng: np.random.Generator, pool: List[NodeSpec],

@@ -40,6 +40,11 @@ PLANE_MODULES = ("store.posterior", "sched.fused", "online.maintenance")
 # replanning many workflows: the rank and many-lane sweep kernels' wrappers,
 # their plain versions and dispatch
 REPLAN_MODULES = ("kernels.decision_plane", "kernels.ref", "kernels.ops")
+# the online path (rescheduler, adaptive executor, speculation) and the
+# planners that consume the predictions
+ADAPTIVE_MODULES = ("online.rescheduler", "workflow.simulator",
+                    "sched.straggler", "sched.cost", "sched.carbon",
+                    "sched.elastic")
 
 
 def _env():
@@ -56,7 +61,8 @@ def test_importing_every_module_leaves_jax_out():
     assert out[1] == "[]"
     names = set(out[2].split(","))
     assert {f"repro_torch.{m}" for m in
-            LM_MODULES + PLANE_MODULES + REPLAN_MODULES} <= names
+            LM_MODULES + PLANE_MODULES + REPLAN_MODULES
+            + ADAPTIVE_MODULES} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -73,14 +79,16 @@ def test_no_source_line_imports_jax_or_repro():
 
 def test_package_inits_import_only_ported_modules():
     """store/__init__ and online/__init__ export the ported names (the
-    maintenance plane's among them) and no module of a later slice
-    (frontend, rescheduler)."""
+    maintenance plane's and the rescheduler's among them) and no module of
+    a later slice (the frontend)."""
     code = ("import sys, repro_torch.store as s, repro_torch.online as o;"
             "print(s.PosteriorStore.__name__, s.TaskKey.__name__,"
             " s.predict_stacked.__name__, o.PredictionService.__name__,"
             " o.PredictionQuery.__name__, o.TaskCompletion.__name__,"
             " o.OnlinePredictor.__name__, o.IngestStats.__name__,"
-            " o.FleetRefresher.__name__, o.RefreshPolicy.__name__);"
+            " o.FleetRefresher.__name__, o.RefreshPolicy.__name__,"
+            " o.OnlineReschedulingPlanner.__name__,"
+            " o.RescheduleStats.__name__);"
             "print(sorted(k for k in sys.modules if k.startswith("
             "'repro_torch.')))")
     lines = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -90,10 +98,12 @@ def test_package_inits_import_only_ported_modules():
                                 "predict_stacked", "PredictionService",
                                 "PredictionQuery", "TaskCompletion",
                                 "OnlinePredictor", "IngestStats",
-                                "FleetRefresher", "RefreshPolicy"]
+                                "FleetRefresher", "RefreshPolicy",
+                                "OnlineReschedulingPlanner",
+                                "RescheduleStats"]
     assert "repro_torch.online.maintenance" in lines[1]
-    for later in ("frontend", "rescheduler"):
-        assert later not in lines[1]
+    assert "repro_torch.online.rescheduler" in lines[1]
+    assert "frontend" not in lines[1]
 
 
 @pytest.fixture
