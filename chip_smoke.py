@@ -165,7 +165,37 @@ Phases (each fails loudly; nothing is caught):
                t00 re-predicts the rows the publish dirtied in one
                `bayes_predict` launch.  The store's rows within rtol 1e-4
                / atol 1e-5 of the same refresh on device="cpu".
- 11. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
+ 11. checkpoint — the store's durability and shipping and the batch-window
+               frontend on the refresh fleet's store (64 tenants x 1,024
+               tasks, 65,536 rows in 128 blocks of 512): a full `save`,
+               `restore` and `resume` of all 64 tenants (fresh predictors
+               built as `refresh_fleet` builds them), each tenant's 256
+               seeded queries bitwise the pre-restart answers, every row
+               bitwise, and a `FusedPlane.schedule(engine="device")` over
+               t00 (1,024 tasks on 100 nodes) identical before and after
+               (every row re-predicted cold, none warm); an ingest batch
+               of 250 completions in t00-t03 and `save(incremental=True,
+               keep_last=2)` writing exactly the blocks whose generation
+               moved, the older generation restoring the pre-ingest
+               answers and the live one the post-ingest ones; a passive
+               replica bootstrapped by `export_blocks(-1)` and then sent
+               the delta (only the moved blocks), `predict_stacked` of all
+               rows on it bitwise the primary's; `export_namespaces` of 8
+               tenants into a live store holding other rows, resumed, its
+               answers bitwise the source's; `AsyncPredictionFrontend` on
+               benchmarks/service_throughput.py's 4,096 queries in 16
+               callers: a manual flush one `bayes_predict` launch at
+               Q = 4,096, then 5 auto-flush rounds of 16 threads (fewer
+               dispatches than the 80 caller batches), once more with
+               `predict_batch` on the main thread and a `FleetRefresher`
+               (attached through `refresher=`) fitting 2,048 due tasks of
+               the migrated store on its own thread; every caller's array
+               bitwise `predict_batch` of its queries in a quiet run; then
+               `run_local_microbench(device=...)`.  The `[checkpoint]` and
+               `[frontend]` lines carry host-clock times, bytes on disk
+               and queries a second, each beside the card's name and
+               power limit.
+ 12. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
                (bfloat16, weights made on the card from a seed) served
                through `repro_torch.launch.serve`: B = 2 prompts of 4096
                tokens (past the 2048 window, so the rings wrap), 16
@@ -188,7 +218,7 @@ Phases (each fails loudly; nothing is caught):
                and prefill of S = 2100 against prefill of S - 1 plus one
                decode step (2e-3); then one prefill and 4 decode steps
                under torch.profiler (device time by kernel, busy share).
- 12. report  — per-kernel launches on the main path (phases 3-11, each
+ 13. report  — per-kernel launches on the main path (phases 3-12, each
                path with the counts set to 0 just before it), errors, and
                times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -3015,29 +3045,41 @@ REFRESH_SPLIT = ("due", "snapshot", "pad", "fit", "apply", "put_many",
                  "cursor")
 
 
+def fleet_predictor(dev, post, ten: int):
+    """Tenant `ten` of the refresh fleet: an `OnlinePredictor` on `dev`
+    over the fleet posteriors of its N_FLEET / N_TENANTS rows."""
+    from repro_torch.convert import predictor_from_state
+    from repro_torch.online import OnlinePredictor
+    per = N_FLEET // N_TENANTS
+    rows = range(ten * per, (ten + 1) * per)
+    return OnlinePredictor(predictor_from_state(fleet_state(post, rows),
+                                                dev), device=dev)
+
+
+def fleet_benches() -> dict:
+    from repro_torch.core.microbench import simulate_microbench
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    return {n.name: simulate_microbench(n, 1) for n in TARGET_MACHINES}
+
+
 def refresh_fleet(dev, post, comps) -> dict:
     """The fleet's 65,536 posteriors as N_TENANTS tenants of
-    N_FLEET / N_TENANTS tasks, each one `OnlinePredictor` on `dev` bound
-    to one store under tenant tNN / workflow "fleet", each fed its share
-    of `comps` in one `observe_many`, then every binding synced in one
-    generation (`sync_bindings`)."""
-    from repro_torch.convert import predictor_from_state
-    from repro_torch.core.microbench import simulate_microbench
-    from repro_torch.online import OnlinePredictor, PredictionService
-    from repro_torch.sched.cluster import TARGET_MACHINES
+    N_FLEET / N_TENANTS tasks, each one `OnlinePredictor` on `dev`
+    (`fleet_predictor`) bound to one store under tenant tNN / workflow
+    "fleet", each fed its share of `comps` in one `observe_many`, then
+    every binding synced in one generation (`sync_bindings`)."""
+    from repro_torch.online import PredictionService
     from repro_torch.store import PosteriorStore
     per = N_FLEET // N_TENANTS
     store = PosteriorStore()
-    benches = {n.name: simulate_microbench(n, 1) for n in TARGET_MACHINES}
+    benches = fleet_benches()
     shares = [[] for _ in range(N_TENANTS)]
     for c in comps:
         shares[int(c.task[4:]) // per].append(c)
     svcs = []
     t0 = time.perf_counter()
     for ten in range(N_TENANTS):
-        rows = range(ten * per, (ten + 1) * per)
-        pred = OnlinePredictor(predictor_from_state(fleet_state(post, rows),
-                                                    dev), device=dev)
+        pred = fleet_predictor(dev, post, ten)
         svcs.append(PredictionService(pred, benches, store=store,
                                       tenant=f"t{ten:02d}", workflow="fleet",
                                       device=dev))
@@ -3112,7 +3154,10 @@ def phase_refresh(dev, fleet_out, ingest) -> dict:
     check(after[0] == dirty > 0 and after[1] == after[2] == 1,
           "the plane did not re-predict exactly the dirtied rows in one "
           "bayes_predict launch")
-    return {"report": report, "store": store}
+    keys = store.task_keys()        # the rows phase_refresh_checks reads:
+    return {"report": report, "store": store, "svcs": fl["svcs"],   # the
+            "keys": keys, "rows": store.gather(keys)}   # checkpoint phase
+                                                        # writes the store
 
 
 def phase_refresh_checks(dev, fleet_out, ingest, rf) -> None:
@@ -3125,11 +3170,11 @@ def phase_refresh_checks(dev, fleet_out, ingest, rf) -> None:
     fl = refresh_fleet("cpu", fleet_out["fleet_post"], ingest["comps"])
     store = fl["store"]
     keys = store.task_keys()
-    check(keys == rf["store"].task_keys(), "refresh: the stores' keys differ")
+    check(keys == rf["keys"], "refresh: the stores' keys differ")
     gen0 = store.generation
     report = FleetRefresher(store, RefreshPolicy(**REFRESH_POLICY),
                             device="cpu").refresh()
-    got, want = rf["store"].gather(keys), store.gather(keys)
+    got, want = rf["rows"], store.gather(keys)
     card = rf["report"]
     check((report.n_tasks, report.n_tenants, report.n_dispatches,
            report.n_stale, report.generation - gen0)
@@ -3148,6 +3193,491 @@ def phase_refresh_checks(dev, fleet_out, ingest, rf) -> None:
     check(max(r for _, r in worst.values()) <= 1.0,
           "refresh: the card's refreshed rows are not within rtol 1e-4 / "
           "atol 1e-5 of the CPU run's")
+
+
+CKPT_QUERIES = 256               # a tenant's seeded query set
+CKPT_INGEST = 250                # completions in the ingest batch, on
+CKPT_INGEST_TENANTS = 4          # random tasks of t00-t03 (8 blocks)
+CKPT_MIGRATE = 8                 # tenants moved by export_namespaces
+CKPT_DUE_TASKS = 256             # tasks a migrated tenant has due
+FE_QUERIES, FE_CALLERS, FE_ROUNDS = 4096, 16, 5   # service_throughput.py
+FE_WINDOW_S = 0.002
+_CARD = []
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0])
+    return _CARD[0]
+
+
+def disk_bytes(path: str, names=None) -> tuple:
+    """(bytes of block files, bytes of the manifest) in `path`, of the
+    files `names` only when given."""
+    blocks = man = 0
+    for f in os.listdir(path):
+        if names is not None and f not in names:
+            continue
+        size = os.path.getsize(os.path.join(path, f))
+        if f == "manifest.json":
+            man += size
+        elif f.endswith(".npz"):
+            blocks += size
+    return blocks, man
+
+
+def ckpt_queries(rng: np.random.Generator, tasks) -> list:
+    """CKPT_QUERIES seeded queries of one tenant, on the target machines
+    and the local one."""
+    from repro_torch.online import PredictionQuery
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    nodes = [None] + [m.name for m in TARGET_MACHINES]
+    return [PredictionQuery(tasks[int(rng.integers(0, len(tasks)))],
+                            nodes[int(rng.integers(0, len(nodes)))],
+                            float(rng.uniform(0.05, 12.0)))
+            for _ in range(CKPT_QUERIES)]
+
+
+def ckpt_dag(rng: np.random.Generator, tasks):
+    """`replan_dag`'s random DAG over one tenant's fleet tasks (task i
+    runs fleet task i)."""
+    from repro_torch.workflow.dag import TaskInstance, WorkflowDAG
+    dag = WorkflowDAG("ckpt")
+    for i, name in enumerate(tasks):
+        deps = [f"t{j}" for j in range(i)
+                if rng.random() < min(3.0 / max(i, 1), 0.5)]
+        dag.add(TaskInstance(f"t{i}", name, "ckpt",
+                             float(rng.uniform(0.05, 4.0)),
+                             output_gb=float(rng.uniform(0.0, 2.0)),
+                             deps=deps))
+    return dag
+
+
+def resume_fleet(dev, post, store, tens) -> tuple:
+    """Fresh fleet predictors of tenants `tens`, built as `refresh_fleet`
+    builds them, resumed on `store`, and their services: (services,
+    build seconds, resume seconds)."""
+    from repro_torch.online import PredictionService
+    benches = fleet_benches()
+    t0 = time.perf_counter()
+    preds = {ten: fleet_predictor(dev, post, ten) for ten in tens}
+    t1 = time.perf_counter()
+    for ten, pred in preds.items():
+        store.resume(f"t{ten:02d}", "fleet", pred, benches)
+    t2 = time.perf_counter()
+    svcs = {ten: PredictionService(pred, benches, store=store,
+                                   tenant=f"t{ten:02d}", workflow="fleet",
+                                   device=dev)
+            for ten, pred in preds.items()}
+    return svcs, t1 - t0, t2 - t1
+
+
+def answers(svcs, qsets, tens) -> tuple:
+    """({tenant: predict_batch of its query set}, seconds taken)."""
+    t0 = time.perf_counter()
+    out = {ten: svcs[ten].predict_batch(qsets[ten]) for ten in tens}
+    return out, time.perf_counter() - t0
+
+
+def all_equal(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        np.array_equal(got[k], want[k]) for k in want)
+
+
+def ckpt_ingest(rng: np.random.Generator, svcs) -> tuple:
+    """CKPT_INGEST local completions on random tasks of the first
+    CKPT_INGEST_TENANTS tenants, one `observe_many` a tenant: (tenants
+    touched, seconds)."""
+    from repro_torch.online import TaskCompletion
+    per = N_FLEET // N_TENANTS
+    idx = rng.integers(0, CKPT_INGEST_TENANTS * per, CKPT_INGEST)
+    x = rng.uniform(0.5, 6.0, CKPT_INGEST)
+    y = (5.0 + 30.0 * x) * (1.0 + rng.normal(0.0, 0.05, CKPT_INGEST))
+    by = {}
+    for k, (i, a, b) in enumerate(zip(idx.tolist(), x.tolist(),
+                                      y.tolist())):
+        by.setdefault(i // per, []).append(TaskCompletion(
+            "fleet", f"ck{k}", f"task{i:05d}", "local", a, b))
+    t0 = time.perf_counter()
+    for ten, comps in by.items():
+        svcs[ten].predictor.observe_many(comps)
+    return sorted(by), time.perf_counter() - t0
+
+
+def fe_chunks(rng: np.random.Generator, tasks_of) -> list:
+    """benchmarks/service_throughput.py's 4,096 queries (random task,
+    target machine and input in 0.05-12 GB) in 16 callers' chunks, for
+    FE_ROUNDS rounds: caller c of round r asks tenant (c + 16 r) mod 64,
+    so the 80 caller batches cover every tenant."""
+    from repro_torch.online import PredictionQuery
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    nodes = [m.name for m in TARGET_MACHINES]
+    chunk = FE_QUERIES // FE_CALLERS
+    out = []
+    for r in range(FE_ROUNDS):
+        row = []
+        for c in range(FE_CALLERS):
+            ten = (c + FE_CALLERS * r) % N_TENANTS
+            tasks = tasks_of[ten]
+            row.append((ten, [PredictionQuery(
+                tasks[int(rng.integers(0, len(tasks)))],
+                nodes[int(rng.integers(0, len(nodes)))],
+                float(rng.uniform(0.05, 12.0))) for _ in range(chunk)]))
+        out.append(row)
+    return out
+
+
+def fe_rounds(fe, chunks) -> tuple:
+    """FE_ROUNDS rounds of FE_CALLERS threads through the auto-flushing
+    `fe`, as benchmarks/service_throughput.py drives it: (every caller's
+    answers, seconds, dispatches)."""
+    from concurrent.futures import ThreadPoolExecutor
+    got = []
+    d0 = fe.dispatch_count
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=FE_CALLERS) as pool:
+        for row in chunks:
+            futs = list(pool.map(lambda tq: fe.predict_async(
+                tq[1], tenant=f"t{tq[0]:02d}", workflow="fleet"), row))
+            got.append([f.result(timeout=60) for f in futs])
+    return got, time.perf_counter() - t0, fe.dispatch_count - d0
+
+
+def same_answers(got, quiet) -> bool:
+    return all(np.array_equal(g, q) for gr, qr in zip(got, quiet)
+               for g, q in zip(gr, qr))
+
+
+def fe_manual(dev, store, row) -> tuple:
+    """One manual flush of FE_CALLERS callers submitted at once: (their
+    answers, flush seconds, bayes_predict launches, the launches' Q)."""
+    import threading
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.kernels import ops
+    from repro_torch.store import AsyncPredictionFrontend
+    fe = AsyncPredictionFrontend(store, device=dev, auto_flush=False)
+    futs = [None] * len(row)
+    barrier = threading.Barrier(len(row))
+
+    def submit(c):
+        ten, qs = row[c]
+        barrier.wait()
+        futs[c] = fe.predict_async(qs, tenant=f"t{ten:02d}",
+                                   workflow="fleet")
+
+    threads = [threading.Thread(target=submit, args=(c,))
+               for c in range(len(row))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    qs_seen = []
+    dispatch = ops.bayes_predict
+    ops.bayes_predict = lambda b: qs_seen.append(b.q) or dispatch(b)
+    try:
+        l0 = kernels.bayes_predict.launches
+        t0 = time.perf_counter()
+        flushed = fe.flush()
+        if fe.device.type == "cuda":
+            torch.cuda.synchronize(fe.device)
+        flush_s = time.perf_counter() - t0
+        launched = kernels.bayes_predict.launches - l0
+    finally:
+        ops.bayes_predict = dispatch
+    fe.close()
+    check(flushed == len(row) and fe.dispatch_count == 1
+          and fe.coalesced == [len(row)],
+          f"frontend: a manual flush answered {flushed} of {len(row)} "
+          f"callers in {fe.dispatch_count} dispatches")
+    return [f.result(timeout=60) for f in futs], flush_s, launched, qs_seen
+
+
+def due_stream(rng: np.random.Generator, svcs, tens) -> int:
+    """Four local completions on each of the first CKPT_DUE_TASKS tasks
+    of tenants `tens` (due at every_n = 4), one `observe_many` a tenant;
+    returns the completions fed."""
+    from repro_torch.online import TaskCompletion
+    n = 0
+    for ten in tens:
+        tasks = svcs[ten].predictor.task_names()[:CKPT_DUE_TASKS]
+        xs = rng.uniform(0.5, 6.0, (len(tasks), 4))
+        comps = [TaskCompletion("fleet", f"due{ten}-{i}-{j}", t, "local",
+                                float(xs[i, j]), float(5.0 + 20.0 * xs[i, j]))
+                 for i, t in enumerate(tasks) for j in range(4)]
+        svcs[ten].predictor.observe_many(comps)
+        n += len(comps)
+    return n
+
+
+def phase_checkpoint(dev, fleet_out, rf) -> dict:
+    """The store's durability and shipping and the batch-window frontend
+    on the refresh fleet (`phase_refresh`'s store: 64 tenants x 1,024
+    tasks, 65,536 rows of 88 bytes in 128 blocks of 512), on `dev`.  The
+    checkpoints live in one temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from repro_torch.core.microbench import run_local_microbench
+    from repro_torch.online import FleetRefresher, RefreshPolicy
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    from repro_torch.sched.fused import FusedPlane
+    from repro_torch.store import AsyncPredictionFrontend, PosteriorStore
+    from repro_torch.store.compute import predict_stacked
+    from repro_torch.workflow.simulator import random_cluster
+    store, svcs = rf["store"], dict(enumerate(rf["svcs"]))
+    post = fleet_out["fleet_post"]
+    tens = list(range(N_TENANTS))
+    tasks_of = {ten: svcs[ten].predictor.task_names() for ten in tens}
+    rng = np.random.default_rng(43)
+    qsets = {ten: ckpt_queries(rng, tasks_of[ten]) for ten in tens}
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="lotaru-ckpt-")
+    try:
+        # --- 1. full save, restart: the same answers and schedule -------
+        before, _ = answers(svcs, qsets, tens)
+        dag = ckpt_dag(rng, tasks_of[0])
+        nodes = random_cluster(rng, list(TARGET_MACHINES),
+                               n_nodes=PLAN_NODES)
+        sched0 = FusedPlane(svcs[0], nodes, dag=dag).schedule(
+            dag, quantile=PLAN_QUANTILE, engine="device")
+        path = tempfile.mkdtemp(dir=root)
+        t0 = time.perf_counter()
+        store.save(path)
+        save_s = time.perf_counter() - t0
+        g_full = store.generation
+        n_full = len(store.last_checkpoint_blocks)
+        full_bytes = disk_bytes(path)
+        t0 = time.perf_counter()
+        restored = PosteriorStore.restore(path)
+        restore_s = time.perf_counter() - t0
+        keys = store.task_keys()
+        rows0 = store.gather(keys)
+
+        def same_rows(s) -> bool:
+            got = s.gather(keys)
+            return all(np.array_equal(got[k], v) for k, v in rows0.items())
+
+        check(same_rows(restored),
+              "checkpoint: the restored rows differ from the saved ones")
+        rsvcs, build_s, resume_s = resume_fleet(dev, post, restored, tens)
+        gen = restored.generation
+        after, first_s = answers(rsvcs, qsets, tens)
+        restacked = restored.generation - gen
+        check(all_equal(after, before),
+              "checkpoint: predictions after restore and resume are not "
+              "bitwise the pre-restart ones")
+        check(same_rows(restored) and restacked == N_TENANTS,
+              f"checkpoint: resume restacked in {restacked} generations, "
+              f"or rows other than the checkpoint's")
+        plane = FusedPlane(rsvcs[0], nodes, dag=dag)
+        sched1 = plane.schedule(dag, quantile=PLAN_QUANTILE, engine="device")
+        cold = plane.stats.rows_refreshed
+        plane.schedule(dag, quantile=PLAN_QUANTILE, engine="device")
+        check(same_schedule(sched1, sched0),
+              "checkpoint: the plane's schedule on the restored store "
+              "differs from the one before the restart")
+        check(cold == len(plane.uids) == plane.stats.rows_refreshed,
+              "checkpoint: the plane over the restored store did not "
+              "re-predict every row once, then none")
+        print(f"[checkpoint] full save of {len(keys)} rows in {n_full} "
+              f"blocks of {store.block_size} ({N_TENANTS} tenants): save "
+              f"{save_s!r} s, {full_bytes[0]} bytes of blocks + "
+              f"{full_bytes[1]} bytes of manifest; restore {restore_s!r} "
+              f"s; {N_TENANTS} fresh predictors {build_s!r} s, resume "
+              f"{resume_s!r} s; first predict after resume ({N_TENANTS} x "
+              f"{CKPT_QUERIES} queries, each namespace restacked in one "
+              f"put_many) {first_s!r} s ({card()})")
+        print(f"[checkpoint] restart: {N_TENANTS} x {CKPT_QUERIES} answers "
+              f"and all rows bitwise; plane over t00 ({len(plane.uids)} "
+              f"tasks x {len(nodes)} nodes, device engine) schedule "
+              f"identical, rows re-predicted {cold} cold and 0 warm")
+
+        # --- 2. replica bootstrap, then an ingest batch and an -----------
+        # --- incremental save with retention --------------------------
+        replica = PosteriorStore()
+        t0 = time.perf_counter()
+        boot = store.export_blocks(-1)
+        t1 = time.perf_counter()
+        replica.import_blocks(boot)
+        boot_s = (t1 - t0, time.perf_counter() - t1)
+        g_boot = store.generation
+        touched, ingest_s = ckpt_ingest(rng, svcs)
+        store.sync_bindings()
+        moved = sorted(i for i, g in store._block_gen.items() if g > g_boot)
+        some = touched + [N_TENANTS - 1]
+        mid, _ = answers(svcs, qsets, some)
+        t0 = time.perf_counter()
+        store.save(path, incremental=True, keep_last=2)
+        inc_s = time.perf_counter() - t0
+        written = list(store.last_checkpoint_blocks)
+        inc_bytes = disk_bytes(path, {f"block_{i}.npz" for i in written}
+                               | {"manifest.json"})
+        check(written == moved and 0 < len(moved) < store.num_blocks,
+              f"checkpoint: the incremental save wrote blocks {written}, "
+              f"not exactly the moved ones {moved}")
+        old = PosteriorStore.restore(path, generation=g_full)
+        osvcs, _, _ = resume_fleet(dev, post, old, some)
+        check(all_equal(answers(osvcs, qsets, some)[0],
+                        {t: before[t] for t in some}),
+              "checkpoint: restore(generation=<the full save>) does not "
+              "answer the pre-ingest predictions")
+        live = PosteriorStore.restore(path)
+        lsvcs, _, _ = resume_fleet(dev, post, live, some)
+        check(all_equal(answers(lsvcs, qsets, some)[0], mid),
+              "checkpoint: the live checkpoint does not answer the "
+              "post-ingest predictions")
+        print(f"[checkpoint] ingest of {CKPT_INGEST} completions in "
+              f"tenants {touched} ({ingest_s!r} s), one sync_bindings "
+              f"generation: blocks moved {moved} ({len(moved)} of "
+              f"{store.num_blocks}); incremental save keep_last=2 "
+              f"{inc_s!r} s wrote exactly them, {inc_bytes[0]} bytes of "
+              f"blocks + {inc_bytes[1]} bytes of manifest; "
+              f"restore(generation={g_full}) answers the pre-ingest "
+              f"predictions bitwise, the live checkpoint the post-ingest "
+              f"ones ({card()})")
+
+        # --- 3. the replica's delta --------------------------------------
+        t0 = time.perf_counter()
+        delta = store.export_blocks(g_boot)
+        t1 = time.perf_counter()
+        replica.import_blocks(delta)
+        delta_s = (t1 - t0, time.perf_counter() - t1)
+        shipped = sorted(int(i) for i in delta["blocks"])
+        check(shipped == moved,
+              f"replica: the delta shipped blocks {shipped}, not the moved "
+              f"ones {moved}")
+        x = rng.uniform(0.05, 12.0, len(keys))
+        psnap, rsnap = store.snapshot(), replica.snapshot()
+        mp, sp = predict_stacked(x, lambda out: psnap.gather(keys, out),
+                                 device=dev)
+        mr, sr = predict_stacked(x, lambda out: rsnap.gather(keys, out),
+                                 device=dev)
+        check(np.array_equal(mp, mr) and np.array_equal(sp, sr),
+              "replica: predict_stacked on the replica is not bitwise the "
+              "primary's")
+        nb = lambda p: sum(a.nbytes for blk in p["blocks"].values()
+                           for a in blk.values())
+        print(f"[checkpoint] replica: bootstrap export_blocks(-1) "
+              f"{len(boot['blocks'])} blocks, {nb(boot)} bytes, export "
+              f"{boot_s[0]!r} s, import {boot_s[1]!r} s; delta after the "
+              f"ingest {len(shipped)} blocks, {nb(delta)} bytes, export "
+              f"{delta_s[0]!r} s, import {delta_s[1]!r} s; predict_stacked "
+              f"of all {len(keys)} rows on the card bitwise the primary's "
+              f"({card()})")
+
+        # --- 4. migration into a live store holding other rows -----------
+        dst = PosteriorStore()
+        for k in (0, 1):
+            dst.bind(f"x{k:02d}", "fleet", fleet_predictor(dev, post, k),
+                     fleet_benches())
+        other = len(dst)
+        moving = list(range(N_TENANTS - CKPT_MIGRATE, N_TENANTS))
+        t0 = time.perf_counter()
+        payload = store.export_namespaces([f"t{t:02d}/fleet"
+                                           for t in moving])
+        t1 = time.perf_counter()
+        n_in = dst.import_namespaces(payload)
+        mig_s = (t1 - t0, time.perf_counter() - t1)
+        msvcs, _, mres_s = resume_fleet(dev, post, dst, moving)
+        check(all_equal(answers(msvcs, qsets, moving)[0],
+                        answers(svcs, qsets, moving)[0]),
+              "migration: predictions after import_namespaces and resume "
+              "are not bitwise the source's")
+        print(f"[checkpoint] migration: export_namespaces of "
+              f"{CKPT_MIGRATE} tenants ({len(payload['keys'])} rows) "
+              f"{mig_s[0]!r} s, import_namespaces into a live store "
+              f"holding {other} other rows ({n_in} rows) {mig_s[1]!r} s, "
+              f"resume {mres_s!r} s; answers bitwise the source's "
+              f"({card()})")
+
+        # --- 5. the frontend: manual, auto-flush, under load -------------
+        chunks = fe_chunks(rng, tasks_of)
+        quiet = [[svcs[ten].predict_batch(qs) for ten, qs in row]
+                 for row in chunks]
+        manual, flush_s, launched, qs_seen = fe_manual(dev, store,
+                                                       chunks[0])
+        on_card = torch.device(dev).type == "cuda"
+        check(launched == int(on_card) and qs_seen == [FE_QUERIES],
+              f"frontend: a manual flush made {launched} bayes_predict "
+              f"launches at Q {qs_seen}, not one at Q = {FE_QUERIES}")
+        check(same_answers([manual], quiet[:1]),
+              "frontend: a manual flush's answers are not bitwise "
+              "predict_batch's")
+        print(f"[frontend] manual: {FE_CALLERS} callers x "
+              f"{FE_QUERIES // FE_CALLERS} queries of {FE_CALLERS} tenants, "
+              f"one flush {flush_s!r} s, bayes_predict launches {launched} "
+              f"at Q = {qs_seen[0]}; answers bitwise predict_batch "
+              f"({card()})")
+        n_batches = FE_ROUNDS * FE_CALLERS
+        with AsyncPredictionFrontend(store, device=dev,
+                                     window_s=FE_WINDOW_S) as fe:
+            got, auto_s, auto_d = fe_rounds(fe, chunks)
+        check(same_answers(got, quiet) and auto_d < n_batches,
+              f"frontend: the auto-flush rounds' answers are not bitwise "
+              f"predict_batch's, or {auto_d} dispatches for {n_batches} "
+              f"caller batches")
+        # under load: predict_batch on this thread, and a refresher (on
+        # its own thread) fitting due tasks of the migrated store
+        fed = due_stream(np.random.default_rng(47), msvcs, moving)
+        refresher = FleetRefresher(dst, RefreshPolicy(**REFRESH_POLICY),
+                                   device=dev)
+        due = len(refresher.due())
+        ok, n_main, out = True, 0, {}
+        with AsyncPredictionFrontend(store, device=dev, window_s=FE_WINDOW_S,
+                                     refresher=refresher,
+                                     refresh_interval_s=0.01) as fe:
+            th = threading.Thread(target=lambda: out.update(
+                zip(("got", "s", "d"), fe_rounds(fe, chunks))))
+            th.start()
+            while th.is_alive() or n_main < n_batches:
+                r, c = divmod(n_main % n_batches, FE_CALLERS)
+                ten, qs = chunks[r][c]
+                ok &= np.array_equal(svcs[ten].predict_batch(qs),
+                                     quiet[r][c])
+                n_main += 1
+            th.join()
+        check(same_answers(out["got"], quiet) and ok
+              and out["d"] < n_batches,
+              "frontend: under the main thread's predict_batch and the "
+              "refresher, an answer is not bitwise the quiet run's")
+        check(refresher.dispatch_count >= 1 and refresher.failure_count == 0
+              and sum(r.n_tasks for r in refresher.reports) == due > 0,
+              f"frontend: the attached refresher did not fit the {due} due "
+              f"tasks ({refresher.dispatch_count} fits, "
+              f"{refresher.failure_count} failures)")
+        print(f"[frontend] auto-flush (window {FE_WINDOW_S} s): "
+              f"{FE_ROUNDS} rounds x {FE_CALLERS} threads x "
+              f"{FE_QUERIES // FE_CALLERS} queries over {N_TENANTS} "
+              f"tenants: {FE_ROUNDS * FE_QUERIES / auto_s!r} queries/s "
+              f"({auto_s!r} s), {auto_d} dispatches for {n_batches} caller "
+              f"batches; under load (predict_batch x {n_main} on the main "
+              f"thread, an attached FleetRefresher fitting {due} due "
+              f"tasks of the migrated store ({fed} completions) in "
+              f"{refresher.dispatch_count} bayes_fit launch(es)): "
+              f"{FE_ROUNDS * FE_QUERIES / out['s']!r} queries/s, "
+              f"{out['d']} dispatches; every answer bitwise the quiet "
+              f"run's ({card()})")
+
+        # --- 6. the real probes ------------------------------------------
+        mb = run_local_microbench(device=dev)
+        vals = (mb.cpu, mb.mem, mb.io_read, mb.io_write)
+        check(all(np.isfinite(v) and v > 0 for v in vals),
+              f"probes: run_local_microbench read {vals}")
+        print(f"[checkpoint] probes: run_local_microbench(device={dev}): "
+              f"float32 matmul n=512 {mb.cpu!r} GFLOP/s, stream "
+              f"{mb.mem!r} GB/s, file write {mb.io_write!r} MB/s, read "
+              f"{mb.io_read!r} MB/s ({card()})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[checkpoint] the phase took {time.perf_counter() - t_phase!r} s "
+          f"({card()})")
+    return {"moved": moved, "schedules": 3}
 
 
 def bounds_predict(q: int) -> tuple:
@@ -4138,6 +4668,17 @@ def main() -> None:
           and got["bayes_predict"] == 2,
           "the refresh path did not launch bayes_fit once, nig_fold, and "
           "bayes_predict twice (the plane cold, then after the publish)")
+    ck, got = drive(lambda: phase_checkpoint(dev, fleet_out, rf),
+                    "checkpoint")
+    print(f"[launches] checkpoint: {got}")
+    check(got["bayes_predict"] > 0 and got["nig_fold"] > 0
+          and got["bayes_fit"] >= 1 and got["upward_rank"] >= 1
+          and got["eft_sweep"] >= ck["schedules"]
+          and all(got[k] == 0 for k in ("fused_cost", "eft_sweep_many")),
+          "the checkpoint path did not launch bayes_predict, nig_fold, "
+          "bayes_fit (the attached refresher), upward_rank and an "
+          "eft_sweep a plane schedule, or launched a kernel off its path")
+    on_shared_route("checkpoint")
     _, got = drive(lambda: phase_lm(dev), "lm")
     print(f"[launches] lm: {got}")
     kinds = get_config(LM_ARCH).layer_kinds()

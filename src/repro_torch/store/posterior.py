@@ -1,6 +1,4 @@
-"""PosteriorStore: the single multi-tenant owner of all posterior state
-(the in-memory store; checkpointing and replica shipping are not part of
-this package yet).
+"""PosteriorStore: the single multi-tenant owner of all posterior state.
 
   * **Namespaced keys** — rows are addressed `tenant/workflow/task`
     (keys.TaskKey); any number of workflows/tenants share one store with
@@ -17,11 +15,26 @@ this package yet).
     consumer (`sched.fused.FusedPlane`) which of its rows moved since the
     generation it last read.  `sync_bindings` lands several namespaces'
     changed rows in one generation.
+  * **Checkpoint/restore** — `save()` writes one npz a block plus a JSON
+    manifest with the key index, the blocks' generations and each bound
+    predictor's streaming state (NIG posteriors, node-correction logs,
+    observation buffers); `restore()` + `resume()` bring a restarted
+    service back warm and bit-identical.  The files are the reference
+    package's (`repro.store.posterior`): a checkpoint written by either
+    restores in the other.  `save(incremental=True)` rewrites only the
+    blocks whose generation moved, `keep_last=N` keeps superseded
+    generations restorable through hard links.
+  * **Replica shipping and migration** — `export_blocks` /
+    `import_blocks` ship whole blocks to a passive replica,
+    `export_namespaces` / `import_namespaces` move namespaces into a live
+    store; the payloads are the reference's.
 
 The gathered rows are what the predictive kernel reads: a gather is one
 contiguous float64 array per leaf, packed into the kernel's rows
 (`kernels.bayes_fit.pack_predict`), which cross to the card in one
-transfer.
+transfer.  The block generations feed both the incremental checkpoint and
+the resident plane: a store restored or imported whole is a new store (or
+one with no live binding), so a plane over it starts from a full gather.
 
 `TenantBinding` is the per-namespace glue: it owns the sync cursor between
 a predictor's mutable state and the store rows (incremental via the
@@ -32,6 +45,9 @@ from __future__ import annotations
 
 import contextlib
 import heapq
+import json
+import os
+import re
 import threading
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -45,6 +61,94 @@ from repro_torch.store.keys import (DEFAULT_TENANT, DEFAULT_WORKFLOW, SEP,
 
 DEFAULT_BLOCK_SIZE = 512
 DEVICE_FACTOR_MATRICES = 8      # resident factor matrices a binding keeps
+MANIFEST_NAME = "manifest.json"
+BLOCKS_NAME = "blocks.npz"           # format-1 checkpoints (read-only compat)
+CHECKPOINT_FORMAT = 2
+
+
+def _block_file(i: int) -> str:
+    return f"block_{i}.npz"
+
+
+def _hist_block_file(i: int, gen: int) -> str:
+    """Name a superseded block generation keeps under retention
+    (`save(keep_last=...)`): the content block i had at generation `gen`."""
+    return f"block_{i}.g{gen}.npz"
+
+
+def _hist_manifest_file(gen: int) -> str:
+    return f"manifest.g{gen}.json"
+
+
+_BLOCK_FILE_RE = re.compile(r"block_(\d+)(?:\.g(\d+))?\.npz$")
+_HIST_MANIFEST_RE = re.compile(r"manifest\.g(\d+)\.json$")
+
+
+def _preserve_history(path: str, prev: dict, rewritten, deleted) -> None:
+    """Hard-link the outgoing checkpoint generation under suffixed names
+    before `save(keep_last=...)` overwrites or deletes it, so it stays
+    restorable (`restore(path, generation=...)`) until retention prunes
+    it.  Linking is additive — a crash mid-preserve leaves the live
+    checkpoint untouched, it just keeps one extra generation."""
+    prev_block_gen = {int(k): int(v)
+                      for k, v in (prev.get("block_gen") or {}).items()}
+    gen = int(prev.get("generation", 0))
+    hist_manifest = os.path.join(path, _hist_manifest_file(gen))
+    if not os.path.exists(hist_manifest):
+        try:
+            os.link(os.path.join(path, MANIFEST_NAME), hist_manifest)
+        except FileNotFoundError:
+            return                   # no previous checkpoint: nothing to keep
+    for i in sorted(set(rewritten) | set(deleted)):
+        g = prev_block_gen.get(i)
+        if g is None:                # legacy format-1 history lives in the
+            continue                 # blocks.npz blob, which save never touches
+        hist = os.path.join(path, _hist_block_file(i, g))
+        if os.path.exists(hist):
+            continue
+        try:
+            os.link(os.path.join(path, _block_file(i)), hist)
+        except FileNotFoundError:    # block file already missing: the live
+            pass                     # checkpoint self-repairs, so can history
+
+
+def _gc_checkpoint(path: str, keep_last: int, manifest: dict) -> None:
+    """Prune checkpoint history beyond the newest `keep_last - 1`
+    superseded generations (the live checkpoint is the Nth), plus any
+    block npz / stale temp no surviving manifest references — orphans of
+    a different store saved at the same path or of a crashed save."""
+    files = set(os.listdir(path))
+    hist = sorted(((int(m.group(1)), f) for f in files
+                   if (m := _HIST_MANIFEST_RE.fullmatch(f)) is not None),
+                  reverse=True)
+    kept = hist[:keep_last - 1]
+    referenced = {MANIFEST_NAME, BLOCKS_NAME}
+    referenced.update(_block_file(int(i))
+                      for i in (manifest.get("block_gen") or {}))
+    for _, fname in kept:
+        referenced.add(fname)
+        try:
+            with open(os.path.join(path, fname)) as f:
+                hm = json.load(f)
+        except (OSError, ValueError):
+            continue                 # unreadable history: keep, never guess
+        for bid, g in (hm.get("block_gen") or {}).items():
+            suffixed = _hist_block_file(int(bid), int(g))
+            # a block unchanged since that generation has no suffixed
+            # copy — the live file still holds those exact bytes
+            referenced.add(suffixed if suffixed in files
+                           else _block_file(int(bid)))
+    for fname in files:
+        if fname in referenced:
+            continue
+        if (_BLOCK_FILE_RE.fullmatch(fname) is not None
+                or _HIST_MANIFEST_RE.fullmatch(fname) is not None
+                or fname.endswith(".tmp")):
+            try:
+                os.remove(os.path.join(path, fname))
+            except FileNotFoundError:
+                pass
+
 
 # scale-like leaves default to 1 in unassigned slots so a stray read can
 # never divide by zero (assigned-row reads are guarded by the snapshot)
@@ -404,14 +508,24 @@ class PosteriorStore:
         self._rows: Dict[str, int] = {}          # key str -> row (a live key
                                                  # never moves; evict() may
                                                  # recycle freed row slots)
-        self._next_row = 0                       # allocation cursor
+        self._next_row = 0                       # allocation cursor (> any
+                                                 # restored row index)
         self._free_rows: List[int] = []          # heap of evicted row slots
         self._blocks: List[Dict[str, np.ndarray]] = []
         self._block_gen: Dict[int, int] = {}     # block id -> generation of
                                                  # its last rewrite (the
-                                                 # dirty-row feed)
+                                                 # dirty-row feed and the
+                                                 # incremental checkpoint)
+        self.last_checkpoint_blocks: List[int] = []   # blocks written by the
+                                                      # most recent save()
+        self._last_save_id: Optional[str] = None  # lineage token of the last
+                                                  # checkpoint this store
+                                                  # wrote or was restored
+                                                  # from (incremental saves
+                                                  # must extend exactly it)
         self._bindings: Dict[Tuple[str, str], TenantBinding] = {}
-        self._snap: Optional[StoreSnapshot] = None
+        self._saved_states: Dict[str, dict] = {}  # namespace -> checkpointed
+        self._snap: Optional[StoreSnapshot] = None  # predictor stream state
 
     # ---- introspection ------------------------------------------------------
     def __len__(self) -> int:
@@ -549,9 +663,9 @@ class PosteriorStore:
                     if self._free_rows:         # recycle evicted slots first
                         row = heapq.heappop(self._free_rows)
                     else:
-                        row = self._next_row   # never len(_rows): evicted
-                        self._next_row += 1    # slots leave gaps
-                    self._rows[ks] = row
+                        row = self._next_row   # never len(_rows): restored
+                        self._next_row += 1    # manifests may have row ids
+                    self._rows[ks] = row       # beyond the key count
                 bid, slot = divmod(row, self.block_size)
                 while bid >= len(self._blocks):
                     self._blocks.append(_new_block(self.block_size))
@@ -588,10 +702,351 @@ class PosteriorStore:
     def gather(self, keys: Sequence) -> Dict[str, np.ndarray]:
         return self.snapshot().gather(keys)
 
+    # ---- checkpoint / restore -----------------------------------------------
+    def _sync_all(self, namespaces=None) -> None:
+        """Sync every live binding (or those of `namespaces`), outside the
+        store lock: what is saved or shipped must agree with the exported
+        stream state (an observe() with no predict since must not ship new
+        state over a pre-observe row)."""
+        with self._lock:
+            bindings = [b for b in self._bindings.values()
+                        if namespaces is None or b.namespace in namespaces]
+        for b in bindings:
+            b.sync()
+
+    def _states(self, namespaces=None) -> Dict[str, Optional[dict]]:
+        """namespace -> streaming state: the restored-but-not-resumed
+        namespaces' checkpointed states, overwritten by each live
+        binding's `export_state()` (None for a predictor without one).
+        The caller holds the store lock."""
+        states = {ns: st for ns, st in self._saved_states.items()
+                  if namespaces is None or ns in namespaces}
+        for b in self._bindings.values():
+            if namespaces is None or b.namespace in namespaces:
+                exp = getattr(b.predictor, "export_state", None)
+                states[b.namespace] = exp() if exp is not None else None
+        return states
+
+    def save(self, path: str, incremental: bool = False,
+             keep_last: Optional[int] = None) -> str:
+        """Write per-block npz files + a manifest (JSON): key index,
+        generation, per-block generations, and each bound predictor's
+        streaming state via `export_state()`.  JSON float repr round-trips
+        float64 exactly, so restore is bit-identical.
+
+        `incremental=True` is the generation-delta mode: against the
+        manifest already at `path` (which this store must have written or
+        been restored from: `save_id`), only blocks whose generation moved
+        are rewritten and files of blocks released by evict() are removed.
+        The manifest is always rewritten, so the directory is a complete,
+        self-contained checkpoint after every save.  The block ids actually
+        written land in `last_checkpoint_blocks`.
+
+        `keep_last=N` keeps the last N checkpoint generations restorable
+        (`restore(path, generation=...)`): before a block file is
+        overwritten or dropped its previous content is hard-linked as
+        `block_i.g<gen>.npz`, the outgoing manifest as
+        `manifest.g<gen>.json`; older history, orphaned block files and
+        staging temps are pruned.  `keep_last=1` keeps only the live
+        checkpoint.
+
+        Crash-safe order: new block files are staged under temp names and
+        renamed into place, THEN the manifest is replaced, THEN evicted
+        blocks' files are deleted, so every manifest on disk references
+        complete files."""
+        if keep_last is not None and keep_last < 1:
+            raise ValueError("keep_last must be >= 1")
+        os.makedirs(path, exist_ok=True)
+        self._sync_all()
+        with self._lock:
+            prev: Optional[dict] = None
+            prev_gen: Optional[Dict[int, int]] = None
+            mpath = os.path.join(path, MANIFEST_NAME)
+            if (incremental or keep_last is not None) \
+                    and os.path.exists(mpath):
+                with open(mpath) as f:
+                    prev = json.load(f)
+            if incremental:
+                if prev is None:
+                    raise FileNotFoundError(
+                        f"incremental save needs an existing checkpoint at "
+                        f"{path!r}; do a full save first")
+                if (prev.get("format") != CHECKPOINT_FORMAT
+                        or prev.get("block_size") != self.block_size):
+                    raise ValueError(
+                        f"cannot incrementally extend checkpoint at "
+                        f"{path!r}: format/block_size mismatch")
+                if prev.get("save_id") is None \
+                        or prev.get("save_id") != self._last_save_id:
+                    # generation counters are not comparable across
+                    # divergent histories: only the store that wrote or
+                    # restored this exact checkpoint may extend it
+                    raise ValueError(
+                        f"checkpoint at {path!r} was not written by (or "
+                        f"restored into) this store — its history may have "
+                        f"diverged; do a full save instead")
+                prev_gen = {int(k): int(v)
+                            for k, v in prev.get("block_gen", {}).items()}
+            to_write, to_delete = [], []
+            block_gen_out: Dict[str, int] = {}
+            for i, blk in enumerate(self._blocks):
+                if blk is None:                  # released by evict()
+                    if prev_gen is None or i in prev_gen:
+                        to_delete.append(i)
+                    continue
+                # setdefault: a block with no tracked generation (restored
+                # from a format-1 checkpoint) gets one stable value — a
+                # moving fallback would make every incremental save
+                # rewrite it
+                g = self._block_gen.setdefault(i, self.generation)
+                block_gen_out[str(i)] = g
+                if prev_gen is not None and prev_gen.get(i) == g:
+                    continue                     # unchanged since last save
+                to_write.append((i, {leaf: blk[leaf] for leaf in LEAVES}))
+            save_id = os.urandom(8).hex()
+            manifest = {"format": CHECKPOINT_FORMAT,
+                        "block_size": self.block_size,
+                        "generation": self.generation,
+                        "save_id": save_id,
+                        "n_blocks": len(self._blocks),
+                        "block_gen": block_gen_out,
+                        "rows": dict(self._rows),
+                        "namespaces": self._states()}
+        if keep_last is not None and prev is not None:
+            _preserve_history(path, prev, [i for i, _ in to_write], to_delete)
+        for i, arrs in to_write:
+            tmp = os.path.join(path, _block_file(i) + ".tmp")
+            with open(tmp, "wb") as f:       # file handle: np.savez must not
+                np.savez(f, **arrs)          # append .npz to the temp name
+            os.replace(tmp, os.path.join(path, _block_file(i)))
+        mtmp = os.path.join(path, MANIFEST_NAME + ".tmp")
+        with open(mtmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(mtmp, os.path.join(path, MANIFEST_NAME))
+        for i in to_delete:
+            try:
+                os.remove(os.path.join(path, _block_file(i)))
+            except FileNotFoundError:
+                pass
+        if keep_last is not None:
+            _gc_checkpoint(path, keep_last, manifest)
+        with self._lock:
+            self._last_save_id = save_id
+        self.last_checkpoint_blocks = [i for i, _ in to_write]
+        return path
+
+    @classmethod
+    def restore(cls, path: str,
+                generation: Optional[int] = None) -> "PosteriorStore":
+        """Rebuild a store from the checkpoint at `path`.  By default the
+        live checkpoint; `generation=g` selects a superseded one retained
+        by `save(keep_last=...)` (its manifest is `manifest.g<g>.json`,
+        its blocks resolve to suffixed history files where the live ones
+        have since moved on).  Format-1 checkpoints (one `blocks.npz`) are
+        read; a missing block file that still holds live rows restores as
+        a fresh block (its rows self-repair on resume)."""
+        mname = (MANIFEST_NAME if generation is None
+                 else _hist_manifest_file(int(generation)))
+        with open(os.path.join(path, mname)) as f:
+            manifest = json.load(f)
+        fmt = manifest.get("format")
+        if fmt not in (1, CHECKPOINT_FORMAT):
+            raise ValueError(f"unsupported checkpoint format in {path!r}: "
+                             f"{fmt!r}")
+        store = cls(block_size=manifest["block_size"])
+        rows = {k: int(v) for k, v in manifest["rows"].items()}
+        if rows:
+            vals = list(rows.values())
+            if min(vals) < 0 or len(set(vals)) != len(vals):
+                raise ValueError(f"manifest rows must be unique and >= 0 "
+                                 f"(checkpoint {path!r})")
+        store._rows = rows
+        store._next_row = max(rows.values()) + 1 if rows else 0
+        n_blocks = max(int(manifest.get("n_blocks", 0)),
+                       -(-store._next_row // store.block_size))
+        live_bids = {r // store.block_size for r in rows.values()}
+        block_gen = {int(k): int(v)
+                     for k, v in manifest.get("block_gen", {}).items()}
+
+        def load(z) -> Dict[str, np.ndarray]:
+            return {leaf: (np.array(z[leaf], np.float64) if leaf in z.files
+                           else _new_block(store.block_size)[leaf])
+                    for leaf in LEAVES}
+
+        if fmt == 1:                 # legacy single-npz layout (read-only)
+            with np.load(os.path.join(path, BLOCKS_NAME)) as z:
+                store._blocks = [
+                    {leaf: (np.array(z[f"b{i}__{leaf}"], np.float64)
+                            if f"b{i}__{leaf}" in z.files
+                            else _new_block(store.block_size)[leaf])
+                     for leaf in LEAVES} for i in range(n_blocks)]
+        else:
+            for i in range(n_blocks):
+                fpath = os.path.join(path, _block_file(i))
+                if generation is not None and i in block_gen:
+                    hist = os.path.join(path,
+                                        _hist_block_file(i, block_gen[i]))
+                    if os.path.exists(hist):
+                        fpath = hist
+                if os.path.exists(fpath):
+                    with np.load(fpath) as z:
+                        store._blocks.append(load(z))
+                elif i in live_bids:   # tolerated: self-repairs on resume
+                    store._blocks.append(_new_block(store.block_size))
+                else:                  # released before the checkpoint
+                    store._blocks.append(None)
+        store.generation = int(manifest["generation"])
+        store._block_gen = block_gen
+        store._last_save_id = manifest.get("save_id")   # restored state ==
+        store._saved_states = manifest.get("namespaces") or {}   # this ckpt:
+        return store                                    # may extend it
+
+    def resume(self, tenant: str, workflow: str, predictor,
+               benches: Optional[Mapping] = None) -> TenantBinding:
+        """Re-attach a freshly constructed predictor to its checkpointed
+        namespace.  For predictors with `export_state`/`load_state`
+        (OnlinePredictor) the streaming state is loaded back and the first
+        sync rewrites every row of the namespace from it in one `put_many`,
+        bit-identically — a restarted service reproduces pre-restart
+        predictions exactly.  A predictor without `load_state` restacks
+        from its own fit on first predict."""
+        state = self._saved_states.get(namespace_str(tenant, workflow))
+        if state is not None and hasattr(predictor, "load_state"):
+            predictor.load_state(state)
+        # bind without pinning the sync cursor: the first predict re-syncs
+        # every row from the restored state (bit-identical to the stored
+        # blocks when the checkpoint was consistent, and self-repairing
+        # when it was not — e.g. a manifest written by an external tool)
+        return self.bind(tenant, workflow, predictor, benches, sync=False)
+
+    # ---- replica shipping ---------------------------------------------------
+    def export_blocks(self, since_generation: int = -1) -> dict:
+        """Serializable snapshot delta for read-replica shipping: every
+        block whose generation moved past `since_generation`, plus the
+        full row index, per-block generations, released block ids, and
+        the bound predictors' streaming states.  Blocks are immutable once
+        published (copy-on-write), so the returned arrays are references;
+        `import_blocks` copies.  `-1` ships everything (bootstrap)."""
+        self._sync_all()
+        with self._lock:
+            blocks: Dict[str, Dict[str, np.ndarray]] = {}
+            released: List[int] = []
+            for i, blk in enumerate(self._blocks):
+                if blk is None:
+                    released.append(i)
+                    continue
+                g = self._block_gen.setdefault(i, self.generation)
+                if g > since_generation:
+                    blocks[str(i)] = {leaf: blk[leaf] for leaf in LEAVES}
+            return {"block_size": self.block_size,
+                    "generation": self.generation,
+                    "n_blocks": len(self._blocks),
+                    "released": released,
+                    "block_gen": {str(i): int(g)
+                                  for i, g in self._block_gen.items()},
+                    "rows": dict(self._rows),
+                    "blocks": blocks,
+                    "namespaces": self._states()}
+
+    # ---- live resharding (namespace migration) ------------------------------
+    def export_namespaces(self, namespaces: Sequence[str]) -> dict:
+        """Serializable migration payload for a set of `tenant/workflow`
+        namespaces: their posterior rows, gathered leaf-stacked off one
+        copy-on-write snapshot (a concurrent writer cannot tear a row),
+        plus their streaming states, in a layout `import_namespaces` can
+        merge into a live store whose row allocation differs.  The caller
+        quiesces writes first; the named bindings are synced here."""
+        wanted = set(namespaces)
+        self._sync_all(wanted)
+        with self._lock:
+            prefixes = tuple(ns + SEP for ns in wanted)
+            keys = [k for k in self._rows if k.startswith(prefixes)]
+            snap = self.snapshot()
+            states = {ns: self._saved_states.get(ns) for ns in wanted}
+            states.update(self._states(wanted))
+        leaves = (snap.gather(keys) if keys
+                  else {leaf: np.empty((0,) + LEAF_SHAPES[leaf], np.float64)
+                        for leaf in LEAVES})
+        return {"keys": keys, "leaves": leaves,
+                "generation": snap.generation, "namespaces": states}
+
+    def import_namespaces(self, payload: Mapping) -> int:
+        """Merge an `export_namespaces` payload into this store: every
+        shipped row lands via `put_many` (ONE copy-on-write generation,
+        rows allocated in *this* store's layout, so a resident plane sees
+        them as dirty) and the shipped streaming states are staged so a
+        following `resume()` re-attaches a predictor bit-identically.
+        Unlike `import_blocks` this is a merge: the store may be live and
+        own other namespaces.  Returns the number of rows installed."""
+        leaves = payload["leaves"]
+        items = [(k, {leaf: np.asarray(leaves[leaf][i], np.float64)
+                      for leaf in LEAVES})
+                 for i, k in enumerate(payload["keys"])]
+        if items:
+            self.put_many(items)
+        with self._lock:
+            for ns, state in (payload.get("namespaces") or {}).items():
+                self._saved_states[ns] = state
+        return len(items)
+
+    def import_blocks(self, payload: Mapping) -> int:
+        """Install an `export_blocks` payload into a *passive* replica
+        store (refused when live bindings exist: a binding's sync would
+        race the install and row indices could diverge; so no resident
+        plane can outlive the row index this replaces).  The row index is
+        replaced wholesale and arrays are copied, so the replica never
+        aliases the primary in-process.  Returns the number of blocks
+        installed."""
+        with self._lock:
+            if self._bindings:
+                raise RuntimeError(
+                    "import_blocks targets passive replica stores; this "
+                    "store has live bindings — evict them first")
+            if int(payload["block_size"]) != self.block_size:
+                raise ValueError(
+                    f"block_size mismatch: snapshot has "
+                    f"{payload['block_size']}, store has {self.block_size}")
+            gen = int(payload["generation"])
+            if gen < self.generation:
+                raise ValueError(
+                    f"stale snapshot: generation {gen} behind replica "
+                    f"generation {self.generation}")
+            staged: Dict[int, Dict[str, np.ndarray]] = {}
+            for k, arrs in (payload.get("blocks") or {}).items():
+                blk: Dict[str, np.ndarray] = {}
+                for leaf in LEAVES:
+                    a = np.array(arrs[leaf], np.float64)
+                    want = (self.block_size,) + LEAF_SHAPES[leaf]
+                    if a.shape != want:
+                        raise ValueError(
+                            f"snapshot block {k} leaf {leaf!r} has shape "
+                            f"{a.shape}, expected {want}")
+                    blk[leaf] = a
+                staged[int(k)] = blk
+            n_blocks = int(payload["n_blocks"])
+            while len(self._blocks) < n_blocks:
+                self._blocks.append(None)
+            for i in payload.get("released") or []:
+                self._blocks[int(i)] = None
+            for i, blk in staged.items():
+                self._blocks[i] = blk
+            self._rows = {str(k): int(v)
+                          for k, v in payload["rows"].items()}
+            self._next_row = (max(self._rows.values()) + 1
+                              if self._rows else 0)
+            self._free_rows = []
+            self._block_gen = {int(k): int(v) for k, v in
+                               (payload.get("block_gen") or {}).items()}
+            self.generation = gen
+            if payload.get("namespaces") is not None:
+                self._saved_states = dict(payload["namespaces"])
+            self._snap = None
+            return len(staged)
+
     # ---- row eviction -------------------------------------------------------
     def evict(self, tenant: str, workflow: str) -> int:
-        """Retire a workflow's namespace: drop its binding and every
-        `tenant/workflow/*` row.  Freed row
+        """Retire a workflow's namespace: drop its binding, checkpointed
+        streaming state, and every `tenant/workflow/*` row.  Freed row
         slots are recycled by later put_many allocations, and blocks left
         with no live row release their backing arrays (`num_free_blocks`).
         Returns the number of rows evicted; raises KeyError when the
@@ -604,6 +1059,7 @@ class PosteriorStore:
         ns = namespace_str(tenant, workflow)
         with self._lock:
             binding = self._bindings.pop((tenant, workflow), None)
+            self._saved_states.pop(ns, None)
         if binding is not None:
             # outside the store lock (an in-flight sync may need put_many):
             # after this, no later sync can write the purged rows back

@@ -45,6 +45,9 @@ REPLAN_MODULES = ("kernels.decision_plane", "kernels.ref", "kernels.ops")
 ADAPTIVE_MODULES = ("online.rescheduler", "workflow.simulator",
                     "sched.straggler", "sched.cost", "sched.carbon",
                     "sched.elastic")
+# the store's batch-window frontend and the real microbenchmark probes
+# (the checkpoint, shipping and migration live in store.posterior)
+STORE_MODULES = ("store.frontend", "core.microbench")
 
 
 def _env():
@@ -57,12 +60,12 @@ def test_importing_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 55            # every module of the slices
+    assert int(out[0]) >= 61            # every module of the slices
     assert out[1] == "[]"
     names = set(out[2].split(","))
     assert {f"repro_torch.{m}" for m in
             LM_MODULES + PLANE_MODULES + REPLAN_MODULES
-            + ADAPTIVE_MODULES} <= names
+            + ADAPTIVE_MODULES + STORE_MODULES} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -79,11 +82,13 @@ def test_no_source_line_imports_jax_or_repro():
 
 def test_package_inits_import_only_ported_modules():
     """store/__init__ and online/__init__ export the ported names (the
-    maintenance plane's and the rescheduler's among them) and no module of
-    a later slice (the frontend)."""
+    frontend's, the maintenance plane's and the rescheduler's among them)
+    and import no module of a later slice (the serving tier)."""
     code = ("import sys, repro_torch.store as s, repro_torch.online as o;"
             "print(s.PosteriorStore.__name__, s.TaskKey.__name__,"
-            " s.predict_stacked.__name__, o.PredictionService.__name__,"
+            " s.predict_stacked.__name__,"
+            " s.AsyncPredictionFrontend.__name__,"
+            " s.QueueFullError.__name__, o.PredictionService.__name__,"
             " o.PredictionQuery.__name__, o.TaskCompletion.__name__,"
             " o.OnlinePredictor.__name__, o.IngestStats.__name__,"
             " o.FleetRefresher.__name__, o.RefreshPolicy.__name__,"
@@ -95,7 +100,8 @@ def test_package_inits_import_only_ported_modules():
                            capture_output=True, text=True, timeout=120,
                            check=True).stdout.splitlines()
     assert lines[0].split() == ["PosteriorStore", "TaskKey",
-                                "predict_stacked", "PredictionService",
+                                "predict_stacked", "AsyncPredictionFrontend",
+                                "QueueFullError", "PredictionService",
                                 "PredictionQuery", "TaskCompletion",
                                 "OnlinePredictor", "IngestStats",
                                 "FleetRefresher", "RefreshPolicy",
@@ -103,7 +109,8 @@ def test_package_inits_import_only_ported_modules():
                                 "RescheduleStats"]
     assert "repro_torch.online.maintenance" in lines[1]
     assert "repro_torch.online.rescheduler" in lines[1]
-    assert "frontend" not in lines[1]
+    assert "repro_torch.store.frontend" in lines[1]
+    assert "repro_torch.serve" not in lines[1]
 
 
 @pytest.fixture
@@ -113,9 +120,11 @@ def no_card():
 
 
 def test_cuda_entry_points_raise_without_a_card(no_card):
+    from repro_torch.core.microbench import run_local_microbench
     from repro_torch.core.predictor import LotaruPredictor
     from repro_torch.device import resolve_device
     from repro_torch.online import PredictionService
+    from repro_torch.store import AsyncPredictionFrontend, PosteriorStore
     from repro_torch.store.compute import fit_stacked, predict_stacked
     with pytest.raises(RuntimeError, match="CUDA"):
         LotaruPredictor("G")                     # device defaults to cuda
@@ -126,6 +135,10 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
     z = np.zeros((1, 4), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         fit_stacked(z, z, z)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AsyncPredictionFrontend(PosteriorStore())   # device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_local_microbench()
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
