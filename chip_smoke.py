@@ -195,7 +195,45 @@ Phases (each fails loudly; nothing is caught):
                `[frontend]` lines carry host-clock times, bytes on disk
                and queries a second, each beside the card's name and
                power limit.
- 12. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
+ 12. serve   — the sharded serving tier (`repro_torch.serve`) over the
+               refresh fleet (64 tenants x 1,024 tasks), placed by a
+               `ShardMap` on three shards s0-s2 on the card, each with its
+               frontend (window 2 ms), oplog and checkpoint directory.  In
+               one event loop: the shards cold-booted in-process
+               (`boot_shard`) and driven by the port's `ServingClient`: 5
+               rounds of 16 concurrent workers' `predict_many` (the
+               checkpoint phase's frontend queries, 4,096 a round, a
+               worker's 256 of one tenant) and a `predict_matrix` of t00
+               on the target machines, every answer bitwise an in-process
+               `PredictionService` on the card over the same posteriors;
+               8 `observe_many` batches of 250 completions, acks dense
+               per shard, one COW generation a drain (`health`), every
+               tenant's `digest` over the wire equal to an in-process
+               predictor fed the same completions; `queue_full` from a
+               shard of max_pending_batches=1 as `QueueFullError`; a
+               client on a stale map healed by `wrong_shard`; a `refresh`
+               RPC to t00's shard after `every_n` + 8 completions on two
+               of its tasks: one `bayes_fit` launch, the state bitwise an
+               in-process `FleetRefresher`'s.  A
+               `ReplicaServer` on the card fed by a `ReplicaShipper` from
+               t00's shard: the bootstrap, a delta of only the moved
+               blocks, `predict_base` bitwise the primary, a read past
+               `max_generation_lag` refused, no ship error; each install
+               frame's bytes as shipped and, of the same payload, under
+               the JSON fallback, all under `MAX_FRAME`.
+               A fourth shard added with `RebalanceCoordinator.add_shard`
+               and removed again, each under a predict worker (answers
+               bitwise) and an observe worker (every acked observation in
+               the digests).  Then the three shards as processes of the
+               port's `ShardSupervisor` (`--device cuda`, the bootstrap
+               `serve_bootstrap` reading the fleet posterior from an npz):
+               observed, checkpointed, observed again, one SIGKILLed and
+               failed over (restore, resume, replay) and readmitted
+               (`with_address`): digests bit-identical, the replay count
+               the acks past the checkpoint, predictions bitwise, SIGKILL
+               to READY within 30 s.  The children's launches are not
+               counted by the parent.
+ 13. lm      — the LM serving slice.  Full-size RecurrentGemma-9B
                (bfloat16, weights made on the card from a seed) served
                through `repro_torch.launch.serve`: B = 2 prompts of 4096
                tokens (past the 2048 window, so the rings wrap), 16
@@ -218,7 +256,7 @@ Phases (each fails loudly; nothing is caught):
                and prefill of S = 2100 against prefill of S - 1 plus one
                decode step (2e-3); then one prefill and 4 decode steps
                under torch.profiler (device time by kernel, busy share).
- 13. report  — per-kernel launches on the main path (phases 3-12, each
+ 14. report  — per-kernel launches on the main path (phases 3-13, each
                path with the counts set to 0 just before it), errors, and
                times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -3680,6 +3718,718 @@ def phase_checkpoint(dev, fleet_out, rf) -> dict:
     return {"moved": moved, "schedules": 3}
 
 
+SERVE_SHARDS = ("s0", "s1", "s2")
+SERVE_ADDED = "s3"               # joins, then leaves, under traffic
+SERVE_INGEST_BATCHES, SERVE_INGEST_BATCH = 8, 250
+SERVE_REPLICA_LAG = 1            # the replica's max_generation_lag
+SERVE_RESHARD_TENANTS = 4        # moving and staying tenants the observe
+                                 # worker writes to during a rebalance
+SERVE_FAILOVER_BATCHES = 2       # observe_many batches before and after
+                                 # the subprocess tier's checkpoint
+SERVE_FLEET_ENV = "CHIP_SMOKE_SERVE_FLEET"   # the fleet posterior (npz)
+SERVE_READY_S = 30.0             # a failover's limit from SIGKILL to READY
+SERVE_BOOTSTRAP = "chip_smoke:serve_bootstrap"
+_SERVE_POST = {}
+
+
+def fleet_specs(dev, post, shard_id, shard_map) -> dict:
+    """The refresh fleet's namespaces that `shard_map` places on
+    `shard_id`: tenant tNN / workflow "fleet" -> (a fresh `fleet_predictor`
+    on `dev`, the target machines' benches).  A shard's bootstrap: boot
+    binds them, an install resumes the migrated ones off shipped
+    states."""
+    benches = fleet_benches()
+    return {(f"t{ten:02d}", "fleet"): (fleet_predictor(dev, post, ten),
+                                       benches)
+            for ten in range(N_TENANTS)
+            if shard_map.shard_for(f"t{ten:02d}/fleet") == shard_id}
+
+
+def serve_bootstrap(shard_id, shard_map) -> dict:
+    """The bootstrap of the failover step's shard processes (`python -m
+    repro_torch.serve.shard --bootstrap chip_smoke:serve_bootstrap`): the
+    fleet posterior the parent wrote to the npz that $CHIP_SMOKE_SERVE_FLEET
+    names, its predictors on the card."""
+    import torch
+    path = os.environ[SERVE_FLEET_ENV]
+    if path not in _SERVE_POST:
+        with np.load(path) as z:
+            _SERVE_POST[path] = {k: z[k] for k in z.files}
+    return fleet_specs(torch.device("cuda"), _SERVE_POST[path], shard_id,
+                       shard_map)
+
+
+def serve_completion(rng: np.random.Generator, ten: int, task: str,
+                     k: int) -> tuple:
+    """One local completion of tenant `ten`'s `task`: (ten, completion)."""
+    from repro_torch.online import TaskCompletion
+    x = float(rng.uniform(0.5, 6.0))
+    return ten, TaskCompletion(
+        "fleet", f"sv{rng.integers(1 << 40)}-{k}", task, "local", x,
+        float((5.0 + 30.0 * x) * (1.0 + rng.normal(0.0, 0.05))))
+
+
+def serve_completions(rng: np.random.Generator, n: int, tens) -> list:
+    """n local completions on random tasks of tenants `tens`:
+    [(tenant index, completion)]."""
+    per = N_FLEET // N_TENANTS
+    tens = list(tens)
+    out = []
+    for k in range(n):
+        ten = tens[int(rng.integers(0, len(tens)))]
+        i = ten * per + int(rng.integers(0, per))
+        out.append(serve_completion(rng, ten, f"task{i:05d}", k))
+    return out
+
+
+class ServeRefs:
+    """In-process `PredictionService`s on the card over fresh fleet
+    predictors: the tier's answers are held against them bitwise, and
+    they are fed every completion the tier acknowledged, in order, so
+    that their `state_digest` is what the tier's must be."""
+
+    def __init__(self, dev, post):
+        fleet = refresh_fleet(dev, post, [])
+        self.store = fleet["store"]
+        self.svcs = dict(enumerate(fleet["svcs"]))
+
+    def feed(self, acked) -> None:
+        """acked: [(tenant index, completion)] in acknowledgement order."""
+        by = {}
+        for ten, comp in acked:
+            by.setdefault(ten, []).append(comp)
+        for ten, comps in by.items():
+            self.svcs[ten].predictor.observe_many(comps)
+
+    def digest(self, ten: int) -> str:
+        from repro_torch.serve import state_digest
+        return state_digest(self.svcs[ten].predictor)
+
+    def same(self, ten: int, qs, got) -> bool:
+        want = self.svcs[ten].predict_batch(qs)
+        return got.dtype == want.dtype and np.array_equal(got, want)
+
+
+async def serve_predict_rounds(client, refs, rounds) -> tuple:
+    """`fe_chunks`' rounds through the client, every caller of a round
+    at once, each one `predict_many`: (seconds,
+    each call's latency, queries, every answer bitwise refs', each
+    round's seconds)."""
+    import asyncio
+    lat, ok, n_q = [], True, 0
+
+    async def worker(ten, qs):
+        t0 = time.perf_counter()
+        got = await client.predict_many([(f"t{ten:02d}", "fleet", qs)])
+        lat.append(time.perf_counter() - t0)
+        return got[0]
+
+    t0 = time.perf_counter()
+    outs, rounds_s = [], []
+    for row in rounds:
+        t1 = time.perf_counter()
+        outs.append(await asyncio.gather(*[worker(*c) for c in row]))
+        rounds_s.append(time.perf_counter() - t1)
+    secs = time.perf_counter() - t0
+    for row, got in zip(rounds, outs):
+        for (ten, qs), arr in zip(row, got):
+            ok &= refs.same(ten, qs, arr)
+            n_q += len(qs)
+    return secs, lat, n_q, ok, rounds_s
+
+
+async def serve_observe(client, items) -> tuple:
+    """One `observe_many` of [(tenant index, completion)]: (acks, seconds)."""
+    t0 = time.perf_counter()
+    seqs = await client.observe_many(
+        [(c, f"t{ten:02d}", "fleet") for ten, c in items])
+    return seqs, time.perf_counter() - t0
+
+
+async def serve_tier(dev, post, root) -> dict:
+    """Steps 1-4 of `phase_serve`, in one event loop: three in-process
+    shards on `dev` and the port's client; the replica; the rebalance."""
+    import asyncio
+    import tempfile
+    import torch
+    from repro_torch.kernels import bayes_fit as kernels
+    from repro_torch.online import (FleetRefresher, PredictionQuery,
+                                    RefreshPolicy)
+    from repro_torch.sched.cluster import TARGET_MACHINES
+    from repro_torch.serve import (MigratingError, PartialObserveError,
+                                   RebalanceCoordinator, ReplicaServer,
+                                   ReplicaShipper, ReplicaStaleError,
+                                   RetryPolicy, ServingClient, ShardInfo,
+                                   ShardMap, ShardServer, WrongShardError,
+                                   boot_shard, call_direct, wire)
+    from repro_torch.store import PosteriorStore, QueueFullError
+    from repro_torch.store.compute import predict_stacked
+    boot = lambda sid, m: fleet_specs(dev, post, sid, m)
+    host = "127.0.0.1"
+    rng = np.random.default_rng(53)
+    out = {}
+    shipped = []            # (install frame bytes, payload) of each ship
+
+    class KeptShipper(ReplicaShipper):
+        async def _ship_to(self, addr, payload):
+            n = await super()._ship_to(addr, payload)
+            shipped.append((self.frame_bytes.get(addr), payload))
+            return n
+
+    def shard_opts():
+        return dict(checkpoint_dir=tempfile.mkdtemp(dir=root),
+                    oplog_path=os.path.join(tempfile.mkdtemp(dir=root),
+                                            "oplog"),
+                    window_s=FE_WINDOW_S, ingest_window_s=FE_WINDOW_S,
+                    device=dev)
+
+    # --- 1. serve ---------------------------------------------------------
+    t0 = time.perf_counter()
+    refs = ServeRefs(dev, post)
+    refs_s = time.perf_counter() - t0
+    m = ShardMap([ShardInfo(s, host, 0) for s in SERVE_SHARDS])
+    servers = {}
+    t0 = time.perf_counter()
+    for sid in SERVE_SHARDS:
+        srv = boot_shard(sid, m, boot, **shard_opts())
+        await srv.start()
+        m = m.with_address(sid, host, srv.port)
+        servers[sid] = srv
+    for srv in servers.values():
+        srv.map = m
+    cold_s = time.perf_counter() - t0
+    owned = {sid: len(s.store.bindings()) - 1 for sid, s in servers.items()}
+    check(sum(owned.values()) == N_TENANTS and all(owned.values()),
+          f"serve: the shards bound {owned} tenants, not all "
+          f"{N_TENANTS} spread over {len(SERVE_SHARDS)}")
+    client = ServingClient(m, RetryPolicy(max_attempts=12))
+    clients, others = [client], []             # closed at the end
+    try:
+        tasks_of = {ten: refs.svcs[ten].predictor.task_names()
+                    for ten in range(N_TENANTS)}
+        secs, lat, n_q, ok, rounds_s = await serve_predict_rounds(
+            client, refs, fe_chunks(rng, tasks_of))
+        check(ok, "serve: a predict_many answer is not bitwise the "
+                  "in-process predict_batch's")
+        x = rng.uniform(0.05, 12.0, len(tasks_of[0]))
+        mtasks = list(zip(tasks_of[0], x.tolist()))
+        nodes = [mm.name for mm in TARGET_MACHINES]
+        t0 = time.perf_counter()
+        mean, std = await client.predict_matrix("t00", "fleet", mtasks,
+                                                nodes)
+        matrix_s = time.perf_counter() - t0
+        wm, ws = refs.svcs[0].predict_matrix(mtasks, nodes)
+        check(np.array_equal(mean, wm) and np.array_equal(std, ws),
+              "serve: predict_matrix over the wire is not bitwise the "
+              "in-process PredictionService.predict_matrix")
+        print(f"[serve] {len(SERVE_SHARDS)} shards on the card "
+              f"({owned} tenants of {N_FLEET // N_TENANTS} tasks), codec "
+              f"{'json+base64' if wire.msgpack is None else 'msgpack'} "
+              f"(wire.msgpack is None: {wire.msgpack is None}); cold boot "
+              f"{cold_s!r} s, the in-process references {refs_s!r} s "
+              f"({card()})")
+        print(f"[serve] {FE_ROUNDS} rounds x {FE_CALLERS} workers' "
+              f"predict_many ({FE_QUERIES // FE_CALLERS} queries of a "
+              f"tenant): {n_q / secs!r} predictions/s ({n_q} in {secs!r} "
+              f"s), a call p50 {float(np.percentile(lat, 50)) * 1e3!r} ms "
+              f"p99 {float(np.percentile(lat, 99)) * 1e3!r} ms; rounds "
+              f"{[round(r, 4) for r in rounds_s]} s; predict_matrix of t00 "
+              f"({len(mtasks)} x {len(nodes)}) "
+              f"{matrix_s * 1e3!r} ms; every answer bitwise "
+              f"PredictionService.predict_batch / predict_matrix ({card()})")
+
+        # --- 2. ingest and durability -----------------------------------
+        acked, ack_s, by_shard = [], [], {}
+        for _ in range(SERVE_INGEST_BATCHES):
+            items = serve_completions(rng, SERVE_INGEST_BATCH,
+                                      range(N_TENANTS))
+            seqs, s = await serve_observe(client, items)
+            ack_s.append(s)
+            acked += items
+            for (ten, _), q in zip(items, seqs):
+                by_shard.setdefault(m.shard_for(f"t{ten:02d}/fleet"),
+                                    []).append(q)
+        check(all(sorted(q) == list(range(1, len(q) + 1))
+                  for q in by_shard.values()),
+              "ingest: a shard's acks are not its dense oplog seqs 1..n")
+        health = {sid: await client.health(sid) for sid in SERVE_SHARDS}
+        drains = {sid: (h["ingest"]["batches"],
+                        h["ingest"]["generations_published"],
+                        h["ingest"]["flushes"], h["seq"])
+                  for sid, h in health.items()}
+        check(all(d[0] >= 1 and d[0] == d[1] and d[3] == len(by_shard[sid])
+                  for sid, d in drains.items()),
+              f"ingest: health does not show one COW generation a drain "
+              f"and every ack applied (drains, generations, flushes, seq: "
+              f"{drains})")
+        refs.feed(acked)
+        touched = sorted({ten for ten, _ in acked})
+        bad = [ten for ten in touched
+               if await client.digest(f"t{ten:02d}", "fleet")
+               != refs.digest(ten)]
+        check(not bad, f"ingest: the digests of tenants {bad} over the wire "
+                       f"differ from in-process predictors fed the same "
+                       f"completions")
+        _, _, n2, ok, _ = await serve_predict_rounds(
+            client, refs, fe_chunks(rng, tasks_of)[:1])
+        check(ok, "ingest: a prediction after the ingest is not bitwise "
+                  "the in-process predict_batch's")
+        n_acks = SERVE_INGEST_BATCHES * SERVE_INGEST_BATCH
+        print(f"[serve] ingest: {SERVE_INGEST_BATCHES} observe_many x "
+              f"{SERVE_INGEST_BATCH} completions: {n_acks / sum(ack_s)!r} "
+              f"acks/s (a batch p50 {float(np.percentile(ack_s, 50)) * 1e3!r} "
+              f"ms); acks "
+              f"dense per shard; shards' (drains, generations, oplog "
+              f"flushes, seq) {drains}; {len(touched)} tenants' digests "
+              f"equal in-process predictors fed the same completions; "
+              f"{n2} predictions after it bitwise ({card()})")
+        # queue_full round-trips; a stale map heals from wrong_shard
+        mq = ShardMap([ShardInfo("sq", host, 0)])
+        sq = ShardServer("sq", mq, store=PosteriorStore(), window_s=0.5,
+                         max_pending_batches=1, device=dev)
+        others.append(sq)
+        sq.store.bind("t00", "fleet", fleet_predictor(dev, post, 0),
+                      fleet_benches())
+        await sq.start()
+        sq.map = mq = mq.with_address("sq", host, sq.port)
+        qc = ServingClient(mq, RetryPolicy(max_attempts=2,
+                                           base_backoff_s=0.01))
+        clients.append(qc)
+        qs = [(tasks_of[0][0], None, 1.0)]
+        first = asyncio.ensure_future(qc.predict(qs, "t00", "fleet"))
+        await asyncio.sleep(0.05)
+        try:
+            await asyncio.gather(*[qc.predict(qs, "t00", "fleet")
+                                   for _ in range(4)])
+            full = None
+        except QueueFullError as e:
+            full = e
+        check(full is not None and (await first).shape == (1, 3),
+              "serve: queue_full did not round-trip as QueueFullError")
+        far = next(ten for ten in range(N_TENANTS)
+                   if m.shard_for(f"t{ten:02d}/fleet") != "s0")
+        stale = ServingClient(ShardMap([ShardInfo("s0",
+                                                  *m.address_of("s0"))]))
+        clients.append(stale)
+        qs = [refs.svcs[far].predictor.task_names()[3], "C2", 2.5]
+        got = await stale.predict([qs], f"t{far:02d}", "fleet")
+        check(stale.map.version == m.version
+              and refs.same(far, [PredictionQuery(*qs)], got),
+              "serve: a client with a stale map did not heal from "
+              "wrong_shard to the bitwise answer")
+        print(f"[serve] queue_full from a shard of max_pending_batches=1 "
+              f"round-trips as {type(full).__module__}."
+              f"{type(full).__name__}; a client on map v1 healed to "
+              f"v{stale.map.version} from wrong_shard ({card()})")
+        # the refresher: `every_n` + 8 completions on each of two tasks of
+        # t00, then one `refresh` RPC to its shard refits those two in one
+        # bayes_fit launch; an in-process refresher over the references
+        # refits the same rows, and the shard's state must match it bitwise
+        fsid = m.shard_for("t00/fleet")
+        fit_tasks = tasks_of[0][:2]
+        every_n = RefreshPolicy().every_n
+        items = [serve_completion(rng, 0, task, k) for k in range(every_n + 8)
+                 for task in fit_tasks]
+        await serve_observe(client, items)
+        refs.feed(items)
+        fits = kernels.bayes_fit.launches
+        t0 = time.perf_counter()
+        rr = await client.refresh(fsid)
+        refresh_s = time.perf_counter() - t0
+        fits = kernels.bayes_fit.launches - fits
+        owned_ns = {f"t{ten:02d}" for ten in range(N_TENANTS)
+                    if m.shard_for(f"t{ten:02d}/fleet") == fsid}
+        ref_fit = FleetRefresher(refs.store, device=dev)
+        fit_rep = ref_fit.refresh([(b, t) for b, t in ref_fit.due()
+                                   if b.tenant in owned_ns])
+        qs = [PredictionQuery(t, nd, 2.0) for t in fit_tasks
+              for nd in (None, nodes[0])]
+        got = await client.predict(qs, "t00", "fleet")
+        check(rr["refreshed"] == fit_rep.n_tasks == len(fit_tasks)
+              and fits == 1
+              and await client.digest("t00", "fleet") == refs.digest(0)
+              and refs.same(0, qs, got),
+              f"refresh: the shard refit {rr['refreshed']} tasks in {fits} "
+              f"bayes_fit launches, the in-process refresher "
+              f"{fit_rep.n_tasks}, want {len(fit_tasks)} in one; or t00's "
+              f"digest or predictions differ from the in-process refit's")
+        print(f"[serve] refresh: {len(items)} completions on {fit_tasks}, "
+              f"then the refresh RPC to {fsid}: {rr['refreshed']} tasks in "
+              f"{fits} bayes_fit launch, {refresh_s * 1e3!r} ms; t00's "
+              f"digest and predictions bitwise an in-process refresher's "
+              f"({card()})")
+
+        # --- 3. replica ---------------------------------------------------
+        psid = m.shard_for("t00/fleet")
+        primary = servers[psid]
+        pstore = primary.store
+        ptens = [ten for ten in range(N_TENANTS)
+                 if m.shard_for(f"t{ten:02d}/fleet") == psid]
+        replica = await ReplicaServer(
+            device=dev, max_generation_lag=SERVE_REPLICA_LAG).start()
+        others.append(replica)
+        raddr = (host, replica.port)
+        shipper = KeptShipper(pstore, [raddr])
+        rkeys = [pstore.binding(f"t{ten:02d}", "fleet").key_str(t)
+                 for ten in ptens[:2] for t in tasks_of[ten]]
+        rx = rng.uniform(0.05, 12.0, len(rkeys))
+
+        def primary_base():
+            snap = pstore.snapshot()
+            mean, std = predict_stacked(
+                rx, lambda buf: snap.gather(rkeys, buf), device=dev)
+            return np.stack([mean, mean - replica.z * std,
+                             mean + replica.z * std],
+                            axis=1).astype(np.float32)
+
+        t0 = time.perf_counter()
+        installed = await shipper.ship_once()
+        boot_ship_s = time.perf_counter() - t0
+        boot_bytes = shipper.frame_bytes[raddr]
+        check(installed == [pstore.num_blocks] and shipper.ship_errors == 0,
+              f"replica: the bootstrap ship installed {installed} of "
+              f"{pstore.num_blocks} blocks ({shipper.ship_errors} errors: "
+              f"{shipper.last_error!r})")
+        cursor = shipper.shipped[raddr]
+        # the delta's batch lands in the two tenants read below (a few of
+        # the shard's blocks)
+        items = serve_completions(rng, SERVE_INGEST_BATCH, ptens[:2])
+        seqs, _ = await serve_observe(client, items)
+        refs.feed(items)
+        moved = sorted(i for i, g in pstore._block_gen.items() if g > cursor)
+        t0 = time.perf_counter()
+        installed = await shipper.ship_once()
+        delta_ship_s = time.perf_counter() - t0
+        delta_bytes = shipper.frame_bytes[raddr]
+        check(installed == [len(moved)] and 0 < len(moved)
+              < pstore.num_blocks and shipper.ship_errors == 0,
+              f"replica: the delta installed {installed} blocks, not the "
+              f"{len(moved)} moved ones ({shipper.ship_errors} errors: "
+              f"{shipper.last_error!r})")
+        got = await client.predict_base(raddr, rkeys, rx)
+        check(got.dtype == np.float32 and np.array_equal(got,
+                                                         primary_base()),
+              "replica: predict_base is not bitwise the primary's")
+        for _ in range(SERVE_REPLICA_LAG + 1):     # past the bound
+            items = serve_completions(rng, 16, ptens)
+            await serve_observe(client, items)
+            refs.feed(items)
+        await call_direct(raddr, "mark", {"g": pstore.generation})
+        try:
+            await client.predict_base(raddr, rkeys, rx)
+            stale_err = None
+        except ReplicaStaleError as e:
+            stale_err = e
+        check(stale_err is not None
+              and stale_err.lag == SERVE_REPLICA_LAG + 1,
+              f"replica: a read {SERVE_REPLICA_LAG + 1} generations behind "
+              f"did not raise ReplicaStaleError")
+        await shipper.ship_once()
+        got = await client.predict_base(raddr, rkeys, rx)
+        digests = [(await call_direct(raddr, "digest",
+                                      {"ns": f"t{ten:02d}/fleet"}))["sha256"]
+                   == refs.digest(ten) for ten in ptens]
+        check(np.array_equal(got, primary_base()) and all(digests)
+              and shipper.ship_errors == 0,
+              f"replica: after the catch-up ship, predict_base or a digest "
+              f"differs from the primary's ({shipper.ship_errors} ship "
+              f"errors: {shipper.last_error!r})")
+        print(f"[serve] replica of {psid} ({len(ptens)} tenants, "
+              f"{pstore.num_blocks} blocks): bootstrap frame "
+              f"{boot_bytes} bytes shipped in {boot_ship_s!r} s; after "
+              f"{len(seqs)} acks a delta frame {delta_bytes} bytes "
+              f"({len(moved)} blocks) in {delta_ship_s!r} s; "
+              f"predict_base of {len(rkeys)} rows "
+              f"bitwise the primary; a read {stale_err.lag} generations "
+              f"behind raised ReplicaStaleError; ship_errors 0; "
+              f"MAX_FRAME {wire.MAX_FRAME} ({card()})")
+
+        # --- 4. resharding under traffic ------------------------------------
+        s3 = boot_shard(SERVE_ADDED, client.map, boot, **shard_opts())
+        await s3.start()
+        servers[SERVE_ADDED] = s3
+        all_ns = [f"t{ten:02d}/fleet" for ten in range(N_TENANTS)]
+        grown = client.map.with_shard(SERVE_ADDED, host, s3.port)
+        moving = [int(ns[1:3]) for ns in client.map.moved(grown, all_ns)]
+        staying = [t for t in range(N_TENANTS) if t not in moving]
+        obs_tens = (moving[:SERVE_RESHARD_TENANTS]
+                    + staying[:SERVE_RESHARD_TENANTS])
+        read_tens = [t for t in moving + staying if t not in obs_tens][:8]
+        reshard = {}
+        for label, change in (
+                ("add", lambda c: c.add_shard(SERVE_ADDED, host, s3.port)),
+                ("remove", lambda c: c.remove_shard(SERVE_ADDED))):
+            stop = asyncio.Event()
+            got_acks, n_reads, reads_ok, unknown = [], [0], [True], [0]
+
+            async def observer():
+                # a record rejected as migrating, wrong_shard or queue_full
+                # was applied nowhere and is sent again; one whose frame
+                # was on a connection the publish closed (the removed
+                # shard's) has an unknown outcome, is not sent again, and
+                # is not fed to the references: the digests then show
+                # whether it was applied
+                retry = (MigratingError, WrongShardError, QueueFullError)
+                while not stop.is_set():
+                    pending = serve_completions(rng, 50, obs_tens)
+                    while pending:
+                        try:
+                            await serve_observe(client, pending)
+                            got_acks.extend(pending)
+                            break
+                        except PartialObserveError as e:
+                            seqs, errs = e.seqs, e.errors
+                        except retry as e:
+                            seqs, errs = [None] * len(pending), {0: e}
+                        except ConnectionError:
+                            unknown[0] += len(pending)
+                            break
+                        check(all(isinstance(x, retry + (ConnectionError,))
+                                  for x in errs.values()),
+                              f"reshard: an observe failed with {errs}")
+                        got_acks.extend(p for p, q in zip(pending, seqs)
+                                        if q is not None)
+                        lost = [i for i, x in errs.items()
+                                if isinstance(x, ConnectionError)]
+                        unknown[0] += len(lost)
+                        pending = [p for i, (p, q) in enumerate(
+                            zip(pending, seqs))
+                            if q is None and i not in lost]
+                        await asyncio.sleep(0.02)
+
+            async def reader():
+                while not stop.is_set():
+                    batch = [(ten, [PredictionQuery(
+                        tasks_of[ten][int(rng.integers(0,
+                                                       len(tasks_of[ten])))],
+                        nodes[int(rng.integers(0, len(nodes)))],
+                        float(rng.uniform(0.05, 12.0)))
+                        for _ in range(64)]) for ten in read_tens]
+                    arrs = await client.predict_many(
+                        [(f"t{ten:02d}", "fleet", q) for ten, q in batch])
+                    for (ten, q), a in zip(batch, arrs):
+                        reads_ok[0] &= refs.same(ten, q, a)
+                    n_reads[0] += 1
+
+            quiet_moved = [t for t in moving if t not in obs_tens]
+            before = {t: await client.digest(f"t{t:02d}", "fleet")
+                      for t in quiet_moved}
+            workers = [asyncio.ensure_future(observer()),
+                       asyncio.ensure_future(reader())]
+            await asyncio.sleep(0.1)
+            t0 = time.perf_counter()
+            report = await change(RebalanceCoordinator(
+                client, release_grace_s=0.05))
+            rb_s = time.perf_counter() - t0
+            await asyncio.sleep(0.1)
+            stop.set()
+            await asyncio.gather(*workers)
+            refs.feed(got_acks)
+            lost = [ten for ten in obs_tens
+                    if await client.digest(f"t{ten:02d}", "fleet")
+                    != refs.digest(ten)]
+            moved_now = [int(ns[1:3]) for ns in report.moved]
+            check(report.verified and sorted(moved_now) == sorted(moving)
+                  and not lost and reads_ok[0] and n_reads[0] > 0,
+                  f"reshard ({label}): verified {report.verified}, moved "
+                  f"{moved_now} (want {moving}), tenants whose digest "
+                  f"misses an acked observation {lost}, reads bitwise "
+                  f"{reads_ok[0]} ({n_reads[0]} rounds)")
+            after = {t: await client.digest(f"t{t:02d}", "fleet")
+                     for t in quiet_moved}
+            check(set(report.digests) == set(report.moved)
+                  and all(report.digests[f"t{t:02d}/fleet"] == d
+                          for t, d in before.items()) and after == before,
+                  f"reshard ({label}): a moved namespace's digest differs "
+                  f"before, at and after the handoff")
+            reshard[label] = (rb_s, report.rows_shipped, len(report.moved),
+                              len(got_acks), n_reads[0], unknown[0])
+            print(f"[serve] reshard {label} {SERVE_ADDED} (map "
+                  f"v{report.old_version} -> v{report.new_version}): "
+                  f"{rb_s!r} s, {len(report.moved)} tenants, "
+                  f"{report.rows_shipped} rows moved; digests source == "
+                  f"target for each, and equal before and after for the "
+                  f"{len(quiet_moved)} no worker wrote; under it "
+                  f"{len(got_acks)} acked observations all in the digests "
+                  f"({unknown[0]} of unknown "
+                  f"outcome, in flight on a closed connection, applied "
+                  f"nowhere), {n_reads[0]} predict_many rounds bitwise "
+                  f"({card()})")
+        check(SERVE_ADDED not in client.map.shards
+              and all(ns.startswith("__shard__/")
+                      for ns in s3.store.namespaces()),
+              "reshard: the removed shard still owns namespaces")
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+        out.update(cold_s=cold_s, predict_s=secs, n_q=n_q, lat=lat,
+                   ack_s=ack_s, reshard=reshard, boot_bytes=boot_bytes,
+                   delta_bytes=delta_bytes)
+    finally:
+        for c in clients:
+            await c.close()
+        for srv in list(servers.values()) + others:
+            await srv.aclose()
+    # the install frames the replica was sent, and the same payloads'
+    # frames under the JSON + base64 fallback (reckoned once the tier is
+    # closed): each under MAX_FRAME under either codec
+    sent = [n for n, _ in shipped]
+    as_json = [n if wire.msgpack is None else wire._HEADER.size + len(
+        json.dumps(wire._jsonize({"i": 1, "op": "install_snapshot",
+                                  "s": p})).encode()) for n, p in shipped]
+    check(max(sent + as_json) < wire.MAX_FRAME,
+          f"replica: an install frame of {max(sent + as_json)} bytes "
+          f"reaches MAX_FRAME {wire.MAX_FRAME} (shipped {sent}, under the "
+          f"JSON fallback {as_json})")
+    print(f"[serve] the replica's install frames (bootstrap, delta, "
+          f"catch-up): {sent} bytes as shipped, {as_json} under the JSON + "
+          f"base64 fallback; MAX_FRAME {wire.MAX_FRAME} ({card()})")
+    return out
+
+
+async def serve_failover(dev, post, root) -> dict:
+    """Step 5 of `phase_serve`: the three shards as processes of the
+    port's `ShardSupervisor` (`--device cuda`), observed, checkpointed,
+    observed again, one SIGKILLed, failed over and readmitted."""
+    import asyncio
+    import json as _json
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serve import (RetryPolicy, ServingClient, ShardInfo,
+                                   ShardMap, ShardSpec, ShardSupervisor)
+    npz = os.path.join(root, "fleet_post.npz")
+    np.savez(npz, **post)
+    os.environ[SERVE_FLEET_ENV] = npz
+    rng = np.random.default_rng(59)
+    host = "127.0.0.1"
+    m = ShardMap([ShardInfo(s, host, 0) for s in SERVE_SHARDS])
+    specs = [ShardSpec(sid, SERVE_BOOTSTRAP, tempfile.mkdtemp(dir=root),
+                       os.path.join(tempfile.mkdtemp(dir=root), "oplog"),
+                       extra_args=["--device", "cuda", "--window-s",
+                                   str(FE_WINDOW_S)])
+             for sid in SERVE_SHARDS]
+    wire_map = _json.dumps(m.to_wire())
+    logs = tempfile.mkdtemp(dir=root)
+
+    def child_logs() -> str:
+        return "".join(f"\n--- {n}:\n" + open(os.path.join(logs, n)).read()
+                       [-3000:] for n in sorted(os.listdir(logs)))
+
+    with ShardSupervisor(repo_root=ROOT, ready_timeout_s=300,
+                         stderr_dir=logs) as sup:
+        t0 = time.perf_counter()
+        try:
+            with ThreadPoolExecutor(len(specs)) as pool:
+                ports = list(pool.map(lambda s: sup.start(s, wire_map),
+                                      specs))
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"failover: a shard process did not start: {e}"
+                 f"{child_logs()}")
+        start_s = time.perf_counter() - t0
+        for sid, port in zip(SERVE_SHARDS, ports):
+            m = m.with_address(sid, host, port)
+        client = ServingClient(m, RetryPolicy(max_attempts=12))
+        try:
+            await client.update_maps()
+            victim = m.shard_for("t00/fleet")
+            vtens = [ten for ten in range(N_TENANTS)
+                     if m.shard_for(f"t{ten:02d}/fleet") == victim]
+
+            async def ingest():
+                acks = []
+                for _ in range(SERVE_FAILOVER_BATCHES):
+                    items = serve_completions(rng, SERVE_INGEST_BATCH,
+                                              range(N_TENANTS))
+                    seqs, _ = await serve_observe(client, items)
+                    acks += [q for (ten, _), q in zip(items, seqs)
+                             if m.shard_for(f"t{ten:02d}/fleet") == victim]
+                return acks
+
+            pre = await ingest()
+            t0 = time.perf_counter()
+            ck = await client.checkpoint(victim)
+            ckpt_s = time.perf_counter() - t0
+            check(ck["seq"] == max(pre),
+                  f"failover: the checkpoint's watermark {ck['seq']} is not "
+                  f"the last ack {max(pre)}")
+            post_acks = await ingest()
+            digests = {ten: await client.digest(f"t{ten:02d}", "fleet")
+                       for ten in vtens}
+            qs = [(f"task{ten * (N_FLEET // N_TENANTS) + j:05d}",
+                   ("A1", "N2", None)[j % 3], 0.25 + j)
+                  for ten in vtens[:1] for j in range(64)]
+            before = await client.predict(qs, f"t{vtens[0]:02d}", "fleet")
+            t0 = time.perf_counter()
+            sup.kill(victim)
+            loop = asyncio.get_running_loop()
+            try:
+                port = await loop.run_in_executor(
+                    None, sup.failover, victim, _json.dumps(m.to_wire()))
+            except (RuntimeError, TimeoutError) as e:
+                fail(f"failover: {victim} did not come back: {e}"
+                     f"{child_logs()}")
+            ready_s = time.perf_counter() - t0
+            replayed = sup.ready[victim]["replayed"]
+            boot_ms = (sup.ready[victim]["boot_ms"],
+                       sup.ready[victim]["replay_ms"])
+            client.set_map(m.with_address(victim, host, port))
+            await client.update_maps()
+            h = await client.health(victim)
+            after = {ten: await client.digest(f"t{ten:02d}", "fleet")
+                     for ten in vtens}
+            again = await client.predict(qs, f"t{vtens[0]:02d}", "fleet")
+            check(after == digests and replayed == len(post_acks)
+                  and h["seq"] == max(post_acks)
+                  and np.array_equal(again, before),
+                  f"failover: after the kill of {victim}, digests equal "
+                  f"{after == digests}, replayed {replayed} of "
+                  f"{len(post_acks)} acks past the checkpoint, seq "
+                  f"{h['seq']} (want {max(post_acks)}), predictions "
+                  f"bitwise {np.array_equal(again, before)}")
+            check(ready_s <= SERVE_READY_S,
+                  f"failover: {victim} took {ready_s!r} s from SIGKILL to "
+                  f"READY, over the limit of {SERVE_READY_S} s")
+        finally:
+            await client.close()
+    print(f"[serve] failover: {len(SERVE_SHARDS)} shard processes "
+          f"(--device cuda) ready in {start_s!r} s (cold boots, side by "
+          f"side); {victim} ({len(vtens)} tenants) checkpointed at seq "
+          f"{ck['seq']} in {ckpt_s!r} s, {len(post_acks)} more acks, "
+          f"SIGKILL -> failover READY {ready_s!r} s (limit "
+          f"{SERVE_READY_S} s; the child's warm "
+          f"boot: restore, resume, replay {boot_ms[0]} ms, of it the "
+          f"replay of {replayed} records {boot_ms[1]} ms); digests of "
+          f"its {len(vtens)} tenants bit-identical, predictions bitwise, "
+          f"seq {h['seq']}; "
+          f"the children's launches are their own and not counted "
+          f"({card()})")
+    return {"start_s": start_s, "ready_s": ready_s, "replayed": replayed,
+            "ckpt_s": ckpt_s, "boot_ms": boot_ms}
+
+
+def phase_serve(dev, fleet_out) -> dict:
+    """The sharded serving tier on the card over the refresh fleet (64
+    tenants x 1,024 tasks, 65,536 rows): three in-process shards through
+    the port's client (serve, ingest, replica, resharding), then the same
+    shards as supervised processes (failover).  Oplogs and checkpoints in
+    `tempfile.mkdtemp()` directories under one parent, removed at the
+    end."""
+    import asyncio
+    import shutil
+    import tempfile
+    post = fleet_out["fleet_post"]
+    root = tempfile.mkdtemp(prefix="lotaru-serve-")
+    t0 = time.perf_counter()
+    try:
+        out = asyncio.run(serve_tier(dev, post, root))
+        out.update(asyncio.run(serve_failover(dev, post, root)))
+    finally:
+        os.environ.pop(SERVE_FLEET_ENV, None)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[serve] the phase took {time.perf_counter() - t0!r} s "
+          f"({card()})")
+    return out
+
+
 def bounds_predict(q: int) -> tuple:
     """Least time for q predictive queries: the eleven values a query
     needs (x and its posterior row, 88 B) read once and its mean and std
@@ -4679,6 +5429,17 @@ def main() -> None:
           "bayes_fit (the attached refresher), upward_rank and an "
           "eft_sweep a plane schedule, or launched a kernel off its path")
     on_shared_route("checkpoint")
+    _, got = drive(lambda: phase_serve(dev, fleet_out), "serve")
+    print(f"[launches] serve: {got} (the in-process shards, client, "
+          f"references and replica; the failover step's shard processes "
+          f"launch in their own processes, not counted here)")
+    check(got["bayes_predict"] > 0 and got["nig_fold"] > 0
+          and got["bayes_fit"] >= 1
+          and all(got[k] == 0 for k in ("fused_cost", "eft_sweep",
+                                        "eft_sweep_many", "upward_rank")),
+          "the serve path did not launch bayes_predict, nig_fold and "
+          "bayes_fit (the refresh RPC), or launched a placement kernel "
+          "(the tier places nothing)")
     _, got = drive(lambda: phase_lm(dev), "lm")
     print(f"[launches] lm: {got}")
     kinds = get_config(LM_ARCH).layer_kinds()

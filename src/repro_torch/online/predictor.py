@@ -100,8 +100,8 @@ class _NodeStats:
 class IngestStats:
     """Write-path telemetry: how observations entered the posteriors, and
     at what batching leverage.  `flushes` and `generations_published` are
-    counted by a serving tier above the predictor (none in this package
-    yet); the dict form is the reference's."""
+    counted by the serving tier above the predictor (`repro_torch.serve.
+    shard`); the dict form is the reference's."""
     batches: int = 0               # observe_many calls
     records: int = 0               # completions ingested (incl. dropped)
     folded: int = 0                # records absorbed by the batched fold
@@ -252,11 +252,20 @@ class OnlinePredictor:
 
     def observe(self, comp: TaskCompletion) -> None:
         """Fold one completed task into the posteriors (exact updates, the
-        scalar `nig_update` chain on the host)."""
+        scalar `nig_update` chain on the host).
+
+        When `observe_log` is set (the serving shard's oplog hook) it is
+        called with `comp` under the state lock BEFORE the update is
+        applied: write-ahead order, so a completion is durable in the log
+        before it can mutate state, and a hook that raises leaves the
+        state untouched."""
         with self._state_lock:
             self.ingest.lock_acquisitions += 1
             self.ingest.records += 1
             self.ingest.scalar += 1
+            hook = getattr(self, "observe_log", None)
+            if hook is not None:
+                hook(comp)
             self._observe(comp)
 
     def observe_many(self, comps: Sequence[TaskCompletion]) -> int:
@@ -276,6 +285,9 @@ class OnlinePredictor:
         fold-eligible task's NIG state is, by construction, neither read
         nor written by any other record in the batch.
 
+        Write-ahead order is preserved: `observe_log_many` (or the scalar
+        `observe_log` per record) runs under the lock BEFORE any state
+        moves, so the group commit is durable before it can mutate state.
         Returns the number of records that advanced the predictor version
         (exactly the version delta the scalar chain would produce).
         """
@@ -286,6 +298,14 @@ class OnlinePredictor:
             self.ingest.lock_acquisitions += 1
             self.ingest.batches += 1
             self.ingest.records += len(comps)
+            hook_many = getattr(self, "observe_log_many", None)
+            if hook_many is not None:
+                hook_many(comps)
+            else:
+                hook = getattr(self, "observe_log", None)
+                if hook is not None:
+                    for c in comps:
+                        hook(c)
             return self._observe_many(comps)
 
     def _observe_many(self, comps: List[TaskCompletion]) -> int:

@@ -48,6 +48,11 @@ ADAPTIVE_MODULES = ("online.rescheduler", "workflow.simulator",
 # the store's batch-window frontend and the real microbenchmark probes
 # (the checkpoint, shipping and migration live in store.posterior)
 STORE_MODULES = ("store.frontend", "core.microbench")
+# the sharded serving tier (the reference's own copies of wire and
+# placement, which import no JAX, are not imported either)
+SERVE_MODULES = ("serve", "serve.wire", "serve.placement", "serve.failover",
+                 "serve.shard", "serve.client", "serve.replica",
+                 "serve.rebalance")
 
 
 def _env():
@@ -60,12 +65,12 @@ def test_importing_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 61            # every module of the slices
+    assert int(out[0]) >= 69            # every module of the slices
     assert out[1] == "[]"
     names = set(out[2].split(","))
     assert {f"repro_torch.{m}" for m in
             LM_MODULES + PLANE_MODULES + REPLAN_MODULES
-            + ADAPTIVE_MODULES + STORE_MODULES} <= names
+            + ADAPTIVE_MODULES + STORE_MODULES + SERVE_MODULES} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -172,6 +177,28 @@ def test_cost_split_refuses_without_card(no_card):
                        cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert "[cost_split]" not in r.stdout
+
+
+def test_serve_entry_points_raise_without_a_card(no_card):
+    """The shard, the replica and a shard child's CLI run on "cuda" unless
+    asked for "cpu": without a card they raise, and nothing falls back."""
+    from repro_torch.serve import ReplicaServer, ShardMap, ShardServer
+    from repro_torch.serve.placement import ShardInfo
+    from repro_torch.store import PosteriorStore
+    m = ShardMap([ShardInfo("s0", "127.0.0.1", 1)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardServer("s0", m, store=PosteriorStore())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReplicaServer()
+    assert ReplicaServer(device="cpu").device == torch.device("cpu")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.serve.shard",
+                        "--shard-id", "s0", "--map", '{"version": 1, '
+                        '"vnodes": 64, "shards": [["s0", "127.0.0.1", 0]]}',
+                        "--bootstrap", "tests.torch_serve_helpers:bootstrap"],
+                       cwd=ROOT, env=_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0 and "SHARD-READY" not in r.stdout
+    assert "CUDA" in r.stderr
 
 
 def test_lm_entry_points_raise_without_a_card(no_card):
