@@ -256,7 +256,34 @@ Phases (each fails loudly; nothing is caught):
                and prefill of S = 2100 against prefill of S - 1 plus one
                decode step (2e-3); then one prefill and 4 decode steps
                under torch.profiler (device time by kernel, busy share).
- 14. report  — per-kernel launches on the main path (phases 3-13, each
+ 14. train   — the training slice.  Before it, the backward kernels
+               against their plain versions on the card: `flash_attention`
+               with lse bitwise the forward without it (its lse within
+               rtol 1e-5 / atol 1e-4 of the plain one); `flash_attention_bwd`
+               at SmolLM-360M's shape (B 8, S 2048, 15 heads over 5, hd 64,
+               causal) and RecurrentGemma-9B's (B 1, S 4096, 16 over 1, hd
+               256, window 2048) and the forward's edges, bf16 at 5e-2 and
+               rtol 1e-2 / atol 4e-3, f32 at 2e-5, bitwise across two
+               launches; `rglru_scan_bwd` bitwise its plain version and
+               across two launches.  Then SmolLM-360M at full size through
+               `repro_torch.launch.train.main` (B 8, S 2048): the Lotaru
+               profile and prediction, 30 AdamW steps with a checkpoint
+               directory (step median, tokens/s, model-flop utilisation
+               against `perf.roofline`, peak memory, the prediction beside
+               the measured median, the Young-Daly interval); a child run
+               killed after its first
+               checkpoint and main restarted on its directory (resumed at
+               the saved step, losses within 1e-3 of the uninterrupted
+               run's, bitwise or not); one step's loss and every gradient
+               leaf, kernel route against plain route on the card, for
+               SmolLM (2 layers) and RecurrentGemma-9B (one cycle, S 4096)
+               at full width in bf16 (5e-2) and f32 (1e-4), every
+               real-head and RG-LRU leaf non-zero, pad rows exactly zero;
+               each forward and backward kernel launched once per layer a
+               step.  After every path's checks, one step under
+               torch.profiler (busy share, the top kernels, the attention
+               kernels' sums).
+ 15. report  — per-kernel launches on the main path (phases 3-14, each
                path with the counts set to 0 just before it), errors, and
                times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -288,6 +315,9 @@ Phases (each fails loudly; nothing is caught):
                global route's time, the route and cluster size, the
                latency bound beside the bytes bound, and a 1000-level
                chain.
+               For the backward kernels also `forward_ms` and SDPA's
+               backward as `library_ms` (causal with `enable_gqa` at the
+               SmolLM shape, a band mask at the RecurrentGemma one).
                `tol_ratio` is the worst |got - want| / (atol + rtol *
                |want|) over all outputs: at most 1 is within the stated
                tolerance.
@@ -309,10 +339,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM data sheet peaks (dense, no sparsity), used for the bounds
-H100_BYTES_PER_S = 3.35e12
-H100_FP32_FLOPS = 67e12          # non-tensor float32
-H100_FP64_FLOPS = 34e12          # non-tensor float64
+# H100 SXM data sheet peaks (dense, no sparsity), used for the bounds: set
+# by main() from repro_torch.perf.roofline, the port's one copy of them
+H100_BYTES_PER_S = H100_BF16_FLOPS = None
+H100_FP32_FLOPS = H100_FP64_FLOPS = None
 H100_CLOCK_HZ = 1.98e9           # SXM5 maximum boost clock
 
 FIT_TOL = dict(rtol=5e-3, atol=5e-4)
@@ -358,7 +388,6 @@ FOLD_COLS = 8                    # fleet fold: 1-8 completions per task
 # float64 operations of one fold step (core.bayes._nig_step, three of them
 # divides, plus the b floor and the mask test)
 FOLD_STEP_OPS = 60
-H100_BF16_FLOPS = 989e12         # dense tensor-core bfloat16
 LM_ARCH = "recurrentgemma-9b"
 LM_BATCH, LM_PROMPT, LM_GEN = 2, 4096, 16   # the prompt passes the 2048
                                             # window, so the rings wrap
@@ -529,7 +558,7 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     paths = _build.build("bayes", "decision_plane", "flash_attention",
-                         "rglru_scan")
+                         "flash_attention_bwd", "rglru_scan")
     print(f"[build] {[os.path.relpath(p, ROOT) for p in paths]} in "
           f"{time.perf_counter() - t0:.3f} s")
     for path in paths:
@@ -5077,14 +5106,17 @@ def lm_cut_checks(dev) -> None:
     from repro_torch.models import decode_step, forward, init_params
     cfg = replace(get_config(LM_ARCH), num_layers=3, dtype="float32")
     t0 = time.perf_counter()
-    p_cpu = init_params(LM_CUT_SEED, cfg, "cpu")
-    p_dev = tree_to(p_cpu, dev)
+    # made on the card and copied down: the host's generator was most of
+    # this check's time
+    p_dev = init_params(LM_CUT_SEED, cfg, dev)
+    p_cpu = tree_to(p_dev, "cpu")
     tok = torch.from_numpy(make_batch(DataConfig(cfg.vocab_size, LM_CUT_S,
                                                  1, seed=LM_CUT_SEED),
                                       0)["tokens"])
     print(f"[lm] float32 checks at full width, depth 3 (cut from 38: one "
-          f"(r, r, l) cycle), weights made on the CPU from seed "
-          f"{LM_CUT_SEED} and copied ({time.perf_counter() - t0:.1f} s)")
+          f"(r, r, l) cycle), weights made on the card from seed "
+          f"{LM_CUT_SEED} and copied to the host "
+          f"({time.perf_counter() - t0:.1f} s)")
     with torch.inference_mode():
         t_cpu = time.perf_counter()
         want, _ = forward(p_cpu, cfg, {"tokens": tok})
@@ -5221,7 +5253,7 @@ def report_lm(dev, launches, errors) -> list:
     q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev)
     o = torch.empty_like(q)
     launch = raw_launch("flash_attention", [q, k, v, o, 1, b, s, s, h, kh,
-                                            hd, 1, w], flash._lib())
+                                            hd, 1, w, None], flash._lib())
     fa = {"ms": time_ms(launch, reps=10), "warm_ms": warm_ms(launch, reps=5,
                                                              inner=3),
           "wrapper_ms": time_ms(lambda: flash.flash_attention(
@@ -5286,6 +5318,548 @@ def report_lm(dev, launches, errors) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# training: the backward kernels and the train path
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048           # SmolLM's pretraining context
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)       # float32 row statistics
+
+
+def train_attention_cases():
+    """(label, B, S, H, K, hd, window, causal): the two training paths'
+    shapes (SmolLM-360M's 15 heads over 5 at hd 64, causal; RecurrentGemma-
+    9B's 16 heads over 1 at hd 256, window 2048), then the forward's edges
+    (phase_lm_kernels)."""
+    return (
+        ("smollm path", TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, 0, True),
+        ("recurrentgemma path", 1, 4096, 16, 1, 256, 2048, True),
+        ("ragged S", 2, 1000, 16, 1, 256, 2048, True),
+        ("ragged S, hd 64", 2, 1001, 15, 5, 64, 0, True),
+        ("window 1", 2, 1000, 16, 1, 256, 1, True),
+        ("window 64", 2, 1000, 16, 1, 256, 64, True),
+        ("not causal", 2, 1000, 16, 1, 256, 0, False),
+        ("not causal, window 64", 1, 1000, 16, 1, 256, 64, False),
+        ("GQA group 2", 2, 1000, 16, 8, 256, 100, True),
+        ("GQA group 3", 2, 1000, 12, 4, 256, 100, True),
+        ("MHA K=16", 2, 1000, 16, 16, 256, 2048, True),
+        ("hd 64, GQA group 3, window 64", 2, 1000, 12, 4, 64, 64, True),
+        ("hd 128", 2, 1000, 16, 1, 128, 100, True),
+        ("hd 128, MHA, not causal", 2, 1000, 16, 16, 128, 0, False))
+
+
+def phase_train_kernels(dev) -> dict:
+    """The backward kernels against their plain versions on the card:
+    `flash_attention`'s forward with lse bitwise the forward without it
+    and its lse within LSE_TOL of the plain one; `flash_attention_bwd` at
+    both training paths' shapes and the forward's edges, bf16 at both
+    bf16 limits and f32 at 2e-5, bitwise across two launches;
+    `rglru_scan_bwd` bitwise its plain version and across two launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as scan
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+    for b, t, w, label in ((1, 4096, 4096, "recurrentgemma path"),
+                           (LM_BATCH, LM_PROMPT, 4096, "serve shape"),
+                           (2, 1001, 136, "ragged")):
+        a = torch.rand((b, t, w), generator=gen, device=dev) * 0.3 + 0.699
+        gx = torch.randn((b, t, w), generator=gen, device=dev) * 0.1
+        h0 = torch.randn((b, w), generator=gen, device=dev)
+        g = torch.randn((b, t, w), generator=gen, device=dev)
+        h = scan.rglru_scan(a, gx, h0)
+        got = scan.rglru_scan_bwd(a, h, h0, g)
+        again = scan.rglru_scan_bwd(a, h, h0, g)
+        want = ref.rglru_scan_bwd_ref(a, h, h0, g)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(x, y) for x, y in zip(got, want))
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        print(f"[kernels] rglru_scan_bwd {label} B={b} T={t} W={w}, h0 != 0: "
+              f"bitwise vs plain (on the card) {bitwise}, bitwise across two "
+              f"launches {repeat}, max |err| {err!r}")
+        check(bitwise and repeat, "rglru_scan_bwd differs from its plain "
+              "version or from its own second launch")
+        if label == "recurrentgemma path":
+            out["rglru_scan_bwd"] = (err, 0.0)
+        del a, gx, h0, g, h, got, again, want
+
+    smem = {}
+    for hd in flash.HEAD_DIMS:
+        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            c_bytes = [flash._bwd_lib().lotaru_flash_bwd_smem_bytes(hd, w,
+                                                                    code)
+                       for w in (0, 1)]
+            smem[(hd, str(dt)[6:])] = c_bytes
+            check(c_bytes == [flash.bwd_smem_bytes(hd, w, dt)
+                              for w in (0, 1)],
+                  f"bwd_smem_bytes differs from C at hd={hd}, {dt}: "
+                  f"{c_bytes}")
+    print(f"[kernels] flash_attention_bwd: bwd_smem_bytes (dK/dV, dQ) by "
+          f"(hd, dtype) {smem} equal to the C formulas")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, b, s, h, kh, hd, w, causal in train_attention_cases():
+        for dt in (bf16, f32):
+            if dt == f32 and "path" not in label and hd != 64:
+                continue                 # f32 at the paths and at hd 64
+            q, k, v = attention_inputs(gen, b, s, h, kh, hd, dt, dev)
+            o_plain = flash.flash_attention(q, k, v, causal=causal, window=w)
+            o, lse = flash.flash_attention(q, k, v, causal=causal, window=w,
+                                           with_lse=True)
+            do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+            got = flash.flash_attention_bwd(q, k, v, o, do, lse,
+                                            causal=causal, window=w)
+            again = flash.flash_attention_bwd(q, k, v, o, do, lse,
+                                              causal=causal, window=w)
+            _, lse_want = ref.attention_fwd_ref(q, k, v, causal=causal,
+                                                window=w)
+            want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                         window=w)
+            torch.cuda.synchronize()
+            same_o = torch.equal(o, o_plain)
+            repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+            _, lse_ratio = tol_check(lse, lse_want, LSE_TOL)
+            check(same_o, f"flash_attention with lse differs from it without "
+                  f"({label}, {dt})")
+            check(lse_ratio <= 1.0, f"flash_attention's lse outside {LSE_TOL} "
+                  f"of the plain one ({label}, {dt})")
+            check(repeat, f"flash_attention_bwd differs across two launches "
+                  f"({label}, {dt})")
+            tols = (F32_TOL,) if dt == f32 else (BF16_TOL, BF16_KERNEL_TOL)
+            for tol in tols:
+                errs = [tol_check(x, y, tol) for x, y in zip(got, want)]
+                err = max(e for e, _ in errs)
+                ratio = max(r for _, r in errs)
+                print(f"[kernels] flash_attention_bwd {label} B={b} S={s} "
+                      f"H={h} K={kh} hd={hd} window={w} causal={causal} "
+                      f"{str(dt)[6:]}, {flash.bwd_route(dt, hd)} route: dq, "
+                      f"dk, dv vs plain (on the card) "
+                      f"within {tol['rtol']}/{tol['atol']} {ratio <= 1.0}, "
+                      f"max |err| {err!r}, |err| / (atol + rtol |want|) "
+                      f"{[round(r, 4) for _, r in errs]}; bitwise across two "
+                      f"launches {repeat}; the forward with lse bitwise "
+                      f"without {same_o}, lse ratio {lse_ratio!r}")
+                check(ratio <= 1.0, f"flash_attention_bwd ({label}, {dt}) "
+                      f"outside {tol} of its plain version")
+            if label == "smollm path" and dt == bf16:
+                out["flash_attention_bwd"] = (err, ratio)
+            del q, k, v, o, o_plain, lse, do, got, again, want, lse_want
+            torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_STEPS = 30                # steps of the timed run and of the restart
+TRAIN_KILL_AFTER = 15           # the child is killed after this step, once
+                                # its first checkpoint (step 10) is on disk
+TRAIN_LOG_EVERY = 5
+TRAIN_PROFILE_STEPS = 8         # profile_step_time: 4 batch sizes, 2 steps
+TRAIN_SEED = 3                  # the gradient checks' weights and tokens
+RESUME_RTOL = 1e-3
+# A training step's gradients, kernel route against plain route on the
+# card: each leaf's ||g_kernel - g_plain|| / ||g_plain||.  The routes
+# differ by the kernels' summation order and, in bf16, by the forward
+# kernel rounding P to bf16 before P.V (the plain version keeps it
+# float32), carried through every layer: the bf16 limit is the reference's
+# bf16 kernel tolerance (tests/test_kernels.py, 5e-2), the f32 limit its
+# logit tolerance (1e-4).
+GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+
+
+def train_argv(ckpt_dir: str, skip_profile: bool, log_every: int) -> list:
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", ckpt_dir,
+            "--log-every", str(log_every)]
+    return argv + (["--skip-profile"] if skip_profile else [])
+
+
+def killed_run(ckpt_dir: str) -> tuple:
+    """`python -m repro_torch.launch.train` in a child process on the card,
+    SIGKILLed at the first step past TRAIN_KILL_AFTER once a checkpoint is
+    on disk (a node lost mid-run) -> (the newest checkpoint it left, the
+    last step it printed)."""
+    from repro_torch.train.checkpoint import latest_step
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *train_argv(ckpt_dir, True, 1)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+    last = None
+    try:
+        for line in proc.stdout:
+            if line.startswith("step"):
+                last = int(line.split()[1])
+                if last >= TRAIN_KILL_AFTER and latest_step(ckpt_dir):
+                    proc.kill()
+                    break
+    finally:
+        proc.kill()
+        proc.wait()
+        proc.stdout.close()
+    return latest_step(ckpt_dir), last
+
+
+def route_grads(params, cfg, batch, plain: bool) -> tuple:
+    """One step's loss and gradient leaves on the kernel route or, with
+    `plain`, with kernels.ops' two kernels replaced by their plain
+    versions on the card (FlashAttention / RGLRUScan with plain=True)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import loss_fn
+    from repro_torch.train.optimizer import tree_items
+    saved = ops.flash_attention, ops.rglru_scan
+    if plain:
+        ops.flash_attention = lambda q, k, v, causal=True, window=0: \
+            ops.FlashAttention.apply(q, k, v, causal, window, True)
+        ops.rglru_scan = lambda a, gx, h0: ops.RGLRUScan.apply(a, gx, h0,
+                                                               True)
+    try:
+        items = list(tree_items(params))
+        leaves = [leaf.requires_grad_() for _, leaf in items]
+        loss, _ = loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        ops.flash_attention, ops.rglru_scan = saved
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+    return float(loss.detach()), {"/".join(p): g
+                                  for (p, _), g in zip(items, grads)}
+
+
+def grad_check(dev, label: str, cfg, b: int, s: int) -> None:
+    """Loss and every gradient leaf of one step, kernel route against
+    plain route on the card, at GRAD_TOL; every real-head and RG-LRU leaf
+    with a non-zero gradient, the pad heads' rows exactly zero."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import init_params
+    params = init_params(TRAIN_SEED, cfg, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        DataConfig(cfg.vocab_size, s, b, seed=TRAIN_SEED), 0).items()}
+    t0 = time.perf_counter()
+    loss_k, gk = route_grads(params, cfg, batch, plain=False)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    loss_p, gp = route_grads(params, cfg, batch, plain=True)
+    torch.cuda.synchronize()
+    tol = GRAD_TOL[cfg.dtype]
+    worst, zero, pad_max = ("", 0.0), [], 0.0
+    hp, h = cfg.padded_heads, cfg.num_heads
+    for name, g in gk.items():
+        want = gp[name].float()
+        rel = float((g.float() - want).norm() / want.norm().clamp_min(1e-30))
+        if rel > worst[1]:
+            worst = (name, rel)
+        real = g
+        if hp != h and name.endswith(("attn/wq", "attn/wo")):
+            pad = g[..., h:, :] if name.endswith("wq") else g[..., h:, :, :]
+            pad_max = max(pad_max, float(pad.abs().max()))
+            real = g[..., :h, :] if name.endswith("wq") else g[..., :h, :, :]
+        if name.split("/")[-2:-1] in (["attn"], ["mix"]) and not bool(
+                (real.float().abs().amax(dim=tuple(range(1, real.dim())))
+                 > 0).all()):
+            zero.append(name)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[train] gradients {label} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}) B={b} S={s}, kernel route vs plain "
+          f"route on the card: loss {loss_k!r} vs {loss_p!r} (relative "
+          f"{rel_loss!r}); worst leaf ||diff|| / ||plain|| {worst[1]!r} "
+          f"({worst[0]}), limit {tol}; {len(gk)} leaves; attention and "
+          f"RG-LRU leaves with a zero gradient in some layer: {zero}; pad "
+          f"heads' rows max |grad| {pad_max!r}; the kernel route's step "
+          f"{t_k!r} s")
+    check(rel_loss <= tol and worst[1] <= tol,
+          f"{label}: the kernel route's loss or gradients differ from the "
+          f"plain route's by more than {tol}")
+    check(not zero, f"{label}: a real-head or RG-LRU leaf has no gradient")
+    check(pad_max == 0.0, f"{label}: a pad head's row has a gradient")
+
+
+def train_profile(dev) -> None:
+    """Where a SmolLM training step's device time goes: one step (after a
+    warm one) under torch.profiler: busy share, the top kernels, and the
+    attention kernels' sums (the backward's three kernels, the forward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    oc = OptConfig(warmup_steps=5, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, oc)
+    state = {"opt": init_opt_state(init_params(TRAIN_SEED, cfg, dev), oc)}
+    data = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=TRAIN_SEED),
+        0).items()}
+    state, _ = step(state, data)                      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, data)
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    evts = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and e.key != "Command Buffer Full"]
+    busy = sum(e.self_device_time_total for e in evts) / 1e3
+
+    def ms(*names):
+        return sum(e.self_device_time_total for e in evts
+                   if any(n in e.key for n in names)) / 1e3
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"[train] profile, one {TRAIN_ARCH} step B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}: {host * 1e3!r} ms host clock, {busy!r} ms of "
+          f"kernels, busy share {busy / (host * 1e3)!r}; flash_attention_bwd "
+          f"{ms('dkdv_', 'dq_kernel', 'dq_mma_kernel', 'delta_kernel')!r} ms "
+          f"(dK/dV {ms('dkdv_')!r}, dQ {ms('dq_kernel', 'dq_mma_kernel')!r}, "
+          f"D {ms('delta_kernel')!r}), flash_attention "
+          f"{ms('flash_attention_ws_kernel')!r} ms; {sum(e.count for e in evts)}"
+          f" device entries; top (name, ms, calls) "
+          f"{[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}")
+
+
+def phase_train(dev) -> dict:
+    """The training path: SmolLM-360M at full size through
+    repro_torch.launch.train.main (the Lotaru profile, TRAIN_STEPS AdamW
+    steps, checkpoints), a child run killed after step TRAIN_KILL_AFTER
+    and restarted on its directory (losses against the uninterrupted
+    run's), then one step's gradients, kernel route against plain route,
+    for SmolLM (2 layers) and RecurrentGemma-9B (one cycle, S = 4096 past
+    the window, B = 1) at full width, bf16 and f32."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    from repro_torch.launch import train
+    from repro_torch.models import param_count_exact
+    from repro_torch.perf.roofline import PEAK_FLOPS, model_flops
+    cfg = get_config(TRAIN_ARCH)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.empty(0, device=dev)          # a context for the memory stats
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        losses = train.main(train_argv(os.path.join(work, "a"), False,
+                                       TRAIN_LOG_EVERY))
+        t_run = time.perf_counter() - t0
+        stats = dict(train.main.stats)
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_s = np.asarray(stats["step_s"])
+        med = float(np.median(step_s[1:]))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        n_params = param_count_exact(cfg)
+        mfu = model_flops(n_params, tokens, "train") / med / PEAK_FLOPS
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+              "the training run's losses are not all finite")
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        check(last < first, "the training loss did not fall")
+        print(f"[train] {TRAIN_ARCH} on the card, full size ({cfg.num_layers} "
+              f"layers, d_model {cfg.d_model}, {n_params} parameters, "
+              f"{cfg.dtype} compute, float32 master and moments): B="
+              f"{TRAIN_BATCH} S={TRAIN_SEQ} ({tokens} tokens a step), "
+              f"{TRAIN_STEPS} AdamW steps after the profile, {t_run!r} s in "
+              f"all; loss mean of the first 5 steps {first!r}, of the last 5 "
+              f"{last!r}")
+        print(f"[train] step median {med * 1e3!r} ms (the first step "
+              f"{float(step_s[0]) * 1e3!r} ms excluded; min "
+              f"{float(step_s.min()) * 1e3!r}, max "
+              f"{float(step_s[1:].max()) * 1e3!r}), {tokens / med!r} tokens/s, "
+              f"model-flop utilisation {mfu!r} (6 N D / step / "
+              f"{PEAK_FLOPS:.4g} FLOP/s), max_memory_allocated {peak} bytes")
+        print(f"[train] lotaru predicted step {stats['predicted_step_s'] * 1e3!r}"
+              f" ms +- {stats['predicted_std_s'] * 1e3!r} ms beside the "
+              f"measured median {med * 1e3!r} ms; profile points (tokens, "
+              f"s) {stats['profile']}; young-daly interval "
+              f"{stats['ckpt_interval']} steps")
+        check(stats["predicted_step_s"] > 0, "no Lotaru prediction")
+
+        # a node lost mid-run, then the restart on its directory
+        torch.cuda.empty_cache()            # the child's memory
+        b_dir = os.path.join(work, "b")
+        t0 = time.perf_counter()
+        saved, killed_at = killed_run(b_dir)
+        t_kill = time.perf_counter() - t0
+        check(saved is not None and killed_at is not None
+              and saved <= killed_at < TRAIN_STEPS,
+              f"the child left no checkpoint before it was killed (last "
+              f"step {killed_at}, checkpoint {saved})")
+        t0 = time.perf_counter()
+        resumed = train.main(train_argv(b_dir, True, TRAIN_LOG_EVERY))
+        t_resume = time.perf_counter() - t0
+        start = train.main.stats["start"]
+        check(start == saved, f"the restart resumed at {start}, not at the "
+              f"saved step {saved}")
+        want = np.asarray(losses[start:])
+        got = np.asarray(resumed)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        print(f"[train] restart: the child killed after step "
+              f"{killed_at} ({t_kill!r} s) left step {saved}; main "
+              f"on its directory resumed at {start} and ran "
+              f"{len(resumed)} steps ({t_resume!r} s): losses against the "
+              f"uninterrupted run's, max relative {rel!r} (limit "
+              f"{RESUME_RTOL}), bitwise {bool(np.array_equal(got, want))}")
+        check(len(got) == len(want) and rel <= RESUME_RTOL,
+              "the resumed losses differ from the uninterrupted run's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    for dt in ("bfloat16", "float32"):
+        grad_check(dev, TRAIN_ARCH, replace(cfg, num_layers=2, dtype=dt),
+                   TRAIN_BATCH, TRAIN_SEQ)
+        torch.cuda.empty_cache()
+    rg = get_config(LM_ARCH)
+    for dt in ("bfloat16", "float32"):
+        grad_check(dev, LM_ARCH, replace(rg, num_layers=3, dtype=dt), 1,
+                   LM_PROMPT)
+        torch.cuda.empty_cache()
+    return {"steps": TRAIN_PROFILE_STEPS + TRAIN_STEPS + len(resumed),
+            "grad_cfgs": ((2, 0), (2, 0), (1, 2), (1, 2))}
+
+
+def flops_flash_bwd(b, s, h, hd, window) -> int:
+    """Operations of one attention backward over the visible band: 10 hd
+    per (query, key) pair (S recomputed, dP = dO V^T, dV, dQ and dK, a
+    multiply and an add each; the kernel recomputes S and dP once more in
+    its dQ pass, 14 hd, which the bound does not count)."""
+    return flops_flash(b, s, h, hd, window) // 4 * 10
+
+
+def bounds_flash_bwd(b, s, h, kh, hd, window, itemsize) -> tuple:
+    """Least time for one attention backward: its operations at the bf16
+    tensor-core rate, or q, k, v, o, dO and lse read and dq, dk, dv
+    written once."""
+    t_ops = flops_flash_bwd(b, s, h, hd, window) / H100_BF16_FLOPS * 1e3
+    t_bytes = ((4 * b * s * h * hd + 4 * b * s * kh * hd) * itemsize
+               + 4 * b * h * s) / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def bounds_scan_bwd(b, t, w) -> tuple:
+    """Least time for one scan backward: a, h and g read, da and dgx
+    written (20 B per element), h0 read and dh0 written; three float32
+    operations per element."""
+    t_bytes = (20 * b * t * w + 8 * b * w) / H100_BYTES_PER_S * 1e3
+    t_ops = 3 * b * t * w / H100_FP32_FLOPS * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def sdpa_bwd_ms(q, k, v, do, window: int) -> float:
+    """SDPA's backward alone on heads-first copies (set-up untimed): causal
+    with grouped kv heads (`enable_gqa`) when window is 0, else over the
+    band as a boolean mask with the kv heads expanded."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    b, s, h, hd = q.shape
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+    if window == 0:
+        kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (k, v))
+        try:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        except TypeError:           # a torch before enable_gqa: expanded
+            kt, vt = (x.repeat_interleave(h // x.shape[1], 1).detach()
+                      .requires_grad_() for x in (kt, vt))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        kt, vt = (x.transpose(1, 2).expand(b, h, s, hd).contiguous()
+                  .requires_grad_() for x in (k, v))
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=ref.band_mask(s, s, True, window, q.device))
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True), reps=10)
+
+
+def report_train(dev, launches, errors) -> list:
+    """Times of both backward kernels at the training paths' shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as scan
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = {}
+    for label, b, s, h, kh, hd, w, _ in train_attention_cases()[:2]:
+        q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev)
+        o, lse = flash.flash_attention(q, k, v, causal=True, window=w,
+                                       with_lse=True)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        launch = raw_launch("flash_attention_bwd",
+                            [q, k, v, o, do, lse, delta, dq, dk, dv, 1, b, s,
+                             s, h, kh, hd, 1, w], flash._bwd_lib())
+        fa = {"ms": time_ms(launch, reps=10),
+              "wrapper_ms": time_ms(lambda: flash.flash_attention_bwd(
+                  q, k, v, o, do, lse, causal=True, window=w), reps=10,
+                  host=True),
+              "plain_ms": time_ms(lambda: ref.attention_bwd_ref(
+                  q, k, v, o, do, lse, causal=True, window=w), reps=3,
+                  host=True),
+              "library_ms": sdpa_bwd_ms(q, k, v, do, w),
+              "forward_ms": time_ms(lambda: flash.flash_attention(
+                  q, k, v, causal=True, window=w), reps=10)}
+        fa["bound_ms"], fa["bound_by"] = bounds_flash_bwd(b, s, h, kh, hd, w,
+                                                          2)
+        fa["tflops"] = (flops_flash_bwd(b, s, h, hd, w) / (fa["ms"] * 1e-3)
+                        / 1e12)
+        fa["kernel_route"] = flash.bwd_route(q.dtype, hd)
+        print(f"[report] flash_attention_bwd {label} B={b} S={s} H={h} "
+              f"K={kh} hd={hd} window={w} bfloat16: {fa}")
+        rows[label] = (fa, f"B={b} S={s} H={h} K={kh} hd={hd} window={w} "
+                           f"bf16")
+        del q, k, v, o, lse, do, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+
+    b, t, wd = 1, LM_PROMPT, get_config(LM_ARCH).rglru_width
+    a = torch.rand((b, t, wd), generator=gen, device=dev) * 0.3 + 0.699
+    h = torch.randn((b, t, wd), generator=gen, device=dev)
+    g = torch.randn((b, t, wd), generator=gen, device=dev)
+    h0 = torch.zeros((b, wd), device=dev)
+    da, dgx, dh0 = (torch.empty_like(x) for x in (a, a, h0))
+    launch = raw_launch("rglru_scan_bwd", [a, h, h0, g, da, dgx, dh0, b, t,
+                                           wd], scan._lib())
+    rs = {"ms": time_ms(launch), "warm_ms": warm_ms(launch),
+          "wrapper_ms": time_ms(lambda: scan.rglru_scan_bwd(a, h, h0, g),
+                                host=True),
+          "plain_ms": time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, h0, g),
+                              reps=3, host=True),
+          "library_ms": None}
+    rs["bound_ms"], rs["bound_by"] = bounds_scan_bwd(b, t, wd)
+    print(f"[report] rglru_scan_bwd B={b} T={t} W={wd}: {rs}")
+    fa, shape = rows["smollm path"]
+    return [
+        dict({"name": "flash_attention_bwd", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+              "replaces": "none: the JAX package differentiates plain XLA "
+                          "(src/repro/models/attention.py:69)",
+              "launches": launches["flash_attention_bwd"],
+              "max_abs_err": errors["flash_attention_bwd"][0],
+              "tolerance": "rtol 1e-2 atol 4e-3 (bfloat16; also within "
+                           "5e-2/5e-2; float32 2e-5)",
+              "tol_ratio": errors["flash_attention_bwd"][1],
+              "shape": shape}, **fa),
+        dict({"name": "rglru_scan_bwd", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+              "replaces": "none: the JAX package differentiates its "
+                          "associative scan (src/repro/models/rglru.py)",
+              "launches": launches["rglru_scan_bwd"],
+              "max_abs_err": errors["rglru_scan_bwd"][0],
+              "tolerance": "bitwise", "tol_ratio": 0.0,
+              "shape": f"B={b} T={t} W={wd} f32"}, **rs),
+    ]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port is not beside this script ({SRC}/repro_torch)")
@@ -5293,6 +5867,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card: this script drives the port on a GPU")
     sys.path.insert(0, SRC)
+    global H100_BYTES_PER_S, H100_BF16_FLOPS, H100_FP32_FLOPS, H100_FP64_FLOPS
+    from repro_torch.perf import roofline
+    H100_BYTES_PER_S, H100_BF16_FLOPS = roofline.HBM_BW, roofline.PEAK_FLOPS
+    H100_FP32_FLOPS = roofline.PEAK_FLOPS_FP32
+    H100_FP64_FLOPS = roofline.PEAK_FLOPS_FP64
     from repro_torch.configs import get_config
     from repro_torch.kernels import bayes_fit as kernels
     from repro_torch.kernels import decision_plane as plane
@@ -5306,9 +5885,27 @@ def main() -> None:
     t_start = time.perf_counter()
 
     phase_build()
+    if ONLY:
+        # a short run of the named phases alone, for iterating on them; it
+        # prints no kernels line and no result
+        errs = {"flash_attention_bwd": (0.0, 0.0),
+                "rglru_scan_bwd": (0.0, 0.0)}
+        for name in ONLY:
+            out = {"train-kernels": lambda: phase_train_kernels(dev),
+                   "train": lambda: phase_train(dev),
+                   "train-profile": lambda: train_profile(dev),
+                   "report-train": lambda: report_train(
+                       dev, {"flash_attention_bwd": 0, "rglru_scan_bwd": 0},
+                       errs)}[name]()
+            if name == "train-kernels":
+                errs.update(out)
+        print(f"[chip_smoke] only {ONLY}: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return
     fleet = pad_ragged(*fleet_buffers(np.random.default_rng(7), N_FLEET))
     errors = phase_kernels(dev, fleet)
     errors.update(phase_lm_kernels(dev))
+    errors.update(phase_train_kernels(dev))
 
     counted = (("bayes_fit", kernels.bayes_fit),
                ("bayes_predict", kernels.bayes_predict),
@@ -5318,7 +5915,9 @@ def main() -> None:
                ("eft_sweep_many", plane.eft_sweep_many),
                ("nig_fold", kernels.nig_fold),
                ("flash_attention", flash.flash_attention),
-               ("rglru_scan", scan.rglru_scan))
+               ("rglru_scan", scan.rglru_scan),
+               ("flash_attention_bwd", flash.flash_attention_bwd),
+               ("rglru_scan_bwd", scan.rglru_scan_bwd))
     launches = dict.fromkeys((name for name, _ in counted), 0)
     sweep_routes = dict.fromkeys(plane.SWEEP_ROUTES, 0)
     rank_routes = dict.fromkeys(plane.RANK_ROUTES, 0)
@@ -5346,6 +5945,8 @@ def main() -> None:
         plane.upward_rank.launches_by_route = dict.fromkeys(
             plane.RANK_ROUTES, 0)
         flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
+        flash.flash_attention_bwd.route_launches = dict.fromkeys(
+            flash.BWD_ROUTES, 0)
         ops.bayes_predict = tallied
         try:
             out = path()
@@ -5452,6 +6053,20 @@ def main() -> None:
     check(routes["wgmma_heads"] == got["flash_attention"],
           "the serve path's flash_attention launches did not all take the "
           "wgmma kernel's heads pairing")
+    check(got["flash_attention_bwd"] == 0 and got["rglru_scan_bwd"] == 0,
+          "the serve path launched a backward kernel")
+    tr, got = drive(lambda: phase_train(dev), "train")
+    print(f"[launches] train: {got}; flash_attention by route "
+          f"{flash.flash_attention.route_launches}; flash_attention_bwd by "
+          f"route {flash.flash_attention_bwd.route_launches}")
+    layers = get_config(TRAIN_ARCH).num_layers
+    want_attn = layers * tr["steps"] + sum(a for a, _ in tr["grad_cfgs"])
+    want_scan = sum(r for _, r in tr["grad_cfgs"])
+    check(got["flash_attention"] == got["flash_attention_bwd"] == want_attn
+          and got["rglru_scan"] == got["rglru_scan_bwd"] == want_scan,
+          f"the train path did not launch each forward and backward kernel "
+          f"once per attention ({want_attn}) or RG-LRU ({want_scan}) layer "
+          f"a step")
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}; upward_rank by route {rank_routes}")
     check(rank_routes == {"shared": launches["upward_rank"], "global": 0},
@@ -5476,10 +6091,12 @@ def main() -> None:
     phase_refresh_checks(dev, fleet_out, ingest, rf)
     lm_cut_checks(dev)
     lm_profile(dev)
+    train_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
                           pieces["args"], fold, predict_q)
     report += report_replan(launches, errors, time_replan(dev, rpc))
     report += report_lm(dev, launches, errors)
+    report += report_train(dev, launches, errors)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5490,6 +6107,11 @@ def main() -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
+
+# `--only train-kernels,train,report-train` runs the build and those phases
+# alone
+ONLY = (sys.argv[sys.argv.index("--only") + 1].split(",")
+        if "--only" in sys.argv else [])
 
 if __name__ == "__main__":
     main()

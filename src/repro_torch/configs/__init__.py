@@ -1,16 +1,17 @@
 """Architecture registry of the port: `get_config(arch)` and
-`get_reduced_config(arch)` for the architectures whose serving path the
-port runs.  Any other architecture of the JAX package raises, saying that
+`get_reduced_config(arch)` for the architectures the port runs
+(RecurrentGemma-9B serves and trains, SmolLM-360M trains).  Any other architecture of the JAX package raises, saying that
 it is not yet ported."""
 from __future__ import annotations
 
-from repro_torch.configs import recurrentgemma_9b
+from repro_torch.configs import recurrentgemma_9b, smollm_360m
 from repro_torch.configs.base import (  # noqa: F401
     ATTN_FULL, ATTN_LOCAL, ATTN_MLA, ATTN_SWA, BLK_MLSTM, BLK_RGLRU,
     BLK_SLSTM, ModelConfig, replace,
 )
 
-_MODULES = {"recurrentgemma-9b": recurrentgemma_9b}
+_MODULES = {"recurrentgemma-9b": recurrentgemma_9b,
+            "smollm-360m": smollm_360m}
 
 ARCHS = tuple(_MODULES)
 

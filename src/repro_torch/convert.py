@@ -1,5 +1,6 @@
 """Carry state across packages and devices: a fitted `LotaruPredictor`,
-and the LM side's parameters (`lm_params_from_jax`).
+the LM side's parameters (`lm_params_from_jax`) and its training state
+(`train_state_from_jax`, `train_state_to_jax`).
 
 The state is plain Python and numpy, so it names no framework:
 
@@ -31,6 +32,7 @@ from repro_torch.core.extrapolation import MachineBench
 from repro_torch.core.predictor import LotaruPredictor, TaskRuntimeModel
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.transformer import init_params
+from repro_torch.train.optimizer import OptConfig, init_opt_state
 
 _BENCH_FIELDS = ("name", "cpu", "mem", "io_read", "io_write")
 
@@ -95,6 +97,10 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def _carry(src, want, device: torch.device, path: str):
+    if want is None:                   # an int8 moment's absent scale
+        if src is not None:
+            raise ValueError(f"{path}: {type(src).__name__}, want None")
+        return None
     if isinstance(want, torch.Tensor):
         arr = np.asarray(src)
         if tuple(arr.shape) != tuple(want.shape):
@@ -118,3 +124,33 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
     shapes and dtypes, checked against the port's own layout."""
     return _carry(tree, init_params(0, cfg, device="meta"),
                   resolve_device(device), "params")
+
+
+def train_state_from_jax(tree: Mapping, cfg: ModelConfig,
+                         int8_state: Optional[bool] = None,
+                         device=DEFAULT_DEVICE) -> dict:
+    """The JAX package's train state {"opt": {"step", "master", "m",
+    "v"}}, its leaves as numpy arrays (int8 moments as {"q", "scale"},
+    scale None for a ragged leaf), -> the port's state on `device`, leaf
+    for leaf, checked against the port's own layout for `cfg` (int8
+    moments when `int8_state`, by default `cfg.int8_opt_state`)."""
+    int8 = cfg.int8_opt_state if int8_state is None else int8_state
+    like = {"opt": init_opt_state(init_params(0, cfg, device="meta"),
+                                  OptConfig(int8_state=int8))}
+    return _carry(tree, like, resolve_device(device), "state")
+
+
+def train_state_to_jax(state: Mapping) -> dict:
+    """The port's train state as numpy arrays in the reference's layout
+    (None kept), for `jax.tree.map(jnp.asarray, ...)`.  A train state
+    holds float32, int8 and int32 leaves; a bfloat16 leaf raises, since
+    numpy has no bfloat16 of its own."""
+    def host(x):
+        if x is None:
+            return None
+        if isinstance(x, Mapping):
+            return {k: host(v) for k, v in x.items()}
+        if x.dtype == torch.bfloat16:
+            raise TypeError("a bfloat16 leaf: train states hold none")
+        return x.detach().cpu().numpy()
+    return host(state)

@@ -1,6 +1,7 @@
 """Deterministic synthetic token pipeline with per-host sharding, a copy
-of `make_batch` of the JAX package's `data/pipeline.py`: the same seed
-gives the same tokens in both packages.
+of the JAX package's `data/pipeline.py` (`make_batch`, the prefetching
+`data_iterator` resumable at any step, the toy `ByteTokenizer`): the same
+seed gives the same tokens in both packages.
 
 Sequences follow a Zipf-ish unigram mixture with injected n-gram structure
 so small models show a real learning curve (loss decreases measurably within
@@ -8,8 +9,10 @@ so small models show a real learning curve (loss decreases measurably within
 """
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -46,3 +49,41 @@ def make_batch(cfg: DataConfig, step: int) -> Dict[str, np.ndarray]:
     toks[:, 1:] = np.where(mask, nxt, toks[:, 1:])
     return {"tokens": toks[:, :-1].astype(np.int32),
             "labels": toks[:, 1:].astype(np.int32)}
+
+
+def data_iterator(cfg: DataConfig, start_step: int = 0,
+                  prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
+    """background-prefetching iterator, resumable at any step (the loader
+    state IS the step number: restart-safe by construction)."""
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def worker():
+        step = start_step
+        while not stop.is_set():
+            try:
+                q.put(make_batch(cfg, step), timeout=0.5)
+                step += 1
+            except queue.Full:
+                continue
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            yield q.get()
+    finally:
+        stop.set()
+
+
+class ByteTokenizer:
+    """toy byte-level tokenizer for the quickstart example."""
+    vocab_size = 256
+
+    def encode(self, s: str) -> np.ndarray:
+        return np.frombuffer(s.encode("utf-8"),
+                             dtype=np.uint8).astype(np.int32)
+
+    def decode(self, ids) -> str:
+        return bytes(int(i) % 256 for i in ids).decode("utf-8",
+                                                       errors="replace")

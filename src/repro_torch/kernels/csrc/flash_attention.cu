@@ -44,6 +44,8 @@ constexpr int kBlockQ = 64;        // query rows of a consumer (bf16) or a
                                    // block (f32)
 constexpr int kBlockK = 64;        // keys of a kv tile
 constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int skv,
                                         int causal, int window) {
@@ -383,7 +385,8 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap vmap,
                           __nv_bfloat16* __restrict__ out, int sq, int skv,
                           int heads, int kv_heads, int causal, int window,
-                          float scale_log2, int pair_heads) {
+                          float scale_log2, int pair_heads,
+                          float* __restrict__ lse) {
   constexpr int kStages = flash_stages(D);
   constexpr int kTile = kBlockK * D * 2;       // bytes of a 64-row tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -538,6 +541,9 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = row0 + r * 8;
     if (row >= my_hi) continue;
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * heads + my_head) * sq + row] =
+          (m[r] + log2f(l[r])) * kLn2;
     const float denom = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow =
         out + (((long long)b * sq + row) * heads + my_head) * D;
@@ -574,7 +580,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ v,
                            float* __restrict__ out, int sq, int skv,
                            int heads, int kv_heads, int causal, int window,
-                           float scale) {
+                           float scale, float* __restrict__ lse) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                    // [D][kPad]   query tile, transposed
   float* kt = qt + D * kPad;           // [D][kPad]   key tile, transposed
@@ -700,6 +706,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int i = 0; i < 4; ++i) {
     const int row = q_lo + ty * 4 + i;
     if (row >= sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * heads + h) * sq + row] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     float* orow = out + ((long long)b * sq + row) * q_stride + (long long)h * D;
 #pragma unroll
@@ -764,7 +772,7 @@ int bf16_map(CUtensorMap* map, const void* ptr, int d, int h, int s,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int batch, int sq, int skv, int heads, int kv_heads,
-                int causal, int window, cudaStream_t stream) {
+                int causal, int window, float* lse, cudaStream_t stream) {
   const int bytes = flash_smem_bytes(D, flash_stages(D));
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -792,14 +800,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const float scale = 1.0f / sqrtf((float)D);
   kernel<<<grid, kWsThreads, bytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), sq, skv, heads,
-      kv_heads, causal, window, scale * 1.4426950408889634f, pair_heads);
+      kv_heads, causal, window, scale * kLog2e, pair_heads, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int batch, int sq, int skv, int heads, int kv_heads,
-               int causal, int window, cudaStream_t stream) {
+               int causal, int window, float* lse, cudaStream_t stream) {
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads, batch);
   auto kernel = flash_attention_f32_kernel<D>;
   const int bytes = f32_smem_bytes<D>();
@@ -809,19 +817,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), sq, skv,
-      heads, kv_heads, causal, window, 1.0f / sqrtf((float)D));
+      heads, kv_heads, causal, window, 1.0f / sqrtf((float)D), lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int dtype,
            int batch, int sq, int skv, int heads, int kv_heads, int causal,
-           int window, cudaStream_t stream) {
+           int window, float* lse, cudaStream_t stream) {
   return dtype == 1
              ? launch_bf16<D>(q, k, v, out, batch, sq, skv, heads, kv_heads,
-                              causal, window, stream)
+                              causal, window, lse, stream)
              : launch_f32<D>(q, k, v, out, batch, sq, skv, heads, kv_heads,
-                             causal, window, stream);
+                             causal, window, lse, stream);
 }
 
 }  // namespace
@@ -836,24 +844,27 @@ const char* lotaru_error_string(int code) {
 // must start on 16 bytes (the wrapper checks the pointers).  bfloat16
 // asks for flash_smem_bytes of shared memory and returns
 // cudaErrorInvalidValue, launching nothing, where that is above the card's
-// opt-in limit.
+// opt-in limit.  lse, when not null, receives each row's log-sum-exp of
+// its scaled scores, (batch, heads, sq) float32, for the backward; the
+// serve path passes null and its launches store nothing more.
 int lotaru_flash_attention(const void* q, const void* k, const void* v,
                            void* out, int dtype, int batch, int sq, int skv,
                            int heads, int kv_heads, int head_dim, int causal,
-                           int window, cudaStream_t stream) {
+                           int window, void* lse, cudaStream_t stream) {
+  float* lse_f = static_cast<float*>(lse);
   if (sq == 0 || batch == 0) return 0;
   if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || heads % kv_heads)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 64:
       return launch<64>(q, k, v, out, dtype, batch, sq, skv, heads, kv_heads,
-                        causal, window, stream);
+                        causal, window, lse_f, stream);
     case 128:
       return launch<128>(q, k, v, out, dtype, batch, sq, skv, heads,
-                         kv_heads, causal, window, stream);
+                         kv_heads, causal, window, lse_f, stream);
     case 256:
       return launch<256>(q, k, v, out, dtype, batch, sq, skv, heads,
-                         kv_heads, causal, window, stream);
+                         kv_heads, causal, window, lse_f, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

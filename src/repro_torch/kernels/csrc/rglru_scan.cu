@@ -84,6 +84,92 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ gx,
   }
 }
 
+// The scan's gradient, for training.  No TPU kernel is replaced: the JAX
+// package differentiates its associative scan; this computes the same
+// gradient.  Given h (the forward's output), a, h0 and g = dL/dh, one
+// thread a (b, w) channel walks t from T - 1 down:
+//   dh_t = g_t + a_{t+1} dh_{t+1}   (dh_{T-1} = g_{T-1})
+//   da_t = dh_t h_{t-1}  (h_{-1} = h0),   dgx_t = dh_t,   dh0 = a_0 dh_0.
+// Bound on the H100: memory (a, h and g read, da and dgx written: 20 bytes
+// for three operations a step).  As in the forward, the loads of the next
+// chunk of kBwdUnroll steps (a, g and h_{t-1}) are issued before the
+// current chunk's dependent chain runs.  Blocks of 32 threads: the
+// training shape's B*W = 4,096 channels make 128 blocks, one for each of
+// 128 of the 132 SMs.  With --fmad=false each step's g + a * dh is a
+// separately rounded multiply and add, so the kernel is bitwise
+// kernels/ref.py::rglru_scan_bwd_ref.
+constexpr int kBwdThreads = 32;
+constexpr int kBwdUnroll = 16;
+
+__global__ void __launch_bounds__(kBwdThreads)
+rglru_scan_bwd_kernel(const float* __restrict__ a,
+                      const float* __restrict__ h,
+                      const float* __restrict__ h0,
+                      const float* __restrict__ g, float* __restrict__ da,
+                      float* __restrict__ dgx, float* __restrict__ dh0,
+                      int batch, int steps, int width) {
+  const long long ch = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch >= (long long)batch * width) return;
+  const long long b = ch / width;
+  const long long w = ch - b * width;
+  const long long base = b * (long long)steps * width + w;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* gp = g + base;
+  float* dap = da + base;
+  float* dgp = dgx + base;
+  const float h_init = h0[ch];
+  float dh = 0.f;
+  float a_next = 0.f;                  // a_{t+1} once t < T - 1
+  // the top T % kBwdUnroll steps one at a time, then whole chunks down to 0
+  const int rem = steps % kBwdUnroll;
+  for (int t = steps - 1; t >= steps - rem; --t) {
+    const float gv = gp[(long long)t * width];
+    const float hv = t > 0 ? hp[(long long)(t - 1) * width] : h_init;
+    dh = t == steps - 1 ? gv : gv + a_next * dh;
+    dgp[(long long)t * width] = dh;
+    dap[(long long)t * width] = dh * hv;
+    a_next = ap[(long long)t * width];
+  }
+  float a_n[kBwdUnroll], g_n[kBwdUnroll], h_n[kBwdUnroll];
+  int t0 = steps - rem - kBwdUnroll;
+  if (t0 >= 0) {
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      a_n[u] = ap[(long long)(t0 + u) * width];
+      g_n[u] = gp[(long long)(t0 + u) * width];
+      h_n[u] = t0 + u > 0 ? hp[(long long)(t0 + u - 1) * width] : h_init;
+    }
+  }
+  for (; t0 >= 0; t0 -= kBwdUnroll) {
+    float av[kBwdUnroll], gv[kBwdUnroll], hv[kBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      av[u] = a_n[u];
+      gv[u] = g_n[u];
+      hv[u] = h_n[u];
+    }
+    const int t1 = t0 - kBwdUnroll;
+    if (t1 >= 0) {
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u) {
+        a_n[u] = ap[(long long)(t1 + u) * width];
+        g_n[u] = gp[(long long)(t1 + u) * width];
+        h_n[u] = t1 + u > 0 ? hp[(long long)(t1 + u - 1) * width] : h_init;
+      }
+    }
+#pragma unroll
+    for (int u = kBwdUnroll - 1; u >= 0; --u) {
+      const int t = t0 + u;
+      dh = t == steps - 1 ? gv[u] : gv[u] + a_next * dh;
+      dgp[(long long)t * width] = dh;
+      dap[(long long)t * width] = dh * hv[u];
+      a_next = av[u];
+    }
+  }
+  dh0[ch] = a_next * dh;
+}
+
 }  // namespace
 
 extern "C" {
@@ -99,6 +185,18 @@ int lotaru_rglru_scan(const float* a, const float* gx, const float* h0,
   const int blocks = (int)((channels + kThreads - 1) / kThreads);
   rglru_scan_kernel<<<blocks, kThreads, 0, stream>>>(a, gx, h0, h, batch,
                                                       steps, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// da, dgx (B, T, W) and dh0 (B, W) float32 from a, h, g (B, T, W) and h0.
+int lotaru_rglru_scan_bwd(const float* a, const float* h, const float* h0,
+                          const float* g, float* da, float* dgx, float* dh0,
+                          int batch, int steps, int width,
+                          cudaStream_t stream) {
+  const long long channels = (long long)batch * width;
+  const int blocks = (int)((channels + kBwdThreads - 1) / kBwdThreads);
+  rglru_scan_bwd_kernel<<<blocks, kBwdThreads, 0, stream>>>(
+      a, h, h0, g, da, dgx, dh0, batch, steps, width);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,14 @@
-"""Launch wrapper for the hand-written CUDA kernels in
+"""Launch wrappers for the hand-written CUDA kernels in
 `csrc/flash_attention.cu`: causal attention with an optional sliding
-window and grouped key-value heads, the prefill attention of every local
-attention layer.  bfloat16 runs on the tensor cores (a warp-specialised
-block: a TMA producer and two `wgmma` consumers that share each K/V tile),
-float32 on the CUDA cores.
+window and grouped key-value heads, the prefill and training attention of
+every attention layer.  bfloat16 runs on the tensor cores (a
+warp-specialised block: a TMA producer and two `wgmma` consumers that share
+each K/V tile), float32 on the CUDA cores.  With `with_lse=True` the
+forward also returns each row's log-sum-exp, which `flash_attention_bwd`
+takes (`csrc/flash_attention_bwd.cu`: dq, dk and dv, no atomics; bf16 on
+the tensor cores through mma.sync, float32 on the CUDA cores,
+`bwd_route`); it counts its launches in `flash_attention_bwd.launches`
+and, by route, in `flash_attention_bwd.route_launches`.
 
 The wrapper takes CUDA tensors only (device dispatch is `kernels.ops`),
 checks device, dtype, shape and contiguity, allocates its output with
@@ -44,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.lotaru_error_string.argtypes = [_I]
     lib.lotaru_error_string.restype = ctypes.c_char_p
-    lib.lotaru_flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [_P]
+    lib.lotaru_flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [_P, _P]
     lib.lotaru_flash_attention.restype = _I
     lib.lotaru_flash_smem_bytes.argtypes = [_I, _I]
     lib.lotaru_flash_smem_bytes.restype = ctypes.c_longlong
@@ -53,6 +58,55 @@ def _lib() -> ctypes.CDLL:
     lib.lotaru_flash_tile_kind.argtypes = [_I] * 6
     lib.lotaru_flash_tile_kind.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    lib.lotaru_error_string.argtypes = [_I]
+    lib.lotaru_error_string.restype = ctypes.c_char_p
+    lib.lotaru_flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.lotaru_flash_attention_bwd.restype = _I
+    lib.lotaru_flash_bwd_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lotaru_flash_bwd_smem_bytes.restype = _I
+    return lib
+
+
+# the backward's routes: bf16 on the tensor cores (mma.sync), float32 on
+# the CUDA cores
+BWD_ROUTES = ("mma", "cuda_cores")
+# the CUDA-core route's tiles by head dim: (keys of a dK/dV block and of
+# a dQ block's key tile, queries of a dQ block and of a dK/dV query tile)
+BWD_TILES = {64: (64, 64), 128: (64, 32), 256: (32, 32)}
+BWD_MMA_ROWS = 64       # the mma route's rows, tiles and output columns
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    return "mma" if dtype == torch.bfloat16 else "cuda_cores"
+
+
+def bwd_smem_bytes(hd: int, which: int,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of the backward's dK/dV kernel (which 0) or
+    dQ kernel (which 1) (`lotaru_flash_bwd_smem_bytes` in the source).
+    The mma route: bf16 tiles of 64 rows padded by 8 elements (dK/dV: K,
+    V, Q, dO, and the block's 64 columns of Q and dO transposed; dQ: Q,
+    dO, K, V, and 64 columns of K transposed), lse and D.  The CUDA-core
+    route: float32 tiles padded by 4 (dK/dV: K and V transposed, Q and dO
+    transposed and row-major, P and dS; dQ: Q, dO, K and V transposed, K
+    row-major, dS), lse and D."""
+    if bwd_route(dtype, hd) == "mma":
+        r = BWD_MMA_ROWS
+        tiles = 4 * r * (hd + 8) + (2 if which == 0 else 1) * r * (r + 8)
+        return tiles * 2 + 512
+    bk, bq = BWD_TILES[hd]
+    if which == 0:
+        floats = (2 * hd * (bk + 4) + 2 * hd * (bq + 4) + 2 * bq * (hd + 4)
+                  + 2 * bq * (bk + 4) + 2 * bq)
+    else:
+        floats = (2 * hd * (bq + 4) + 2 * hd * (bk + 4) + bk * (hd + 4)
+                  + bk * (bq + 4) + 2 * bq)
+    return 4 * floats
 
 
 def flash_stages(hd: int) -> int:
@@ -129,13 +183,7 @@ def flash_tile_plan(sq: int, skv: int, causal: bool, window: int,
     return plan
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Sq, H, hd); k, v (B, Skv, K, hd), H a multiple of K; one
-    dtype, float32 or bfloat16; hd 64, 128 or 256; any Sq and Skv.  Query
-    i sees key j when j <= i (causal) and j > i - window (window > 0).
-    Returns (B, Sq, H, hd) in q's dtype, within the stated tolerance of
-    `ref.attention_ref`."""
+def _check_qkv(q, k, v):
     dev = cuda_device(q, "q")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-d, got {tuple(q.shape)} and "
@@ -151,25 +199,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check(q, "q", q.dtype, (b, sq, h, hd), dev)
     check(k, "k", q.dtype, (b, skv, kh, hd), dev)
     check(v, "v", q.dtype, (b, skv, kh, hd), dev)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for n, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on 16 bytes (the kernel "
+            raise ValueError(f"{n} must start on 16 bytes (the kernel "
                              f"loads rows as 16-byte vectors or TMA boxes)")
+    return dev, (b, sq, skv, h, kh, hd)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    with_lse: bool = False):
+    """q (B, Sq, H, hd); k, v (B, Skv, K, hd), H a multiple of K; one
+    dtype, float32 or bfloat16; hd 64, 128 or 256; any Sq and Skv.  Query
+    i sees key j when j <= i (causal) and j > i - window (window > 0).
+    Returns (B, Sq, H, hd) in q's dtype, within the stated tolerance of
+    `ref.attention_ref`; with `with_lse`, (out, lse): lse (B, H, Sq)
+    float32, each row's log-sum-exp of its scaled scores (-inf for a row
+    that sees no key)."""
+    dev, (b, sq, skv, h, kh, hd) = _check_qkv(q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     route = flash_route(q.dtype, h, kh)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().lotaru_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, sq, skv, h, kh, hd, int(causal),
-            int(window), stream)
+            int(window), lse.data_ptr() if with_lse else None, stream)
     raise_on(_lib(), rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, window: int = 0):
+    """The gradient of `flash_attention` at (q, k, v): o its output, do
+    the gradient of o (both (B, Sq, H, hd) in q's dtype), lse (B, H, Sq)
+    float32 from the forward's `with_lse` -> (dq, dk, dv) in q's dtype,
+    within the stated tolerance of `ref.attention_bwd_ref`.  Deterministic:
+    no atomics, two launches give bitwise equal results."""
+    dev, (b, sq, skv, h, kh, hd) = _check_qkv(q, k, v)
+    check(o, "o", q.dtype, (b, sq, h, hd), dev)
+    check(do, "do", q.dtype, (b, sq, h, hd), dev)
+    check(lse, "lse", torch.float32, (b, h, sq), dev)
+    for n, t in (("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{n} must start on 16 bytes")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if b == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _bwd_lib().lotaru_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, skv, h,
+            kh, hd, int(causal), int(window), stream)
+    raise_on(_bwd_lib(), rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[bwd_route(q.dtype, hd)] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

@@ -2,7 +2,14 @@
 a CUDA tensor launches the hand-written kernel (or the launch raises), a
 CPU tensor takes the plain PyTorch version in `kernels.ref`.  There is no
 fallback from one to the other: a caller that wants the plain version
-hands over CPU tensors."""
+hands over CPU tensors.
+
+`flash_attention` and `rglru_scan` are differentiable: when autograd
+records (grad enabled and an input requires grad) they run through a
+`torch.autograd.Function` whose backward is the backward kernel on a card
+(`flash_attention_bwd`, `rglru_scan_bwd`) and its plain version on the
+CPU; otherwise (serving, `inference_mode`) the forward kernel is launched
+as it is, with nothing saved."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -110,21 +117,83 @@ def upward_rank(W: Sequence[torch.Tensor], tables: Sequence
     return ref.upward_rank_ref(W, tables)
 
 
+def records(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose backward is `flash_attention_bwd` (the CUDA
+    kernel) or `ref.attention_bwd_ref` (the plain version), from the
+    output and each row's log-sum-exp saved by the forward.  `plain`
+    picks the plain versions for both passes; `flash_attention` sets it
+    from the device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, plain: bool):
+        if plain:
+            o, lse = ref.attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window)
+        else:
+            o, lse = _flash.flash_attention(q, k, v, causal=causal,
+                                            window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, plain)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, plain = ctx.args
+        bwd = ref.attention_bwd_ref if plain else _flash.flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, causal=causal,
+                         window=window)
+        return dq, dk, dv, None, None, None
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan whose backward is `rglru_scan_bwd` (the CUDA
+    kernel) or `ref.rglru_scan_bwd_ref` (the plain version), from the
+    output h saved by the forward."""
+
+    @staticmethod
+    def forward(ctx, a, gx, h0, plain: bool):
+        h = (ref.rglru_scan_ref if plain else _rglru.rglru_scan)(a, gx, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.plain = plain
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        bwd = ref.rglru_scan_bwd_ref if ctx.plain else _rglru.rglru_scan_bwd
+        da, dgx, dh0 = bwd(a, h, h0, g.contiguous())
+        return da, dgx, (dh0 if ctx.needs_input_grad[2] else None), None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal (and, for window > 0, sliding-window) attention with grouped
     kv heads: q (B, Sq, H, hd), k and v (B, Skv, K, hd) at their K heads,
     never expanded -> (B, Sq, H, hd) in q's dtype.  Any Sq: nothing is
-    padded (the TPU form asserted tile multiples, a TPU tiling limit)."""
-    if _route(q) == "cuda":
-        return _flash.flash_attention(q, k, v, causal=causal, window=window)
-    return ref.attention_ref(q, k, v, causal=causal, window=window)
+    padded (the TPU form asserted tile multiples, a TPU tiling limit).
+    Differentiable in q, k and v (see the module docstring)."""
+    plain = _route(q) == "cpu"
+    if records(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, plain)
+    if plain:
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def rglru_scan(a: torch.Tensor, gx: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
     """The RG-LRU recurrence h_t = a_t * h_{t-1} + gx_t over (B, T, W)
-    float32 from h0 (B, W) -> h (B, T, W) float32."""
-    if _route(a) == "cuda":
-        return _rglru.rglru_scan(a, gx, h0)
-    return ref.rglru_scan_ref(a, gx, h0)
+    float32 from h0 (B, W) -> h (B, T, W) float32.  Differentiable in a,
+    gx and h0 (see the module docstring)."""
+    plain = _route(a) == "cpu"
+    if records(a, gx, h0):
+        return RGLRUScan.apply(a, gx, h0, plain)
+    if plain:
+        return ref.rglru_scan_ref(a, gx, h0)
+    return _rglru.rglru_scan(a, gx, h0)

@@ -291,33 +291,103 @@ def band_mask(sq: int, skv: int, causal: bool, window: int,
     return mask
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' working type: float32, or float64 for float64
+    inputs (the CPU tests' gradchecks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal, window):
+    """Masked scaled scores (B, K, G, Sq, Skv) in the working type, with
+    q grouped as (B, Sq, K, G, hd), and the band mask."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    qg = q.to(_acc(q.dtype)).reshape(b, sq, kh, h // kh, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(qg.dtype)) / math.sqrt(hd)
+    mask = band_mask(sq, k.shape[1], causal, window, q.device)
+    return torch.where(mask, s, NEG_INF), qg, mask
+
+
+def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0):
+    """`attention_ref`'s output and each row's log-sum-exp of its scaled
+    scores, lse (B, H, Sq) in the working type (what the kernel's
+    `with_lse` returns)."""
+    b, sq, h, hd = q.shape
+    s, _, _ = _scores(q, k, causal, window)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(s.dtype))
+    lse = torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    return o.reshape(b, sq, h, hd).to(q.dtype), lse
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Skv, K, hd) with H % K == 0: query head
     h reads kv head h // (H / K), as the JAX `ref.attention_ref` repeats
     the kv heads (here the grouping is a reshape, nothing is copied).
-    Scores and softmax in float32, masked entries at -1e30 as in the
-    reference; the output in q's dtype.  It materializes the (Sq, Skv)
-    scores: the plain version, not a path for long sequences."""
+    Scores and softmax in float32 (float64 for float64 inputs), masked
+    entries at -1e30 as in the reference; the output in q's dtype.  It
+    materializes the (Sq, Skv) scores: the plain version, not a path for
+    long sequences."""
+    return attention_fwd_ref(q, k, v, causal=causal, window=window)[0]
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                      *, causal: bool = True, window: int = 0):
+    """The gradient of `attention_ref` at (q, k, v), as the backward
+    kernel computes it: P = exp(S - lse) on the visible pairs (0
+    elsewhere), D = rowsum(dO * O), dS = P (dO V^T - D), dq = dS K / sqrt
+    (hd), dk = dS^T Q / sqrt(hd) summed over each kv head's query heads,
+    dv = P^T dO likewise; in the working type, returned in the inputs'
+    dtypes."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
-    qg = q.float().reshape(b, sq, kh, h // kh, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
-    mask = band_mask(sq, k.shape[1], causal, window, q.device)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    s, qg, mask = _scores(q, k, causal, window)
+    acc = s.dtype
+    lse_g = lse.to(acc).reshape(b, kh, h // kh, sq, 1)
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    dog = do.to(acc).reshape(qg.shape)
+    kf, vf = k.to(acc), v.to(acc)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    delta = (dog * o.to(acc).reshape(qg.shape)).sum(-1)     # (B, Sq, K, G)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    scale = 1.0 / math.sqrt(hd)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def rglru_scan_ref(a: torch.Tensor, gx: torch.Tensor,
                    h0: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + gx_t over (B, T, W) float32, from h0 (B, W):
     sequential in time, each step a separately rounded multiply and add,
-    the CUDA kernel's order (so the kernel is bitwise equal to it)."""
-    h = h0.float()
-    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    the CUDA kernel's order (so the kernel is bitwise equal to it).
+    float64 inputs stay float64 (the CPU tests' gradchecks)."""
+    h = h0.to(_acc(a.dtype))
+    out = torch.empty(a.shape, dtype=h.dtype, device=a.device)
     for t in range(a.shape[1]):
         h = a[:, t] * h + gx[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                       g: torch.Tensor):
+    """The scan's gradient from its output h and g = dL/dh: walking t
+    from T - 1 down, dh_t = g_t + a_{t+1} dh_{t+1} (dh_{T-1} = g_{T-1}),
+    da_t = dh_t h_{t-1} (h_{-1} = h0), dgx_t = dh_t; dh0 = a_0 dh_0.  Each
+    step a separately rounded multiply and add, the CUDA kernel's order,
+    so the kernel is bitwise equal to it -> (da, dgx, dh0)."""
+    steps = a.shape[1]
+    da, dgx = torch.empty_like(a), torch.empty_like(a)
+    dh = torch.zeros_like(h0)
+    for t in range(steps - 1, -1, -1):
+        dh = g[:, t] if t == steps - 1 else g[:, t] + a[:, t + 1] * dh
+        dgx[:, t] = dh
+        da[:, t] = dh * (h[:, t - 1] if t > 0 else h0)
+    dh0 = a[:, 0] * dh if steps else torch.zeros_like(h0)
+    return da, dgx, dh0

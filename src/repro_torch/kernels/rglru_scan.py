@@ -1,6 +1,8 @@
 """Launch wrapper for the hand-written CUDA kernel in `csrc/rglru_scan.cu`:
 the RG-LRU linear recurrence h_t = a_t * h_{t-1} + gx_t of the Griffin
-recurrent block, the prefill scan of every RG-LRU layer.
+recurrent block, the prefill and training scan of every RG-LRU layer, and
+its gradient (`rglru_scan_bwd`, the reverse scan, counted in
+`rglru_scan_bwd.launches`).
 
 The wrapper takes CUDA tensors only (device dispatch is `kernels.ops`),
 checks device, dtype, shape and contiguity, allocates its output with
@@ -28,6 +30,8 @@ def _lib() -> ctypes.CDLL:
     lib.lotaru_error_string.restype = ctypes.c_char_p
     lib.lotaru_rglru_scan.argtypes = [_P] * 4 + [_I] * 3 + [_P]
     lib.lotaru_rglru_scan.restype = _I
+    lib.lotaru_rglru_scan_bwd.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    lib.lotaru_rglru_scan_bwd.restype = _I
     return lib
 
 
@@ -56,3 +60,33 @@ def rglru_scan(a: torch.Tensor, gx: torch.Tensor,
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                   g: torch.Tensor):
+    """The scan's gradient: a, h (the forward's output) and g = dL/dh
+    (B, T, W) float32, h0 (B, W) float32, all on one card -> (da, dgx
+    (B, T, W), dh0 (B, W)) float32, bitwise equal to
+    `ref.rglru_scan_bwd_ref`."""
+    dev = cuda_device(a, "a")
+    if a.dim() != 3:
+        raise ValueError(f"a must be (B, T, W), got shape {tuple(a.shape)}")
+    b, t, w = a.shape
+    for name, x in (("a", a), ("h", h), ("g", g)):
+        check(x, name, torch.float32, (b, t, w), dev)
+    check(h0, "h0", torch.float32, (b, w), dev)
+    da, dgx = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.zeros_like(h0)
+    if da.numel() == 0:
+        return da, dgx, dh0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().lotaru_rglru_scan_bwd(
+            a.data_ptr(), h.data_ptr(), h0.data_ptr(), g.data_ptr(),
+            da.data_ptr(), dgx.data_ptr(), dh0.data_ptr(), b, t, w, stream)
+    raise_on(_lib(), rc, "rglru_scan_bwd")
+    rglru_scan_bwd.launches += 1
+    return da, dgx, dh0
+
+
+rglru_scan_bwd.launches = 0

@@ -2,14 +2,23 @@
 window), the counterpart of the JAX package's `models/attention.py` for
 the kinds the port runs.
 
-Prefill attention goes through `kernels.ops.flash_attention` on q at its
-H heads and k, v at their K heads (the hand-written CUDA kernel on a card,
-its plain version on the CPU).  That is the function the reference's
+Full-sequence attention (training and prefill) goes through
+`kernels.ops.flash_attention` on q at its H heads and k, v at their K
+heads (the hand-written CUDA kernels, forward and backward, on a card;
+their plain versions on the CPU).  That is the function the reference's
 `chunked_causal_attention` computes on head-expanded k and v; the kernel
 reads kv head h * K / H for query head h, so nothing is expanded.  Decode
 attends over the KV cache (a ring of `window` slots for local attention)
 with plain tensor code, as the reference's decode uses no kernel either.
-MLA, cross-attention, M-RoPE and padded heads are not ported.
+
+Padded heads (SmolLM's 15 query heads padded to 16): `wq` and `wo` keep
+the reference's padded shapes, pad rows zero, so that weights and
+checkpoints cross between the packages leaf for leaf.  The reference maps
+real head i to kv head i * K // H and masks the pad heads' outputs to
+zero (`head_mask`, `_kv_map`); here attention runs on the H real heads
+alone, sliced from `wq` and `wo`, which gives the same output and exactly
+zero gradients on the pad rows.  MLA, cross-attention and M-RoPE are not
+ported.
 """
 from __future__ import annotations
 
@@ -27,13 +36,28 @@ WINDOWED = ("swa", "local")
 
 def attn_init(gen, cfg: ModelConfig, device="cpu") -> dict:
     d, k_h, hd, h = cfg.d_model, cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    hp = cfg.padded_heads
     dt = pdtype(cfg)
-    return {
-        "wq": dense_init(gen, (d, h, hd), dt, fan_in=d, device=device),
+    p = {
+        "wq": dense_init(gen, (d, hp, hd), dt, fan_in=d, device=device),
         "wk": dense_init(gen, (d, k_h, hd), dt, fan_in=d, device=device),
         "wv": dense_init(gen, (d, k_h, hd), dt, fan_in=d, device=device),
-        "wo": dense_init(gen, (h, hd, d), dt, fan_in=h * hd, device=device),
+        "wo": dense_init(gen, (hp, hd, d), dt, fan_in=h * hd, device=device),
     }
+    if hp != h and p["wq"].device.type != "meta":
+        p["wq"][:, h:] = 0                   # the reference's head mask
+        p["wo"][h:] = 0
+    return p
+
+
+def real_heads(p: dict, cfg: ModelConfig):
+    """wq (d, H, hd) and wo (H, hd, d) at the H real query heads: the
+    leaves themselves, or slices of the padded leaves (autograd gives the
+    pad rows exactly zero gradients)."""
+    h = cfg.num_heads
+    if cfg.padded_heads == h:
+        return p["wq"], p["wo"]
+    return p["wq"][:, :h], p["wo"][:h]
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -43,15 +67,16 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(p, cfg: ModelConfig, x, positions):
-    q = apply_rope(_project(x, p["wq"]), positions, cfg)
+    q = apply_rope(_project(x, real_heads(p, cfg)[0]), positions, cfg)
     k = apply_rope(_project(x, p["wk"]), positions, cfg)
     return q, k, _project(x, p["wv"])
 
 
-def _out(p, o: torch.Tensor) -> torch.Tensor:
+def _out(p, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) @ (H, hd, d) -> (B, S, d)."""
-    h, hd, d = p["wo"].shape
-    return o.reshape(o.shape[:2] + (h * hd,)) @ p["wo"].reshape(h * hd, d)
+    wo = real_heads(p, cfg)[1]
+    h, hd, d = wo.shape
+    return o.reshape(o.shape[:2] + (h * hd,)) @ wo.reshape(h * hd, d)
 
 
 def attn_apply_seq(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -60,7 +85,7 @@ def attn_apply_seq(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.window if kind in WINDOWED else 0
     o = ops.flash_attention(q, k, v, causal=True, window=window)
-    out = _out(p, o)
+    out = _out(p, cfg, o)
     cache = make_kv_cache(cfg, kind, k, v, x.shape[1]) if make_cache else None
     return out, cache
 
@@ -118,4 +143,4 @@ def attn_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", pr, v.float())
     o = o.reshape(b, 1, cfg.num_heads, hd).to(x.dtype)
-    return _out(p, o), {"k": k, "v": v, "slot_pos": slot_pos}
+    return _out(p, cfg, o), {"k": k, "v": v, "slot_pos": slot_pos}

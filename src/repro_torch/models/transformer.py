@@ -1,5 +1,5 @@
-"""Model assembly: block dispatch, the layer loop, train/prefill forward and
-decode, the counterpart of the JAX package's `models/transformer.py` for
+"""Model assembly: block dispatch, the layer loop, train/prefill forward,
+the loss and decode, the counterpart of the JAX package's `models/transformer.py` for
 the block kinds the port runs (full and local attention, RG-LRU).
 
 Layer plan, as in the reference: `n_cycles` copies of `block_pattern`
@@ -25,8 +25,8 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (
-    dense_init, embed_init, ffn_apply, ffn_init, pdtype, rmsnorm,
-    rmsnorm_init, softcap,
+    cross_entropy, dense_init, embed_init, ffn_apply, ffn_init, pdtype,
+    rmsnorm, rmsnorm_init, softcap,
 )
 
 PORTED_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL, BLK_RGLRU)
@@ -38,12 +38,10 @@ def _check(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"block kinds {other} of {cfg.name} are "
                                   f"not yet ported to repro_torch")
     if cfg.is_moe or cfg.first_dense_layers or cfg.cross_attn \
-            or cfg.mrope_sections or cfg.frontend != "none" \
-            or cfg.padded_heads != cfg.num_heads:
+            or cfg.mrope_sections or cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: MoE, dense prefix layers, "
-                                  f"cross-attention, M-RoPE, frontends and "
-                                  f"padded heads are not yet ported to "
-                                  f"repro_torch")
+                                  f"cross-attention, M-RoPE and frontends "
+                                  f"are not yet ported to repro_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +271,15 @@ def forward(params, cfg: ModelConfig, batch, mode: str = "train"):
     if mode == "prefill":
         return logits, aux, cache
     return logits, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """The reference's loss: float32 cross-entropy of the train forward's
+    logits against batch["labels"], masked by batch["mask"] when given,
+    plus the auxiliary loss -> (loss, {"ce", "aux"})."""
+    logits, aux = forward(params, cfg, batch, mode="train")
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,12 @@ ADAPTIVE_MODULES = ("online.rescheduler", "workflow.simulator",
 # the store's batch-window frontend and the real microbenchmark probes
 # (the checkpoint, shipping and migration live in store.posterior)
 STORE_MODULES = ("store.frontend", "core.microbench")
+# training: SmolLM-360M's config, the optimizer, the train step,
+# checkpoints, the launcher, the roofline, and the backward kernels'
+# wrappers (in kernels.flash_attention and kernels.rglru_scan)
+TRAIN_MODULES = ("configs.smollm_360m", "train.optimizer",
+                 "train.checkpoint", "train.train_step", "launch.train",
+                 "perf", "perf.roofline")
 # the sharded serving tier (the reference's own copies of wire and
 # placement, which import no JAX, are not imported either)
 SERVE_MODULES = ("serve", "serve.wire", "serve.placement", "serve.failover",
@@ -65,12 +71,13 @@ def test_importing_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 69            # every module of the slices
+    assert int(out[0]) >= 75            # every module of the slices
     assert out[1] == "[]"
     names = set(out[2].split(","))
     assert {f"repro_torch.{m}" for m in
             LM_MODULES + PLANE_MODULES + REPLAN_MODULES
-            + ADAPTIVE_MODULES + STORE_MODULES + SERVE_MODULES} <= names
+            + ADAPTIVE_MODULES + STORE_MODULES + SERVE_MODULES
+            + TRAIN_MODULES} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -212,3 +219,18 @@ def test_lm_entry_points_raise_without_a_card(no_card):
         init_params(0, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_decode_cache(cfg, 1, 4)
+
+
+def test_train_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The train launcher and the train state run on "cuda" unless asked
+    for "cpu": without a card they raise, and nothing falls back."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(0, get_reduced_config("smollm-360m"), OptConfig())
+    assert not list(tmp_path.iterdir())

@@ -78,17 +78,20 @@ def _close(got, want, tol, what=""):
 # configs, data, layers
 # ---------------------------------------------------------------------------
 def test_configs_are_the_reference_configs():
-    for name in ("get_config", "get_reduced_config"):
-        t, j = getattr(tconfigs, name)(ARCH), getattr(jconfigs, name)(ARCH)
-        # the port's one added field states what the reference's model
-        # reads from the name (src/repro/models/transformer.py:205)
-        fields = dataclasses.asdict(t)
-        assert fields.pop("embed_scale") == j.name.startswith("recurrentgemma")
-        assert fields == dataclasses.asdict(j)
-        assert t.layer_kinds() == j.layer_kinds()
-        assert t.param_count() == j.param_count()
+    assert tconfigs.ARCHS == ("recurrentgemma-9b", "smollm-360m")
+    for arch in tconfigs.ARCHS:
+        for name in ("get_config", "get_reduced_config"):
+            t, j = getattr(tconfigs, name)(arch), getattr(jconfigs, name)(arch)
+            # the port's one added field states what the reference's model
+            # reads from the name (src/repro/models/transformer.py:205)
+            fields = dataclasses.asdict(t)
+            assert fields.pop("embed_scale") == j.name.startswith(
+                "recurrentgemma")
+            assert fields == dataclasses.asdict(j)
+            assert t.layer_kinds() == j.layer_kinds()
+            assert t.param_count() == j.param_count()
     with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("smollm-360m")
+        tconfigs.get_config("mixtral-8x7b")
 
 
 @pytest.mark.parametrize("seed,step", [(0, 0), (3, 7)])
