@@ -5396,8 +5396,32 @@ def phase_train_kernels(dev) -> dict:
                               for w in (0, 1)],
                   f"bwd_smem_bytes differs from C at hd={hd}, {dt}: "
                   f"{c_bytes}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = flash._bwd_lib()
+    n_shapes = 0
+    for b, s, h, kh in ((8, 2048, 15, 5), (1, 4096, 16, 1), (2, 1000, 16, 1),
+                        (2, 1001, 15, 5), (2, 1000, 16, 8), (2, 1000, 12, 4),
+                        (2, 1000, 16, 16), (1, 64, 2, 1), (3, 1, 4, 2)):
+        for n_sm in (sms, 8, 132, 1000):
+            for hd in flash.HEAD_DIMS:
+                splits = flash.bwd_head_splits(b, s, h, kh, n_sm, hd)
+                check(lib.lotaru_flash_bwd_head_splits(b, s, h, kh, n_sm, hd)
+                      == splits, f"bwd_head_splits differs from C at "
+                      f"{(b, s, h, kh, n_sm, hd)}")
+                for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+                    want = flash.bwd_scratch_floats(dt, b, s, s, h, kh, hd,
+                                                    n_sm)
+                    check(lib.lotaru_flash_bwd_scratch_floats(
+                        code, b, s, s, h, kh, hd, n_sm) == want,
+                        f"bwd_scratch_floats differs from C at "
+                        f"{(b, s, h, kh, hd, dt, n_sm)}")
+                    n_shapes += 1
     print(f"[kernels] flash_attention_bwd: bwd_smem_bytes (dK/dV, dQ) by "
-          f"(hd, dtype) {smem} equal to the C formulas")
+          f"(hd, dtype) {smem} equal to the C formulas; bwd_head_splits and "
+          f"bwd_scratch_floats equal to them on {n_shapes} shapes; head "
+          f"splits on this card's {sms} SMs: SmolLM "
+          f"{flash.bwd_head_splits(8, 2048, 15, 5, sms, 64)}, RecurrentGemma "
+          f"{flash.bwd_head_splits(1, 4096, 16, 1, sms, 256)}")
     bf16, f32 = torch.bfloat16, torch.float32
     for label, b, s, h, kh, hd, w, causal in train_attention_cases():
         for dt in (bf16, f32):
@@ -5408,10 +5432,18 @@ def phase_train_kernels(dev) -> dict:
             o, lse = flash.flash_attention(q, k, v, causal=causal, window=w,
                                            with_lse=True)
             do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+            before = dict(flash.flash_attention_bwd.route_launches)
             got = flash.flash_attention_bwd(q, k, v, o, do, lse,
                                             causal=causal, window=w)
             again = flash.flash_attention_bwd(q, k, v, o, do, lse,
                                               causal=causal, window=w)
+            route = flash.bwd_route(dt, hd)
+            ran = {r: n - before[r] for r, n in
+                   flash.flash_attention_bwd.route_launches.items()}
+            check(route == ("wgmma" if dt == bf16 else "cuda_cores")
+                  and ran[route] == 2 and sum(ran.values()) == 2,
+                  f"flash_attention_bwd ({label}, {dt}) did not take its "
+                  f"route: {ran}")
             _, lse_want = ref.attention_fwd_ref(q, k, v, causal=causal,
                                                 window=w)
             want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
@@ -5433,7 +5465,8 @@ def phase_train_kernels(dev) -> dict:
                 ratio = max(r for _, r in errs)
                 print(f"[kernels] flash_attention_bwd {label} B={b} S={s} "
                       f"H={h} K={kh} hd={hd} window={w} causal={causal} "
-                      f"{str(dt)[6:]}, {flash.bwd_route(dt, hd)} route: dq, "
+                      f"{str(dt)[6:]}, {route} route"
+                      f"{f' ({flash.bwd_head_splits(b, s, h, kh, sms, hd)} head splits)' if dt == bf16 else ''}: dq, "
                       f"dk, dv vs plain (on the card) "
                       f"within {tol['rtol']}/{tol['atol']} {ratio <= 1.0}, "
                       f"max |err| {err!r}, |err| / (atol + rtol |want|) "
@@ -5614,9 +5647,10 @@ def train_profile(dev) -> None:
     print(f"[train] profile, one {TRAIN_ARCH} step B={TRAIN_BATCH} "
           f"S={TRAIN_SEQ}: {host * 1e3!r} ms host clock, {busy!r} ms of "
           f"kernels, busy share {busy / (host * 1e3)!r}; flash_attention_bwd "
-          f"{ms('dkdv_', 'dq_kernel', 'dq_mma_kernel', 'delta_kernel')!r} ms "
-          f"(dK/dV {ms('dkdv_')!r}, dQ {ms('dq_kernel', 'dq_mma_kernel')!r}, "
-          f"D {ms('delta_kernel')!r}), flash_attention "
+          f"{ms('dkdv_', 'dq_kernel', 'dq_ws_kernel', 'delta_kernel', 'bwd_rows_kernel')!r}"
+          f" ms (dK/dV {ms('dkdv_')!r}, dQ "
+          f"{ms('dq_kernel', 'dq_ws_kernel')!r}, D and the rows "
+          f"{ms('delta_kernel', 'bwd_rows_kernel')!r}), flash_attention "
           f"{ms('flash_attention_ws_kernel')!r} ms; {sum(e.count for e in evts)}"
           f" device entries; top (name, ms, calls) "
           f"{[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}")
@@ -5719,16 +5753,24 @@ def phase_train(dev) -> dict:
         grad_check(dev, LM_ARCH, replace(rg, num_layers=3, dtype=dt), 1,
                    LM_PROMPT)
         torch.cuda.empty_cache()
+    # the gradient checks' (attention, RG-LRU) layers, bf16 then f32 each
     return {"steps": TRAIN_PROFILE_STEPS + TRAIN_STEPS + len(resumed),
-            "grad_cfgs": ((2, 0), (2, 0), (1, 2), (1, 2))}
+            "grad_cfgs": ((2, 0), (2, 0), (1, 2), (1, 2)),
+            "grad_dtypes": ("bfloat16", "float32", "bfloat16", "float32")}
 
 
 def flops_flash_bwd(b, s, h, hd, window) -> int:
     """Operations of one attention backward over the visible band: 10 hd
     per (query, key) pair (S recomputed, dP = dO V^T, dV, dQ and dK, a
-    multiply and an add each; the kernel recomputes S and dP once more in
-    its dQ pass, 14 hd, which the bound does not count)."""
+    multiply and an add each)."""
     return flops_flash(b, s, h, hd, window) // 4 * 10
+
+
+def issued_flops_flash_bwd(b, s, h, hd, window) -> int:
+    """The tensor work the wgmma route issues: 20 hd a visible pair (S and
+    dP in both passes; dV, dK and dQ each from two bf16 parts of P or
+    dS), which the bound does not count."""
+    return flops_flash(b, s, h, hd, window) // 4 * 20
 
 
 def bounds_flash_bwd(b, s, h, kh, hd, window, itemsize) -> tuple:
@@ -5780,8 +5822,36 @@ def sdpa_bwd_ms(q, k, v, do, window: int) -> float:
                                                retain_graph=True), reps=10)
 
 
-def report_train(dev, launches, errors) -> list:
-    """Times of both backward kernels at the training paths' shapes."""
+def sdpa_fwd_ms(q, k, v, window: int) -> float:
+    """SDPA's forward on heads-first copies (set-up untimed), as
+    sdpa_bwd_ms takes it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    b, s, h, hd = q.shape
+    qt = q.transpose(1, 2).contiguous()
+    if window == 0:
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+            return time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+        except TypeError:           # a torch before enable_gqa: expanded
+            kt, vt = (x.repeat_interleave(h // x.shape[1], 1)
+                      for x in (kt, vt))
+            return time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=10)
+    kt, vt = (x.transpose(1, 2).expand(b, h, s, hd).contiguous()
+              for x in (k, v))
+    mask = ref.band_mask(s, s, True, window, q.device)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), reps=10)
+
+
+def report_train(dev, launches, errors, per_step=None) -> list:
+    """Times of both backward kernels at the training paths' shapes, and
+    the forward's at SmolLM's; `per_step`, the backward's launches a
+    training step by route, from the train path's run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash
@@ -5795,7 +5865,10 @@ def report_train(dev, launches, errors) -> list:
                                        with_lse=True)
         do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        delta = torch.empty(flash.bwd_scratch_floats(
+            q.dtype, b, s, s, h, kh, hd, sms), dtype=torch.float32,
+            device=dev)
         launch = raw_launch("flash_attention_bwd",
                             [q, k, v, o, do, lse, delta, dq, dk, dv, 1, b, s,
                              s, h, kh, hd, 1, w], flash._bwd_lib())
@@ -5813,7 +5886,25 @@ def report_train(dev, launches, errors) -> list:
                                                           2)
         fa["tflops"] = (flops_flash_bwd(b, s, h, hd, w) / (fa["ms"] * 1e-3)
                         / 1e12)
+        fa["bound_tflops"] = (flops_flash_bwd(b, s, h, hd, w)
+                              / (fa["bound_ms"] * 1e-3) / 1e12)
+        fa["issued_tflops"] = (issued_flops_flash_bwd(b, s, h, hd, w)
+                               / (fa["ms"] * 1e-3) / 1e12)
         fa["kernel_route"] = flash.bwd_route(q.dtype, hd)
+        fa["head_splits"] = flash.bwd_head_splits(b, s, h, kh, sms, hd)
+        if per_step is not None and label == "smollm path":
+            fa["launches_per_step"] = per_step
+        if label == "smollm path":
+            # the forward at the training shape beside its bound (4 hd a
+            # pair at the bf16 rate) and SDPA's forward
+            fwd = {"ms": fa["forward_ms"],
+                   "bound_ms": bounds_flash(b, s, h, kh, hd, w, 2)[0],
+                   "library_ms": sdpa_fwd_ms(q, k, v, w),
+                   "route": flash.flash_route(q.dtype, h, kh)}
+            fwd["tflops"] = (flops_flash(b, s, h, hd, w) / (fwd["ms"] * 1e-3)
+                             / 1e12)
+            print(f"[report] flash_attention (forward) {label} B={b} S={s} "
+                  f"H={h} K={kh} hd={hd} window={w} bfloat16: {fwd}")
         print(f"[report] flash_attention_bwd {label} B={b} S={s} H={h} "
               f"K={kh} hd={hd} window={w} bfloat16: {fa}")
         rows[label] = (fa, f"B={b} S={s} H={h} K={kh} hd={hd} window={w} "
@@ -6067,6 +6158,16 @@ def main() -> None:
           f"the train path did not launch each forward and backward kernel "
           f"once per attention ({want_attn}) or RG-LRU ({want_scan}) layer "
           f"a step")
+    grad_attn = {dt: sum(a for (a, _), d in zip(tr["grad_cfgs"],
+                                                tr["grad_dtypes"]) if d == dt)
+                 for dt in ("bfloat16", "float32")}
+    bwd_routes = dict(flash.flash_attention_bwd.route_launches)
+    check(bwd_routes == {"wgmma": want_attn - grad_attn["float32"],
+                         "cuda_cores": grad_attn["float32"]},
+          f"the train path's bf16 backward launches did not all take the "
+          f"wgmma route: {bwd_routes}")
+    bwd_per_step = {"wgmma": (bwd_routes["wgmma"] - grad_attn["bfloat16"])
+                    / tr["steps"]}
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}; upward_rank by route {rank_routes}")
     check(rank_routes == {"shared": launches["upward_rank"], "global": 0},
@@ -6096,7 +6197,7 @@ def main() -> None:
                           pieces["args"], fold, predict_q)
     report += report_replan(launches, errors, time_replan(dev, rpc))
     report += report_lm(dev, launches, errors)
-    report += report_train(dev, launches, errors)
+    report += report_train(dev, launches, errors, bwd_per_step)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -8,47 +8,44 @@
 // chunked_causal_attention (repro/models/attention.py), and these kernels
 // compute that gradient.  The forward's kernels write each row's
 // log-sum-exp lse of its scaled scores; given q, k, v, the output o, its
-// gradient dO and lse, three launches give dq, dk and dv:
-//   1. delta_kernel: D_i = sum_d dO_id O_id, float32, one warp a row;
-//   2. dkdv_kernel: one block a (batch, kv head, key tile).  It walks every
-//      query head of its group and the query tiles that may see its keys,
+// gradient dO and lse, three passes give dq, dk and dv:
+//   1. the row statistics: D_i = sum_d dO_id O_id, float32;
+//   2. dK, dV: one block a (batch, kv head, key tile).  It walks the
+//      query heads of its group and the query tiles that may see its keys,
 //      recomputes P = exp(S - lse) and accumulates dV += P^T dO and
-//      dK += dS^T Q with dS = P (dO V^T - D), all in float32 registers
-//      (each query tile's share summed apart, then added);
-//   3. dq_kernel: one block a (batch, head, query tile) over the key tiles
+//      dK += dS^T Q with dS = P (dO V^T - D), in float32;
+//   3. dQ: one block a (batch, query head, query tile) over the key tiles
 //      of its band: dQ += dS K.
-// The sum over a group's query heads happens inside one block and every
-// output element is written once, so there are no atomics and two launches
-// give bitwise equal results.
+// A kv head's dK and dV sum over its group's query heads in a fixed order
+// and every output element is written once, so there are no atomics and
+// two launches give bitwise equal results.
 //
 // Two routes (kernels/flash_attention.bwd_route).  bfloat16 runs on the
-// tensor cores (mma.sync m16n8k16, float32 accumulation; see the section
-// below).  float32 runs on the CUDA cores in float32: each tile is staged
-// in shared memory both transposed (for the score products, which sum over
-// hd) and row-major (for the accumulations, which sum over rows); a thread
-// owns a small register tile of scores and one of the accumulators, and
-// the inner loops read 16-byte vectors of shared memory.  Bound on the
-// H100: operations (10 hd a visible pair: S, dP, dV, dK and dQ; the
-// kernels compute S and dP twice, in the dK/dV and the dQ pass), far above
-// the bytes.  A wgmma redesign with TMA-staged tiles is later work.
+// tensor cores through wgmma, fed by TMA (see the section below); bound
+// on the H100: operations, 10 hd a visible pair at the bf16 tensor rate.
+// float32 runs on the CUDA cores in float32: each tile is staged in shared
+// memory both transposed (for the score products, which sum over hd) and
+// row-major (for the accumulations, which sum over rows); a thread owns a
+// small register tile of scores and one of the accumulators, and the inner
+// loops read 16-byte vectors of shared memory.  Bound on the H100:
+// operations (10 hd a visible pair: S, dP, dV, dK and dQ), far above the
+// bytes.
 //
 // Build flags: kernels/_build.NVCC_FLAGS (-O3 --fmad=false); held to a
 // tolerance against kernels/ref.py::attention_bwd_ref.  The C entry point
 // launches on the caller's stream, does not synchronise, allocates nothing
-// (the delta scratch comes from the wrapper), and returns
-// cudaGetLastError().
+// (its scratch comes from the wrapper, kernels/flash_attention.
+// bwd_scratch_floats), and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"   // TMA, mbarriers, descriptors, wgmma, tile kinds
 
 namespace {
 
 constexpr int kThreads = 256;            // 16 x 16
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int sq, int skv,
                                         int causal, int window) {
@@ -66,11 +63,6 @@ __device__ __forceinline__ float4 load4(const float* p) {
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 // R consecutive floats of shared memory (R = 2 or 4), 8- or 16-byte aligned
@@ -160,19 +152,19 @@ __device__ __forceinline__ void accumulate(float (&acc)[RI][D / 16],
 // ---------------------------------------------------------------------------
 // 1. D = rowsum(dO * O), (B, H, Sq) float32; one warp a (b, row, head)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
              float* __restrict__ delta, int batch, int sq, int heads) {
   const long long row = (long long)blockIdx.x * (kThreads / 32) +
                         (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= (long long)batch * sq * heads) return;
-  const T* op = o + row * D;
-  const T* dp = dout + row * D;
+  const float* op = o + row * D;
+  const float* dp = dout + row * D;
   float sum = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) sum += to_f(op[d]) * to_f(dp[d]);
+  for (int d = lane; d < D; d += 32) sum += op[d] * dp[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -429,415 +421,894 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bfloat16: the same three passes on the tensor cores (mma.sync)
+// bfloat16: warp-specialised blocks, TMA-fed rings, wgmma
 // ---------------------------------------------------------------------------
-// Blocks of four warps, each warp owning 16 rows of the block's 64 (keys
-// for dK/dV, queries for dQ) and, for one chunk of 64 output columns,
-// their accumulators in registers: at hd 64 a block computes all its
-// rows' columns, at hd 128 and 256 the grid holds one block a chunk, each
-// recomputing the scores over the whole head dim (the accumulators of all
-// 256 columns would not fit a thread's registers).  Tiles stay bfloat16
-// in shared memory, rows padded by 8 elements so that a fragment's 32-bit
-// loads fall in distinct banks; the operand that a product sums over rows
-// (Q and dO for dK/dV, K for dQ) is also staged transposed, for the
-// block's chunk of columns.  At hd 64 a warp holds its K and V (or Q and
-// dO) fragments in registers for the whole walk; wider, it reads them from
-// shared memory.  Each product is mma.sync m16n8k16 with float32
-// accumulation.  P and dS, the A operands of the second products (dV, dK,
-// dQ), come straight from the accumulator fragments, each split into a
-// bfloat16 part and the bfloat16 rounding of its remainder, two products
-// each: 16 bits of their float32 mantissa reach the tensor cores (with one
-// bfloat16 rounding of P and dS, dK moved by up to 2 % of the float32
-// route's value).  Every other step is the float32 route's.
-constexpr int kMmaThreads = 128;
-constexpr int kMmaRows = 64;          // a block's keys (dK/dV) or queries (dQ)
-constexpr int kMmaTile = 64;          // a tile's queries (dK/dV) or keys (dQ)
-constexpr int kMmaCols = 64;          // output columns of a block
+// Both passes are blocks of three warpgroups, as the forward's: one producer
+// warp issues TMA loads of swizzled 64-row tiles (hopper.cuh) into a ring
+// of stages guarded by full and empty mbarriers; two consumer warpgroups
+// run wgmma on what has arrived.  setmaxnreg gives the producer 24
+// registers and each consumer 240.  Every product reads its operands where
+// the TMA put them: a score product sums over hd, both tiles K-major; an
+// accumulation sums over the 64 rows of a tile, its A operand (P, dS or
+// their transposes) from registers and its B tile MN-major through the
+// descriptor's transpose bit.  The scores are computed once per (key tile,
+// query tile) for the whole head dim.
+//
+// Rows pass (bwd_rows_kernel): one block a (64-row query tile, head,
+// batch), 8 lanes a row reading O and dO as 16-byte vectors; it writes
+// the tile's lse (in base 2) and D side by side into the scratch, 512
+// contiguous bytes a tile, zeros past Sq, so each stage of a pass below
+// takes them in one bulk copy.
+//
+// dK/dV pass: K and V of the block's keys stay resident; the producer
+// streams the Q and dO tiles (and their rows) of each query head of the
+// block's split and each query tile of the band.  Two shapes:
+//   * hd 64 (dkdv_pair_kernel, below): 128 keys, 64 a consumer, each
+//     consumer running the whole chain for its keys: S^T = K Q^T and
+//     dP^T = V dO^T, P^T = exp2(S^T scale log2e - lse2) and dS^T =
+//     P^T (dP^T - D) in registers, then dV += P^T dO and dK += dS^T Q;
+//     both accumulators (32 registers each) fit, and each Q/dO tile feeds
+//     128 keys;
+//   * hd 128 and 256 (dkdv_ws_kernel): 64 keys, the consumers splitting
+//     the work by role.  Consumer 0: S^T, P^T in registers, written to
+//     shared memory in fragment order (float32, a named barrier), then
+//     dV += P^T dO; consumer 1: dP^T, dS^T with P^T read back, then
+//     dK += dS^T Q.  Each holds one 64 x hd float32 accumulator: 128
+//     registers a thread at hd 256, where both would not fit one
+//     warpgroup.
+//
+// MQA: where batch x kv heads x key blocks gives too few blocks for the
+// SMs (RecurrentGemma: one kv head, B 1: 64 blocks), a group's query heads
+// are split over up to 4 blocks (head_splits); each writes its float32
+// partial dK and dV to the scratch, and dkdv_reduce_kernel sums them in
+// split order.
+//
+// dQ pass (dq_ws_kernel): the forward's block.  Two consumers share each K
+// and V tile: two query heads of one kv head over the same 64 rows when
+// H / K is even, else two consecutive 64-row tiles of one head.  Per tile:
+// S = Q K^T and dP = dO V^T, dS = P (dP - D), dQ += dS K.  One K/V stage
+// at hd 256, where both consumers' Q and dO take 128 KB.
+//
+// Each consumer runs a tile's chain in series: its score products, the
+// elementwise work, its accumulation products.  At hd 64 the elementwise
+// work weighs as much as the products, so P takes one multiply-add and
+// the ex2 unit (exp2_fma), a tile wholly inside the band takes no
+// per-element mask (tile_kind, a separate loop), and the bfloat16 parts
+// are cut with a byte permute (a_frags).  P and dS are fed to the
+// products as two bfloat16 parts, two products each: one rounding of P
+// moved dV, and one of dS moved dK, outside the bf16 kernel limit.  So
+// the tensor work issued is 20 hd a visible pair: S and dP twice, dV, dK
+// and dQ twice.
+//
+// Knock-outs for timing only (bwd_passes.py builds them with -D): each
+// drops one kind of work from the bf16 passes, and the gradients are
+// wrong.  LOTARU_BWD_NO_EXP: P without the ex2; LOTARU_BWD_NO_SCORE: no
+// score products; LOTARU_BWD_NO_ACC: no accumulation products (their A
+// fragments are still made).
+#ifdef LOTARU_BWD_NO_EXP
+constexpr bool kExp = false;
+#else
+constexpr bool kExp = true;
+#endif
+#ifdef LOTARU_BWD_NO_SCORE
+constexpr bool kScores = false;
+#else
+constexpr bool kScores = true;
+#endif
+#ifdef LOTARU_BWD_NO_ACC
+constexpr bool kAccs = false;
+#else
+constexpr bool kAccs = true;
+#endif
 
-template <int D>
-__host__ __device__ constexpr int mma_smem_bytes(int which) {
-  // dK/dV: K, V, Q, dO row-major and a chunk of Q, dO transposed; dQ: Q,
-  // dO, K, V row-major and a chunk of K transposed; lse and D for 64 rows
-  return which == 0
-             ? (4 * kMmaRows * (D + 8) + 2 * kMmaCols * (kMmaTile + 8)) * 2 +
-                   512
-             : (4 * kMmaRows * (D + 8) + kMmaCols * (kMmaTile + 8)) * 2 + 512;
+constexpr int kWsThreads = 384;            // a producer and two consumers
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;         // 24 * 128 + 240 * 256 = 64,512
+constexpr int kRowFloats = 2 * kBlockQ;    // a query tile's lse2 and D
+constexpr int kRowBytes = kRowFloats * 4;
+constexpr int kXBytes = kBlockK * kBlockQ * 4;   // the P^T exchange
+constexpr int kRowsThreads = 8 * kBlockQ;  // the rows pass: 8 lanes a row
+constexpr int kMaxSplits = 4;
+constexpr int kBarPFull = 1;               // named barriers of the dK/dV
+constexpr int kBarPEmpty = 2;              // consumers (0 is __syncthreads)
+
+// Stages of the rings: the dK/dV pass's Q/dO ring two at hd 256, four
+// below; the dQ pass's K/V ring one at hd 256 (beside both consumers' Q
+// and dO), four below (kernels/flash_attention.bwd_stages).
+__host__ __device__ constexpr int dkdv_stages(int d) {
+  return d == 256 ? 2 : 4;
 }
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__host__ __device__ constexpr int dq_stages(int d) {
+  return d == 256 ? 1 : 4;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Dynamic shared memory (kernels/flash_attention.bwd_smem_bytes), each
+// tile 64 rows of hd bfloat16: dK/dV K and V of the block's keys, a ring
+// of Q, dO and their rows, and above hd 64 the P^T exchange; dQ both
+// consumers' Q and dO and rows, a ring of K and V.  1024 bytes of slack
+// start the tiles on the swizzle's 1024-byte period; 128 hold the
+// mbarriers.
+__host__ __device__ constexpr int dkdv_smem_bytes(int d) {
+  return d == 64 ? (4 + 2 * dkdv_stages(d)) * kBlockK * d * 2 +
+                       dkdv_stages(d) * kRowBytes + 1024 + 128
+                 : (2 + 2 * dkdv_stages(d)) * kBlockK * d * 2 +
+                       dkdv_stages(d) * kRowBytes + kXBytes + 1024 + 128;
 }
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Keys of a dK/dV block: 128 at hd 64 (dkdv_pair_kernel, 64 a consumer),
+// 64 wider (dkdv_ws_kernel, both consumers on the same keys)
+__host__ __device__ constexpr int dkdv_keys(int d) {
+  return d == 64 ? 2 * kBlockK : kBlockK;
 }
 
-// x0, x1 as a bfloat16 pair and the pair of their remainders' roundings
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack2(x0 - hf.x, x1 - hf.y);
+__host__ __device__ constexpr int dq_smem_bytes(int d) {
+  return (4 + 2 * dq_stages(d)) * kBlockK * d * 2 + 2 * kRowBytes + 1024 +
+         128;
 }
 
-// the A fragments (both parts) of k-step kk of a warp's 16-row block of
-// accumulator fragments x[n-tile][element], its columns the product's k
+// Blocks a kv head's query heads are split over in the dK/dV pass: of 1 to
+// min(4, group), the one that minimises waves x heads a block, the fewest
+// on a tie (kernels/flash_attention.bwd_head_splits).
+__host__ __device__ inline int head_splits(int batch, int skv, int heads,
+                                           int kv_heads, int sms, int d) {
+  const long long n =
+      (long long)batch * kv_heads * ((skv + dkdv_keys(d) - 1) / dkdv_keys(d));
+  const int group = heads / kv_heads;
+  if (n == 0 || sms <= 0) return 1;
+  int best = 1;
+  long long best_cost = (n + sms - 1) / sms * group;
+  for (int s = 2; s <= kMaxSplits && s <= group; ++s) {
+    const long long cost = (n * s + sms - 1) / sms * ((group + s - 1) / s);
+    if (cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Float32 elements of the scratch: the rows (B, H, query tiles, 128) and,
+// with head splits, the partial dV and dK (2, splits, B, Skv, K, hd); the
+// float32 route's D (B, H, Sq) (kernels/flash_attention.
+// bwd_scratch_floats).
+inline long long scratch_floats(int dtype, int batch, int sq, int skv,
+                                int heads, int kv_heads, int d, int sms) {
+  if (dtype != 1) return (long long)batch * heads * sq;
+  const long long rows = (long long)batch * heads *
+                         ((sq + kBlockQ - 1) / kBlockQ) * kRowFloats;
+  const int splits = head_splits(batch, skv, heads, kv_heads, sms, d);
+  return rows + (splits > 1 ? 2LL * splits * batch * skv * kv_heads * d : 0);
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// the consumer's stage is read: each warp's reads of it come before the
+// producer's next TMA writes there
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// x, a 64 x 64 accumulator fragment, as the A fragments of four k-steps
+// of 16 columns in two bfloat16 parts: x truncated to bfloat16 (hi: a
+// byte permute, where rounding takes the conversion unit) and the
+// bfloat16 rounding of the exact remainder (lo), 16 bits of x's mantissa
+__device__ __forceinline__ void a_frags(const float (&x)[32],
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = x[8 * kk + 2 * e], c = x[8 * kk + 2 * e + 1];
+      const uint32_t ab = __float_as_uint(a), cb = __float_as_uint(c);
+      hi[kk][e] = __byte_perm(ab, cb, 0x7632);
+      lo[kk][e] = pack_bf16(a - __uint_as_float(ab & 0xffff0000u),
+                            c - __uint_as_float(cb & 0xffff0000u));
+    }
+}
+
+// the LOTARU_BWD_NO_ACC knock-out: the fragments folded into o[0], so
+// that they are still made
 template <int N>
-__device__ __forceinline__ void frag_split(const float (&x)[N][4], int kk,
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-  split2(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
-  split2(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
-  split2(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
-  split2(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+__device__ __forceinline__ void fold_frags(float (&o)[N],
+                                           const uint32_t (&hi)[4][4],
+                                           const uint32_t (&lo)[4][4]) {
+  uint32_t x = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x ^= hi[i][j] ^ lo[i][j];
+  o[0] += __uint_as_float(x & 0x3fffffffu);
 }
 
-// the A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 16) of a
-// row-major tile with rows of ld elements
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* s, int ld,
-                                       int r0, int c0, int g, int t) {
-  a[0] = ld32(s + (r0 + g) * ld + c0 + 2 * t);
-  a[1] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t);
-  a[2] = ld32(s + (r0 + g) * ld + c0 + 2 * t + 8);
-  a[3] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t + 8);
-}
-
-// acc (16 x 8 at column tile n0) += A (16 x 16) B, with B stored n-major:
-// bt[n * ld + k], the k-step starting at column k0
-__device__ __forceinline__ void mma_nt(float (&acc)[4], const uint32_t (&a)[4],
-                                       const __nv_bfloat16* bt, int ld,
-                                       int n0, int k0, int g, int t) {
-  const __nv_bfloat16* p = bt + (n0 + g) * ld + k0 + 2 * t;
-  mma16816(acc, a, ld32(p), ld32(p + 8));
-}
-
-// A warp's two A operands of 16 rows x D: held in registers at hd 64 (the
-// whole walk reuses them), read from the shared tiles at each k-step wider
+// o += A B over the tile's 64 rows, A in two bfloat16 parts from
+// registers, B (64 rows x hd) MN-major at bt
 template <int D>
-struct RowFrags {
-  static constexpr bool kHeld = D == 64;
-  uint32_t a[kHeld ? D / 16 : 1][4], b[kHeld ? D / 16 : 1][4];
-  const __nv_bfloat16 *sa, *sb;
-  int r0, g, t;
-
-  __device__ __forceinline__ RowFrags(const __nv_bfloat16* sa_,
-                                      const __nv_bfloat16* sb_, int r0_,
-                                      int g_, int t_)
-      : sa(sa_), sb(sb_), r0(r0_), g(g_), t(t_) {
-    if constexpr (kHeld) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        frag_a(a[kk], sa, D + 8, r0, kk * 16, g, t);
-        frag_a(b[kk], sb, D + 8, r0, kk * 16, g, t);
-      }
-    }
+__device__ __forceinline__ void pv_parts(float (&o)[D / 2],
+                                         const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4],
+                                         uint32_t bt) {
+  if constexpr (!kAccs) {
+    fold_frags(o, hi, lo);
+    return;
   }
-
-  __device__ __forceinline__ void get(int kk, uint32_t (&fa)[4],
-                                      uint32_t (&fb)[4]) const {
-    if constexpr (kHeld) {
+  wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        fa[i] = a[kk][i];
-        fb[i] = b[kk][i];
-      }
-    } else {
-      frag_a(fa, sa, D + 8, r0, kk * 16, g, t);
-      frag_a(fb, sb, D + 8, r0, kk * 16, g, t);
-    }
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    const uint64_t desc = smem_desc(bt + kk * 16 * 128, kBoxBytes, 1024);
+    wgmma_pv<D>(o, hi[kk], desc);
+    wgmma_pv<D>(o, lo[kk], desc);
   }
-};
-
-// rows [r0, r0 + 64) of one head of a (B, S, heads, D) bf16 tensor into a
-// row-major tile [64][D + 8] and, when tr is not null, the columns
-// [c0, c0 + 64) transposed into [64][64 + 8]; rows at or past s are zeros.
-// A thread moves 8 elements (16 bytes) at a time; consecutive threads take
-// consecutive rows, so the transposed stores of a warp fall in distinct
-// banks.
-template <int D>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ src,
-                                           int s, int heads, int head, int r0,
-                                           __nv_bfloat16* rm,
-                                           __nv_bfloat16* tr, int c0) {
-  const long long row_stride = (long long)heads * D;
-  for (int idx = threadIdx.x; idx < kMmaRows * D / 8; idx += kMmaThreads) {
-    const int r = idx % kMmaRows;
-    const int c = idx / kMmaRows * 8;
-    const int row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < s)
-      v = *reinterpret_cast<const uint4*>(src + row * row_stride +
-                                          (long long)head * D + c);
-    *reinterpret_cast<uint4*>(rm + r * (D + 8) + c) = v;
-    if (tr != nullptr && c >= c0 && c < c0 + kMmaCols) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        tr[(c - c0 + i) * (kMmaTile + 8) + r] = e[i];
-    }
-  }
+  wgmma_commit_wait();
+  fence_regs(o);
 }
 
-// s += A B and dp += A' B' over the whole head dim for a warp's 16 rows
-// and a tile's 64 columns: the scores (S or S^T) and dP (or dP^T)
+// 2^(a b - c) from one multiply-add and the special-function unit's ex2
+// (2 ulp, results below 2^-126 flushed to 0), as fast-math exp2f takes it;
+// the accurate exp2f cost the hd 64 passes a third of their time
+__device__ __forceinline__ float exp2_fma(float a, float b, float c) {
+  if constexpr (!kExp) return __fmaf_rn(a, b, -c);
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmaf_rn(a, b, -c)));
+  return y;
+}
+
+// s = A B^T and dp = A' B'^T over hd, all four tiles K-major: one commit
 template <int D>
-__device__ __forceinline__ void score_tiles(float (&s)[kMmaTile / 8][4],
-                                            float (&dp)[kMmaTile / 8][4],
-                                            const RowFrags<D>& rows,
-                                            const __nv_bfloat16* bs,
-                                            const __nv_bfloat16* bdp, int g,
-                                            int t) {
+__device__ __forceinline__ void score_pair(float (&s)[32], float (&dp)[32],
+                                           uint32_t at, uint32_t bt,
+                                           uint32_t at2, uint32_t bt2) {
+  if constexpr (!kScores) {
 #pragma unroll
-  for (int j = 0; j < kMmaTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    return;
+  }
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4], fb[4];
-    rows.get(kk, fa, fb);
-#pragma unroll
-    for (int j = 0; j < kMmaTile / 8; ++j) {
-      mma_nt(s[j], fa, bs, D + 8, j * 8, kk * 16, g, t);
-      mma_nt(dp[j], fb, bdp, D + 8, j * 8, kk * 16, g, t);
-    }
+    const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+    wgmma_ss_n64(s, smem_desc(at + off, 16, 1024),
+                 smem_desc(bt + off, 16, 1024), kk > 0);
   }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+    wgmma_ss_n64(dp, smem_desc(at2 + off, 16, 1024),
+                 smem_desc(bt2 + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit_wait();
+  fence_regs(s);
+  fence_regs(dp);
 }
 
+// the rows pass
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kRowsThreads)
+bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
                 const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                int sq, int skv, int heads, int kv_heads, int causal,
-                int window, float scale) {
-  constexpr int LD = D + 8, LT = kMmaTile + 8, NC = D / kMmaCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kMmaRows * LD;
-  __nv_bfloat16* qs = vs + kMmaRows * LD;
-  __nv_bfloat16* dos = qs + kMmaTile * LD;
-  __nv_bfloat16* qts = dos + kMmaTile * LD;      // [kMmaCols][LT]
-  __nv_bfloat16* dots = qts + kMmaCols * LT;     // [kMmaCols][LT]
-  float* lse_s = reinterpret_cast<float*>(dots + kMmaCols * LT);  // base 2
-  float* dl_s = lse_s + kMmaTile;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kMmaRows;
-  const int kvh = blockIdx.y / NC;
-  const int c0 = blockIdx.y % NC * kMmaCols;     // the block's columns
-  const int b = blockIdx.z;
-  const int group = heads / kv_heads;
-  const int k1 = min(k0 + kMmaRows, skv);
-  const float scale_log2 = scale * kLog2e;
-
-  stage_bf16<D>(k + (long long)b * skv * kv_heads * D, skv, kv_heads, kvh,
-                k0, ks, nullptr, 0);
-  stage_bf16<D>(v + (long long)b * skv * kv_heads * D, skv, kv_heads, kvh,
-                k0, vs, nullptr, 0);
-  __syncthreads();
-  const RowFrags<D> kv(ks, vs, warp * 16, g, t);
-  float acc_k[kMmaCols / 8][4], acc_v[kMmaCols / 8][4];
+                const float* __restrict__ lse, float* __restrict__ rows,
+                int sq, int heads) {
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, j = threadIdx.x & 7;
+  const int row = qt * kBlockQ + r;
+  float sum = 0.f;
+  if (row < sq) {
+    const long long off = (((long long)b * sq + row) * heads + h) * D + j * 8;
 #pragma unroll
-  for (int n = 0; n < kMmaCols / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(sq, k1 - 1 + window) : sq;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const __nv_bfloat16* qb = q + (long long)b * sq * heads * D;
-    const __nv_bfloat16* db = dout + (long long)b * sq * heads * D;
-    const float* lb = lse + ((long long)b * heads + h) * sq;
-    const float* deb = delta + ((long long)b * heads + h) * sq;
-    for (int q0 = q_lo; q0 < q_hi; q0 += kMmaTile) {
-      __syncthreads();   // the previous tile's Q and dO are consumed
-      stage_bf16<D>(qb, sq, heads, h, q0, qs, qts, c0);
-      stage_bf16<D>(db, sq, heads, h, q0, dos, dots, c0);
-      for (int r = threadIdx.x; r < kMmaTile; r += kMmaThreads) {
-        const int row = q0 + r;
-        lse_s[r] = row < sq ? lb[row] * kLog2e : 0.f;
-        dl_s[r] = row < sq ? deb[row] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-      float s[kMmaTile / 8][4], dp[kMmaTile / 8][4];
-      score_tiles<D>(s, dp, kv, qs, dos, g, t);
-      // P^T and dS^T in place; the fragment's element e is key row
-      // g + 8 (e >> 1), query column 2 t + (e & 1) of its 8
-#pragma unroll
-      for (int j = 0; j < kMmaTile / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + warp * 16 + g + (e >> 1) * 8;
-          const int ql = j * 8 + 2 * t + (e & 1);
-          const float p = visible(q0 + ql, kpos, sq, skv, causal, window)
-                              ? exp2f(s[j][e] * scale_log2 - lse_s[ql])
-                              : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dl_s[ql]);
-        }
-      // dV += P^T dO and dK += dS^T Q on the block's columns, k-steps of
-      // 16 queries
-#pragma unroll
-      for (int kq = 0; kq < kMmaTile / 16; ++kq) {
-        uint32_t pa[4], pl[4], da[4], dl[4];
-        frag_split(s, kq, pa, pl);
-        frag_split(dp, kq, da, dl);
-#pragma unroll
-        for (int n = 0; n < kMmaCols / 8; ++n) {
-          mma_nt(acc_v[n], pa, dots, LT, n * 8, kq * 16, g, t);
-          mma_nt(acc_v[n], pl, dots, LT, n * 8, kq * 16, g, t);
-          mma_nt(acc_k[n], da, qts, LT, n * 8, kq * 16, g, t);
-          mma_nt(acc_k[n], dl, qts, LT, n * 8, kq * 16, g, t);
-        }
-      }
-    }
-  }
-
-  __nv_bfloat16* dkb = dk + (long long)b * skv * kv_heads * D;
-  __nv_bfloat16* dvb = dv + (long long)b * skv * kv_heads * D;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = k0 + warp * 16 + g + half * 8;
-    if (key >= skv) continue;
-    const long long off = ((long long)key * kv_heads + kvh) * D + c0 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < kMmaCols / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dkb + off + n * 8) =
-          pack2(acc_k[n][2 * half] * scale, acc_k[n][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + off + n * 8) =
-          pack2(acc_v[n][2 * half], acc_v[n][2 * half + 1]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dq, int sq, int skv, int heads,
-              int kv_heads, int causal, int window, float scale) {
-  constexpr int LD = D + 8, LT = kMmaTile + 8, NC = D / kMmaCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kMmaRows * LD;
-  __nv_bfloat16* ks = dos + kMmaRows * LD;
-  __nv_bfloat16* vs = ks + kMmaTile * LD;
-  __nv_bfloat16* kts = vs + kMmaTile * LD;       // [kMmaCols][LT]
-  float* lse_s = reinterpret_cast<float*>(kts + kMmaCols * LT);   // base 2
-  float* dl_s = lse_s + kMmaRows;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;  // longest first
-  const int h = blockIdx.y / NC;
-  const int c0 = blockIdx.y % NC * kMmaCols;     // the block's columns
-  const int b = blockIdx.z;
-  const int kvh = (int)((long long)h * kv_heads / heads);
-  const int q1 = min(q0 + kMmaRows, sq);
-  const float scale_log2 = scale * kLog2e;
-
-  stage_bf16<D>(q + (long long)b * sq * heads * D, sq, heads, h, q0, qs,
-                nullptr, 0);
-  stage_bf16<D>(dout + (long long)b * sq * heads * D, sq, heads, h, q0, dos,
-                nullptr, 0);
-  const float* lb = lse + ((long long)b * heads + h) * sq;
-  const float* deb = delta + ((long long)b * heads + h) * sq;
-  for (int r = threadIdx.x; r < kMmaRows; r += kMmaThreads) {
-    const int row = q0 + r;
-    lse_s[r] = row < sq ? lb[row] * kLog2e : 0.f;
-    dl_s[r] = row < sq ? deb[row] : 0.f;
-  }
-  __syncthreads();
-  const RowFrags<D> qd(qs, dos, warp * 16, g, t);
-  float acc[kMmaCols / 8][4];
-#pragma unroll
-  for (int n = 0; n < kMmaCols / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const __nv_bfloat16* kb = k + (long long)b * skv * kv_heads * D;
-  const __nv_bfloat16* vb = v + (long long)b * skv * kv_heads * D;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(q1, skv) : skv;
-  for (int j0 = lo; j0 < hi; j0 += kMmaTile) {
-    __syncthreads();   // the previous tile's K and V are consumed
-    stage_bf16<D>(kb, skv, kv_heads, kvh, j0, ks, kts, c0);
-    stage_bf16<D>(vb, skv, kv_heads, kvh, j0, vs, nullptr, 0);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float s[kMmaTile / 8][4], dp[kMmaTile / 8][4];
-    score_tiles<D>(s, dp, qd, ks, vs, g, t);
-    // dS in place; element e is query row g + 8 (e >> 1), key column
-    // 2 t + (e & 1) of its 8
-#pragma unroll
-    for (int j = 0; j < kMmaTile / 8; ++j)
+    for (int c = 0; c < D / 64; ++c) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + off + c * 64);
+      const uint4 d = *reinterpret_cast<const uint4*>(dout + off + c * 64);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int ql = warp * 16 + g + (e >> 1) * 8;
-        const int kpos = j0 + j * 8 + 2 * t + (e & 1);
-        const float p = visible(q0 + ql, kpos, sq, skv, causal, window)
-                            ? exp2f(s[j][e] * scale_log2 - lse_s[ql])
-                            : 0.f;
-        dp[j][e] = p * (dp[j][e] - dl_s[ql]);
-      }
-    // dQ += dS K on the block's columns, k-steps of 16 keys
-#pragma unroll
-    for (int kq = 0; kq < kMmaTile / 16; ++kq) {
-      uint32_t da[4], dl[4];
-      frag_split(dp, kq, da, dl);
-#pragma unroll
-      for (int n = 0; n < kMmaCols / 8; ++n) {
-        mma_nt(acc[n], da, kts, LT, n * 8, kq * 16, g, t);
-        mma_nt(acc[n], dl, kts, LT, n * 8, kq * 16, g, t);
+        const float2 x = __bfloat1622float2(a2[e]);
+        const float2 y = __bfloat1622float2(d2[e]);
+        sum += x.x * y.x;
+        sum += x.y * y.y;
       }
     }
   }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  float* out =
+      rows + (((long long)b * heads + h) * gridDim.x + qt) * kRowFloats;
+  if (j == 0) out[kBlockQ + r] = sum;
+  if (threadIdx.x < kBlockQ) {
+    const int rr = qt * kBlockQ + threadIdx.x;
+    out[threadIdx.x] =
+        rr < sq ? lse[((long long)b * heads + h) * sq + rr] * kLog2e : 0.f;
+  }
+}
 
-  __nv_bfloat16* dqb = dq + (long long)b * sq * heads * D;
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap domap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const float* __restrict__ rows,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               float* __restrict__ part, int sq, int skv, int heads,
+               int kv_heads, int causal, int window, float scale,
+               int splits) {
+  constexpr int kStages = dkdv_stages(D);
+  constexpr int kTile = kBlockK * D * 2;       // bytes of a 64-row tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;                  // K
+  const uint32_t v_s = k_s + kTile;                            // V
+  const uint32_t q_s = v_s + kTile;                            // Q ring
+  const uint32_t do_s = q_s + kStages * kTile;                 // dO ring
+  const uint32_t r_s = do_s + kStages * kTile;                 // rows ring
+  const uint32_t x_s = r_s + kStages * kRowBytes;              // P^T
+  const uint32_t bar_kv = x_s + kXBytes;
+  const uint32_t bar_full = bar_kv + 8;                        // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;           // [kStages]
+  const float* rows_s = reinterpret_cast<const float*>(smem_raw + (r_s - raw));
+  float* xp = reinterpret_cast<float*>(smem_raw + (x_s - raw));
+
+  const int wg = threadIdx.x >> 7;
+  const int k0 = blockIdx.x * kBlockK;
+  const int kvh = blockIdx.y / splits;
+  const int sp = blockIdx.y % splits;
+  const int b = blockIdx.z;
+  const int group = heads / kv_heads;
+  const int h_lo = kvh * group + sp * group / splits;
+  const int h_hi = kvh * group + (sp + 1) * group / splits;
+  const int k1 = min(k0 + kBlockK, skv);
+  // the query tiles that may see a key of [k0, k1)
+  const int q_first = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(sq, k1 - 1 + window) : sq;
+  const int n_qt = q_end > q_first ? (q_end - q_first + kBlockQ - 1) / kBlockQ
+                                   : 0;
+  const int n_it = (h_hi - h_lo) * n_qt;
+  const int nqt_all = (sq + kBlockQ - 1) / kBlockQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);           // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- the producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_kv, 2 * kTile);
+      tma_tile<D>(k_s, &kmap, bar_kv, kvh, k0, b);
+      tma_tile<D>(v_s, &vmap, bar_kv, kvh, k0, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int h = h_lo + it / n_qt;
+        const int q0 = q_first + (it % n_qt) * kBlockQ;
+        mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * kTile + kRowBytes);
+        tma_tile<D>(q_s + s * kTile, &qmap, bar_full + 8 * s, h, q0, b);
+        tma_tile<D>(do_s + s * kTile, &domap, bar_full + 8 * s, h, q0, b);
+        bulk_copy(r_s + s * kRowBytes,
+                  rows + (((long long)b * heads + h) * nqt_all +
+                          q0 / kBlockQ) * kRowFloats,
+                  kRowBytes, bar_full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ---- a consumer: 0 takes P^T and dV, 1 dS^T and dK ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key0 = k0 + warp * 16 + g;           // keys key0 and key0 + 8
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[D / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + warp * 16 + g + half * 8;
-    if (row >= sq) continue;
-    const long long off = ((long long)row * heads + h) * D + c0 + 2 * t;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int shared_tiles = 0;                          // P^T exchanges made
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int q0 = q_first + (it % n_qt) * kBlockQ;
+    mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+    const int kind = tile_kind(q0, min(q0 + kBlockQ, sq), k0, skv, causal,
+                               window);
+    if (kind != kSkip) {
+      const float* lse2 = rows_s + s * kRowFloats;
+      const float* dl = lse2 + kBlockQ;
+      // x[i]: key row key0 + 8 ((i >> 1) & 1), query column
+      // 8 (i >> 2) + 2 t + (i & 1) of the tile
+      float x[32];
+      uint32_t hi[4][4], lo[4][4];
+      if (c == 0) {
+        if constexpr (kScores) qk_product<D>(x, k_s, q_s + s * kTile);  // S^T
+        else for (int i = 0; i < 32; ++i) x[i] = 0.f;
+        auto p_loop = [&](auto full) {
 #pragma unroll
-    for (int n = 0; n < kMmaCols / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dqb + off + n * 8) =
-          pack2(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+          for (int i = 0; i < 32; i += 2) {
+            const int ql = 8 * (i >> 2) + 2 * t;
+            const int key = key0 + 8 * ((i >> 1) & 1);
+            const float2 l2 = *reinterpret_cast<const float2*>(lse2 + ql);
+            const bool v0 = decltype(full)::value ||
+                (q0 + ql < sq && visible(q0 + ql, key, skv, causal, window));
+            const bool v1 = decltype(full)::value ||
+                (q0 + ql + 1 < sq &&
+                 visible(q0 + ql + 1, key, skv, causal, window));
+            x[i] = v0 ? exp2_fma(x[i], scale_log2, l2.x) : 0.f;
+            x[i + 1] = v1 ? exp2_fma(x[i + 1], scale_log2, l2.y) : 0.f;
+          }
+        };
+        if (kind == kFull) p_loop(std::true_type{});   // no mask
+        else p_loop(std::false_type{});
+        if (shared_tiles > 0) named_sync(kBarPEmpty);   // the last P^T read
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          reinterpret_cast<float4*>(xp)[j * 128 + tid] =
+              make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+        named_arrive(kBarPFull);
+        a_frags(x, hi, lo);
+        pv_parts<D>(acc, hi, lo, do_s + s * kTile);    // dV
+      } else {
+        if constexpr (kScores) qk_product<D>(x, v_s, do_s + s * kTile); // dP^T
+        else for (int i = 0; i < 32; ++i) x[i] = 0.f;
+        named_sync(kBarPFull);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 p = reinterpret_cast<const float4*>(xp)[j * 128 + tid];
+          // elements 4 j + e are query columns 8 j + 2 t + (e & 1)
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+          x[4 * j] = p.x * (x[4 * j] - d2.x);
+          x[4 * j + 1] = p.y * (x[4 * j + 1] - d2.y);
+          x[4 * j + 2] = p.z * (x[4 * j + 2] - d2.x);
+          x[4 * j + 3] = p.w * (x[4 * j + 3] - d2.y);
+        }
+        named_arrive(kBarPEmpty);
+        a_frags(x, hi, lo);
+        pv_parts<D>(acc, hi, lo, q_s + s * kTile);     // dK
+      }
+      ++shared_tiles;
+    }
+    release(bar_empty + 8 * s, lane);
+  }
+  if (c == 0 && shared_tiles > 0) named_sync(kBarPEmpty);
+
+  // dV (consumer 0) or dK (1) of keys key0 and key0 + 8
+  const float mul = c == 1 ? scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= skv) continue;
+    const long long row = ((long long)b * skv + key) * kv_heads + kvh;
+    if (splits == 1) {
+      __nv_bfloat16* dst = (c == 1 ? dk : dv) + row * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+            pack_bf16(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+    } else {
+      const long long plane = (long long)gridDim.z * skv * kv_heads * D;
+      float* dst = part + (c * splits + sp) * plane + row * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// dK/dV at hd 64 (dkdv_pair_kernel): a block takes 128 keys, 64 a
+// consumer, and each consumer runs the whole chain for its keys: S^T and
+// dP^T (one commit), P^T and dS^T in registers, then dV and dK (one commit,
+// two independent accumulator chains).  Both accumulators (32 registers
+// each) fit beside the scores, so nothing is exchanged; each Q/dO tile
+// the producer loads feeds 128 keys.
+template <int D>
+__device__ __forceinline__ void pv_pair(float (&o1)[D / 2],
+                                        const uint32_t (&h1)[4][4],
+                                        const uint32_t (&l1)[4][4],
+                                        uint32_t b1, float (&o2)[D / 2],
+                                        const uint32_t (&h2)[4][4],
+                                        const uint32_t (&l2)[4][4],
+                                        uint32_t b2) {
+  if constexpr (!kAccs) {
+    fold_frags(o1, h1, l1);
+    fold_frags(o2, h2, l2);
+    return;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    const uint64_t d1 = smem_desc(b1 + kk * 16 * 128, kBoxBytes, 1024);
+    const uint64_t d2 = smem_desc(b2 + kk * 16 * 128, kBoxBytes, 1024);
+    wgmma_pv<D>(o1, h1[kk], d1);
+    wgmma_pv<D>(o2, h2[kk], d2);
+    wgmma_pv<D>(o1, l1[kk], d1);
+    wgmma_pv<D>(o2, l2[kk], d2);
+  }
+  wgmma_commit_wait();
+  fence_regs(o1);
+  fence_regs(o2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+dkdv_pair_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap domap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const float* __restrict__ rows,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                 int sq, int skv, int heads, int kv_heads, int causal,
+                 int window, float scale, int splits) {
+  constexpr int kStages = dkdv_stages(D);
+  constexpr int kTile = kBlockK * D * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;                  // K of 0, 1
+  const uint32_t v_s = k_s + 2 * kTile;                        // V of 0, 1
+  const uint32_t q_s = v_s + 2 * kTile;                        // Q ring
+  const uint32_t do_s = q_s + kStages * kTile;                 // dO ring
+  const uint32_t r_s = do_s + kStages * kTile;                 // rows ring
+  const uint32_t bar_kv = r_s + kStages * kRowBytes;
+  const uint32_t bar_full = bar_kv + 8;                        // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;           // [kStages]
+  const float* rows_s = reinterpret_cast<const float*>(smem_raw + (r_s - raw));
+
+  const int wg = threadIdx.x >> 7;
+  const int k0 = blockIdx.x * 2 * kBlockK;
+  const int kvh = blockIdx.y / splits;
+  const int sp = blockIdx.y % splits;
+  const int b = blockIdx.z;
+  const int group = heads / kv_heads;
+  const int h_lo = kvh * group + sp * group / splits;
+  const int h_hi = kvh * group + (sp + 1) * group / splits;
+  const int k1 = min(k0 + 2 * kBlockK, skv);
+  const int n_k = k0 + kBlockK < skv ? 2 : 1;    // key tiles with keys
+  // the query tiles that may see a key of [k0, k1)
+  const int q_first = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(sq, k1 - 1 + window) : sq;
+  const int n_qt = q_end > q_first ? (q_end - q_first + kBlockQ - 1) / kBlockQ
+                                   : 0;
+  const int n_it = (h_hi - h_lo) * n_qt;
+  const int nqt_all = (sq + kBlockQ - 1) / kBlockQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- the producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_kv, 2 * n_k * kTile);
+      for (int c = 0; c < n_k; ++c) {
+        tma_tile<D>(k_s + c * kTile, &kmap, bar_kv, kvh, k0 + c * kBlockK, b);
+        tma_tile<D>(v_s + c * kTile, &vmap, bar_kv, kvh, k0 + c * kBlockK, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int h = h_lo + it / n_qt;
+        const int q0 = q_first + (it % n_qt) * kBlockQ;
+        mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * kTile + kRowBytes);
+        tma_tile<D>(q_s + s * kTile, &qmap, bar_full + 8 * s, h, q0, b);
+        tma_tile<D>(do_s + s * kTile, &domap, bar_full + 8 * s, h, q0, b);
+        bulk_copy(r_s + s * kRowBytes,
+                  rows + (((long long)b * heads + h) * nqt_all +
+                          q0 / kBlockQ) * kRowFloats,
+                  kRowBytes, bar_full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ---- a consumer: keys kc + [0, 64) ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kc = k0 + c * kBlockK;
+  const int key0 = kc + warp * 16 + g;           // keys key0 and key0 + 8
+  const float scale_log2 = scale * kLog2e;
+
+  float acc_v[D / 2], acc_k[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+
+  if (c < n_k) mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int q0 = q_first + (it % n_qt) * kBlockQ;
+    mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+    const int kind = tile_kind(q0, min(q0 + kBlockQ, sq), kc, skv, causal,
+                               window);
+    if (kind != kSkip) {
+      const float* lse2 = rows_s + s * kRowFloats;
+      const float* dl = lse2 + kBlockQ;
+      // x[i], dp[i]: key row key0 + 8 ((i >> 1) & 1), query column
+      // 8 (i >> 2) + 2 t + (i & 1) of the tile
+      float x[32], dp[32];
+      score_pair<D>(x, dp, k_s + c * kTile, q_s + s * kTile,
+                    v_s + c * kTile, do_s + s * kTile);    // S^T, dP^T
+      auto ds_loop = [&](auto full) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int ql = 8 * (i >> 2) + 2 * t;
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          const float2 l2 = *reinterpret_cast<const float2*>(lse2 + ql);
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + ql);
+          const bool v0 = decltype(full)::value ||
+              (q0 + ql < sq && visible(q0 + ql, key, skv, causal, window));
+          const bool v1 = decltype(full)::value ||
+              (q0 + ql + 1 < sq &&
+               visible(q0 + ql + 1, key, skv, causal, window));
+          x[i] = v0 ? exp2_fma(x[i], scale_log2, l2.x) : 0.f;
+          x[i + 1] = v1 ? exp2_fma(x[i + 1], scale_log2, l2.y) : 0.f;
+          dp[i] = x[i] * (dp[i] - d2.x);
+          dp[i + 1] = x[i + 1] * (dp[i + 1] - d2.y);
+        }
+      };
+      if (kind == kFull) ds_loop(std::true_type{});     // no mask
+      else ds_loop(std::false_type{});
+      uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+      a_frags(x, ph, pl);
+      a_frags(dp, sh, sl);
+      pv_pair<D>(acc_v, ph, pl, do_s + s * kTile, acc_k, sh, sl,
+                 q_s + s * kTile);                         // dV, dK
+    }
+    release(bar_empty + 8 * s, lane);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= skv) continue;
+    const long long row = ((long long)b * skv + key) * kv_heads + kvh;
+    if (splits == 1) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dv + row * D + 8 * n + 2 * t) =
+            pack_bf16(acc_v[4 * n + 2 * r], acc_v[4 * n + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dk + row * D + 8 * n + 2 * t) =
+            pack_bf16(acc_k[4 * n + 2 * r] * scale,
+                      acc_k[4 * n + 2 * r + 1] * scale);
+      }
+    } else {
+      const long long plane = (long long)gridDim.z * skv * kv_heads * D;
+      float* pv = part + (long long)sp * plane + row * D + 2 * t;
+      float* pk = part + (long long)(splits + sp) * plane + row * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(pv + 8 * n) =
+            make_float2(acc_v[4 * n + 2 * r], acc_v[4 * n + 2 * r + 1]);
+        *reinterpret_cast<float2*>(pk + 8 * n) =
+            make_float2(acc_k[4 * n + 2 * r], acc_k[4 * n + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dV and dK from the head splits' float32 partials (planes of n elements:
+// dV's splits, then dK's), summed in split order; 4 elements a thread
+__global__ void __launch_bounds__(256)
+dkdv_reduce_kernel(const float* __restrict__ part,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, long long n, int splits,
+                   float scale) {
+  const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    float4 s = *reinterpret_cast<const float4*>(part + w * splits * n + i);
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 p = *reinterpret_cast<const float4*>(
+          part + (w * splits + sp) * n + i);
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    const float mul = w == 1 ? scale : 1.f;
+    *reinterpret_cast<uint2*>((w == 1 ? dk : dv) + i) =
+        make_uint2(pack_bf16(s.x * mul, s.y * mul),
+                   pack_bf16(s.z * mul, s.w * mul));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap domap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const float* __restrict__ rows, __nv_bfloat16* __restrict__ dq,
+             int sq, int skv, int heads, int kv_heads, int causal, int window,
+             float scale, int pair_heads) {
+  constexpr int kStages = dq_stages(D);
+  constexpr int kTile = kBlockK * D * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;                  // Q of 0, 1
+  const uint32_t do_s = q_s + 2 * kTile;                       // dO of 0, 1
+  const uint32_t k_s = do_s + 2 * kTile;                       // K ring
+  const uint32_t v_s = k_s + kStages * kTile;                  // V ring
+  const uint32_t r_s = v_s + kStages * kTile;                  // rows of 0, 1
+  const uint32_t bar_q = r_s + 2 * kRowBytes;
+  const uint32_t bar_full = bar_q + 8;                         // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;           // [kStages]
+  const float* rows_s = reinterpret_cast<const float*>(smem_raw + (r_s - raw));
+
+  const int wg = threadIdx.x >> 7;
+  const int b = blockIdx.z;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // the longest bands first
+  const int head0 = pair_heads ? 2 * blockIdx.y : blockIdx.y;
+  const int head_step = pair_heads ? 1 : 0;
+  const int q_lo0 = (pair_heads ? tile : 2 * tile) * kBlockQ;
+  const int q_step = pair_heads ? 0 : kBlockQ;
+  const int kvh = (int)((long long)head0 * kv_heads / heads);
+  const int nqt_all = (sq + kBlockQ - 1) / kBlockQ;
+  // the block walks the union of its consumers' bands
+  int lo = 0, hi = 0;
+  band(q_lo0, min(q_lo0 + kBlockQ, sq), skv, causal, window, &lo, &hi);
+  const int n_q = q_lo0 + q_step < sq ? 2 : 1;   // Q tiles with rows
+  if (n_q == 2) {
+    const int q_lo1 = q_lo0 + q_step;
+    int lo1, hi1;
+    band(q_lo1, min(q_lo1 + kBlockQ, sq), skv, causal, window, &lo1, &hi1);
+    lo = min(lo, lo1);
+    hi = max(hi, hi1);
+  }
+  const int n_tiles = hi > lo ? (hi - lo + kBlockK - 1) / kBlockK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- the producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, n_q * (2 * kTile + kRowBytes));
+      for (int c = 0; c < n_q; ++c) {
+        const int h = head0 + c * head_step;
+        const int r0 = q_lo0 + c * q_step;
+        tma_tile<D>(q_s + c * kTile, &qmap, bar_q, h, r0, b);
+        tma_tile<D>(do_s + c * kTile, &domap, bar_q, h, r0, b);
+        bulk_copy(r_s + c * kRowBytes,
+                  rows + (((long long)b * heads + h) * nqt_all +
+                          r0 / kBlockQ) * kRowFloats,
+                  kRowBytes, bar_q);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
+        const int j0 = lo + it * kBlockK;
+        tma_tile<D>(k_s + s * kTile, &kmap, bar_full + 8 * s, kvh, j0, b);
+        tma_tile<D>(v_s + s * kTile, &vmap, bar_full + 8 * s, kvh, j0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- a consumer ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int my_head = head0 + c * head_step;
+  const int my_lo = q_lo0 + c * q_step;
+  const int my_hi = min(my_lo + kBlockQ, sq);
+  const int row0 = warp * 16 + g;                // rows row0 and row0 + 8
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  const float* lse2 = rows_s + c * kRowFloats;
+  const float l2[2] = {lse2[row0], lse2[row0 + 8]};
+  const float d2[2] = {lse2[kBlockQ + row0], lse2[kBlockQ + row0 + 8]};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = lo + it * kBlockK;
+    const int s = it % kStages;
+    mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+    const int kind = tile_kind(my_lo, my_hi, j0, skv, causal, window);
+    if (kind != kSkip) {
+      // x[i]: query row row0 + 8 ((i >> 1) & 1), key column
+      // 8 (i >> 2) + 2 t + (i & 1) of the tile
+      float x[32], dp[32];
+      score_pair<D>(x, dp, q_s + c * kTile, k_s + s * kTile,
+                    do_s + c * kTile, v_s + s * kTile);    // S, dP
+      auto ds_loop = [&](auto full) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const int kpos = j0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const bool vis = decltype(full)::value ||
+              visible(my_lo + row0 + 8 * r, kpos, skv, causal, window);
+          const float p = vis ? exp2_fma(x[i], scale_log2, l2[r]) : 0.f;
+          dp[i] = p * (dp[i] - d2[r]);
+        }
+      };
+      if (kind == kFull) ds_loop(std::true_type{});     // no mask
+      else ds_loop(std::false_type{});
+      uint32_t hi_f[4][4], lo_f[4][4];
+      a_frags(dp, hi_f, lo_f);
+      pv_parts<D>(acc, hi_f, lo_f, k_s + s * kTile);    // dQ
+    }
+    release(bar_empty + 8 * s, lane);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = my_lo + row0 + 8 * r;
+    if (row >= my_hi) continue;
+    __nv_bfloat16* dst =
+        dq + (((long long)b * sq + row) * heads + my_head) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(acc[4 * n + 2 * r] * scale,
+                    acc[4 * n + 2 * r + 1] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-// Tiles by head dim: 64 keys and 64 queries at hd 64; 64 keys and 32
-// queries at hd 128; 32 and 32 at hd 256, where each staged tile of 32
-// rows is 32 KB of float32 (bwd_smem_bytes; the largest, dK/dV at hd 256,
-// is 223,488 bytes of the 232,448 a block may opt in to).
+// Tiles of the float32 route by head dim: 64 keys and 64 queries at hd 64;
+// 64 keys and 32 queries at hd 128; 32 and 32 at hd 256, where each staged
+// tile of 32 rows is 32 KB of float32 (bwd_smem_bytes; the largest, dK/dV
+// at hd 256, is 223,488 bytes of the 232,448 a block may opt in to).
 template <int D> struct Tiles;
 template <> struct Tiles<64> { static constexpr int BK = 64, BQ = 64; };
 template <> struct Tiles<128> { static constexpr int BK = 64, BQ = 32; };
@@ -850,102 +1321,159 @@ int smem_bytes(int which) {
                          : dq_smem_floats<D, BQ, BK>());
 }
 
-// the dK/dV and dQ kernels' launches: the mma.sync kernels for bfloat16,
-// the float32 CUDA-core kernels for float32
-template <typename T, int D>
-int launch_passes(const T* qp, const T* kp, const T* vp, const T* dp,
-                  const float* lse, const float* delta, T* dq, T* dk, T* dv,
-                  int batch, int sq, int skv, int heads, int kv_heads,
-                  int causal, int window, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (skv > 0) {
-      const int bytes = mma_smem_bytes<D>(0);
-      cudaError_t err = cudaFuncSetAttribute(
-          dkdv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid((skv + kMmaRows - 1) / kMmaRows,
-                      kv_heads * (D / kMmaCols), batch);
-      dkdv_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(
-          qp, kp, vp, dp, lse, delta, dk, dv, sq, skv, heads, kv_heads,
-          causal, window, scale);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (sq > 0) {
-      const int bytes = mma_smem_bytes<D>(1);
-      cudaError_t err = cudaFuncSetAttribute(
-          dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid((sq + kMmaRows - 1) / kMmaRows, heads * (D / kMmaCols),
-                      batch);
-      dq_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(
-          qp, kp, vp, dp, lse, delta, dq, sq, skv, heads, kv_heads, causal,
-          window, scale);
-    }
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    constexpr int BK = Tiles<D>::BK, BQ = Tiles<D>::BQ;
-    if (skv > 0) {
-      auto kern = dkdv_kernel<D, BK, BQ>;
-      const int bytes = smem_bytes<D>(0);
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid((skv + BK - 1) / BK, kv_heads, batch);
-      kern<<<grid, kThreads, bytes, stream>>>(
-          qp, kp, vp, dp, lse, delta, dk, dv, sq, skv, heads, kv_heads,
-          causal, window, scale);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (sq > 0) {
-      auto kern = dq_kernel<D, BQ, BK>;
-      const int bytes = smem_bytes<D>(1);
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid((sq + BQ - 1) / BQ, heads, batch);
-      kern<<<grid, kThreads, bytes, stream>>>(
-          qp, kp, vp, dp, lse, delta, dq, sq, skv, heads, kv_heads, causal,
-          window, scale);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int batch, int sq, int skv, int heads,
-           int kv_heads, int causal, int window, cudaStream_t stream) {
-  const T* dp = static_cast<const T*>(dout);
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* o, const float* dout, const float* lse,
+               float* delta, float* dq, float* dk, float* dv, int batch,
+               int sq, int skv, int heads, int kv_heads, int causal,
+               int window, cudaStream_t stream) {
+  constexpr int BK = Tiles<D>::BK, BQ = Tiles<D>::BQ;
+  const float scale = 1.0f / sqrtf((float)D);
   const long long rows = (long long)batch * sq * heads;
   if (rows > 0) {
-    delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
-        static_cast<const T*>(o), dp, delta, batch, sq, heads);
+    delta_kernel<D><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
+        o, dout, delta, batch, sq, heads);
   }
-  return launch_passes<T, D>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), dp, lse, delta, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), batch, sq, skv, heads,
-      kv_heads, causal, window, 1.0f / sqrtf((float)D), stream);
+  if (skv > 0) {
+    auto kern = dkdv_kernel<D, BK, BQ>;
+    const int bytes = smem_bytes<D>(0);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((skv + BK - 1) / BK, kv_heads, batch);
+    kern<<<grid, kThreads, bytes, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, sq, skv, heads, kv_heads, causal,
+        window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (sq > 0) {
+    auto kern = dq_kernel<D, BQ, BK>;
+    const int bytes = smem_bytes<D>(1);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((sq + BQ - 1) / BQ, heads, batch);
+    kern<<<grid, kThreads, bytes, stream>>>(
+        q, k, v, dout, lse, delta, dq, sq, skv, heads, kv_heads, causal,
+        window, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 dK/dV kernel of a head dim (only it is instantiated)
+template <int D>
+auto dkdv_kernel_for() {
+  if constexpr (D == 64) return dkdv_pair_kernel<D>;
+  else return dkdv_ws_kernel<D>;
+}
+
+// the card's SMs and opt-in shared memory a block
+int card(int* sms, int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
 }
 
 template <int D>
-int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 const void* o, const void* dout, const float* lse,
-                 float* delta, void* dq, void* dk, void* dv, int batch,
-                 int sq, int skv, int heads, int kv_heads, int causal,
-                 int window, cudaStream_t stream) {
-  return dtype == 1
-             ? launch<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, batch, sq, skv, heads, kv_heads,
-                                        causal, window, stream)
-             : launch<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                batch, sq, skv, heads, kv_heads, causal,
-                                window, stream);
+int launch_bf16(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* scratch, void* dq,
+                void* dk, void* dv, int batch, int sq, int skv, int heads,
+                int kv_heads, int causal, int window, cudaStream_t stream) {
+  typedef __nv_bfloat16 bf16;
+  int sms = 0, optin = 0;
+  int rc = card(&sms, &optin);
+  if (rc != 0) return rc;
+  if (dkdv_smem_bytes(D) > optin || dq_smem_bytes(D) > optin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sq == 0 && skv == 0) return 0;
+  const float scale = 1.0f / sqrtf((float)D);
+  const int nqt = (sq + kBlockQ - 1) / kBlockQ;
+  if (sq > 0)
+    bwd_rows_kernel<D><<<dim3(nqt, heads, batch), kRowsThreads, 0, stream>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+        scratch, sq, heads);
+  // with no queries (keys) no Q/dO (K/V) tile is loaded; the maps need a
+  // base and a row all the same, so they map the other operand
+  CUtensorMap qm, dom, km, vm;
+  const bool has_q = sq > 0, has_k = skv > 0;
+  rc = bf16_map(&qm, has_q ? q : k, D, has_q ? heads : kv_heads,
+                has_q ? sq : skv, batch);
+  if (rc == 0) rc = bf16_map(&dom, has_q ? dout : k, D,
+                             has_q ? heads : kv_heads, has_q ? sq : skv,
+                             batch);
+  if (rc == 0) rc = bf16_map(&km, has_k ? k : q, D,
+                             has_k ? kv_heads : heads, has_k ? skv : sq,
+                             batch);
+  if (rc == 0) rc = bf16_map(&vm, has_k ? v : q, D,
+                             has_k ? kv_heads : heads, has_k ? skv : sq,
+                             batch);
+  if (rc != 0) return rc;
+  cudaError_t err;
+  if (has_k) {
+    const int splits = head_splits(batch, skv, heads, kv_heads, sms, D);
+    float* part = scratch + (long long)batch * heads * nqt * kRowFloats;
+    const int bytes = dkdv_smem_bytes(D);
+    auto kernel = dkdv_kernel_for<D>();
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((skv + dkdv_keys(D) - 1) / dkdv_keys(D),
+                    kv_heads * splits, batch);
+    kernel<<<grid, kWsThreads, bytes, stream>>>(
+        qm, dom, km, vm, scratch, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), part, sq, skv, heads, kv_heads, causal,
+        window, scale, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (splits > 1) {
+      const long long n = (long long)batch * skv * kv_heads * D;
+      dkdv_reduce_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0,
+                           stream>>>(part, static_cast<bf16*>(dk),
+                                     static_cast<bf16*>(dv), n, splits,
+                                     scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  if (has_q) {
+    const int bytes = dq_smem_bytes(D);
+    err = cudaFuncSetAttribute(dq_ws_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int pair_heads = (heads / kv_heads) % 2 == 0;
+    const int rows_a_block = pair_heads ? kBlockQ : 2 * kBlockQ;
+    const dim3 grid((sq + rows_a_block - 1) / rows_a_block,
+                    pair_heads ? heads / 2 : heads, batch);
+    dq_ws_kernel<D><<<grid, kWsThreads, bytes, stream>>>(
+        qm, dom, km, vm, scratch, static_cast<bf16*>(dq), sq, skv, heads,
+        kv_heads, causal, window, scale, pair_heads);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const float* lse, float* scratch,
+           void* dq, void* dk, void* dv, int batch, int sq, int skv,
+           int heads, int kv_heads, int causal, int window,
+           cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, o, dout, lse, scratch, dq, dk, dv, batch,
+                          sq, skv, heads, kv_heads, causal, window, stream);
+  return launch_f32<D>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), lse, scratch, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), batch, sq, skv, heads,
+      kv_heads, causal, window, stream);
 }
 
 }  // namespace
@@ -958,8 +1486,12 @@ const char* lotaru_error_string(int code) {
 
 // dtype: 0 float32, 1 bfloat16, of q, k, v, o, dout, dq, dk and dv; head
 // dim 64, 128 or 256; q, o, dout, dq (B, Sq, H, hd), k, v, dk, dv (B, Skv,
-// K, hd), contiguous, starting on 16 bytes; lse and the scratch delta
-// (B, H, Sq) float32.  Three launches (delta, dK/dV, dQ) on `stream`.
+// K, hd), contiguous, starting on 16 bytes; lse (B, H, Sq) float32; the
+// scratch `delta` lotaru_flash_bwd_scratch_floats float32 elements,
+// starting on 16 bytes.  bfloat16: the rows pass, dK/dV (and the partials'
+// sum with head splits) and dQ; float32: D, dK/dV and dQ; all on `stream`.
+// bfloat16 returns cudaErrorInvalidValue, launching nothing, where a pass's
+// shared memory is above the card's opt-in limit.
 int lotaru_flash_attention_bwd(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const void* lse, void* delta, void* dq,
@@ -974,35 +1506,45 @@ int lotaru_flash_attention_bwd(const void* q, const void* k, const void* v,
   float* d = static_cast<float*>(delta);
   switch (head_dim) {
     case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, dout, l, d, dq, dk, dv,
-                              batch, sq, skv, heads, kv_heads, causal, window,
-                              stream);
+      return launch<64>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch, sq,
+                        skv, heads, kv_heads, causal, window, stream);
     case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, dout, l, d, dq, dk, dv,
-                               batch, sq, skv, heads, kv_heads, causal,
-                               window, stream);
+      return launch<128>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch,
+                         sq, skv, heads, kv_heads, causal, window, stream);
     case 256:
-      return launch_dtype<256>(dtype, q, k, v, o, dout, l, d, dq, dk, dv,
-                               batch, sq, skv, heads, kv_heads, causal,
-                               window, stream);
+      return launch<256>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch,
+                         sq, skv, heads, kv_heads, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// dynamic shared memory of the dK/dV (which 0) and dQ (which 1) kernels at
-// a head dim and dtype (0 float32, 1 bfloat16), for the Python mirror
-// (kernels/flash_attention.bwd_smem_bytes)
+// the backward's shape formulas, for the Python mirrors
+// (kernels/flash_attention.bwd_smem_bytes, bwd_head_splits,
+// bwd_scratch_floats) to be held against: dynamic shared memory of the
+// dK/dV (which 0) and dQ (which 1) kernels at a head dim and dtype (0
+// float32, 1 bfloat16)
 int lotaru_flash_bwd_smem_bytes(int head_dim, int which, int dtype) {
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 256))
+    return which == 0 ? dkdv_smem_bytes(head_dim) : dq_smem_bytes(head_dim);
   switch (head_dim) {
-    case 64: return dtype == 1 ? mma_smem_bytes<64>(which)
-                               : smem_bytes<64>(which);
-    case 128: return dtype == 1 ? mma_smem_bytes<128>(which)
-                                : smem_bytes<128>(which);
-    case 256: return dtype == 1 ? mma_smem_bytes<256>(which)
-                                : smem_bytes<256>(which);
+    case 64: return smem_bytes<64>(which);
+    case 128: return smem_bytes<128>(which);
+    case 256: return smem_bytes<256>(which);
     default: return -1;
   }
+}
+
+int lotaru_flash_bwd_head_splits(int batch, int skv, int heads, int kv_heads,
+                                 int sms, int head_dim) {
+  return head_splits(batch, skv, heads, kv_heads, sms, head_dim);
+}
+
+long long lotaru_flash_bwd_scratch_floats(int dtype, int batch, int sq,
+                                          int skv, int heads, int kv_heads,
+                                          int head_dim, int sms) {
+  return scratch_floats(dtype, batch, sq, skv, heads, kv_heads, head_dim,
+                        sms);
 }
 
 }  // extern "C"

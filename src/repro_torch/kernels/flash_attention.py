@@ -6,9 +6,10 @@ warp-specialised block: a TMA producer and two `wgmma` consumers that share
 each K/V tile), float32 on the CUDA cores.  With `with_lse=True` the
 forward also returns each row's log-sum-exp, which `flash_attention_bwd`
 takes (`csrc/flash_attention_bwd.cu`: dq, dk and dv, no atomics; bf16 on
-the tensor cores through mma.sync, float32 on the CUDA cores,
-`bwd_route`); it counts its launches in `flash_attention_bwd.launches`
-and, by route, in `flash_attention_bwd.route_launches`.
+the tensor cores through TMA-fed `wgmma` blocks, float32 on the CUDA
+cores, `bwd_route`); it counts its launches in
+`flash_attention_bwd.launches` and, by route, in
+`flash_attention_bwd.route_launches`.
 
 The wrapper takes CUDA tensors only (device dispatch is `kernels.ops`),
 checks device, dtype, shape and contiguity, allocates its output with
@@ -20,7 +21,9 @@ The bf16 kernel's shape arithmetic is mirrored here in plain Python, so
 that the CPU tests reach it: `flash_smem_bytes` and `flash_stages` (its
 shared memory), `flash_route` (which pairing its two consumers take) and
 `flash_band`, `flash_tile_kind` and `flash_tile_plan` (the kv tiles a block
-walks and what each consumer does with each).
+walks and what each consumer does with each); the backward's likewise:
+`bwd_smem_bytes`, `bwd_stages`, `bwd_head_splits`, `bwd_scratch_floats`
+and `flash_bwd_plan` (the query tiles a dK/dV block walks).
 """
 from __future__ import annotations
 
@@ -69,36 +72,56 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.lotaru_flash_attention_bwd.restype = _I
     lib.lotaru_flash_bwd_smem_bytes.argtypes = [_I, _I, _I]
     lib.lotaru_flash_bwd_smem_bytes.restype = _I
+    lib.lotaru_flash_bwd_head_splits.argtypes = [_I] * 6
+    lib.lotaru_flash_bwd_head_splits.restype = _I
+    lib.lotaru_flash_bwd_scratch_floats.argtypes = [_I] * 8
+    lib.lotaru_flash_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
-# the backward's routes: bf16 on the tensor cores (mma.sync), float32 on
-# the CUDA cores
-BWD_ROUTES = ("mma", "cuda_cores")
+# the backward's routes: bf16 on the tensor cores (wgmma), float32 on the
+# CUDA cores
+BWD_ROUTES = ("wgmma", "cuda_cores")
 # the CUDA-core route's tiles by head dim: (keys of a dK/dV block and of
 # a dQ block's key tile, queries of a dQ block and of a dK/dV query tile)
 BWD_TILES = {64: (64, 64), 128: (64, 32), 256: (32, 32)}
-BWD_MMA_ROWS = 64       # the mma route's rows, tiles and output columns
+BWD_ROW_FLOATS = 2 * BLOCK_Q    # a query tile's lse (base 2) and D rows
+BWD_MAX_SPLITS = 4              # blocks a dK/dV group's heads split over
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    return "mma" if dtype == torch.bfloat16 else "cuda_cores"
+    return "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+
+
+def bwd_stages(hd: int, which: int) -> int:
+    """Stages of the wgmma route's rings: the dK/dV pass's Q/dO ring
+    (which 0) two at hd 256, four below; the dQ pass's K/V ring (which 1)
+    one at hd 256, beside both consumers' Q and dO, four below
+    (`dkdv_stages`, `dq_stages` in the source)."""
+    if hd == 256:
+        return 2 if which == 0 else 1
+    return 4
 
 
 def bwd_smem_bytes(hd: int, which: int,
                    dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of the backward's dK/dV kernel (which 0) or
     dQ kernel (which 1) (`lotaru_flash_bwd_smem_bytes` in the source).
-    The mma route: bf16 tiles of 64 rows padded by 8 elements (dK/dV: K,
-    V, Q, dO, and the block's 64 columns of Q and dO transposed; dQ: Q,
-    dO, K, V, and 64 columns of K transposed), lse and D.  The CUDA-core
-    route: float32 tiles padded by 4 (dK/dV: K and V transposed, Q and dO
-    transposed and row-major, P and dS; dQ: Q, dO, K and V transposed, K
-    row-major, dS), lse and D."""
-    if bwd_route(dtype, hd) == "mma":
-        r = BWD_MMA_ROWS
-        tiles = 4 * r * (hd + 8) + (2 if which == 0 else 1) * r * (r + 8)
-        return tiles * 2 + 512
+    The wgmma route: bf16 tiles of 64 rows x hd (dK/dV: K and V of the
+    block's keys, a ring of Q, dO and their 512 bytes of rows, and, above
+    hd 64, the 16 KB P^T exchange; dQ: both consumers' Q, dO and rows, a
+    ring of K and V), 1024 bytes to align the tiles to the swizzle and 128
+    for the mbarriers.  The CUDA-core route: float32 tiles padded by 4
+    (dK/dV: K and V transposed, Q and dO transposed and row-major, P and
+    dS; dQ: Q, dO, K and V transposed, K row-major, dS), lse and D."""
+    if bwd_route(dtype, hd) == "wgmma":
+        st, tile, rows = bwd_stages(hd, which), BLOCK_K * hd * 2, \
+            BWD_ROW_FLOATS * 4
+        if which == 0:
+            kv = 2 * bwd_block_keys(hd) // BLOCK_K * tile
+            exchange = 0 if hd == 64 else BLOCK_K * BLOCK_Q * 4
+            return kv + 2 * st * tile + st * rows + exchange + 1024 + 128
+        return (4 + 2 * st) * tile + 2 * rows + 1024 + 128
     bk, bq = BWD_TILES[hd]
     if which == 0:
         floats = (2 * hd * (bk + 4) + 2 * hd * (bq + 4) + 2 * bq * (hd + 4)
@@ -107,6 +130,79 @@ def bwd_smem_bytes(hd: int, which: int,
         floats = (2 * hd * (bq + 4) + 2 * hd * (bk + 4) + bk * (hd + 4)
                   + bk * (bq + 4) + 2 * bq)
     return 4 * floats
+
+
+def bwd_block_keys(hd: int) -> int:
+    """Keys of a wgmma-route dK/dV block: 128 at hd 64, where each
+    consumer takes 64 of them and runs the whole chain, 64 wider, where
+    one consumer takes P and dV and the other dS and dK (`dkdv_keys` in
+    the source)."""
+    return 2 * BLOCK_K if hd == 64 else BLOCK_K
+
+
+def bwd_head_splits(batch: int, skv: int, heads: int, kv_heads: int,
+                    sms: int, hd: int) -> int:
+    """Blocks over which the wgmma route's dK/dV pass splits a kv head's
+    query heads: of 1 to min(4, group), the split that minimises waves of
+    blocks x heads a block, the fewest on a tie.  MQA at B 1 (RecurrentGemma:
+    64 blocks, fewer than the SMs) splits; SmolLM's 640 blocks do not
+    (`head_splits` in the source)."""
+    n = batch * kv_heads * -(-skv // bwd_block_keys(hd))
+    group = heads // kv_heads
+    if n == 0 or sms <= 0:
+        return 1
+    best, best_cost = 1, -(-n // sms) * group
+    for s in range(2, min(BWD_MAX_SPLITS, group) + 1):
+        cost = -(-n * s // sms) * -(-group // s)
+        if cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def bwd_scratch_floats(dtype: torch.dtype, batch: int, sq: int, skv: int,
+                       heads: int, kv_heads: int, hd: int, sms: int) -> int:
+    """float32 elements of the backward's scratch: the wgmma route's rows
+    (B, H, query tiles, 128: lse in base 2 and D, zeros past Sq) and, with
+    head splits, the partial dV and dK (2, splits, B, Skv, K, hd); the
+    CUDA-core route's D (B, H, Sq) (`scratch_floats` in the source)."""
+    if bwd_route(dtype, hd) != "wgmma":
+        return batch * heads * sq
+    rows = batch * heads * -(-sq // BLOCK_Q) * BWD_ROW_FLOATS
+    splits = bwd_head_splits(batch, skv, heads, kv_heads, sms, hd)
+    return rows + (2 * splits * batch * skv * kv_heads * hd
+                   if splits > 1 else 0)
+
+
+def flash_bwd_plan(sq: int, skv: int, heads: int, kv_heads: int,
+                   causal: bool, window: int, hd: int, splits: int = 1
+                   ) -> List[Tuple[int, int, Tuple[int, ...],
+                                   List[Tuple[int, str]]]]:
+    """The wgmma route's dK/dV walk, the same for every batch: for each
+    block of `bwd_block_keys(hd)` keys, kv head and head split, and each
+    64-key tile of the block with keys (one a consumer at hd 64), (its
+    first key, kv head, the split's query heads, [(q0, kind), ...]): the
+    64-row query tiles the block walks (those that may see a key of the
+    block), each for every head of the split, with `flash_tile_kind`'s
+    kind of the (query tile, key tile) box.  The dQ pass walks the
+    forward's tiles (`flash_tile_plan`)."""
+    group = heads // kv_heads
+    keys = bwd_block_keys(hd)
+    plan = []
+    for k0 in range(0, skv, keys):
+        k1 = min(k0 + keys, skv)
+        q_first = k0 if causal else 0
+        q_end = min(sq, k1 - 1 + window) if window > 0 else sq
+        for kc in range(k0, k1, BLOCK_K):
+            tiles = [(q0, flash_tile_kind(q0, min(q0 + BLOCK_Q, sq), kc,
+                                          skv, causal, window))
+                     for q0 in range(q_first, q_end, BLOCK_Q)]
+            for kvh in range(kv_heads):
+                for sp in range(splits):
+                    hs = tuple(range(kvh * group + sp * group // splits,
+                                     kvh * group + (sp + 1) * group
+                                     // splits))
+                    plan.append((kc, kvh, hs, tiles))
+    return plan
 
 
 def flash_stages(hd: int) -> int:
@@ -246,7 +342,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the gradient of o (both (B, Sq, H, hd) in q's dtype), lse (B, H, Sq)
     float32 from the forward's `with_lse` -> (dq, dk, dv) in q's dtype,
     within the stated tolerance of `ref.attention_bwd_ref`.  Deterministic:
-    no atomics, two launches give bitwise equal results."""
+    no atomics, two launches give bitwise equal results.  Its scratch
+    (`bwd_scratch_floats`: the rows, and the dK/dV partials of a head
+    split) is allocated here."""
     dev, (b, sq, skv, h, kh, hd) = _check_qkv(q, k, v)
     check(o, "o", q.dtype, (b, sq, h, hd), dev)
     check(do, "do", q.dtype, (b, sq, h, hd), dev)
@@ -257,7 +355,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if b == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    delta = torch.empty(bwd_scratch_floats(q.dtype, b, sq, skv, h, kh, hd,
+                                           sms),
+                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _bwd_lib().lotaru_flash_attention_bwd(

@@ -55,14 +55,18 @@ def params_of(state: dict, cfg: ModelConfig) -> Tree:
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
     """(B, ...) -> n microbatches of B / n rows: microbatch i holds rows
-    i, n + i, 2n + i, ..., the reference's outer reshape factor."""
+    i, n + i, 2n + i, ..., the reference's outer reshape factor.  M-RoPE
+    `positions` (3, B, S) split on their batch axis, 1."""
     out = {}
     for k, x in batch.items():
-        b = x.shape[0]
+        axis = 1 if k == "positions" else 0
+        b = x.shape[axis]
         if b % n:
             raise ValueError(f"batch {b} is not a multiple of {n} "
                              f"microbatches")
-        out[k] = x.reshape((b // n, n) + tuple(x.shape[1:])).movedim(1, 0)
+        shape = tuple(x.shape)
+        out[k] = x.reshape(shape[:axis] + (b // n, n)
+                           + shape[axis + 1:]).movedim(axis + 1, 0)
     return [{k: v[i] for k, v in out.items()} for i in range(n)]
 
 

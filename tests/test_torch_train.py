@@ -284,6 +284,30 @@ def test_train_step_three_steps_match_jax(model, nmb):
         np.testing.assert_allclose(g, w, rtol=0, atol=2 * kw["lr"] * 3)
 
 
+@pytest.mark.parametrize("n", [2, 3])
+def test_microbatch_split_matches_jax_with_mrope_positions(n):
+    """Tokens, labels (B, S) and M-RoPE positions (3, B, S), B = 6: every
+    microbatch equal to the reference's, rows i, n + i, ... of each key."""
+    rng = np.random.default_rng(n)
+    b, s = 6, 5
+    batch = {"tokens": rng.integers(0, 100, (b, s), dtype=np.int32),
+             "labels": rng.integers(0, 100, (b, s), dtype=np.int32),
+             "positions": rng.integers(0, 50, (3, b, s), dtype=np.int32)}
+    want = jts._split_microbatches({k: jnp.asarray(v)
+                                    for k, v in batch.items()}, n)
+    got = tts._split_microbatches({k: torch.from_numpy(v)
+                                   for k, v in batch.items()}, n)
+    assert len(got) == n
+    for i, mb in enumerate(got):
+        assert set(mb) == set(batch)
+        for k, v in mb.items():
+            np.testing.assert_array_equal(v.numpy(), np.asarray(want[k][i]))
+        np.testing.assert_array_equal(mb["positions"].numpy(),
+                                      batch["positions"][:, i::n])
+        np.testing.assert_array_equal(mb["tokens"].numpy(),
+                                      batch["tokens"][i::n])
+
+
 def test_cast_params_keeps_the_reference_fp32_leaves():
     _, tcfg = _cfgs("recurrentgemma-9b")
     master = topt.init_opt_state(ttf.init_params(0, tcfg, "cpu"),

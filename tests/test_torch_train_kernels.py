@@ -188,7 +188,10 @@ def test_backward_wrappers_take_cuda_tensors_only():
 def test_backward_shared_memory_fits_the_card():
     """The backward's tiles at every head dim and dtype fit a block's
     opt-in shared memory on an H100 (232,448 bytes); the C side is held
-    to these numbers on the card.  bf16 takes the mma route."""
+    to these numbers on the card.  bf16 takes the wgmma route; its dK/dV
+    block holds K and V of its keys (128 at hd 64, 64 wider), a ring of
+    Q and dO tiles (4 stages, 2 at hd 256) with their rows, and above hd
+    64 the 16 KB P^T exchange."""
     for hd in flash.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             for which in (0, 1):
@@ -196,6 +199,72 @@ def test_backward_shared_memory_fits_the_card():
     assert flash.bwd_smem_bytes(256, 0) == 223488
     assert [flash.bwd_route(dt, hd) for dt, hd in (
         (torch.bfloat16, 64), (torch.bfloat16, 256), (torch.float32, 64))] \
-        == ["mma", "mma", "cuda_cores"]
-    assert flash.bwd_smem_bytes(64, 0, torch.bfloat16) == 55808
-    assert flash.bwd_smem_bytes(256, 0, torch.bfloat16) == 154112
+        == ["wgmma", "wgmma", "cuda_cores"]
+    assert flash.bwd_smem_bytes(64, 0, torch.bfloat16) == 101504
+    assert flash.bwd_smem_bytes(256, 0, torch.bfloat16) == 215168
+
+
+# (B, Skv, H, K, hd, SMs, splits): SmolLM's training shape (640 blocks of
+# 128 keys at hd 64) and RecurrentGemma's (64 blocks of 64 keys at hd 256)
+# do not and do split; the small MQA cases split to 4; GQA and MHA at
+# enough blocks, or with a group of 1, never split
+@pytest.mark.parametrize("b,skv,h,kh,hd,sms,want", [
+    (8, 2048, 15, 5, 64, 132, 1), (1, 4096, 16, 1, 256, 132, 2),
+    (2, 1000, 16, 1, 256, 132, 4), (2, 1000, 12, 4, 256, 132, 1),
+    (2, 1000, 16, 16, 256, 132, 1), (1, 4096, 16, 1, 64, 132, 4),
+    (1, 64, 2, 1, 64, 132, 2), (1, 0, 4, 1, 64, 132, 1)])
+def test_bwd_head_splits_and_scratch_by_shape(b, skv, h, kh, hd, sms, want):
+    """The dK/dV pass's head split and the scratch it sizes: the rows of
+    every query tile, plus two float32 planes a split when it splits; the
+    float32 route's scratch is D alone."""
+    assert flash.bwd_head_splits(b, skv, h, kh, sms, hd) == want
+    sq = skv
+    rows = b * h * -(-sq // 64) * 128
+    parts = 2 * want * b * skv * kh * hd if want > 1 else 0
+    assert flash.bwd_scratch_floats(torch.bfloat16, b, sq, skv, h, kh, hd,
+                                    sms) == rows + parts
+    assert flash.bwd_scratch_floats(torch.float32, b, sq, skv, h, kh, hd,
+                                    sms) == b * h * sq
+
+
+# (Sq, Skv, H, K, causal, window): causal, window 1 and 64, not causal (and
+# windowed), ragged S; groups 1, 3 and 16
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("sq,skv,h,kh,causal,window", [
+    (200, 200, 6, 2, True, 0), (130, 130, 16, 1, True, 1),
+    (200, 200, 3, 3, True, 64), (130, 130, 3, 1, False, 0),
+    (200, 200, 6, 2, False, 64), (257, 257, 16, 1, True, 0),
+    (193, 130, 3, 1, True, 0), (130, 193, 16, 1, False, 0)])
+def test_flash_bwd_plan_covers_each_visible_pair_once(sq, skv, h, kh,
+                                                      causal, window, hd):
+    """The dK/dV walk against ref.band_mask, at every head split of the
+    group and both block widths (128 keys at hd 64, 64 wider): each
+    visible (query, key, head) pair in exactly one walked tile, no hidden
+    pair in a walked tile's count; a "skip" tile holds no visible pair, a
+    "full" one only visible pairs and 64 real keys; the splits of a kv
+    head partition its group of query heads."""
+    mask = ref.band_mask(sq, skv, causal, window).numpy()
+    group = h // kh
+    for splits in range(1, min(4, group) + 1):
+        count = np.zeros((h, sq, skv), dtype=np.int64)
+        heads_of = {}
+        for k0, kvh, hs, tiles in flash.flash_bwd_plan(
+                sq, skv, h, kh, causal, window, hd, splits):
+            assert all(x // group == kvh for x in hs)
+            heads_of.setdefault((k0, kvh), []).extend(hs)
+            k1 = min(k0 + 64, skv)
+            for q0, kind in tiles:
+                q1 = min(q0 + 64, sq)
+                vis = mask[q0:q1, k0:k1]
+                assert kind in flash.TILE_KINDS
+                if kind == "skip":
+                    assert not vis.any()
+                    continue
+                if kind == "full":
+                    assert vis.all() and k0 + 64 <= skv
+                for x in hs:
+                    count[x, q0:q1, k0:k1] += vis
+        np.testing.assert_array_equal(count, np.broadcast_to(mask,
+                                                             count.shape))
+        for (k0, kvh), hs in heads_of.items():
+            assert sorted(hs) == list(range(kvh * group, (kvh + 1) * group))
