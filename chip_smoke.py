@@ -265,7 +265,13 @@ Phases (each fails loudly; nothing is caught):
                256, window 2048) and the forward's edges, bf16 at 5e-2 and
                rtol 1e-2 / atol 4e-3, f32 at 2e-5, bitwise across two
                launches; `rglru_scan_bwd` bitwise its plain version and
-               across two launches.  Then SmolLM-360M at full size through
+               across two launches on both routes, each line naming the
+               route it took (`tma` at both paths' shapes and at its
+               edges: T 1, T under a tile and not a multiple of one, a
+               partial channel block, B > 1; `direct` at W 13 and with an
+               operand one float off a 16-byte boundary), and its route
+               and shared-memory formulas against their Python mirrors.
+               Then SmolLM-360M at full size through
                `repro_torch.launch.train.main` (B 8, S 2048): the Lotaru
                profile and prediction, 30 AdamW steps with a checkpoint
                directory (step median, tokens/s, model-flop utilisation
@@ -5348,37 +5354,78 @@ def train_attention_cases():
         ("hd 128, MHA, not causal", 2, 1000, 16, 16, 128, 0, False))
 
 
+def off_by_one_float(x):
+    """A contiguous copy of x whose data starts one float past the start
+    of its own allocation, so off a 16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
 def phase_train_kernels(dev) -> dict:
     """The backward kernels against their plain versions on the card:
     `flash_attention`'s forward with lse bitwise the forward without it
     and its lse within LSE_TOL of the plain one; `flash_attention_bwd` at
     both training paths' shapes and the forward's edges, bf16 at both
     bf16 limits and f32 at 2e-5, bitwise across two launches;
-    `rglru_scan_bwd` bitwise its plain version and across two launches."""
+    `rglru_scan_bwd` bitwise its plain version and across two launches,
+    on the route each shape and alignment gives, and its route and shared
+    memory formulas against their Python mirrors."""
     import torch
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as scan
     gen = torch.Generator(device=dev).manual_seed(29)
     out = {}
-    for b, t, w, label in ((1, 4096, 4096, "recurrentgemma path"),
-                           (LM_BATCH, LM_PROMPT, 4096, "serve shape"),
-                           (2, 1001, 136, "ragged")):
+    lib = scan._lib()
+    for w in (1, 2, 4, 12, 13, 32, 100, 136, 4095, 4096):
+        for aligned in (0, 1):
+            c_route = scan.SCAN_BWD_ROUTES[lib.lotaru_rglru_scan_bwd_route(
+                w, aligned)]
+            c_smem = lib.lotaru_rglru_scan_bwd_smem_bytes(w, aligned)
+            check(c_route == scan.scan_bwd_route(w, aligned)
+                  and c_smem == scan.scan_bwd_smem_bytes(w, aligned),
+                  f"scan_bwd_route / scan_bwd_smem_bytes differ from C at "
+                  f"W={w}, aligned {aligned}: {c_route}, {c_smem}")
+    print(f"[kernels] rglru_scan_bwd: scan_bwd_route and scan_bwd_smem_bytes "
+          f"equal to the C formulas at 10 widths, aligned or not; a tma "
+          f"block takes {scan.scan_bwd_smem_bytes(4096, True)} bytes "
+          f"({scan.SCAN_BWD_STAGES} stages of {scan.SCAN_BWD_COLS} channels "
+          f"x {scan.SCAN_BWD_ROWS} steps of a, g and h)")
+    # (B, T, W, label, route, one float off a 16-byte boundary)
+    for b, t, w, label, route, offset in (
+            (1, 4096, 4096, "recurrentgemma path", "tma", False),
+            (LM_BATCH, LM_PROMPT, 4096, "serve shape", "tma", False),
+            (2, 1001, 136, "ragged", "tma", False),
+            (2, 1, 4096, "T = 1", "tma", False),
+            (3, 40, 100, "T under a tile, W % 32 = 4", "tma", False),
+            (2, 130, 4096, "T = two tiles and 2", "tma", False),
+            (4, 300, 4, "W = 4, B = 4", "tma", False),
+            (2, 1001, 13, "W = 13", "direct", False),
+            (1, 4096, 4096, "recurrentgemma path, offset", "direct", True)):
         a = torch.rand((b, t, w), generator=gen, device=dev) * 0.3 + 0.699
         gx = torch.randn((b, t, w), generator=gen, device=dev) * 0.1
         h0 = torch.randn((b, w), generator=gen, device=dev)
         g = torch.randn((b, t, w), generator=gen, device=dev)
         h = scan.rglru_scan(a, gx, h0)
+        if offset:
+            a, h, g = (off_by_one_float(x) for x in (a, h, g))
+        before = dict(scan.rglru_scan_bwd.route_launches)
         got = scan.rglru_scan_bwd(a, h, h0, g)
         again = scan.rglru_scan_bwd(a, h, h0, g)
+        ran = {r: n - before[r]
+               for r, n in scan.rglru_scan_bwd.route_launches.items()}
         want = ref.rglru_scan_bwd_ref(a, h, h0, g)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(x, y) for x, y in zip(got, want))
         repeat = all(torch.equal(x, y) for x, y in zip(got, again))
         err = max(float((x - y).abs().max()) for x, y in zip(got, want))
         print(f"[kernels] rglru_scan_bwd {label} B={b} T={t} W={w}, h0 != 0: "
-              f"bitwise vs plain (on the card) {bitwise}, bitwise across two "
-              f"launches {repeat}, max |err| {err!r}")
+              f"route {route} (launches by route {ran}), bitwise vs plain "
+              f"(on the card) {bitwise}, bitwise across two launches "
+              f"{repeat}, max |err| {err!r}")
+        check(ran[route] == 2 and sum(ran.values()) == 2,
+              f"rglru_scan_bwd ({label}) did not take the {route} route")
         check(bitwise and repeat, "rglru_scan_bwd differs from its plain "
               "version or from its own second launch")
         if label == "recurrentgemma path":
@@ -5848,10 +5895,12 @@ def sdpa_fwd_ms(q, k, v, window: int) -> float:
         qt, kt, vt, attn_mask=mask), reps=10)
 
 
-def report_train(dev, launches, errors, per_step=None) -> list:
+def report_train(dev, launches, errors, per_step=None,
+                 scan_routes=None) -> list:
     """Times of both backward kernels at the training paths' shapes, and
     the forward's at SmolLM's; `per_step`, the backward's launches a
-    training step by route, from the train path's run."""
+    training step by route, from the train path's run; `scan_routes`,
+    the scan backward's launches by route on the main path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash
@@ -5918,16 +5967,31 @@ def report_train(dev, launches, errors, per_step=None) -> list:
     g = torch.randn((b, t, wd), generator=gen, device=dev)
     h0 = torch.zeros((b, wd), device=dev)
     da, dgx, dh0 = (torch.empty_like(x) for x in (a, a, h0))
+    route = scan.scan_bwd_route(wd, scan.aligned16(a, h, g, da, dgx))
     launch = raw_launch("rglru_scan_bwd", [a, h, h0, g, da, dgx, dh0, b, t,
                                            wd], scan._lib())
-    rs = {"ms": time_ms(launch), "warm_ms": warm_ms(launch),
+    # the direct route on the same operands: the kernel before the tma route
+    direct_out = [torch.empty_like(x) for x in (a, a, h0)]
+    direct = raw_launch("rglru_scan_bwd_on_route",
+                        [scan.SCAN_BWD_ROUTES.index("direct"), a, h, h0, g,
+                         *direct_out, b, t, wd], scan._lib())
+    turns = [time_ms(fn) for fn in (launch, direct, direct, launch)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip((da, dgx, dh0), direct_out)),
+          "rglru_scan_bwd's direct route differs from its tma route")
+    rs = {"ms": float(np.mean(turns[0::3])), "warm_ms": warm_ms(launch),
+          "direct_ms": float(np.mean(turns[1:3])),
+          "direct_warm_ms": warm_ms(direct), "turns_ms": turns,
           "wrapper_ms": time_ms(lambda: scan.rglru_scan_bwd(a, h, h0, g),
                                 host=True),
           "plain_ms": time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, h0, g),
                               reps=3, host=True),
-          "library_ms": None}
+          "library_ms": None, "kernel_route": route,
+          "smem_bytes": scan.scan_bwd_smem_bytes(wd, route == "tma")}
     rs["bound_ms"], rs["bound_by"] = bounds_scan_bwd(b, t, wd)
-    print(f"[report] rglru_scan_bwd B={b} T={t} W={wd}: {rs}")
+    print(f"[report] rglru_scan_bwd B={b} T={t} W={wd}: {rs} (turns: "
+          f"{route}, direct, direct, {route}; the direct route bitwise the "
+          f"{route} route)")
     fa, shape = rows["smollm path"]
     return [
         dict({"name": "flash_attention_bwd", "route": "cuda",
@@ -5943,8 +6007,9 @@ def report_train(dev, launches, errors, per_step=None) -> list:
         dict({"name": "rglru_scan_bwd", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "replaces": "none: the JAX package differentiates its "
-                          "associative scan (src/repro/models/rglru.py)",
+                          "associative scan (src/repro/models/rglru.py:91)",
               "launches": launches["rglru_scan_bwd"],
+              "route_launches": scan_routes,
               "max_abs_err": errors["rglru_scan_bwd"][0],
               "tolerance": "bitwise", "tol_ratio": 0.0,
               "shape": f"B={b} T={t} W={wd} f32"}, **rs),
@@ -6038,6 +6103,8 @@ def main() -> None:
         flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
         flash.flash_attention_bwd.route_launches = dict.fromkeys(
             flash.BWD_ROUTES, 0)
+        scan.rglru_scan_bwd.route_launches = dict.fromkeys(
+            scan.SCAN_BWD_ROUTES, 0)
         ops.bayes_predict = tallied
         try:
             out = path()
@@ -6168,6 +6235,11 @@ def main() -> None:
           f"wgmma route: {bwd_routes}")
     bwd_per_step = {"wgmma": (bwd_routes["wgmma"] - grad_attn["bfloat16"])
                     / tr["steps"]}
+    scan_routes = dict(scan.rglru_scan_bwd.route_launches)
+    print(f"[launches] train rglru_scan_bwd by route: {scan_routes}")
+    check(scan_routes == {"direct": 0, "tma": want_scan},
+          f"the train path's rglru_scan_bwd launches did not all take the "
+          f"tma route: {scan_routes}")
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}; upward_rank by route {rank_routes}")
     check(rank_routes == {"shared": launches["upward_rank"], "global": 0},
@@ -6197,7 +6269,7 @@ def main() -> None:
                           pieces["args"], fold, predict_q)
     report += report_replan(launches, errors, time_replan(dev, rpc))
     report += report_lm(dev, launches, errors)
-    report += report_train(dev, launches, errors, bwd_per_step)
+    report += report_train(dev, launches, errors, bwd_per_step, scan_routes)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the attention kernels
-// (flash_attention.cu, the forward; flash_attention_bwd.cu, its gradient):
-// mbarriers, TMA loads of swizzled 64-row boxes from 4-d tensor maps, the
-// shared-memory matrix descriptor, the wgmma products, and the walk's
-// tile kinds.  Everything lives in an anonymous namespace, so each library
-// that includes the header carries its own copy.
+// (flash_attention.cu, the forward; flash_attention_bwd.cu, its gradient)
+// and the scan's gradient (rglru_scan.cu): mbarriers, TMA loads of
+// swizzled 64-row boxes from 4-d tensor maps, the shared-memory matrix
+// descriptor, the wgmma products, and the walk's tile kinds; float32 3-d
+// maps with their TMA box loads and stores.  Everything lives in an
+// anonymous namespace, so each library that includes the header carries
+// its own copy.
 //
 // The tile layout: a 64-row tile of hd bfloat16 columns is hd / 64 boxes
 // of 64 rows x 64 columns (128 bytes a row) with the 128-byte swizzle,
@@ -116,6 +118,42 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 #pragma unroll
   for (int x = 0; x < D / kBoxCols; ++x)
     tma_box(dst + x * kBoxBytes, map, bar, x * kBoxCols, head, row, batch);
+}
+
+// the box of a 3-d map at (x, y, z) into dst (no swizzle: the box lands
+// row-major, its first dimension contiguous); out-of-range elements read
+// as zeros
+__device__ __forceinline__ void tma_box3(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+         "r"(z), "r"(bar)
+      : "memory");
+}
+
+// the box at (x, y, z) of a 3-d map from shared `src`, in the thread's
+// current bulk group; out-of-range elements are not written
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           uint32_t src, int x, int y,
+                                           int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+         "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 
 // `bytes` (a multiple of 16) from global `src` (16-byte aligned) into
@@ -366,6 +404,28 @@ int bf16_map(CUtensorMap* map, const void* ptr, int d, int h, int s,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A map over a contiguous (B, T, W) float32 tensor as the 3-d (W, T, B), in
+// boxes of `cols` channels by `rows` steps of one sequence, unswizzled;
+// elements past W or T, or before step 0, read as zeros (a store skips
+// them).  TMA wants W * 4 bytes and the base 16-byte aligned.
+int f32_map(CUtensorMap* map, const void* ptr, int width, int steps,
+            int batch, int cols, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)steps,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 4,
+                                 (cuuint64_t)steps * width * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

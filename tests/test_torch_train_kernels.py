@@ -204,6 +204,40 @@ def test_backward_shared_memory_fits_the_card():
     assert flash.bwd_smem_bytes(256, 0, torch.bfloat16) == 215168
 
 
+# (W, aligned, route): the tma route wants W * 4 bytes a multiple of 16 (W
+# a multiple of 4) and every (B, T, W) operand on a 16-byte boundary
+@pytest.mark.parametrize("w,aligned,want", [
+    (4, True, "tma"), (6, True, "direct"), (12, True, "tma"),
+    (13, True, "direct"), (4096, True, "tma"), (4096, False, "direct"),
+    (0, True, "direct")])
+def test_scan_bwd_route_by_width_and_alignment(w, aligned, want):
+    assert scan.scan_bwd_route(w, aligned) == want
+
+
+def test_scan_bwd_smem_bytes_fits_the_card():
+    """A tma block (a ring of a, g and h tiles and two staging buffers of
+    da and dgx) fits the H100's 232,448-byte opt-in, one block an SM, and
+    its size implies SCAN_BWD_STAGES tiles in the ring; the direct route
+    takes none.  The C side is held to these numbers on the card."""
+    smem = scan.scan_bwd_smem_bytes(4096, True)
+    box = scan.SCAN_BWD_COLS * scan.SCAN_BWD_ROWS * 4
+    assert box == 8192 and smem == 131328
+    assert (smem - 256) % box == 0
+    assert ((smem - 256) // box - 2 * scan.SCAN_BWD_OUT_BUFS) // 3 \
+        == scan.SCAN_BWD_STAGES == 4
+    assert smem + 1024 <= 233472 < 2 * (smem + 1024) and smem <= 232448
+    assert scan.scan_bwd_smem_bytes(13, True) == 0
+
+
+def test_scan_bwd_operand_alignment():
+    """`aligned16` reads the operands' addresses as the C entry point
+    does: a view one float in is off a 16-byte boundary."""
+    buf = torch.zeros(65)
+    assert scan.aligned16(buf[:64], buf[:64])
+    assert not scan.aligned16(buf[:64], buf[1:])
+    assert scan.scan_bwd_route(64, scan.aligned16(buf[1:])) == "direct"
+
+
 # (B, Skv, H, K, hd, SMs, splits): SmolLM's training shape (640 blocks of
 # 128 keys at hd 64) and RecurrentGemma's (64 blocks of 64 keys at hd 256)
 # do not and do split; the small MQA cases split to 4; GQA and MHA at
