@@ -289,7 +289,42 @@ Phases (each fails loudly; nothing is caught):
                step.  After every path's checks, one step under
                torch.profiler (busy share, the top kernels, the attention
                kernels' sums).
- 15. report  — per-kernel launches on the main path (phases 3-14, each
+ 15. moe     — the mixture of experts and the dense configs.  Mixtral-8x7B
+               at full width, 8 of its 32 layers (11.87 B parameters; the
+               whole model's 93 GB of bf16 do not fit the card), through
+               `repro_torch.launch.serve`: B 2, a prompt of 6,144 tokens
+               (past the 4,096 window: the kernel's band and the ring
+               cache both act), 16 generated tokens; then Yi-6B, GLM-4-9B
+               and StarCoder2-15B at full size, B 1, prompt 2,048, 8
+               tokens, weights made on the card from a seed and freed
+               before the next model.  Each: prefill seconds and prompt
+               tokens/s, the decode median, peak memory (at most 40 GB),
+               the prefill's model-flop utilisation from
+               `active_param_count`, and its `flash_attention` launches by
+               route (all `wgmma_heads`; Mixtral's decode at most 50 ms a
+               step).  Before the main paths, beside the other kernel
+               checks, `flash_attention` at each of these prefill shapes
+               (Mixtral's band at GQA group 4, the dense configs' causal
+               groups 8, 16 and 12) against `ref.attention_ref` at 5e-2
+               and at 1e-2/4e-3, the plain version one key too wide
+               outside the tighter limit at Mixtral's band.  One step's
+               gradients in bf16, kernel route against plain route:
+               Mixtral at one layer, B 1 x S 4096 (5e-2, the plain route
+               pinned to the kernel route's experts, the tokens whose own
+               experts differ counted; the router and every expert that
+               received tokens non-zero); Yi
+               at 4 layers, B 2 x S 4096 under `remat` "none", "dots" and
+               "full" (every leaf bitwise across the three but `embed`,
+               which sums with atomics, within 1e-6; each mode's peak,
+               "dots" at most "none" and "full" at most "dots").  After the
+               main path, float32 at full width: Mixtral at one layer, S
+               4,160, the card's prefill logits against the port's CPU run
+               (1e-4), its routed experts equal to the CPU's where no
+               top-k gap is under 1e-6 (such gaps printed), the choices
+               each expert drops, then at capacity factor 8.0 prefill of S
+               against prefill of S - 1 plus a decode step (2e-3); GLM-4-9B
+               at one layer, S 2,100, logits against the CPU run's.
+ 16. report  — per-kernel launches on the main path (phases 3-15, each
                path with the counts set to 0 just before it), errors, and
                times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -324,6 +359,12 @@ Phases (each fails loudly; nothing is caught):
                For the backward kernels also `forward_ms` and SDPA's
                backward as `library_ms` (causal with `enable_gqa` at the
                SmolLM shape, a band mask at the RecurrentGemma one).
+               `flash_attention`'s row also carries `moe_shapes`: the
+               kernel at Mixtral's prefill shape (B 2, S 6144, 32 heads
+               over 8, hd 128, window 4096) and the dense configs' (B 1,
+               S 2048, 32 over 4, 32 over 2, 48 over 4, causal), each
+               beside its bound, SDPA's forward on the same band, its
+               launches in the moe phase and its check's error.
                `tol_ratio` is the worst |got - want| / (atol + rtol *
                |want|) over all outputs: at most 1 is within the stated
                tolerance.
@@ -334,6 +375,7 @@ without a CUDA card or without the package beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2110,10 +2152,16 @@ def profiled_regions(steps) -> dict:
     synchronised after each step -> per labelled step what crossed and
     ran in it: host-to-device and device-to-host copies, bayes_predict,
     nig_fold and fused_cost kernels, index_copy ops or kernels, and all
-    device events.  An event belongs to the step whose span holds its
-    start.  One unlabelled device op ends the session, so that no
-    labelled step does (a run lost the copy up of the session's last
-    step)."""
+    device events.  A host event belongs to the step whose span holds its
+    start, a device event to the step whose span holds the host call that
+    launched it (the CUDA runtime event of its correlation id).  A device
+    event's own start is on the card's clock mapped onto the host's, and
+    runs after the moe phase found events placed milliseconds outside
+    their steps by it: the printed line gives the least and largest
+    device start less its launch, and how many events their own starts
+    would have put in another step.  One unlabelled device op ends the
+    session, so that no labelled step does (a run lost the copy up of the
+    session's last step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2134,19 +2182,36 @@ def profiled_regions(steps) -> dict:
     spans = {e.name[len("copies/"):]: (e.time_range.start, e.time_range.end)
              for e in events if e.device_type == DeviceType.CPU
              and e.name.startswith("copies/")}
+    # the runtime calls (cudaLaunchKernel, cudaMemcpyAsync, ...) share
+    # their correlation id with the device events they started
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+
+    def step_at(t):
+        return next((k for k, (a, b) in spans.items() if a <= t <= b), None)
+
     out = {label: dict.fromkeys(("h2d", "d2h", "bayes_predict", "nig_fold",
                                  "fused_cost", "index_copy",
                                  "device_events"), 0)
            for label in spans}
+    lags, unlinked, moved = [], 0, 0
     for e in events:
         if e.name.startswith("copies/"):
             continue
-        label = next((k for k, (a, b) in spans.items()
-                      if a <= e.time_range.start <= b), None)
+        on_card = e.device_type == DeviceType.CUDA
+        t = e.time_range.start
+        if on_card:
+            at = launched.get(e.id)
+            if at is None:
+                unlinked += 1
+            else:
+                lags.append(t - at)
+                moved += step_at(t) != step_at(at)
+                t = at
+        label = step_at(t)
         if label is None:
             continue
         c = out[label]
-        on_card = e.device_type == DeviceType.CUDA
         c["device_events"] += on_card
         c["h2d"] += on_card and e.name.startswith("Memcpy HtoD")
         c["d2h"] += on_card and e.name.startswith("Memcpy DtoH")
@@ -2154,6 +2219,11 @@ def profiled_regions(steps) -> dict:
         c["nig_fold"] += on_card and "nig_fold_kernel" in e.name
         c["fused_cost"] += on_card and "fused_cost_kernel" in e.name
         c["index_copy"] += "index_copy" in e.name
+    print(f"[copies] the profiler's clocks: {len(lags)} device events found "
+          f"their launch, {unlinked} did not (placed by their own start); "
+          f"device start less launch from {min(lags, default=0.0) / 1e3!r} "
+          f"to {max(lags, default=0.0) / 1e3!r} ms; {moved} events would "
+          f"have fallen in another step by their own start")
     return out
 
 
@@ -5157,9 +5227,12 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
-def lm_profile(dev) -> None:
+def lm_profile(dev, cfg=None, b: int = LM_BATCH, prompt: int = LM_PROMPT,
+               tag: str = "lm") -> None:
     """Where the serve path's device time goes: one prefill and
-    LM_PROFILE_STEPS decode steps under torch.profiler."""
+    LM_PROFILE_STEPS decode steps under torch.profiler (RecurrentGemma-9B
+    at the lm phase's shape unless `cfg`, `b` and `prompt` say
+    otherwise; lines tagged `tag`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -5168,11 +5241,11 @@ def lm_profile(dev) -> None:
     from repro_torch.models import init_params
     from repro_torch.train.train_step import (make_decode_step,
                                               make_prefill_step)
-    cfg = get_config(LM_ARCH)
+    cfg = cfg or get_config(LM_ARCH)
     params = init_params(LM_SEED, cfg, dev)
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    tok = torch.from_numpy(make_batch(DataConfig(cfg.vocab_size, LM_PROMPT,
-                                                 LM_BATCH, seed=LM_SEED),
+    tok = torch.from_numpy(make_batch(DataConfig(cfg.vocab_size, prompt,
+                                                 b, seed=LM_SEED),
                                       0)["tokens"]).to(dev)
     with torch.inference_mode():
         prefill(params, {"tokens": tok})          # warm
@@ -5194,8 +5267,9 @@ def lm_profile(dev) -> None:
                     and e.self_device_time_total > 0
                     and e.key != "Command Buffer Full"]
             busy = sum(e.self_device_time_total for e in evts) / 1e3
-            top = sorted(evts, key=lambda e: -e.self_device_time_total)[:6]
-            print(f"[lm] profile, {label}: {host * 1e3!r} ms host clock, "
+            top = sorted(evts, key=lambda e: -e.self_device_time_total)[:8]
+            print(f"[{tag}] profile {cfg.name}, {label}: {host * 1e3!r} ms "
+                  f"host clock, "
                   f"{busy!r} ms of kernels, busy share "
                   f"{busy / (host * 1e3)!r}, "
                   f"{sum(e.count for e in evts)} device entries; top (name, ms, "
@@ -5204,13 +5278,13 @@ def lm_profile(dev) -> None:
 
         logits, cache = window("prefill", lambda: prefill(params,
                                                           {"tokens": tok}))
-        cache = _grow(cache, LM_PROMPT, LM_PROFILE_STEPS)
+        cache = _grow(cache, prompt, LM_PROFILE_STEPS)
         nxt = torch.argmax(logits, -1)[:, None]
 
         def steps():
             c, t = cache, nxt
             for i in range(LM_PROFILE_STEPS):
-                lg, c = decode(params, t, c, LM_PROMPT + i)
+                lg, c = decode(params, t, c, prompt + i)
                 t = torch.argmax(lg, -1)[:, None]
             return t
         window(f"{LM_PROFILE_STEPS} decode steps", steps)
@@ -5606,10 +5680,13 @@ def route_grads(params, cfg, batch, plain: bool) -> tuple:
                                   for (p, _), g in zip(items, grads)}
 
 
-def grad_check(dev, label: str, cfg, b: int, s: int) -> None:
+def grad_check(dev, label: str, cfg, b: int, s: int,
+               around=contextlib.nullcontext) -> dict:
     """Loss and every gradient leaf of one step, kernel route against
     plain route on the card, at GRAD_TOL; every real-head and RG-LRU leaf
-    with a non-zero gradient, the pad heads' rows exactly zero."""
+    with a non-zero gradient, the pad heads' rows exactly zero -> the
+    kernel route's gradients by leaf path.  Each route's step runs inside
+    `around(plain)`, a context manager (the kernel route's first)."""
     import torch
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.models import init_params
@@ -5617,11 +5694,13 @@ def grad_check(dev, label: str, cfg, b: int, s: int) -> None:
     batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
         DataConfig(cfg.vocab_size, s, b, seed=TRAIN_SEED), 0).items()}
     t0 = time.perf_counter()
-    loss_k, gk = route_grads(params, cfg, batch, plain=False)
-    torch.cuda.synchronize()
+    with around(False):
+        loss_k, gk = route_grads(params, cfg, batch, plain=False)
+        torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    loss_p, gp = route_grads(params, cfg, batch, plain=True)
-    torch.cuda.synchronize()
+    with around(True):
+        loss_p, gp = route_grads(params, cfg, batch, plain=True)
+        torch.cuda.synchronize()
     tol = GRAD_TOL[cfg.dtype]
     worst, zero, pad_max = ("", 0.0), [], 0.0
     hp, h = cfg.padded_heads, cfg.num_heads
@@ -5653,6 +5732,7 @@ def grad_check(dev, label: str, cfg, b: int, s: int) -> None:
           f"plain route's by more than {tol}")
     check(not zero, f"{label}: a real-head or RG-LRU leaf has no gradient")
     check(pad_max == 0.0, f"{label}: a pad head's row has a gradient")
+    return gk
 
 
 def train_profile(dev) -> None:
@@ -5800,9 +5880,14 @@ def phase_train(dev) -> dict:
         grad_check(dev, LM_ARCH, replace(rg, num_layers=3, dtype=dt), 1,
                    LM_PROMPT)
         torch.cuda.empty_cache()
-    # the gradient checks' (attention, RG-LRU) layers, bf16 then f32 each
+    # the gradient checks' (attention, RG-LRU) layers, bf16 then f32 each,
+    # and the forward launches that the backward's recompute adds under
+    # the config's remat (every cut layer lies in a cycle)
+    again = {c.name: c.remat != "none" for c in (cfg, rg)}
     return {"steps": TRAIN_PROFILE_STEPS + TRAIN_STEPS + len(resumed),
             "grad_cfgs": ((2, 0), (2, 0), (1, 2), (1, 2)),
+            "grad_recompute": ((2 * again[cfg.name], 0),) * 2
+            + ((again[rg.name], 2 * again[rg.name]),) * 2,
             "grad_dtypes": ("bfloat16", "float32", "bfloat16", "float32")}
 
 
@@ -5888,7 +5973,7 @@ def sdpa_fwd_ms(q, k, v, window: int) -> float:
                       for x in (kt, vt))
             return time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), reps=10)
-    kt, vt = (x.transpose(1, 2).expand(b, h, s, hd).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(h // x.shape[2], 1)
               for x in (k, v))
     mask = ref.band_mask(s, s, True, window, q.device)
     return time_ms(lambda: F.scaled_dot_product_attention(
@@ -6016,6 +6101,454 @@ def report_train(dev, launches, errors, per_step=None,
     ]
 
 
+# ---------------------------------------------------------------------------
+# the mixture of experts and the dense configs
+# ---------------------------------------------------------------------------
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 8                   # of 32: 11.87 B parameters, 23.7 GB bf16
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 6144, 16    # past the 4,096 window
+DENSE_ARCHS = ("yi-6b", "glm4-9b", "starcoder2-15b")
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 1, 2048, 8
+MOE_SEED = 5
+MOE_CUT_S, GLM_CUT_S = 4160, 2100   # the float32 checks' lengths
+MOE_GRAD_S = 4096
+REMAT_ARCH, REMAT_LAYERS, REMAT_BATCH = "yi-6b", 4, 2
+PEAK_LIMIT_BYTES = 40e9          # PERF.md section 2
+DECODE_LIMIT_MS = 50.0
+TIE_GAP = 1e-6                   # top-k gaps under this are printed
+EMBED_RTOL = 1e-6                # the embedding's gradient sums with atomics
+
+
+def moe_attention_shapes() -> list:
+    """(arch, B, S, H, K, hd, window) of the moe phase's prefill
+    attention: Mixtral's band of 4,096 over 6,144 tokens (GQA group 4)
+    and the dense configs' causal GQA (groups 8, 16 and 12)."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch, b, s in ((MOE_ARCH, MOE_BATCH, MOE_PROMPT),) + tuple(
+            (a, DENSE_BATCH, DENSE_PROMPT) for a in DENSE_ARCHS):
+        cfg = get_config(arch)
+        w = cfg.window if "swa" in cfg.block_pattern else 0
+        out.append((arch, b, s, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim, w))
+    return out
+
+
+def attention_ref_by_kv_head(q, k, v, window: int):
+    """ref.attention_ref (causal) over one kv head's query group at a
+    time: the heads are independent, and Mixtral's whole prefill would
+    hold 9.7 GB of float32 scores several times over."""
+    import torch
+    from repro_torch.kernels import ref
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([ref.attention_ref(
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        causal=True, window=window) for j in range(k.shape[2])], dim=2)
+
+
+def moe_attention_checks(dev) -> dict:
+    """flash_attention at each prefill shape of the moe phase against its
+    plain version on the card, bf16 at both limits; at Mixtral's band the
+    plain version one key too wide must read outside the tighter one ->
+    {arch: (max |err|, tol_ratio at 1e-2/4e-3)}."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+    for arch, b, s, h, kh, hd, w in moe_attention_shapes():
+        q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev)
+        got = flash.flash_attention(q, k, v, causal=True, window=w)
+        want = attention_ref_by_kv_head(q, k, v, w)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16, "flash_attention output dtype")
+        route = flash.flash_route(q.dtype, h, kh)
+        for tol in (BF16_TOL, BF16_KERNEL_TOL):
+            err, ratio = tol_check(got, want, tol)
+            print(f"[kernels] flash_attention {arch} prefill B={b} S={s} "
+                  f"H={h} K={kh} hd={hd} window={w} causal=True bfloat16, "
+                  f"{route} route: vs plain (on the card) within "
+                  f"{tol['rtol']}/{tol['atol']} {ratio <= 1.0}, max |err| "
+                  f"{err!r}, |err| / (atol + rtol |want|) {ratio!r}")
+            check(ratio <= 1.0, f"flash_attention ({arch} prefill) outside "
+                  f"{tol} of its plain version")
+        out[arch] = (err, ratio)
+        if w:
+            wide = attention_ref_by_kv_head(q, k, v, w + 1)
+            ratios = [tol_check(wide, want, t)[1]
+                      for t in (BF16_TOL, BF16_KERNEL_TOL)]
+            print(f"[kernels] flash_attention {arch} prefill: the plain "
+                  f"version with window {w + 1} against window {w}, |err| / "
+                  f"(atol + rtol |want|) {ratios[0]!r} at 5e-2/5e-2, "
+                  f"{ratios[1]!r} at 1e-2/4e-3")
+            check(ratios[1] > 1.0, f"the bf16 limit does not see a band one "
+                  f"key too wide at {arch}'s window")
+            del wide
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_lines(dev, cfg, b: int, prompt: int, gen: int) -> dict:
+    """One model served through repro_torch.launch.serve from MOE_SEED,
+    its lines printed and its peak memory held to the limit -> the
+    run's numbers."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.serve import lotaru_next_token, serve
+    from repro_torch.models import param_count_exact
+    from repro_torch.perf.roofline import PEAK_FLOPS, model_flops
+    torch.empty(0, device=dev)          # a context for the memory stats
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(flash.flash_attention.route_launches)
+    t0 = time.perf_counter()
+    out = serve(cfg, b, prompt, gen, seed=MOE_SEED, device=dev)
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    routes = {r: n - before[r]
+              for r, n in flash.flash_attention.route_launches.items()}
+    mean, std = lotaru_next_token(out.decode_s, dev)
+    check(out.tokens.shape == (b, gen), f"{cfg.name}: serve's token shape")
+    check(bool(((out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all()),
+          f"{cfg.name}: serve returned a token outside the vocabulary")
+    dec = out.decode_s * 1e3
+    med = float(np.median(dec))
+    active = cfg.active_param_count()
+    mfu = model_flops(active, b * prompt, "serve") / out.prefill_s \
+        / PEAK_FLOPS
+    print(f"[moe] serve {cfg.name} on the card ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {param_count_exact(cfg)} parameters, "
+          f"{active} active a token, {cfg.dtype}, weights made on the card "
+          f"from seed {MOE_SEED}): B={b}, prompt {prompt}, {gen} generated "
+          f"tokens")
+    print(f"[moe] {cfg.name} prefill {out.prefill_s!r} s "
+          f"({b * prompt / out.prefill_s!r} prompt tokens/s, model-flop "
+          f"utilisation {mfu!r}: 2 N_active D / prefill / {PEAK_FLOPS:.4g} "
+          f"FLOP/s); decode median {med!r} ms/step (min "
+          f"{float(dec.min())!r}, max {float(dec.max())!r}, first "
+          f"{float(dec[0])!r}), {b * 1e3 / med!r} tokens/s; the serve call "
+          f"{total!r} s with making the weights; max_memory_allocated "
+          f"{peak} bytes (limit {PEAK_LIMIT_BYTES:.0f}); flash_attention by "
+          f"route {routes}")
+    print(f"[moe] {cfg.name} lotaru next-token prediction {mean * 1e3!r} ms "
+          f"+- {std * 1e3!r} ms")
+    attn_layers = sum(k in ("full", "swa", "local")
+                      for k in cfg.layer_kinds())
+    check(peak <= PEAK_LIMIT_BYTES, f"{cfg.name}: peak memory {peak} bytes "
+          f"over {PEAK_LIMIT_BYTES:.0f}")
+    check(routes["wgmma_heads"] == sum(routes.values()) == attn_layers,
+          f"{cfg.name}: the prefill did not launch flash_attention once per "
+          f"attention layer ({attn_layers}), all on wgmma_heads: {routes}")
+    return {"prefill_s": out.prefill_s, "decode_ms": med, "peak": peak,
+            "attn_layers": attn_layers, "launches": sum(routes.values())}
+
+
+@contextlib.contextmanager
+def routed(pin=None):
+    """moe.route recording each call's (probabilities, top-k experts) on
+    the host into the list it yields.  With `pin`, a list of top-k
+    experts from an earlier run, call i routes to pin[i] instead of its
+    own top-k, its weights gathered from its own probabilities (as topk's
+    values are), and records its own experts."""
+    from repro_torch.models import moe
+    route = moe.route
+    calls = []
+
+    def recording(p, c, x):
+        probs, top_p, top_i = route(p, c, x)
+        calls.append((probs.detach().cpu(), top_i.cpu()))
+        if pin is not None:
+            top_i = pin[len(calls) - 1].to(top_i.device)
+            top_p = probs.gather(-1, top_i)
+        return probs, top_p, top_i
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def expert_load(cfg, top_i):
+    """The choices each expert keeps and drops at the capacity of
+    sequences of top_i's length -> (kept (E,), dropped (E,)) int64."""
+    import torch
+    from repro_torch.models import moe
+    flat_i = top_i.reshape(top_i.shape[0], -1)
+    keep = moe.slots(top_i, cfg.num_experts) < moe.capacity(cfg,
+                                                             top_i.shape[1])
+    e = cfg.num_experts
+    return (torch.bincount(flat_i[keep], minlength=e),
+            torch.bincount(flat_i[~keep], minlength=e))
+
+
+def moe_grad_check(dev) -> dict:
+    """Mixtral at one layer, full width, bf16, B 1 x S MOE_GRAD_S, under
+    its config's remat ("dots"): one step's loss and gradients, kernel
+    route against plain route (grad_check) with the plain route's tokens
+    pinned to the kernel route's experts, so that the leaves differ by
+    the kernels alone; the tokens whose own experts differ between the
+    routes counted; the router's leaf and every expert that received
+    tokens with a non-zero gradient -> the attention launches it made."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    cfg = replace(get_config(MOE_ARCH), num_layers=1)
+    runs = []
+
+    @contextlib.contextmanager
+    def pinned(plain):
+        # the plain route's call i (the forward, then the backward's
+        # recompute under remat) routes as the kernel route's call i
+        with routed([t for _, t in runs[0]] if plain else None) as calls:
+            runs.append(calls)
+            yield
+    grads = grad_check(dev, MOE_ARCH, cfg, 1, MOE_GRAD_S, around=pinned)
+    top_k, top_p = runs[0][0][1], runs[1][0][1]
+    kept = expert_load(cfg, top_k)[0]
+    moved = int((top_k != top_p).any(-1).sum())
+    router = grads["cycles/b0/moe/router"]
+    fed = {}
+    for name in ("we_i", "we_g", "we_down"):
+        g = grads[f"cycles/b0/moe/{name}"][0]            # (E, ., .)
+        fed[name] = (g.float().abs().amax(dim=(1, 2)) > 0).cpu()
+    print(f"[moe] gradients {MOE_ARCH} (remat {cfg.remat!r}): choices "
+          f"kept per expert {kept.tolist()}; router max |grad| "
+          f"{float(router.abs().max())!r}; experts with a non-zero gradient "
+          f"{ {k: v.tolist() for k, v in fed.items()} }")
+    print(f"[moe] gradients {MOE_ARCH}: the plain route pinned to the "
+          f"kernel route's experts ({len(runs[0])} router calls a route); "
+          f"tokens whose own top-{cfg.top_k} experts differ between the "
+          f"routes {moved} of {top_k.shape[1]}")
+    check(float(router.abs().max()) > 0, "the router's gradient is zero")
+    check(all(bool(v[kept > 0].all()) for v in fed.values()),
+          "an expert that received tokens has a zero gradient")
+    return {"fwd": 2 if cfg.remat != "none" else 1, "bwd": 1}
+
+
+def remat_check(dev) -> dict:
+    """Yi-6B at REMAT_LAYERS layers, full width, bf16, B REMAT_BATCH x
+    S MOE_GRAD_S: one step's gradients under remat none, dots and full on
+    the kernel route, every leaf bitwise across the three but `embed`,
+    each mode's peak memory -> the forward and backward attention launches
+    it made."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import REMAT
+    cfg = replace(get_config(REMAT_ARCH), num_layers=REMAT_LAYERS)
+    params = init_params(TRAIN_SEED, cfg, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        DataConfig(cfg.vocab_size, MOE_GRAD_S, REMAT_BATCH, seed=TRAIN_SEED),
+        0).items()}
+    ref, peaks, secs, diffs = None, {}, {}, {}
+    for mode in REMAT:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, grads = route_grads(params, replace(cfg, remat=mode), batch,
+                                  plain=False)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+        peaks[mode] = torch.cuda.max_memory_allocated(dev)
+        grads = {k: g.cpu() for k, g in grads.items()}
+        if ref is None:
+            ref = (loss, grads)
+            continue
+        differ = [k for k, g in grads.items()
+                  if k != "embed" and not torch.equal(g, ref[1][k])]
+        want = ref[1]["embed"].float()
+        emb = float((grads["embed"].float() - want).norm() / want.norm())
+        diffs[mode] = (loss == ref[0], differ, emb)
+    print(f"[moe] remat {REMAT_ARCH} ({REMAT_LAYERS} layers, d_model "
+          f"{cfg.d_model}, bf16) B={REMAT_BATCH} S={MOE_GRAD_S}, one step on "
+          f"the kernel route: max_memory_allocated {peaks} bytes; seconds "
+          f"{secs}; against none (loss equal, leaves that differ but embed, "
+          f"embed ||diff|| / ||none||): {diffs}")
+    for mode, (same_loss, differ, emb) in diffs.items():
+        check(same_loss and not differ and emb <= EMBED_RTOL,
+              f"remat {mode}: the loss or a gradient leaf differs from "
+              f"remat none's ({differ}, embed {emb!r})")
+    check(peaks["dots"] <= peaks["none"] and peaks["full"] <= peaks["dots"],
+          f"remat's peaks are not ordered none >= dots >= full: {peaks}")
+    # each mode runs the forward once; dots and full run it again in the
+    # backward, the backward kernel once a layer in each
+    return {"fwd": REMAT_LAYERS * 5, "bwd": REMAT_LAYERS * 3}
+
+
+def phase_moe(dev) -> dict:
+    """The moe slice's main path: Mixtral-8x7B at 8 layers and the three
+    dense configs at full size through serve, then the bf16 gradient
+    checks -> the flash_attention forward and backward launches the path
+    should have made, and each served model's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    t0 = time.perf_counter()
+    served = {MOE_ARCH: serve_lines(
+        dev, replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS),
+        MOE_BATCH, MOE_PROMPT, MOE_GEN)}
+    check(served[MOE_ARCH]["decode_ms"] <= DECODE_LIMIT_MS,
+          f"{MOE_ARCH}: decode median {served[MOE_ARCH]['decode_ms']!r} ms "
+          f"over {DECODE_LIMIT_MS}")
+    for arch in DENSE_ARCHS:
+        served[arch] = serve_lines(dev, get_config(arch), DENSE_BATCH,
+                                   DENSE_PROMPT, DENSE_GEN)
+    t_serve = time.perf_counter() - t0
+    gc = moe_grad_check(dev)
+    rm = remat_check(dev)
+    torch.cuda.empty_cache()        # 34 GB stay cached after the checks
+    print(f"[moe] the phase's main path took {time.perf_counter() - t0!r} s "
+          f"(serving {t_serve!r} s)")
+    return {"served": served,
+            "fwd": sum(v["attn_layers"] for v in served.values())
+            + gc["fwd"] + rm["fwd"], "bwd": gc["bwd"] + rm["bwd"]}
+
+
+def moe_cut_checks(dev) -> None:
+    """Float32 at full width, depth cut to one layer: Mixtral's prefill
+    logits on the card against the port's CPU run on the same weights,
+    its routing against the CPU's, then at capacity factor 8.0 prefill of
+    S against prefill of S - 1 plus one decode step; GLM-4-9B's logits
+    against the CPU run's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import decode_step, forward, init_params, moe
+    t_phase = time.perf_counter()
+    for arch, s in ((MOE_ARCH, MOE_CUT_S), ("glm4-9b", GLM_CUT_S)):
+        cfg = replace(get_config(arch), num_layers=1, dtype="float32")
+        t0 = time.perf_counter()
+        p_dev = init_params(MOE_SEED, cfg, dev)
+        p_cpu = tree_to(p_dev, "cpu")
+        tok = torch.from_numpy(make_batch(DataConfig(
+            cfg.vocab_size, s, 1, seed=MOE_SEED), 0)["tokens"])
+        t_make = time.perf_counter() - t0
+        with routed() as calls, torch.inference_mode():
+            t_cpu = time.perf_counter()
+            want, _ = forward(p_cpu, cfg, {"tokens": tok})
+            t_cpu = time.perf_counter() - t_cpu
+            got, _ = forward(p_dev, cfg, {"tokens": tok.to(dev)})
+            torch.cuda.synchronize()
+        err, ratio = tol_check(got.cpu(), want, LOGIT_TOL)
+        print(f"[moe] float32 {arch} at full width, 1 layer, S={s}, weights "
+              f"made on the card from seed {MOE_SEED} and copied to the host "
+              f"({t_make:.1f} s): prefill logits, card vs the CPU run, max "
+              f"|err| {err!r}, |err| / (atol + rtol |want|) {ratio!r} "
+              f"(tolerance {LOGIT_TOL['rtol']}/{LOGIT_TOL['atol']}), max "
+              f"|logit| {float(want.abs().max())!r}, the CPU forward "
+              f"{t_cpu:.1f} s")
+        check(ratio <= 1.0, f"{arch}: the card's prefill logits differ from "
+              f"the CPU run's")
+        del want
+        if not cfg.is_moe:
+            del p_dev, p_cpu, got
+            continue
+        (probs, ti_cpu), (_, ti_dev) = calls
+        k = cfg.top_k
+        top = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
+        gaps = top[..., :-1] - top[..., 1:]          # (B, S, k): 1-2, 2-3
+        near = (gaps < TIE_GAP).any(-1)               # (B, S)
+        same = (ti_dev == ti_cpu).all(-1)             # (B, S)
+        kept, dropped = expert_load(cfg, ti_dev)
+        print(f"[moe] {arch} routing at capacity {moe.capacity(cfg, s)} "
+              f"(factor {cfg.capacity_factor}): choices kept per expert "
+              f"{kept.tolist()}, dropped per expert {dropped.tolist()}; "
+              f"smallest top-1/top-2 gap {float(gaps[..., 0].min())!r}, "
+              f"top-2/top-3 gap {float(gaps[..., 1].min())!r}; tokens with "
+              f"a gap under {TIE_GAP}: {int(near.sum())} (their gaps "
+              f"{gaps[near].tolist()}); the card's top-{k} experts equal "
+              f"the CPU's at {int(same.sum())} of {same.numel()} tokens")
+        check(bool((same | near).all()), f"{arch}: the card routes a token "
+              f"differently from the CPU where no top-k gap is under "
+              f"{TIE_GAP}")
+        cfg8 = replace(cfg, capacity_factor=8.0)
+        tok_dev = tok.to(dev)
+        with torch.inference_mode():
+            full, _ = forward(p_dev, cfg8, {"tokens": tok_dev})
+            _, _, cache = forward(p_dev, cfg8, {"tokens": tok_dev[:, :-1]},
+                                  mode="prefill")
+            step, _ = decode_step(p_dev, cfg8, tok_dev[:, -1:], cache, s - 1)
+            err, ratio = tol_check(step[:, 0], full[:, -1], DECODE_TOL)
+        print(f"[moe] {arch} at capacity factor 8.0 (no choice dropped): "
+              f"prefill S={s} vs prefill S-1 + one decode step (ring of "
+              f"{cfg.window} slots): max |err| {err!r}, |err| / (atol + rtol "
+              f"|want|) {ratio!r} (tolerance {DECODE_TOL['rtol']}/"
+              f"{DECODE_TOL['atol']})")
+        check(ratio <= 1.0, f"{arch}: decode after prefill differs from the "
+              f"prefill")
+        del p_dev, p_cpu, got, full, cache, step
+        torch.cuda.empty_cache()
+    print(f"[moe] the float32 checks took {time.perf_counter() - t_phase!r} "
+          f"s")
+
+
+def moe_profile(dev) -> None:
+    """Where Mixtral's serve time goes: its prefill and decode steps at the
+    moe phase's shape under torch.profiler."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    lm_profile(dev, replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS),
+               MOE_BATCH, MOE_PROMPT, "moe")
+    torch.cuda.empty_cache()
+
+
+def report_moe(dev, served, errs) -> list:
+    """flash_attention at each prefill shape of the moe phase: the kernel
+    with the L2 flushed, its bound, SDPA's forward on the same band, its
+    launches at that shape in the moe phase and its check against the
+    plain version (`errs`, moe_attention_checks')."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device=dev).manual_seed(37)
+    rows = []
+    for arch, b, s, h, kh, hd, w in moe_attention_shapes():
+        q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev)
+        o = torch.empty_like(q)
+        launch = raw_launch("flash_attention",
+                            [q, k, v, o, flash._DTYPES[torch.bfloat16], b, s,
+                             s, h, kh, hd, 1, w, None], flash._lib())
+        row = {"shape": f"{arch} prefill B={b} S={s} H={h} K={kh} hd={hd} "
+                        f"window={w} bf16",
+               "route": flash.flash_route(q.dtype, h, kh),
+               "ms": time_ms(launch, reps=10),
+               "launches": served[arch]["launches"],
+               "max_abs_err": errs[arch][0],
+               "tolerance": "rtol 1e-2 atol 4e-3 (bfloat16; also within "
+                            "5e-2/5e-2)",
+               "tol_ratio": errs[arch][1],
+               "library_ms": sdpa_fwd_ms(q, k, v, w)}
+        row["bound_ms"], row["bound_by"] = bounds_flash(b, s, h, kh, hd, w, 2)
+        row["tflops"] = flops_flash(b, s, h, hd, w) / (row["ms"] * 1e-3) \
+            / 1e12
+        print(f"[report] flash_attention {row['shape']}: {row}")
+        rows.append(row)
+        del q, k, v, o, launch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_only(dev) -> None:
+    """`--only moe`: the moe attention checks, the moe phase, its
+    launches, its float32 checks and its attention report."""
+    from repro_torch.kernels import flash_attention as flash
+    errs = moe_attention_checks(dev)
+    for fn in (flash.flash_attention, flash.flash_attention_bwd):
+        fn.launches = 0
+    mo = phase_moe(dev)
+    print(f"[launches] moe: flash_attention {flash.flash_attention.launches}"
+          f" (want {mo['fwd']}), flash_attention_bwd "
+          f"{flash.flash_attention_bwd.launches} (want {mo['bwd']})")
+    check(flash.flash_attention.launches == mo["fwd"]
+          and flash.flash_attention_bwd.launches == mo["bwd"],
+          "the moe path's attention launches differ from its layers'")
+    moe_cut_checks(dev)
+    moe_profile(dev)
+    report_moe(dev, mo["served"], errs)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port is not beside this script ({SRC}/repro_torch)")
@@ -6052,7 +6585,8 @@ def main() -> None:
                    "train-profile": lambda: train_profile(dev),
                    "report-train": lambda: report_train(
                        dev, {"flash_attention_bwd": 0, "rglru_scan_bwd": 0},
-                       errs)}[name]()
+                       errs),
+                   "moe": lambda: moe_only(dev)}[name]()
             if name == "train-kernels":
                 errs.update(out)
         print(f"[chip_smoke] only {ONLY}: "
@@ -6061,6 +6595,7 @@ def main() -> None:
     fleet = pad_ragged(*fleet_buffers(np.random.default_rng(7), N_FLEET))
     errors = phase_kernels(dev, fleet)
     errors.update(phase_lm_kernels(dev))
+    moe_errs = moe_attention_checks(dev)
     errors.update(phase_train_kernels(dev))
 
     counted = (("bayes_fit", kernels.bayes_fit),
@@ -6220,11 +6755,16 @@ def main() -> None:
     layers = get_config(TRAIN_ARCH).num_layers
     want_attn = layers * tr["steps"] + sum(a for a, _ in tr["grad_cfgs"])
     want_scan = sum(r for _, r in tr["grad_cfgs"])
-    check(got["flash_attention"] == got["flash_attention_bwd"] == want_attn
-          and got["rglru_scan"] == got["rglru_scan_bwd"] == want_scan,
+    again_attn = sum(a for a, _ in tr["grad_recompute"])
+    again_scan = sum(r for _, r in tr["grad_recompute"])
+    check(got["flash_attention"] == want_attn + again_attn
+          and got["flash_attention_bwd"] == want_attn
+          and got["rglru_scan"] == want_scan + again_scan
+          and got["rglru_scan_bwd"] == want_scan,
           f"the train path did not launch each forward and backward kernel "
           f"once per attention ({want_attn}) or RG-LRU ({want_scan}) layer "
-          f"a step")
+          f"a step, each forward once more where remat recomputes it "
+          f"({again_attn}, {again_scan})")
     grad_attn = {dt: sum(a for (a, _), d in zip(tr["grad_cfgs"],
                                                 tr["grad_dtypes"]) if d == dt)
                  for dt in ("bfloat16", "float32")}
@@ -6240,6 +6780,21 @@ def main() -> None:
     check(scan_routes == {"direct": 0, "tma": want_scan},
           f"the train path's rglru_scan_bwd launches did not all take the "
           f"tma route: {scan_routes}")
+    mo, got = drive(lambda: phase_moe(dev), "moe")
+    print(f"[launches] moe: {got}; flash_attention by route "
+          f"{flash.flash_attention.route_launches}; flash_attention_bwd by "
+          f"route {flash.flash_attention_bwd.route_launches}")
+    check(got["flash_attention"] == mo["fwd"]
+          and got["flash_attention_bwd"] == mo["bwd"]
+          and all(n == 0 for k, n in got.items()
+                  if k not in ("flash_attention", "flash_attention_bwd")),
+          f"the moe path did not launch the attention forward ({mo['fwd']}) "
+          f"and backward ({mo['bwd']}) once per attention layer a pass, or "
+          f"launched a kernel off its path")
+    check(flash.flash_attention.route_launches["wgmma_heads"] == mo["fwd"]
+          and flash.flash_attention_bwd.route_launches["wgmma"] == mo["bwd"],
+          "the moe path's attention launches did not all take the wgmma "
+          "routes")
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}; upward_rank by route {rank_routes}")
     check(rank_routes == {"shared": launches["upward_rank"], "global": 0},
@@ -6263,12 +6818,16 @@ def main() -> None:
     errors.update({k: rpc[k] for k in ("upward_rank", "eft_sweep_many")})
     phase_refresh_checks(dev, fleet_out, ingest, rf)
     lm_cut_checks(dev)
+    moe_cut_checks(dev)
     lm_profile(dev)
+    moe_profile(dev)
     train_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
                           pieces["args"], fold, predict_q)
     report += report_replan(launches, errors, time_replan(dev, rpc))
     report += report_lm(dev, launches, errors)
+    next(r for r in report if r["name"] == "flash_attention")[
+        "moe_shapes"] = report_moe(dev, mo["served"], moe_errs)
     report += report_train(dev, launches, errors, bwd_per_step, scan_routes)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6281,8 +6840,8 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-# `--only train-kernels,train,report-train` runs the build and those phases
-# alone
+# `--only train-kernels,train,report-train` (or `--only moe`) runs the
+# build and those phases alone
 ONLY = (sys.argv[sys.argv.index("--only") + 1].split(",")
         if "--only" in sys.argv else [])
 

@@ -1,17 +1,25 @@
 """Architecture registry of the port: `get_config(arch)` and
 `get_reduced_config(arch)` for the architectures the port runs
-(RecurrentGemma-9B serves and trains, SmolLM-360M trains).  Any other architecture of the JAX package raises, saying that
-it is not yet ported."""
+(RecurrentGemma-9B, Yi-6B, GLM-4-9B, StarCoder2-15B and Mixtral-8x7B
+serve and train; SmolLM-360M trains).  Any other architecture of the
+JAX package raises, saying that it is not yet ported."""
 from __future__ import annotations
 
-from repro_torch.configs import recurrentgemma_9b, smollm_360m
+from repro_torch.configs import (
+    glm4_9b, mixtral_8x7b, recurrentgemma_9b, smollm_360m, starcoder2_15b,
+    yi_6b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     ATTN_FULL, ATTN_LOCAL, ATTN_MLA, ATTN_SWA, BLK_MLSTM, BLK_RGLRU,
     BLK_SLSTM, ModelConfig, replace,
 )
 
 _MODULES = {"recurrentgemma-9b": recurrentgemma_9b,
-            "smollm-360m": smollm_360m}
+            "smollm-360m": smollm_360m,
+            "yi-6b": yi_6b,
+            "glm4-9b": glm4_9b,
+            "starcoder2-15b": starcoder2_15b,
+            "mixtral-8x7b": mixtral_8x7b}
 
 ARCHS = tuple(_MODULES)
 

@@ -183,6 +183,19 @@ class ModelConfig:
             n += dense_layers * mult * d * (self.dense_d_ff or self.d_ff)
         return n
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top_k + shared)."""
+        if not self.is_moe:
+            return self.param_count()
+        mult = 3 if self.ffn_kind == "swiglu" else 2
+        kinds = self.layer_kinds()
+        moe_layers = sum(1 for i, k in enumerate(kinds)
+                         if k in ATTENTION_KINDS and i >= self.first_dense_layers)
+        total = self.param_count()
+        all_experts = moe_layers * (self.num_experts + self.num_shared_experts) * mult * self.d_model * self.moe_d_ff
+        active = moe_layers * (self.top_k + self.num_shared_experts) * mult * self.d_model * self.moe_d_ff
+        return total - all_experts + active
+
 
 def replace(cfg: ModelConfig, **kw) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)

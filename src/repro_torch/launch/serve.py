@@ -3,9 +3,14 @@ closed by Lotaru's prediction of the next token's latency (a Bayesian
 linear regression over the measured decode steps), the counterpart of the
 JAX package's `launch/serve.py`.
 
-On a card, prefill runs the hand-written CUDA `flash_attention` in every
-local-attention layer and `rglru_scan` in every RG-LRU layer; decode runs
-plain tensor code.  Usage:
+Any architecture of `repro_torch.configs.ARCHS`: RecurrentGemma-9B,
+Yi-6B, GLM-4-9B, StarCoder2-15B, Mixtral-8x7B (whose 93 GB of bf16
+weights do not fit one card whole: cut its depth with
+`configs.base.replace(cfg, num_layers=...)` and call `serve`) and
+SmolLM-360M.  On a card, prefill runs the hand-written CUDA
+`flash_attention` in every attention layer and `rglru_scan` in every
+RG-LRU layer; the MoE's routing and expert products and decode run plain
+tensor code.  Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
       [--reduced] [--batch 2 --prompt-len 4096 --gen 16] [--device cpu]

@@ -10,9 +10,15 @@ Lotaru on the training side:
   3. checkpoints are atomic and resumable (automatic resume on restart),
      so a node failure costs at most one interval.
 
-On a card every attention layer runs the hand-written `flash_attention`
-forward and backward kernels and every RG-LRU layer `rglru_scan`'s; on the
-CPU (`--device cpu`) their plain versions.  Usage:
+Any architecture of `repro_torch.configs.ARCHS` (SmolLM-360M at full
+size on one card; the larger ones need their depth cut, which is the
+caller's `configs.base.replace`, as the reference leaves it).  As the
+reference's launcher, this one trains with `remat="none"` and one
+microbatch whatever the config says; `cfg.remat` acts through
+`make_train_step` and `models.loss_fn` called directly.  On a card every
+attention layer runs the hand-written `flash_attention` forward and
+backward kernels and every RG-LRU layer `rglru_scan`'s; on the CPU
+(`--device cpu`) their plain versions.  Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       [--reduced --device cpu] --steps 100 --batch 4 --seq 128 \\

@@ -1,28 +1,38 @@
 """Model assembly: block dispatch, the layer loop, train/prefill forward,
-the loss and decode, the counterpart of the JAX package's `models/transformer.py` for
-the block kinds the port runs (full and local attention, RG-LRU).
+the loss and decode, the counterpart of the JAX package's
+`models/transformer.py` for the block kinds the port runs (full, sliding
+window and local attention, RG-LRU; a dense FFN or a mixture of experts).
 
-Layer plan, as in the reference: `n_cycles` copies of `block_pattern`
-whose parameters are stacked on a leading cycle axis, then a tail
-remainder (RecurrentGemma's 38 = 12 * (r, r, l) + (r, r)); the
-reference's dense prefix layers (DeepSeek's) are not ported.  The
+Layer plan, as in the reference: `first_dense_layers` prefix blocks with
+a dense FFN (DeepSeek's dense layer 0), then `n_cycles` copies of
+`block_pattern` whose parameters are stacked on a leading cycle axis,
+then a tail remainder (RecurrentGemma's 38 = 12 * (r, r, l) + (r, r));
+the cycles and the tail take the MoE when the config has experts.  The
 reference scans over the stacked cycles; here a Python loop indexes them.
-Parameters are plain nested dicts of tensors with the reference's keys
-and shapes, so `repro_torch.convert` carries its weights across leaf for
-leaf.
+In training, `cfg.remat` wraps each cycle as the reference's
+`_remat_wrap` wraps its scan body: "full" keeps only the cycle's inputs,
+"dots" also the outputs of the products without a batch dimension (the
+reference's `dots_with_no_batch_dims_saveable`), and the backward
+recomputes the rest.  Parameters are plain nested dicts of tensors with
+the reference's keys and shapes, so `repro_torch.convert` carries its
+weights across leaf for leaf.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (
     ATTENTION_KINDS, ATTN_FULL, ATTN_LOCAL, ATTN_SWA, BLK_RGLRU, ModelConfig,
 )
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (
     cross_entropy, dense_init, embed_init, ffn_apply, ffn_init, pdtype,
@@ -37,11 +47,10 @@ def _check(cfg: ModelConfig) -> None:
     if other:
         raise NotImplementedError(f"block kinds {other} of {cfg.name} are "
                                   f"not yet ported to repro_torch")
-    if cfg.is_moe or cfg.first_dense_layers or cfg.cross_attn \
-            or cfg.mrope_sections or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: MoE, dense prefix layers, "
-                                  f"cross-attention, M-RoPE and frontends "
-                                  f"are not yet ported to repro_torch")
+    if cfg.cross_attn or cfg.mrope_sections or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: cross-attention, M-RoPE and "
+                                  f"frontends are not yet ported to "
+                                  f"repro_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +75,8 @@ def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
 # ---------------------------------------------------------------------------
 # single block
 # ---------------------------------------------------------------------------
-def block_init(gen, cfg: ModelConfig, kind: str, device="cpu") -> dict:
+def block_init(gen, cfg: ModelConfig, kind: str, use_moe: bool,
+               device="cpu") -> dict:
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, device)}
     if kind in (ATTN_FULL, ATTN_SWA, ATTN_LOCAL):
         p["attn"] = attn.attn_init(gen, cfg, device)
@@ -76,13 +86,20 @@ def block_init(gen, cfg: ModelConfig, kind: str, device="cpu") -> dict:
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     if _has_ffn(cfg, kind):
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
-        p["ffn"] = ffn_init(gen, cfg, cfg.d_ff, device)
+        if use_moe:
+            p["moe"] = moe_mod.moe_init(gen, cfg, device)
+        else:
+            d_ff = cfg.dense_d_ff if (cfg.is_moe and cfg.dense_d_ff) \
+                else cfg.d_ff
+            p["ffn"] = ffn_init(gen, cfg, d_ff, device)
     return p
 
 
 def block_apply_seq(p: dict, cfg: ModelConfig, kind: str, x, positions,
                     make_cache: bool):
-    """Full-sequence block.  Returns (x, cache)."""
+    """Full-sequence block.  Returns (x, cache, aux): aux the MoE's
+    auxiliary loss, a float32 zero without one."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in (ATTN_FULL, ATTN_SWA, ATTN_LOCAL):
         mix, c = attn.attn_apply_seq(p["attn"], cfg, kind, h, positions,
@@ -92,9 +109,14 @@ def block_apply_seq(p: dict, cfg: ModelConfig, kind: str, x, positions,
     else:
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     x = x + mix
-    if "ffn" in p:
+    if "moe" in p:
+        y, a = moe_mod.moe_apply(p["moe"], cfg,
+                                 rmsnorm(p["norm2"], x, cfg.norm_eps))
+        x = x + y
+        aux = aux + a
+    elif "ffn" in p:
         x = x + ffn_apply(p["ffn"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x, c or {}
+    return x, c or {}, aux
 
 
 def block_decode(p: dict, cfg: ModelConfig, kind: str, x, cache, pos: int):
@@ -106,7 +128,11 @@ def block_decode(p: dict, cfg: ModelConfig, kind: str, x, cache, pos: int):
     else:
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     x = x + mix
-    if "ffn" in p:
+    if "moe" in p:
+        y, _ = moe_mod.moe_apply(p["moe"], cfg,
+                                 rmsnorm(p["norm2"], x, cfg.norm_eps))
+        x = x + y
+    elif "ffn" in p:
         x = x + ffn_apply(p["ffn"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps))
     return x, c
 
@@ -138,7 +164,7 @@ def _stacked_cycles(gen, cfg: ModelConfig, pattern, n_cycles: int, device):
     cycle at a time into preallocated leaves, so that making them never
     holds more than one extra cycle."""
     def one():
-        return {f"b{i}": block_init(gen, cfg, kind, device)
+        return {f"b{i}": block_init(gen, cfg, kind, cfg.is_moe, device)
                 for i, kind in enumerate(pattern)}
 
     def alloc(leaf):
@@ -174,7 +200,7 @@ def init_params(seed: int, cfg: ModelConfig, device=DEFAULT_DEVICE) -> dict:
     meta = _is_meta(device)
     dev = torch.device("meta") if meta else resolve_device(device)
     gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
-    _, pattern, n_cycles, tail = layer_plan(cfg)
+    prefix, pattern, n_cycles, tail = layer_plan(cfg)
     dt = pdtype(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, dev),
@@ -183,10 +209,14 @@ def init_params(seed: int, cfg: ModelConfig, device=DEFAULT_DEVICE) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt,
                                     device=dev)
+    if prefix:
+        params["prefix"] = {str(i): block_init(gen, cfg, kind, False, dev)
+                            for i, kind in enumerate(prefix)}
     if n_cycles:
         params["cycles"] = _stacked_cycles(gen, cfg, pattern, n_cycles, dev)
     if tail:
-        params["tail"] = {str(i): block_init(gen, cfg, kind, dev)
+        params["tail"] = {str(i): block_init(gen, cfg, kind, cfg.is_moe,
+                                             dev)
                           for i, kind in enumerate(tail)}
     return params
 
@@ -229,45 +259,97 @@ def head(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
+# the outputs of products without a batch dimension (a 2-d @ 2-d, which a
+# 3-d @ 2-d matmul reaches): the reference's dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT = ("none", "dots", "full")
+
+
+def _remat_wrap(fn, remat: str):
+    """fn recomputed in the backward (`_remat_wrap` of the reference):
+    "full" saves nothing of it, "dots" the outputs of its products with no
+    batch dimension."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}: one of {REMAT}")
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _blocks_seq(blocks, kinds, cfg: ModelConfig, x, positions,
+                make_cache: bool, aux):
+    """The blocks `blocks[key]` of `kinds` ({key: kind}) in order over a
+    full sequence -> (x, {key: cache}, aux plus theirs)."""
+    caches = {}
+    for key, kind in kinds.items():
+        x, caches[key], a = block_apply_seq(blocks[key], cfg, kind, x,
+                                            positions, make_cache)
+        aux = aux + a
+    return x, caches, aux
+
+
 def trunk(params, cfg: ModelConfig, tokens: torch.Tensor,
-          make_cache: bool):
+          make_cache: bool, remat: str = "none"):
     """Embedding and every block over a full sequence: tokens (B, S) ->
-    (the last block's output (B, S, d), the per-layer caches)."""
+    (the last block's output (B, S, d), the per-layer caches, the summed
+    float32 auxiliary loss).  `remat` wraps each cycle (see
+    `_remat_wrap`); the caller sets it for training alone."""
     _check(cfg)
-    _, pattern, n_cycles, tail = layer_plan(cfg)
+    prefix, pattern, n_cycles, tail = layer_plan(cfg)
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache: Dict[str, Any] = {}
+    if prefix:
+        x, cache["prefix"], aux = _blocks_seq(
+            params["prefix"], {str(i): k for i, k in enumerate(prefix)}, cfg,
+            x, positions, make_cache, aux)
     if n_cycles:
+        kinds = {f"b{i}": k for i, k in enumerate(pattern)}
+
+        def cycle(xc, auxc, cyc):
+            return _blocks_seq(cyc, kinds, cfg, xc, positions, make_cache,
+                               auxc)
+        cycle = _remat_wrap(cycle, remat)
         per_cycle = []
         for c in range(n_cycles):
-            cyc = _cycle(params["cycles"], c)
-            caches = {}
-            for i, kind in enumerate(pattern):
-                x, caches[f"b{i}"] = block_apply_seq(
-                    cyc[f"b{i}"], cfg, kind, x, positions, make_cache)
+            x, caches, aux = cycle(x, aux, _cycle(params["cycles"], c))
             per_cycle.append(caches)
         if make_cache:
             cache["cycles"] = _stack_blocks(per_cycle)
     if tail:
-        cache["tail"] = {}
-        for i, kind in enumerate(tail):
-            x, cache["tail"][str(i)] = block_apply_seq(
-                params["tail"][str(i)], cfg, kind, x, positions, make_cache)
-    return x, cache
+        x, cache["tail"], aux = _blocks_seq(
+            params["tail"], {str(i): k for i, k in enumerate(tail)}, cfg, x,
+            positions, make_cache, aux)
+    return x, cache, aux
 
 
 def forward(params, cfg: ModelConfig, batch, mode: str = "train"):
     """mode 'train' -> (logits, aux); 'prefill' -> (logits, aux, cache).
-    batch {"tokens": (B, S) int}; logits (B, S, V) float32; aux is the
-    reference's auxiliary loss, zero without MoE."""
+    batch {"tokens": (B, S) int}; logits (B, S, V) float32; aux the MoE's
+    float32 auxiliary loss summed over its layers (zero without one).
+    `cfg.remat` acts in training with grad enabled, as the reference's
+    acts under its gradient."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r}: 'train' or 'prefill'")
-    x, cache = trunk(params, cfg, batch["tokens"], mode == "prefill")
+    remat = cfg.remat if mode == "train" and torch.is_grad_enabled() \
+        else "none"
+    x, cache, aux = trunk(params, cfg, batch["tokens"], mode == "prefill",
+                          remat)
     logits = head(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     if mode == "prefill":
         return logits, aux, cache
     return logits, aux
@@ -285,30 +367,37 @@ def loss_fn(params, cfg: ModelConfig, batch):
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+def _blocks_decode(blocks, kinds, cfg: ModelConfig, x, cache, pos: int):
+    new = {}
+    for key, kind in kinds.items():
+        x, new[key] = block_decode(blocks[key], cfg, kind, x, cache[key], pos)
+    return x, new
+
+
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
                 pos: int):
     """tokens (B, 1) int; pos: the new token's position -> (logits
     (B, 1, V) float32, new cache).  The cache passed in is not modified."""
-    _, pattern, n_cycles, tail = layer_plan(cfg)
+    prefix, pattern, n_cycles, tail = layer_plan(cfg)
     x = _embed_tokens(params, cfg, tokens)
     new_cache: Dict[str, Any] = {}
+    if prefix:
+        x, new_cache["prefix"] = _blocks_decode(
+            params["prefix"], {str(i): k for i, k in enumerate(prefix)}, cfg,
+            x, cache["prefix"], pos)
     if n_cycles:
+        kinds = {f"b{i}": k for i, k in enumerate(pattern)}
         per_cycle = []
         for c in range(n_cycles):
-            cyc, cyc_cache = _cycle(params["cycles"], c), _cycle(
-                cache["cycles"], c)
-            caches = {}
-            for i, kind in enumerate(pattern):
-                x, caches[f"b{i}"] = block_decode(
-                    cyc[f"b{i}"], cfg, kind, x, cyc_cache[f"b{i}"], pos)
+            x, caches = _blocks_decode(_cycle(params["cycles"], c), kinds,
+                                       cfg, x, _cycle(cache["cycles"], c),
+                                       pos)
             per_cycle.append(caches)
         new_cache["cycles"] = _stack_blocks(per_cycle)
     if tail:
-        new_cache["tail"] = {}
-        for i, kind in enumerate(tail):
-            x, new_cache["tail"][str(i)] = block_decode(
-                params["tail"][str(i)], cfg, kind, x,
-                cache["tail"][str(i)], pos)
+        x, new_cache["tail"] = _blocks_decode(
+            params["tail"], {str(i): k for i, k in enumerate(tail)}, cfg, x,
+            cache["tail"], pos)
     return head(params, cfg, x), new_cache
 
 
@@ -338,8 +427,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       device=DEFAULT_DEVICE) -> dict:
     _check(cfg)
     dev = resolve_device(device)
-    _, pattern, n_cycles, tail = layer_plan(cfg)
+    prefix, pattern, n_cycles, tail = layer_plan(cfg)
     cache: Dict[str, Any] = {}
+    if prefix:
+        cache["prefix"] = {str(i): _block_cache_zeros(cfg, k, batch,
+                                                      cache_len, dev)
+                           for i, k in enumerate(prefix)}
     if n_cycles:
         cache["cycles"] = _stack_blocks(
             [{f"b{i}": _block_cache_zeros(cfg, k, batch, cache_len, dev)

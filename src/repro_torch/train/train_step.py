@@ -127,8 +127,8 @@ def make_prefill_step(cfg: ModelConfig):
     cache).  Only the last position goes through the head: the same logits
     as the reference's forward()[:, -1], without the (B, S, V) tensor."""
     def prefill_step(params, batch):
-        x, cache = transformer.trunk(params, cfg, batch["tokens"],
-                                     make_cache=True)
+        x, cache, _ = transformer.trunk(params, cfg, batch["tokens"],
+                                        make_cache=True)
         return transformer.head(params, cfg, x[:, -1]), cache
     return prefill_step
 

@@ -78,7 +78,8 @@ def _close(got, want, tol, what=""):
 # configs, data, layers
 # ---------------------------------------------------------------------------
 def test_configs_are_the_reference_configs():
-    assert tconfigs.ARCHS == ("recurrentgemma-9b", "smollm-360m")
+    assert tconfigs.ARCHS == ("recurrentgemma-9b", "smollm-360m", "yi-6b",
+                              "glm4-9b", "starcoder2-15b", "mixtral-8x7b")
     for arch in tconfigs.ARCHS:
         for name in ("get_config", "get_reduced_config"):
             t, j = getattr(tconfigs, name)(arch), getattr(jconfigs, name)(arch)
@@ -90,8 +91,11 @@ def test_configs_are_the_reference_configs():
             assert fields == dataclasses.asdict(j)
             assert t.layer_kinds() == j.layer_kinds()
             assert t.param_count() == j.param_count()
-    with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("mixtral-8x7b")
+            assert t.active_param_count() == j.active_param_count()
+    for arch in ("deepseek-v2-236b", "xlstm-125m", "musicgen-large",
+                 "qwen2-vl-7b"):
+        with pytest.raises(KeyError, match="not yet ported"):
+            tconfigs.get_config(arch)
 
 
 @pytest.mark.parametrize("seed,step", [(0, 0), (3, 7)])
@@ -104,12 +108,13 @@ def test_make_batch_matches_reference(seed, step):
         assert np.array_equal(t[key], j[key])
 
 
-def test_param_count_exact_from_shapes_matches_reference():
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_param_count_exact_from_shapes_matches_reference(arch):
     """Both counts come from shapes alone (meta tensors; jax.eval_shape):
-    the full config's 8.6 B parameters are never allocated."""
-    cfg = tconfigs.get_config(ARCH)
+    the full configs' 0.36-46.7 B parameters are never allocated."""
+    cfg = tconfigs.get_config(arch)
     assert ttf.param_count_exact(cfg) == jtf.param_count_exact(
-        jconfigs.get_config(ARCH))
+        jconfigs.get_config(arch))
 
 
 def test_layers_match_reference():
@@ -322,11 +327,34 @@ def test_lm_params_from_jax_checks_the_layout(model):
     bad = dict(tree, embed=tree["embed"].astype(np.float64))
     with pytest.raises(TypeError, match="dtype"):
         lm_params_from_jax(bad, tcfg, "cpu")
+    # an MoE tree with a dense prefix layer and a shared expert: carried
+    # leaf for leaf, and a missing prefix or a wrong router refused
+    kw = dict(first_dense_layers=1, dense_d_ff=192, num_shared_experts=1,
+              dtype="float32")
+    mcfg = dataclasses.replace(tconfigs.get_reduced_config("mixtral-8x7b"),
+                               **kw)
+    tree = jax.tree.map(np.asarray, jtf.init_params(
+        jax.random.PRNGKey(2), dataclasses.replace(
+            jconfigs.get_reduced_config("mixtral-8x7b"), **kw)))
+    got = lm_params_from_jax(tree, mcfg, "cpu")
+    assert tuple(got["prefix"]["0"]["ffn"]["wi"].shape) == (128, 192)
+    moe = got["cycles"]["b0"]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert tuple(moe["we_i"].shape) == (1, 4, 128, 256)
+    assert tuple(moe["shared"]["wg"].shape) == (1, 128, 256)
+    with pytest.raises(ValueError, match="prefix"):
+        lm_params_from_jax({k: v for k, v in tree.items() if k != "prefix"},
+                           mcfg, "cpu")
+    cyc = dict(tree["cycles"]["b0"], moe=dict(
+        tree["cycles"]["b0"]["moe"],
+        router=tree["cycles"]["b0"]["moe"]["router"][..., :-1]))
+    with pytest.raises(ValueError, match="router"):
+        lm_params_from_jax(dict(tree, cycles={"b0": cyc}), mcfg, "cpu")
 
 
 def test_unported_block_kinds_raise():
     _, tcfg = _cfgs()
-    for kw in (dict(block_pattern=("mlstm",)), dict(num_experts=4, top_k=2),
-               dict(cross_attn=True)):
+    for kw in (dict(block_pattern=("mlstm",)), dict(block_pattern=("mla",)),
+               dict(mrope_sections=(4, 6, 6)), dict(cross_attn=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ttf.init_params(0, dataclasses.replace(tcfg, **kw), "cpu")

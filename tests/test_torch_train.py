@@ -1,12 +1,15 @@
 """The port's training path against the JAX package, on the CPU.
 
 The reduced configs in float32 (`smollm-360m` with `pad_heads_multiple=4`,
-3 heads padded to 4, and `recurrentgemma-9b` at S = 40 past its window of
-16); the JAX package makes the weights and `repro_torch.convert` carries
-them across; the same tokens, made with seeded numpy, go through both
-packages.  On the CPU the port's attention and scan take their plain
-versions, forward and backward (tests/test_torch_train_kernels.py holds
-those against the JAX gradients).
+3 heads padded to 4, `recurrentgemma-9b` at S = 40 past its window of
+16, `mixtral-8x7b` alone and with a dense prefix layer and a shared
+expert, `yi-6b`, `glm4-9b` and `starcoder2-15b`; the MoE's auxiliary loss
+is in the loss); the JAX package makes the weights and
+`repro_torch.convert` carries them across; the same tokens, made with
+seeded numpy, go through both packages.  On the CPU the port's
+attention and scan take their plain versions, forward and backward
+(tests/test_torch_train_kernels.py holds those against the JAX
+gradients).
 
 Tolerances (float32; the two packages sum in other orders): the loss
 rtol 1e-6; every gradient leaf rtol 1e-4 / atol 1e-5; master weights
@@ -53,8 +56,18 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 MASTER_TOL = dict(rtol=1e-5, atol=1e-5)
 OPT_TOL = dict(rtol=1e-6, atol=1e-7)
 # (arch, config changes, S)
+PREFIX_SHARED = dict(first_dense_layers=1, dense_d_ff=192,
+                     num_shared_experts=1)
 MODELS = (("smollm-360m", dict(pad_heads_multiple=4), 24),
-          ("recurrentgemma-9b", {}, 40))
+          ("recurrentgemma-9b", {}, 40),
+          ("mixtral-8x7b", {}, 24),
+          ("mixtral-8x7b", PREFIX_SHARED, 24),
+          ("yi-6b", {}, 24),
+          ("glm4-9b", {}, 24),
+          ("starcoder2-15b", {}, 24))
+MODEL_IDS = ("smollm-360m", "recurrentgemma-9b", "mixtral-8x7b",
+             "mixtral-8x7b-prefix-shared", "yi-6b", "glm4-9b",
+             "starcoder2-15b")
 
 
 def _cfgs(arch, **kw):
@@ -77,7 +90,7 @@ def _flat(tree):
     return {"/".join(p): leaf for p, leaf in topt.tree_items(tree)}
 
 
-@pytest.fixture(scope="module", params=MODELS, ids=[m[0] for m in MODELS])
+@pytest.fixture(scope="module", params=MODELS, ids=MODEL_IDS)
 def model(request):
     arch, kw, s = request.param
     jcfg, tcfg = _cfgs(arch, **kw)
