@@ -324,7 +324,29 @@ Phases (each fails loudly; nothing is caught):
                each expert drops, then at capacity factor 8.0 prefill of S
                against prefill of S - 1 plus a decode step (2e-3); GLM-4-9B
                at one layer, S 2,100, logits against the CPU run's.
- 16. report  — per-kernel launches on the main path (phases 3-15, each
+ 16. mla     — DeepSeek-V2-236B's multi-head latent attention, at its
+               published widths cut to 4 of 60 layers (the dense prefix
+               and 3 MoE layers of 160 experts at top 6; 13.30 B
+               parameters, 26.6 GB of bf16; five layers would not leave
+               room under the 40 GB peak): its weights made on the card
+               from a seed (their peak printed), then served through
+               `repro_torch.launch.serve`, B 2, prompt 4,096, 16 tokens:
+               prefill, the decode median (at most 50 ms), the serving
+               peak (at most 40 GB), every prefill attention launch (4)
+               on `wgmma_tiles` at head dims (192, 128); then the training
+               forward at one layer refused with NotImplementedError
+               before any launch (the backward kernel lacks the pair).
+               Before the main paths, `flash_attention` at MLA's pair
+               against `ref.attention_ref` (a kv head at a time) at the
+               prefill shape in bf16 at both limits and at B 1 x 1,024 in
+               f32 (2e-5), and the C entry point refusing a pair it lacks.
+               After the main path, float32 at full width, 2 layers, B 1
+               x 256: logits against the CPU run (1e-4), routing, and
+               decode (the absorbed form) after prefill (the expanded
+               form) within 2e-3 at capacity factor E / k = 26.7, where no
+               choice is dropped (counted; 8.0 dropped choices at S 256);
+               a profile of one prefill and 4 decode steps.
+ 17. report  — per-kernel launches on the main path (phases 3-16, each
                path with the counts set to 0 just before it), errors, and
                times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -364,7 +386,10 @@ Phases (each fails loudly; nothing is caught):
                over 8, hd 128, window 4096) and the dense configs' (B 1,
                S 2048, 32 over 4, 32 over 2, 48 over 4, causal), each
                beside its bound, SDPA's forward on the same band, its
-               launches in the moe phase and its check's error.
+               launches in the moe phase and its check's error; and
+               `mla_shape`: the kernel at MLA's prefill shape beside its
+               bound, the plain version's time, SDPA's causal forward (v
+               at its own width) and the backend SDPA chose.
                `tol_ratio` is the worst |got - want| / (atol + rtol *
                |want|) over all outputs: at most 1 is within the stated
                tolerance.
@@ -5001,16 +5026,17 @@ def tol_check(got, want, tol) -> tuple:
 def flash_mirrors() -> None:
     """The bf16 flash kernel's shape arithmetic in C against its Python
     mirrors, which the CPU tests hold against ref.band_mask: shared memory
-    and stages per head dim, and the kind of every tile of the walk."""
+    and stages per head-dim pair, and the kind of every tile of the walk."""
     from repro_torch.kernels import flash_attention as flash
     lib = flash._lib()
     smem = {}
-    for hd in flash.HEAD_DIMS:
+    for hd, hd_v in flash.FWD_PAIRS:
         st = flash.flash_stages(hd)
-        smem[hd] = flash.flash_smem_bytes(hd, st)
+        smem[(hd, hd_v)] = flash.flash_smem_bytes(hd, hd_v, st)
         check(lib.lotaru_flash_stages(hd) == st
-              and lib.lotaru_flash_smem_bytes(hd, st) == smem[hd],
-              f"flash_smem_bytes or flash_stages differ from C at hd={hd}")
+              and lib.lotaru_flash_smem_bytes(hd, hd_v, st)
+              == smem[(hd, hd_v)], f"flash_smem_bytes or flash_stages "
+              f"differ from C at {(hd, hd_v)}")
     n = 0
     for sq, skv in ((1, 1), (64, 64), (130, 130), (200, 200), (1000, 1000),
                     (130, 200), (200, 130)):
@@ -5030,12 +5056,15 @@ def flash_mirrors() -> None:
           f"flash_tile_kind on {n} tiles")
 
 
-def attention_inputs(gen, b, s, h, kh, hd, dtype, dev, v_mean=0.0):
-    """q, k, v from N(0, 1), v shifted by `v_mean` (1 makes every output
-    O(1), where a zero-mean v averages to about 0.03 over 2048 keys)."""
+def attention_inputs(gen, b, s, h, kh, hd, dtype, dev, v_mean=0.0,
+                     hd_v=None):
+    """q, k, v from N(0, 1), v of head dim `hd_v` (hd when not given)
+    shifted by `v_mean` (1 makes every output O(1), where a zero-mean v
+    averages to about 0.03 over 2048 keys)."""
     import torch
     q, k, v = (torch.randn(shape, generator=gen, device=dev)
-               for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+               for shape in ((b, s, h, hd), (b, s, kh, hd),
+                             (b, s, kh, hd_v or hd)))
     return q.to(dtype), k.to(dtype), (v + v_mean).to(dtype)
 
 
@@ -5290,22 +5319,24 @@ def lm_profile(dev, cfg=None, b: int = LM_BATCH, prompt: int = LM_PROMPT,
         window(f"{LM_PROFILE_STEPS} decode steps", steps)
 
 
-def flops_flash(b, s, h, hd, window) -> int:
-    """Operations of one causal attention over the visible band: 4 hd per
-    (query, key) pair (q.k and p.v, a multiply and an add each)."""
+def flops_flash(b, s, h, hd, window, hd_v=None) -> int:
+    """Operations of one causal attention over the visible band: 2 (hd +
+    hd_v) per (query, key) pair (q.k over hd and p.v over hd_v, a multiply
+    and an add each); hd_v defaults to hd."""
     i = np.arange(s)
     pairs = int(np.minimum(i + 1, window).sum() if window > 0
                 else (i + 1).sum())
-    return 4 * hd * pairs * b * h
+    return 2 * (hd + (hd_v or hd)) * pairs * b * h
 
 
-def bounds_flash(b, s, h, kh, hd, window, itemsize) -> tuple:
+def bounds_flash(b, s, h, kh, hd, window, itemsize, hd_v=None) -> tuple:
     """Least time for one attention: the operations of the visible band
     at the bfloat16 tensor-core rate, or q, k, v read and the output
     written once."""
-    t_ops = flops_flash(b, s, h, hd, window) / H100_BF16_FLOPS * 1e3
-    t_bytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * itemsize \
-        / H100_BYTES_PER_S * 1e3
+    hd_v = hd_v or hd
+    t_ops = flops_flash(b, s, h, hd, window, hd_v) / H100_BF16_FLOPS * 1e3
+    t_bytes = (b * s * h * (hd + hd_v) + b * s * kh * (hd + hd_v)) \
+        * itemsize / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
         else "bytes"
 
@@ -5333,7 +5364,7 @@ def report_lm(dev, launches, errors) -> list:
     q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev)
     o = torch.empty_like(q)
     launch = raw_launch("flash_attention", [q, k, v, o, 1, b, s, s, h, kh,
-                                            hd, 1, w, None], flash._lib())
+                                            hd, hd, 1, w, None], flash._lib())
     fa = {"ms": time_ms(launch, reps=10), "warm_ms": warm_ms(launch, reps=5,
                                                              inner=3),
           "wrapper_ms": time_ms(lambda: flash.flash_attention(
@@ -6188,11 +6219,23 @@ def moe_attention_checks(dev) -> dict:
     return out
 
 
-def serve_lines(dev, cfg, b: int, prompt: int, gen: int) -> dict:
-    """One model served through repro_torch.launch.serve from MOE_SEED,
-    its lines printed and its peak memory held to the limit -> the
-    run's numbers."""
+def attention_pair(cfg) -> tuple:
+    """The head dims (q and k, v) of cfg's prefill attention: MLA's
+    expanded form (nope + rope, v), else (hd, hd)."""
+    if "mla" in cfg.block_pattern:
+        return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return (cfg.head_dim, cfg.head_dim)
+
+
+def serve_lines(dev, cfg, b: int, prompt: int, gen: int,
+                tag: str = "moe") -> dict:
+    """One model served through repro_torch.launch.serve from MOE_SEED
+    (its weights made inside the call, so that the peak counts making
+    them), its lines printed and its peak memory held to the limit, every
+    prefill attention launch held to the route and head-dim pair of its
+    shape -> the run's numbers."""
     import torch
+    from repro_torch.configs.base import ATTENTION_KINDS
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.serve import lotaru_next_token, serve
     from repro_torch.models import param_count_exact
@@ -6201,12 +6244,15 @@ def serve_lines(dev, cfg, b: int, prompt: int, gen: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     before = dict(flash.flash_attention.route_launches)
+    before_pairs = dict(flash.flash_attention.pair_launches)
     t0 = time.perf_counter()
     out = serve(cfg, b, prompt, gen, seed=MOE_SEED, device=dev)
     total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     routes = {r: n - before[r]
               for r, n in flash.flash_attention.route_launches.items()}
+    pairs = {p: d for p, n in flash.flash_attention.pair_launches.items()
+             if (d := n - before_pairs[p])}
     mean, std = lotaru_next_token(out.decode_s, dev)
     check(out.tokens.shape == (b, gen), f"{cfg.name}: serve's token shape")
     check(bool(((out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all()),
@@ -6216,12 +6262,12 @@ def serve_lines(dev, cfg, b: int, prompt: int, gen: int) -> dict:
     active = cfg.active_param_count()
     mfu = model_flops(active, b * prompt, "serve") / out.prefill_s \
         / PEAK_FLOPS
-    print(f"[moe] serve {cfg.name} on the card ({cfg.num_layers} layers, "
+    print(f"[{tag}] serve {cfg.name} on the card ({cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, {param_count_exact(cfg)} parameters, "
           f"{active} active a token, {cfg.dtype}, weights made on the card "
           f"from seed {MOE_SEED}): B={b}, prompt {prompt}, {gen} generated "
           f"tokens")
-    print(f"[moe] {cfg.name} prefill {out.prefill_s!r} s "
+    print(f"[{tag}] {cfg.name} prefill {out.prefill_s!r} s "
           f"({b * prompt / out.prefill_s!r} prompt tokens/s, model-flop "
           f"utilisation {mfu!r}: 2 N_active D / prefill / {PEAK_FLOPS:.4g} "
           f"FLOP/s); decode median {med!r} ms/step (min "
@@ -6229,16 +6275,19 @@ def serve_lines(dev, cfg, b: int, prompt: int, gen: int) -> dict:
           f"{float(dec[0])!r}), {b * 1e3 / med!r} tokens/s; the serve call "
           f"{total!r} s with making the weights; max_memory_allocated "
           f"{peak} bytes (limit {PEAK_LIMIT_BYTES:.0f}); flash_attention by "
-          f"route {routes}")
-    print(f"[moe] {cfg.name} lotaru next-token prediction {mean * 1e3!r} ms "
-          f"+- {std * 1e3!r} ms")
-    attn_layers = sum(k in ("full", "swa", "local")
-                      for k in cfg.layer_kinds())
+          f"route {routes}, by head-dim pair {pairs}")
+    print(f"[{tag}] {cfg.name} lotaru next-token prediction {mean * 1e3!r} "
+          f"ms +- {std * 1e3!r} ms")
+    attn_layers = sum(k in ATTENTION_KINDS for k in cfg.layer_kinds())
+    route = flash.flash_route(torch.bfloat16, cfg.num_heads, cfg.num_kv_heads)
+    pair = attention_pair(cfg)
     check(peak <= PEAK_LIMIT_BYTES, f"{cfg.name}: peak memory {peak} bytes "
           f"over {PEAK_LIMIT_BYTES:.0f}")
-    check(routes["wgmma_heads"] == sum(routes.values()) == attn_layers,
+    check(routes[route] == sum(routes.values()) == attn_layers
+          and pairs == {pair: attn_layers},
           f"{cfg.name}: the prefill did not launch flash_attention once per "
-          f"attention layer ({attn_layers}), all on wgmma_heads: {routes}")
+          f"attention layer ({attn_layers}), all on {route} at head dims "
+          f"{pair}: {routes}, {pairs}")
     return {"prefill_s": out.prefill_s, "decode_ms": med, "peak": peak,
             "attn_layers": attn_layers, "launches": sum(routes.values())}
 
@@ -6405,80 +6454,108 @@ def phase_moe(dev) -> dict:
             + gc["fwd"] + rm["fwd"], "bwd": gc["bwd"] + rm["bwd"]}
 
 
+def f32_cut_check(dev, cfg, s: int, tag: str) -> None:
+    """Float32 at full width, depth cut (cfg's num_layers): the prefill
+    logits of B 1 x S on the card against the port's CPU run on the same
+    weights, made on the card from MOE_SEED; with experts, the routing
+    against the CPU's, then prefill of S against prefill of S - 1 plus one
+    decode step, at a capacity factor where no choice is dropped: 8.0, or
+    E / k where that is larger (capacity >= S), the drops counted."""
+    import torch
+    from repro_torch.configs.base import replace
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.serve import _grow
+    from repro_torch.models import decode_step, forward, init_params, moe
+    name = cfg.name
+    t0 = time.perf_counter()
+    p_dev = init_params(MOE_SEED, cfg, dev)
+    p_cpu = tree_to(p_dev, "cpu")
+    tok = torch.from_numpy(make_batch(DataConfig(
+        cfg.vocab_size, s, 1, seed=MOE_SEED), 0)["tokens"])
+    t_make = time.perf_counter() - t0
+    with routed() as calls, torch.inference_mode():
+        t_cpu = time.perf_counter()
+        want, _ = forward(p_cpu, cfg, {"tokens": tok})
+        t_cpu = time.perf_counter() - t_cpu
+        got, _ = forward(p_dev, cfg, {"tokens": tok.to(dev)})
+        torch.cuda.synchronize()
+    err, ratio = tol_check(got.cpu(), want, LOGIT_TOL)
+    print(f"[{tag}] float32 {name} at full width, {cfg.num_layers} "
+          f"layer(s), S={s}, weights made on the card from seed {MOE_SEED} "
+          f"and copied to the host ({t_make:.1f} s): prefill logits, card vs "
+          f"the CPU run, max |err| {err!r}, |err| / (atol + rtol |want|) "
+          f"{ratio!r} (tolerance {LOGIT_TOL['rtol']}/{LOGIT_TOL['atol']}), "
+          f"max |logit| {float(want.abs().max())!r}, the CPU forward "
+          f"{t_cpu:.1f} s")
+    check(ratio <= 1.0, f"{name}: the card's prefill logits differ from the "
+          f"CPU run's")
+    del want
+    if not cfg.is_moe:
+        return
+    # the router's calls, the CPU forward's then the card's, a MoE layer
+    # each; the layers' rows stacked on the batch axis
+    n = len(calls) // 2
+    probs, ti_cpu = (torch.cat(x) for x in zip(*calls[:n]))
+    ti_dev = torch.cat([t for _, t in calls[n:]])
+    k = cfg.top_k
+    top = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
+    gaps = top[..., :-1] - top[..., 1:]          # (B, S, k): 1-2, 2-3, ...
+    near = (gaps < TIE_GAP).any(-1)               # (B, S)
+    same = (ti_dev == ti_cpu).all(-1)             # (B, S)
+    kept, dropped = expert_load(cfg, ti_dev)
+    print(f"[{tag}] {name} routing at capacity {moe.capacity(cfg, s)} "
+          f"(factor {cfg.capacity_factor}) over its {n} MoE layer(s): choices "
+          f"kept per expert {kept.tolist()}, dropped per expert "
+          f"{dropped.tolist()}; smallest top-1/top-2 gap "
+          f"{float(gaps[..., 0].min())!r}, top-2/top-3 gap "
+          f"{float(gaps[..., 1].min())!r}; tokens with a gap under {TIE_GAP}: "
+          f"{int(near.sum())} (their gaps {gaps[near].tolist()}); the card's "
+          f"top-{k} experts equal the CPU's at {int(same.sum())} of "
+          f"{same.numel()} tokens")
+    check(bool((same | near).all()), f"{name}: the card routes a token "
+          f"differently from the CPU where no top-k gap is under {TIE_GAP}")
+    # the reference's decode test excludes capacity drops
+    # (tests/test_models_smoke.py:61-65): a prefill drops by position in
+    # the sequence, a decode step never
+    cf = max(8.0, cfg.num_experts / cfg.top_k)
+    cfg_nd = replace(cfg, capacity_factor=cf)
+    tok_dev = tok.to(dev)
+    with routed() as calls, torch.inference_mode():
+        full, _ = forward(p_dev, cfg_nd, {"tokens": tok_dev})
+    dropped = sum(int(expert_load(cfg_nd, t)[1].sum()) for _, t in calls)
+    with torch.inference_mode():
+        _, _, cache = forward(p_dev, cfg_nd, {"tokens": tok_dev[:, :-1]},
+                              mode="prefill")
+        # full caches grown by the one position, as serve grows them
+        # (windowed rings keep their size)
+        cache = _grow(cache, s - 1, 1)
+        step, _ = decode_step(p_dev, cfg_nd, tok_dev[:, -1:], cache, s - 1)
+        err, ratio = tol_check(step[:, 0], full[:, -1], DECODE_TOL)
+    ring = f" (ring of {cfg.window} slots)" if cfg.window else ""
+    print(f"[{tag}] {name} at capacity factor {cf!r} (capacity "
+          f"{moe.capacity(cfg_nd, s)}; choices dropped at S {dropped}): "
+          f"prefill S={s} vs prefill S-1 + one decode step{ring}: max |err| "
+          f"{err!r}, |err| / (atol + rtol |want|) {ratio!r} (tolerance "
+          f"{DECODE_TOL['rtol']}/{DECODE_TOL['atol']})")
+    check(dropped == 0, f"{name}: the prefill dropped {dropped} choices at "
+          f"capacity factor {cf}")
+    check(ratio <= 1.0, f"{name}: decode after prefill differs from the "
+          f"prefill")
+    del p_dev, p_cpu, got, full, cache, step
+    torch.cuda.empty_cache()
+
+
 def moe_cut_checks(dev) -> None:
-    """Float32 at full width, depth cut to one layer: Mixtral's prefill
-    logits on the card against the port's CPU run on the same weights,
-    its routing against the CPU's, then at capacity factor 8.0 prefill of
-    S against prefill of S - 1 plus one decode step; GLM-4-9B's logits
-    against the CPU run's."""
+    """Float32 at full width, depth cut to one layer (f32_cut_check):
+    Mixtral's logits, routing and decode after prefill, GLM-4-9B's
+    logits."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import replace
-    from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.models import decode_step, forward, init_params, moe
     t_phase = time.perf_counter()
     for arch, s in ((MOE_ARCH, MOE_CUT_S), ("glm4-9b", GLM_CUT_S)):
-        cfg = replace(get_config(arch), num_layers=1, dtype="float32")
-        t0 = time.perf_counter()
-        p_dev = init_params(MOE_SEED, cfg, dev)
-        p_cpu = tree_to(p_dev, "cpu")
-        tok = torch.from_numpy(make_batch(DataConfig(
-            cfg.vocab_size, s, 1, seed=MOE_SEED), 0)["tokens"])
-        t_make = time.perf_counter() - t0
-        with routed() as calls, torch.inference_mode():
-            t_cpu = time.perf_counter()
-            want, _ = forward(p_cpu, cfg, {"tokens": tok})
-            t_cpu = time.perf_counter() - t_cpu
-            got, _ = forward(p_dev, cfg, {"tokens": tok.to(dev)})
-            torch.cuda.synchronize()
-        err, ratio = tol_check(got.cpu(), want, LOGIT_TOL)
-        print(f"[moe] float32 {arch} at full width, 1 layer, S={s}, weights "
-              f"made on the card from seed {MOE_SEED} and copied to the host "
-              f"({t_make:.1f} s): prefill logits, card vs the CPU run, max "
-              f"|err| {err!r}, |err| / (atol + rtol |want|) {ratio!r} "
-              f"(tolerance {LOGIT_TOL['rtol']}/{LOGIT_TOL['atol']}), max "
-              f"|logit| {float(want.abs().max())!r}, the CPU forward "
-              f"{t_cpu:.1f} s")
-        check(ratio <= 1.0, f"{arch}: the card's prefill logits differ from "
-              f"the CPU run's")
-        del want
-        if not cfg.is_moe:
-            del p_dev, p_cpu, got
-            continue
-        (probs, ti_cpu), (_, ti_dev) = calls
-        k = cfg.top_k
-        top = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
-        gaps = top[..., :-1] - top[..., 1:]          # (B, S, k): 1-2, 2-3
-        near = (gaps < TIE_GAP).any(-1)               # (B, S)
-        same = (ti_dev == ti_cpu).all(-1)             # (B, S)
-        kept, dropped = expert_load(cfg, ti_dev)
-        print(f"[moe] {arch} routing at capacity {moe.capacity(cfg, s)} "
-              f"(factor {cfg.capacity_factor}): choices kept per expert "
-              f"{kept.tolist()}, dropped per expert {dropped.tolist()}; "
-              f"smallest top-1/top-2 gap {float(gaps[..., 0].min())!r}, "
-              f"top-2/top-3 gap {float(gaps[..., 1].min())!r}; tokens with "
-              f"a gap under {TIE_GAP}: {int(near.sum())} (their gaps "
-              f"{gaps[near].tolist()}); the card's top-{k} experts equal "
-              f"the CPU's at {int(same.sum())} of {same.numel()} tokens")
-        check(bool((same | near).all()), f"{arch}: the card routes a token "
-              f"differently from the CPU where no top-k gap is under "
-              f"{TIE_GAP}")
-        cfg8 = replace(cfg, capacity_factor=8.0)
-        tok_dev = tok.to(dev)
-        with torch.inference_mode():
-            full, _ = forward(p_dev, cfg8, {"tokens": tok_dev})
-            _, _, cache = forward(p_dev, cfg8, {"tokens": tok_dev[:, :-1]},
-                                  mode="prefill")
-            step, _ = decode_step(p_dev, cfg8, tok_dev[:, -1:], cache, s - 1)
-            err, ratio = tol_check(step[:, 0], full[:, -1], DECODE_TOL)
-        print(f"[moe] {arch} at capacity factor 8.0 (no choice dropped): "
-              f"prefill S={s} vs prefill S-1 + one decode step (ring of "
-              f"{cfg.window} slots): max |err| {err!r}, |err| / (atol + rtol "
-              f"|want|) {ratio!r} (tolerance {DECODE_TOL['rtol']}/"
-              f"{DECODE_TOL['atol']})")
-        check(ratio <= 1.0, f"{arch}: decode after prefill differs from the "
-              f"prefill")
-        del p_dev, p_cpu, got, full, cache, step
+        f32_cut_check(dev, replace(get_config(arch), num_layers=1,
+                                   dtype="float32"), s, "moe")
         torch.cuda.empty_cache()
     print(f"[moe] the float32 checks took {time.perf_counter() - t_phase!r} "
           f"s")
@@ -6509,7 +6586,7 @@ def report_moe(dev, served, errs) -> list:
         o = torch.empty_like(q)
         launch = raw_launch("flash_attention",
                             [q, k, v, o, flash._DTYPES[torch.bfloat16], b, s,
-                             s, h, kh, hd, 1, w, None], flash._lib())
+                             s, h, kh, hd, hd, 1, w, None], flash._lib())
         row = {"shape": f"{arch} prefill B={b} S={s} H={h} K={kh} hd={hd} "
                         f"window={w} bf16",
                "route": flash.flash_route(q.dtype, h, kh),
@@ -6549,6 +6626,285 @@ def moe_only(dev) -> None:
     report_moe(dev, mo["served"], errs)
 
 
+# ---------------------------------------------------------------------------
+# DeepSeek-V2's multi-head latent attention
+# ---------------------------------------------------------------------------
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 4                   # of 60: the dense prefix and 3 MoE layers,
+                                 # 13.30 B parameters, 26.6 GB bf16
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 2, 4096, 16
+MLA_CUT_LAYERS, MLA_CUT_S = 2, 256   # the float32 checks: the dense prefix
+                                     # and one MoE layer, B 1
+MLA_F32_S = 1024                 # the float32 kernel's check, B 1
+CUDA_INVALID_VALUE = 1           # cudaErrorInvalidValue
+
+
+def mla_attention_shape() -> tuple:
+    """(B, S, H, K, hd, hd_v) of the mla phase's prefill attention: MLA's
+    expanded form, H = K = 128, q and k of 192, v of 128."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MLA_ARCH)
+    return (MLA_BATCH, MLA_PROMPT, cfg.num_heads, cfg.num_kv_heads,
+            *attention_pair(cfg))
+
+
+def mla_attention_checks(dev) -> dict:
+    """flash_attention at MLA's head dims against its plain version on the
+    card: bf16 at the phase's prefill shape at both bf16 limits, v of mean
+    0 and of mean 1, and in each the plain version scaled by 1/sqrt(hd_v)
+    (v's head dim, not q's) required outside the tighter limit; float32
+    at B 1 x MLA_F32_S within 2e-5; then the C entry point refusing a pair
+    it lacks -> {dtype: (max |err|, tol_ratio at the tightest limit), the
+    worst over the cases}."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device=dev).manual_seed(31)
+    b, s, h, kh, hd, hd_v = mla_attention_shape()
+    out = {}
+    for dt, bb, sq, v_mean, tols in (
+            (torch.bfloat16, b, s, 0.0, (BF16_TOL, BF16_KERNEL_TOL)),
+            (torch.bfloat16, b, s, 1.0, (BF16_TOL, BF16_KERNEL_TOL)),
+            (torch.float32, 1, MLA_F32_S, 0.0, (F32_TOL,))):
+        q, k, v = attention_inputs(gen, bb, sq, h, kh, hd, dt, dev, v_mean,
+                                   hd_v=hd_v)
+        got = flash.flash_attention(q, k, v, causal=True)
+        want = attention_ref_by_kv_head(q, k, v, 0)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and tuple(got.shape) == (bb, sq, h, hd_v),
+              f"flash_attention at MLA's pair: {got.dtype}, "
+              f"{tuple(got.shape)}")
+        route = flash.flash_route(dt, h, kh)
+        for tol in tols:
+            err, ratio = tol_check(got, want, tol)
+            print(f"[kernels] flash_attention {MLA_ARCH} prefill B={bb} "
+                  f"S={sq} H={h} K={kh} hd={hd} hd_v={hd_v} causal=True "
+                  f"{str(dt)[6:]} v_mean={v_mean}, {route} route: vs plain "
+                  f"(on the card) within {tol['rtol']}/{tol['atol']} "
+                  f"{ratio <= 1.0}, max |err| {err!r}, |err| / (atol + rtol "
+                  f"|want|) {ratio!r}")
+            check(ratio <= 1.0, f"flash_attention ({MLA_ARCH} prefill, {dt}, "
+                  f"v_mean {v_mean}) outside {tol} of its plain version")
+        key = str(dt)[6:]
+        out[key] = tuple(max(a, c) for a, c in zip(out.get(key, (0.0, 0.0)),
+                                                   (err, ratio)))
+        if dt == torch.bfloat16:
+            wrong = attention_ref_by_kv_head(q * (hd / hd_v) ** 0.5, k, v,
+                                             0)
+            ratios = [tol_check(wrong, want, t)[1]
+                      for t in (BF16_TOL, BF16_KERNEL_TOL)]
+            print(f"[kernels] flash_attention {MLA_ARCH} prefill v_mean="
+                  f"{v_mean}: the plain version scaled by 1/sqrt({hd_v}) "
+                  f"against 1/sqrt({hd}), |err| / (atol + rtol |want|) "
+                  f"{ratios[0]!r} at 5e-2/5e-2, {ratios[1]!r} at 1e-2/4e-3")
+            check(ratios[1] > 1.0, "the bf16 limit does not see MLA's "
+                  "attention scaled by v's head dim instead of q's")
+            del wrong
+        del got, want
+    o = torch.empty((1, MLA_F32_S, h, hd_v), device=dev)
+    rc = raw_launch("flash_attention", [q, k, v, o, 0, 1, MLA_F32_S,
+                                        MLA_F32_S, h, kh, hd_v, hd, 1, 0,
+                                        None], flash._lib()).unchecked()
+    print(f"[kernels] flash_attention: the C entry point at head dims "
+          f"({hd_v}, {hd}), a pair it lacks, returns {rc} "
+          f"(cudaErrorInvalidValue {CUDA_INVALID_VALUE})")
+    check(rc == CUDA_INVALID_VALUE,
+          "the C entry point did not refuse a head-dim pair it lacks")
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_refusal(dev) -> None:
+    """The training forward on the card at MLA's head dims: DeepSeek-V2 at
+    its dense prefix layer, full width, bf16, its weights recording
+    gradients, B 1 x 64 through models.loss_fn must raise
+    NotImplementedError naming the missing backward kernel, and launch no
+    attention kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = replace(get_config(MLA_ARCH), num_layers=1)
+    params = init_params(MOE_SEED, cfg, dev)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_()
+    tok = torch.randint(0, cfg.vocab_size, (1, 64), device=dev)
+    before = (flash.flash_attention.launches,
+              flash.flash_attention_bwd.launches)
+    msg = None
+    try:
+        with torch.enable_grad():
+            loss_fn(params, cfg, {"tokens": tok, "labels": tok})
+    except NotImplementedError as e:
+        msg = str(e)
+    after = (flash.flash_attention.launches,
+             flash.flash_attention_bwd.launches)
+    print(f"[mla] the training forward on the card at head dims "
+          f"{attention_pair(cfg)} ({cfg.name}, 1 layer, B 1 x 64): "
+          f"NotImplementedError {msg!r}; attention launches (forward, "
+          f"backward) {tuple(a - b for a, b in zip(after, before))}")
+    check(msg is not None and "flash_attention_bwd" in msg
+          and after == before, "the training forward at MLA's head dims "
+          "was not refused before launching, naming the missing backward")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_mla(dev) -> dict:
+    """The mla slice's main path: DeepSeek-V2-236B at its published widths,
+    cut to MLA_LAYERS of 60 layers, through serve (its weights made on the
+    card from MOE_SEED inside the call, as in the moe cells), then the
+    refused training forward -> the flash_attention launches the path
+    should have made and the served numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    full = get_config(MLA_ARCH)
+    cfg = replace(full, num_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    print(f"[mla] {MLA_ARCH} at its published widths (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, q_lora {cfg.q_lora_rank}, kv_lora "
+          f"{cfg.kv_lora_rank}, rope {cfg.qk_rope_head_dim}, nope "
+          f"{cfg.qk_nope_head_dim}, v {cfg.v_head_dim}, {cfg.num_experts} "
+          f"routed experts of {cfg.moe_d_ff} at top {cfg.top_k}, "
+          f"{cfg.num_shared_experts} shared, dense layer 0 of "
+          f"{cfg.dense_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), depth cut "
+          f"to {MLA_LAYERS} of {full.num_layers} layers (the dense prefix "
+          f"and {MLA_LAYERS - 1} MoE layers): {cfg.param_count()} of "
+          f"{full.param_count()} parameters")
+    served = serve_lines(dev, cfg, MLA_BATCH, MLA_PROMPT, MLA_GEN, tag="mla")
+    check(served["decode_ms"] <= DECODE_LIMIT_MS,
+          f"{MLA_ARCH}: decode median {served['decode_ms']!r} ms over "
+          f"{DECODE_LIMIT_MS}")
+    torch.cuda.empty_cache()
+    mla_refusal(dev)
+    print(f"[mla] the phase's main path took {time.perf_counter() - t0!r} s")
+    return {"served": served, "fwd": served["attn_layers"]}
+
+
+def check_mla_launches(mo: dict, got: dict) -> None:
+    """The mla path's launches: the attention forward once per layer, all
+    on wgmma_tiles at MLA's head dims, nothing else."""
+    from repro_torch.kernels import flash_attention as flash
+    routes = flash.flash_attention.route_launches
+    pairs = {p: n for p, n in flash.flash_attention.pair_launches.items()
+             if n}
+    print(f"[launches] mla: {got}; flash_attention by route {routes}, by "
+          f"head-dim pair {pairs}")
+    check(got["flash_attention"] == mo["fwd"]
+          and all(n == 0 for k, n in got.items() if k != "flash_attention"),
+          f"the mla path did not launch the attention forward once per layer "
+          f"({mo['fwd']}), or launched a kernel off its path")
+    check(routes["wgmma_tiles"] == mo["fwd"] and pairs == {(192, 128):
+                                                          mo["fwd"]},
+          "the mla path's attention launches did not all take wgmma_tiles at "
+          "head dims (192, 128)")
+
+
+def mla_cut_checks(dev) -> None:
+    """Float32 at full width, DeepSeek-V2 cut to its dense prefix and one
+    MoE layer (f32_cut_check): logits, routing, decode after prefill (the
+    absorbed form against the expanded)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    t0 = time.perf_counter()
+    f32_cut_check(dev, replace(get_config(MLA_ARCH), num_layers=MLA_CUT_LAYERS,
+                               dtype="float32"), MLA_CUT_S, "mla")
+    torch.cuda.empty_cache()
+    print(f"[mla] the float32 checks took {time.perf_counter() - t0!r} s")
+
+
+def mla_profile(dev) -> None:
+    """Where DeepSeek-V2's serve time goes: its prefill and decode steps at
+    the mla phase's shape under torch.profiler."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    lm_profile(dev, replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS),
+               MLA_BATCH, MLA_PROMPT, "mla")
+    torch.cuda.empty_cache()
+
+
+def sdpa_backend(qt, kt, vt) -> str:
+    """The backend SDPA picks for a causal call on these heads-first
+    tensors (torch._fused_sdp_choice)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(qt, kt, vt, None, 0.0,
+                                              True)).name
+
+
+def report_mla(dev, served, errs) -> dict:
+    """flash_attention at MLA's prefill shape: the kernel with the L2
+    flushed and warm, its bound, the plain version (a kv head at a time,
+    as the check runs it), SDPA's causal forward on heads-first copies
+    (v at its own width) and its backend, the launches of the mla phase
+    and the checks against the plain version (`errs`)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device=dev).manual_seed(41)
+    b, s, h, kh, hd, hd_v = mla_attention_shape()
+    q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev,
+                               hd_v=hd_v)
+    o = torch.empty((b, s, h, hd_v), dtype=torch.bfloat16, device=dev)
+    launch = raw_launch("flash_attention", [q, k, v, o, 1, b, s, s, h, kh, hd,
+                                            hd_v, 1, 0, None], flash._lib())
+    row = {"shape": f"{MLA_ARCH} prefill B={b} S={s} H={h} K={kh} hd={hd} "
+                    f"hd_v={hd_v} causal bf16",
+           "route": flash.flash_route(q.dtype, h, kh),
+           "ms": time_ms(launch, reps=10),
+           "warm_ms": warm_ms(launch, reps=5, inner=3),
+           "plain_ms": time_ms(lambda: attention_ref_by_kv_head(q, k, v, 0),
+                               reps=3, host=True),
+           "plain_how": f"ref.attention_ref a kv head at a time ({kh} calls)",
+           "launches": served["launches"],
+           "max_abs_err": errs["bfloat16"][0],
+           "tolerance": "rtol 1e-2 atol 4e-3 (bfloat16; also within "
+                        "5e-2/5e-2); float32 2e-5",
+           "tol_ratio": errs["bfloat16"][1],
+           "f32_max_abs_err": errs["float32"][0],
+           "f32_tol_ratio": errs["float32"][1]}
+    row["bound_ms"], row["bound_by"] = bounds_flash(b, s, h, kh, hd, 0, 2,
+                                                    hd_v)
+    ops = flops_flash(b, s, h, hd, 0, hd_v)
+    row["tflops"] = ops / (row["ms"] * 1e-3) / 1e12
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row["library_backend"] = sdpa_backend(qt, kt, vt)
+    row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=10)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    row["library_max_diff"] = float((sdpa.transpose(1, 2).float()
+                                     - o.float()).abs().max())
+    print(f"[report] flash_attention {row['shape']}: {row}")
+    del q, k, v, o, qt, kt, vt, sdpa, launch
+    torch.cuda.empty_cache()
+    return row
+
+
+def mla_only(dev) -> None:
+    """`--only mla`: the flash mirrors and MLA's attention checks, the mla
+    phase, its launches, its float32 checks, its profile and its attention
+    report."""
+    from repro_torch.kernels import flash_attention as flash
+    flash_mirrors()
+    errs = mla_attention_checks(dev)
+    for fn in (flash.flash_attention, flash.flash_attention_bwd):
+        fn.launches = 0
+    flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
+    flash.flash_attention.pair_launches = dict.fromkeys(flash.FWD_PAIRS, 0)
+    ml = phase_mla(dev)
+    check_mla_launches(ml, {"flash_attention": flash.flash_attention.launches,
+                            "flash_attention_bwd":
+                            flash.flash_attention_bwd.launches})
+    mla_cut_checks(dev)
+    mla_profile(dev)
+    report_mla(dev, ml["served"], errs)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port is not beside this script ({SRC}/repro_torch)")
@@ -6586,7 +6942,8 @@ def main() -> None:
                    "report-train": lambda: report_train(
                        dev, {"flash_attention_bwd": 0, "rglru_scan_bwd": 0},
                        errs),
-                   "moe": lambda: moe_only(dev)}[name]()
+                   "moe": lambda: moe_only(dev),
+                   "mla": lambda: mla_only(dev)}[name]()
             if name == "train-kernels":
                 errs.update(out)
         print(f"[chip_smoke] only {ONLY}: "
@@ -6596,6 +6953,7 @@ def main() -> None:
     errors = phase_kernels(dev, fleet)
     errors.update(phase_lm_kernels(dev))
     moe_errs = moe_attention_checks(dev)
+    mla_errs = mla_attention_checks(dev)
     errors.update(phase_train_kernels(dev))
 
     counted = (("bayes_fit", kernels.bayes_fit),
@@ -6636,6 +6994,8 @@ def main() -> None:
         plane.upward_rank.launches_by_route = dict.fromkeys(
             plane.RANK_ROUTES, 0)
         flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
+        flash.flash_attention.pair_launches = dict.fromkeys(flash.FWD_PAIRS,
+                                                            0)
         flash.flash_attention_bwd.route_launches = dict.fromkeys(
             flash.BWD_ROUTES, 0)
         scan.rglru_scan_bwd.route_launches = dict.fromkeys(
@@ -6795,6 +7155,8 @@ def main() -> None:
           and flash.flash_attention_bwd.route_launches["wgmma"] == mo["bwd"],
           "the moe path's attention launches did not all take the wgmma "
           "routes")
+    ml, got = drive(lambda: phase_mla(dev), "mla")
+    check_mla_launches(ml, got)
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}; upward_rank by route {rank_routes}")
     check(rank_routes == {"shared": launches["upward_rank"], "global": 0},
@@ -6819,8 +7181,10 @@ def main() -> None:
     phase_refresh_checks(dev, fleet_out, ingest, rf)
     lm_cut_checks(dev)
     moe_cut_checks(dev)
+    mla_cut_checks(dev)
     lm_profile(dev)
     moe_profile(dev)
+    mla_profile(dev)
     train_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
                           pieces["args"], fold, predict_q)
@@ -6828,6 +7192,8 @@ def main() -> None:
     report += report_lm(dev, launches, errors)
     next(r for r in report if r["name"] == "flash_attention")[
         "moe_shapes"] = report_moe(dev, mo["served"], moe_errs)
+    next(r for r in report if r["name"] == "flash_attention")[
+        "mla_shape"] = report_mla(dev, ml["served"], mla_errs)
     report += report_train(dev, launches, errors, bwd_per_step, scan_routes)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6840,8 +7206,8 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-# `--only train-kernels,train,report-train` (or `--only moe`) runs the
-# build and those phases alone
+# `--only train-kernels,train,report-train` (or `--only moe`, `--only mla`)
+# runs the build and those phases alone
 ONLY = (sys.argv[sys.argv.index("--only") + 1].split(",")
         if "--only" in sys.argv else [])
 

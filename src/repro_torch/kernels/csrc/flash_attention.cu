@@ -1,8 +1,14 @@
 // Hand-written Hopper kernels for causal and sliding-window attention with
 // grouped (GQA/MQA) key-value heads: the prefill attention of the local
-// attention blocks of RecurrentGemma (window 2048, one kv head).  Built by
-// nvcc into a plain-C shared library and bound with ctypes (see
-// kernels/_build.py).
+// attention blocks of RecurrentGemma (window 2048, one kv head), of every
+// full and sliding-window attention layer, and of DeepSeek-V2's multi-head
+// latent attention in its expanded form (q and k of head dim 192, v of
+// 128).  Built by nvcc into a plain-C shared library and bound with ctypes
+// (see kernels/_build.py).
+//
+// Both kernels are templates on a head-dim pair <DQK, DV>: q and k have
+// DQK columns, v and the output DV.  The entry point launches the pairs
+// (64, 64), (128, 128), (256, 256) and (192, 128) and refuses any other.
 //
 // Two kernels compute the same function, chosen by the input type:
 // bfloat16 (the model's type) runs on the tensor cores through wgmma,
@@ -16,7 +22,7 @@
 // allocates nothing, and returns cudaGetLastError().
 //
 // Both replace the TPU kernel repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel): softmax(q k^T / sqrt(hd)) v with the
+// flash_attention (_flash_kernel): softmax(q k^T / sqrt(DQK)) v with the
 // causal mask and, for window > 0, only the last `window` keys visible;
 // query head h reads kv head h * K / H; the running max, sum and output in
 // float32; the output in q's type.  As the TPU kernel skips fully masked
@@ -58,34 +64,39 @@ namespace {
 // arrival from each consumer warp once its products have read the stage).
 // setmaxnreg gives the producer 40 registers and each consumer 232.
 //
-// A consumer, per kv tile: S = Q K^T as hd / 16 wgmma m64n64k16 with both
+// A consumer, per kv tile: S = Q K^T as DQK / 16 wgmma m64n64k16 with both
 // operands K-major in shared memory; the online softmax in base 2 on the
 // accumulator fragment (row statistics over the 4 threads of a row; a tile
 // wholly inside the band takes no per-element mask, see tile_kind); P
 // rounded to bfloat16 in registers (as the TPU kernel casts p to v's type)
-// and repacked as the A fragments of O += P V, four wgmma m64n{hd}k16 with
-// V the B operand, MN-major (the transpose bit).  The 64 x hd float32
-// accumulator stays in registers: 128 a thread at hd = 256.  Ping-pong
-// scheduling of the two consumers and a persistent grid are later work.
+// and repacked as the A fragments of O += P V, four wgmma m64n{DV}k16 with
+// V the B operand, MN-major (the transpose bit).  The 64 x DV float32
+// accumulator stays in registers: 128 a thread at DV = 256.  At the pair
+// (192, 128) a Q or K tile is three swizzled boxes and a V tile two.
+// Ping-pong scheduling of the two consumers and a persistent grid are later
+// work.
 constexpr int kWsThreads = 384;          // producer + two consumers
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;       // 40 * 128 + 232 * 256 = 64,512
 
-// Stages of the K/V ring: two at hd = 256 (all that fits beside Q), four
+// Stages of the K/V ring: two at DQK = 256 (all that fits beside Q), four
 // below (kernels/flash_attention.flash_stages).
-__host__ __device__ constexpr int flash_stages(int d) {
-  return d == 256 ? 2 : 4;
+__host__ __device__ constexpr int flash_stages(int dqk) {
+  return dqk == 256 ? 2 : 4;
 }
 
-// Dynamic shared memory of the bf16 kernel: Q for both consumers and a ring
-// of `stages` K and V tiles, each 64 rows of hd bfloat16; 1024 bytes of
-// slack so that the tiles start on the 1024-byte period of the swizzle;
-// 128 for the mbarriers (kernels/flash_attention.flash_smem_bytes).
-__host__ __device__ constexpr int flash_smem_bytes(int d, int stages) {
-  return (2 + 2 * stages) * kBlockK * d * 2 + 1024 + 128;
+// Dynamic shared memory of the bf16 kernel: Q for both consumers (64 rows
+// of DQK bfloat16 each) and a ring of `stages` K tiles (64 x DQK) and V
+// tiles (64 x DV); 1024 bytes of slack so that the tiles start on the
+// 1024-byte period of the swizzle; 128 for the mbarriers
+// (kernels/flash_attention.flash_smem_bytes).  214,144 bytes at (192, 128)
+// and 4 stages, under the card's 232,448.
+__host__ __device__ constexpr int flash_smem_bytes(int dqk, int dv,
+                                                   int stages) {
+  return (2 * dqk + stages * (dqk + dv)) * kBlockK * 2 + 1024 + 128;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -94,13 +105,14 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
                           int heads, int kv_heads, int causal, int window,
                           float scale_log2, int pair_heads,
                           float* __restrict__ lse) {
-  constexpr int kStages = flash_stages(D);
-  constexpr int kTile = kBlockK * D * 2;       // bytes of a 64-row tile
+  constexpr int kStages = flash_stages(DQK);
+  constexpr int kTile = kBlockK * DQK * 2;     // bytes of a 64-row Q/K tile
+  constexpr int kTileV = kBlockK * DV * 2;     // and of a V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // Q of 0, 1
   const uint32_t k_s = q_s + 2 * kTile;                        // K ring
   const uint32_t v_s = k_s + kStages * kTile;                  // V ring
-  const uint32_t bar_q = v_s + kStages * kTile;
+  const uint32_t bar_q = v_s + kStages * kTileV;
   const uint32_t bar_full = bar_q + 8;                         // [kStages]
   const uint32_t bar_empty = bar_full + 8 * kStages;           // [kStages]
 
@@ -144,15 +156,15 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, n_q * kTile);
       for (int c = 0; c < n_q; ++c)
-        tma_tile<D>(q_s + c * kTile, &qmap, bar_q, head0 + c * head_step,
-                    q_lo0 + c * q_step, b);
+        tma_tile<DQK>(q_s + c * kTile, &qmap, bar_q, head0 + c * head_step,
+                      q_lo0 + c * q_step, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
+        mbar_expect_tx(bar_full + 8 * s, kTile + kTileV);
         const int j0 = lo + it * kBlockK;
-        tma_tile<D>(k_s + s * kTile, &kmap, bar_full + 8 * s, kvh, j0, b);
-        tma_tile<D>(v_s + s * kTile, &vmap, bar_full + 8 * s, kvh, j0, b);
+        tma_tile<DQK>(k_s + s * kTile, &kmap, bar_full + 8 * s, kvh, j0, b);
+        tma_tile<DV>(v_s + s * kTileV, &vmap, bar_full + 8 * s, kvh, j0, b);
       }
     }
     return;
@@ -175,9 +187,9 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // accumulator fragment: o[4 n + e] is row row0 + 8 (e >> 1), column
   // 8 n + 2 t + (e & 1); the scores sc[] the same over 64 keys
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};           // this thread's share of each row sum
 
@@ -190,7 +202,7 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
     const int kind = tile_kind(my_lo, my_hi, j0, skv, causal, window);
     if (kind != kSkip) {
       float sc[32];
-      qk_product<D>(sc, qt, k_s + s * kTile);
+      qk_product<DQK>(sc, qt, k_s + s * kTile);
 
       // base-2 logits; masked pairs at the reference's -1e30
       if (kind == kFull) {
@@ -227,7 +239,7 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
       // P as the A fragments of four k-steps of 16 keys
       uint32_t pa[4][4];
@@ -236,7 +248,7 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int x = 0; x < 4; ++x)
           pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
-      pv_product<D>(o, pa, v_s + s * kTile);
+      pv_product<DV>(o, pa, v_s + s * kTileV);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
@@ -253,9 +265,9 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
           (m[r] + log2f(l[r])) * kLn2;
     const float denom = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow =
-        out + (((long long)b * sq + row) * heads + my_head) * D;
+        out + (((long long)b * sq + row) * heads + my_head) * DV;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + t * 2) =
           pack_bf16(o[4 * n + 2 * r] / denom, o[4 * n + 2 * r + 1] / denom);
   }
@@ -265,22 +277,22 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap qmap,
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 // One block of 256 threads per (batch, head, 64-query tile); the
-// online-softmax state (m, l and the 64 x hd accumulator) in registers:
+// online-softmax state (m, l and the 64 x DV accumulator) in registers:
 // each thread owns 4 query rows, a 4 x 4 tile of the scores and a
-// 4 x hd/16 tile of the output.  The query tile (scaled) and each key tile
+// 4 x DV/16 tile of the output.  The query tile (scaled) and each key tile
 // are staged in shared memory transposed, so that a thread reads 4
 // queries and 4 keys of one head dimension as two 16-byte loads; each
-// value tile and the probabilities are staged too.  hd = 256 takes 217 KB
-// of shared memory, so one block runs per SM.
+// value tile and the probabilities are staged too.  (256, 256) takes
+// 217 KB of shared memory, so one block runs per SM; (192, 128) 151 KB.
 constexpr int kThreads = 256;        // 16 x 16 threads
 constexpr int kPad = kBlockQ + 4;    // row length of the transposed tiles
 
-template <int D>
+template <int DQK, int DV>
 __host__ __device__ constexpr int f32_smem_bytes() {
-  return (2 * D * kPad + kBlockK * D + kBlockK * kPad) * 4;
+  return (2 * DQK * kPad + kBlockK * DV + kBlockK * kPad) * 4;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -289,12 +301,12 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            int heads, int kv_heads, int causal, int window,
                            float scale, float* __restrict__ lse) {
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                    // [D][kPad]   query tile, transposed
-  float* kt = qt + D * kPad;           // [D][kPad]   key tile, transposed
-  float* vs = kt + D * kPad;           // [kBlockK][D] value tile
-  float* ps = vs + kBlockK * D;        // [kBlockK][kPad] probabilities
+  float* qt = smem;                  // [DQK][kPad]  query tile, transposed
+  float* kt = qt + DQK * kPad;       // [DQK][kPad]  key tile, transposed
+  float* vs = kt + DQK * kPad;       // [kBlockK][DV] value tile
+  float* ps = vs + kBlockK * DV;     // [kBlockK][kPad] probabilities
 
-  constexpr int kCols = D / 64;        // float4 column groups of a thread
+  constexpr int kCols = DV / 64;     // float4 column groups of a thread
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -303,14 +315,16 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const int b = blockIdx.z;
   const int kvh = (int)((long long)h * kv_heads / heads);
   const int q_hi = min(q_lo + kBlockQ, sq);
-  const long long q_stride = (long long)heads * D;
-  const long long kv_stride = (long long)kv_heads * D;
-  const float* qb = q + ((long long)b * sq) * q_stride + (long long)h * D;
-  const float* kb = k + ((long long)b * skv) * kv_stride + (long long)kvh * D;
-  const float* vb = v + ((long long)b * skv) * kv_stride + (long long)kvh * D;
+  const long long q_stride = (long long)heads * DQK;
+  const long long o_stride = (long long)heads * DV;
+  const long long k_stride = (long long)kv_heads * DQK;
+  const long long v_stride = (long long)kv_heads * DV;
+  const float* qb = q + ((long long)b * sq) * q_stride + (long long)h * DQK;
+  const float* kb = k + ((long long)b * skv) * k_stride + (long long)kvh * DQK;
+  const float* vb = v + ((long long)b * skv) * v_stride + (long long)kvh * DV;
 
-  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
+  for (int idx = tid; idx < kBlockQ * DQK; idx += kThreads) {
+    const int r = idx / DQK, d = idx - r * DQK;
     const int row = q_lo + r;
     qt[d * kPad + r] = row < sq ? qb[row * q_stride + d] * scale : 0.f;
   }
@@ -328,12 +342,15 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const int kv_hi = causal ? min(q_hi, skv) : skv;
   for (int j0 = kv_lo; j0 < kv_hi; j0 += kBlockK) {
     __syncthreads();   // the previous tile's kt, vs and ps are consumed
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D;
+    for (int idx = tid; idx < kBlockK * DQK; idx += kThreads) {
+      const int c = idx / DQK, d = idx - c * DQK;
       const int key = j0 + c;
-      const bool in = key < skv;
-      kt[d * kPad + c] = in ? kb[key * kv_stride + d] : 0.f;
-      vs[c * D + d] = in ? vb[key * kv_stride + d] : 0.f;
+      kt[d * kPad + c] = key < skv ? kb[key * k_stride + d] : 0.f;
+    }
+    for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
+      const int c = idx / DV, d = idx - c * DV;
+      const int key = j0 + c;
+      vs[c * DV + d] = key < skv ? vb[key * v_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -343,7 +360,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       const float4 qv = *reinterpret_cast<const float4*>(&qt[d * kPad + ty * 4]);
       const float4 kv = *reinterpret_cast<const float4*>(&kt[d * kPad + tx * 4]);
       const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
@@ -397,7 +414,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int gi = 0; gi < kCols; ++gi) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(&vs[c * D + gi * 64 + tx * 4]);
+            *reinterpret_cast<const float4*>(&vs[c * DV + gi * 64 + tx * 4]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           o[i][gi * 4 + 0] += pa[i] * vv.x;
@@ -416,7 +433,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     if (lse != nullptr && tx == 0)
       lse[((long long)b * heads + h) * sq + row] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = out + ((long long)b * sq + row) * q_stride + (long long)h * D;
+    float* orow =
+        out + ((long long)b * sq + row) * o_stride + (long long)h * DV;
 #pragma unroll
     for (int gi = 0; gi < kCols; ++gi)
 #pragma unroll
@@ -429,11 +447,11 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 // launch
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int batch, int sq, int skv, int heads, int kv_heads,
                 int causal, int window, float* lse, cudaStream_t stream) {
-  const int bytes = flash_smem_bytes(D, flash_stages(D));
+  const int bytes = flash_smem_bytes(DQK, DV, flash_stages(DQK));
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -445,11 +463,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   // same, so an empty K and V map q's
   const int rows = skv > 0 ? skv : 1;
   CUtensorMap qm, km, vm;
-  int rc = bf16_map(&qm, q, D, heads, sq, batch);
-  if (rc == 0) rc = bf16_map(&km, skv > 0 ? k : q, D, kv_heads, rows, batch);
-  if (rc == 0) rc = bf16_map(&vm, skv > 0 ? v : q, D, kv_heads, rows, batch);
+  int rc = bf16_map(&qm, q, DQK, heads, sq, batch);
+  if (rc == 0)
+    rc = bf16_map(&km, skv > 0 ? k : q, DQK, kv_heads, rows, batch);
+  if (rc == 0)      // DV <= DQK: an empty V's map stays inside q
+    rc = bf16_map(&vm, skv > 0 ? v : q, DV, kv_heads, rows, batch);
   if (rc != 0) return rc;
-  auto kernel = flash_attention_ws_kernel<D>;
+  auto kernel = flash_attention_ws_kernel<DQK, DV>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -457,39 +477,39 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const int rows_a_block = pair_heads ? kBlockQ : 2 * kBlockQ;
   const dim3 grid((sq + rows_a_block - 1) / rows_a_block,
                   pair_heads ? heads / 2 : heads, batch);
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)DQK);
   kernel<<<grid, kWsThreads, bytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), sq, skv, heads,
       kv_heads, causal, window, scale * kLog2e, pair_heads, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int batch, int sq, int skv, int heads, int kv_heads,
                int causal, int window, float* lse, cudaStream_t stream) {
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads, batch);
-  auto kernel = flash_attention_f32_kernel<D>;
-  const int bytes = f32_smem_bytes<D>();
+  auto kernel = flash_attention_f32_kernel<DQK, DV>;
+  const int bytes = f32_smem_bytes<DQK, DV>();
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), sq, skv,
-      heads, kv_heads, causal, window, 1.0f / sqrtf((float)D), lse);
+      heads, kv_heads, causal, window, 1.0f / sqrtf((float)DQK), lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int dtype,
            int batch, int sq, int skv, int heads, int kv_heads, int causal,
            int window, float* lse, cudaStream_t stream) {
   return dtype == 1
-             ? launch_bf16<D>(q, k, v, out, batch, sq, skv, heads, kv_heads,
-                              causal, window, lse, stream)
-             : launch_f32<D>(q, k, v, out, batch, sq, skv, heads, kv_heads,
-                             causal, window, lse, stream);
+             ? launch_bf16<DQK, DV>(q, k, v, out, batch, sq, skv, heads,
+                                    kv_heads, causal, window, lse, stream)
+             : launch_f32<DQK, DV>(q, k, v, out, batch, sq, skv, heads,
+                                   kv_heads, causal, window, lse, stream);
 }
 
 }  // namespace
@@ -500,7 +520,9 @@ const char* lotaru_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 float32, 1 bfloat16; head_dim 64, 128 or 256.  bfloat16 rows
+// dtype: 0 float32, 1 bfloat16; (head_dim, head_dim_v) the columns of q
+// and k, and of v and the output: (64, 64), (128, 128), (256, 256) or
+// (192, 128); any other pair returns cudaErrorInvalidValue.  bfloat16 rows
 // must start on 16 bytes (the wrapper checks the pointers).  bfloat16
 // asks for flash_smem_bytes of shared memory and returns
 // cudaErrorInvalidValue, launching nothing, where that is above the card's
@@ -509,30 +531,35 @@ const char* lotaru_error_string(int code) {
 // serve path passes null and its launches store nothing more.
 int lotaru_flash_attention(const void* q, const void* k, const void* v,
                            void* out, int dtype, int batch, int sq, int skv,
-                           int heads, int kv_heads, int head_dim, int causal,
-                           int window, void* lse, cudaStream_t stream) {
+                           int heads, int kv_heads, int head_dim,
+                           int head_dim_v, int causal, int window, void* lse,
+                           cudaStream_t stream) {
   float* lse_f = static_cast<float*>(lse);
   if (sq == 0 || batch == 0) return 0;
   if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || heads % kv_heads)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 192 && head_dim_v == 128)
+    return launch<192, 128>(q, k, v, out, dtype, batch, sq, skv, heads,
+                            kv_heads, causal, window, lse_f, stream);
+  if (head_dim_v != head_dim) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 64:
-      return launch<64>(q, k, v, out, dtype, batch, sq, skv, heads, kv_heads,
-                        causal, window, lse_f, stream);
+      return launch<64, 64>(q, k, v, out, dtype, batch, sq, skv, heads,
+                            kv_heads, causal, window, lse_f, stream);
     case 128:
-      return launch<128>(q, k, v, out, dtype, batch, sq, skv, heads,
-                         kv_heads, causal, window, lse_f, stream);
+      return launch<128, 128>(q, k, v, out, dtype, batch, sq, skv, heads,
+                              kv_heads, causal, window, lse_f, stream);
     case 256:
-      return launch<256>(q, k, v, out, dtype, batch, sq, skv, heads,
-                         kv_heads, causal, window, lse_f, stream);
+      return launch<256, 256>(q, k, v, out, dtype, batch, sq, skv, heads,
+                              kv_heads, causal, window, lse_f, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // the bf16 kernel's formulas, for the Python mirrors to be held against
-long long lotaru_flash_smem_bytes(int head_dim, int stages) {
-  return flash_smem_bytes(head_dim, stages);
+long long lotaru_flash_smem_bytes(int head_dim, int head_dim_v, int stages) {
+  return flash_smem_bytes(head_dim, head_dim_v, stages);
 }
 
 int lotaru_flash_stages(int head_dim) { return flash_stages(head_dim); }

@@ -1,7 +1,10 @@
 """Launch wrappers for the hand-written CUDA kernels in
 `csrc/flash_attention.cu`: causal attention with an optional sliding
 window and grouped key-value heads, the prefill and training attention of
-every attention layer.  bfloat16 runs on the tensor cores (a
+every attention layer.  The forward takes q and k of one head dim and v
+of its own (`FWD_PAIRS`: 64, 128 and 256 for all three, and DeepSeek-V2's
+expanded MLA, q and k 192 and v 128); the backward one head dim for all
+(`HEAD_DIMS`).  bfloat16 runs on the tensor cores (a
 warp-specialised block: a TMA producer and two `wgmma` consumers that share
 each K/V tile), float32 on the CUDA cores.  With `with_lse=True` the
 forward also returns each row's log-sum-exp, which `flash_attention_bwd`
@@ -39,7 +42,10 @@ from repro_torch.kernels._launch import check, cuda_device, raise_on
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256)     # the backward's, one for q, k and v
+# the forward's (q and k, v): the equal pairs and MLA's expanded form
+FWD_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+BWD_PAIRS = tuple((d, d) for d in HEAD_DIMS)
 BLOCK_Q = 64        # query rows of a bf16 consumer
 BLOCK_K = 64        # keys of a kv tile
 # the bf16 kernel by the pairing of its two consumers, and the f32 kernel
@@ -52,9 +58,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.lotaru_error_string.argtypes = [_I]
     lib.lotaru_error_string.restype = ctypes.c_char_p
-    lib.lotaru_flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [_P, _P]
+    lib.lotaru_flash_attention.argtypes = [_P] * 4 + [_I] * 10 + [_P, _P]
     lib.lotaru_flash_attention.restype = _I
-    lib.lotaru_flash_smem_bytes.argtypes = [_I, _I]
+    lib.lotaru_flash_smem_bytes.argtypes = [_I, _I, _I]
     lib.lotaru_flash_smem_bytes.restype = ctypes.c_longlong
     lib.lotaru_flash_stages.argtypes = [_I]
     lib.lotaru_flash_stages.restype = _I
@@ -206,17 +212,19 @@ def flash_bwd_plan(sq: int, skv: int, heads: int, kv_heads: int,
 
 
 def flash_stages(hd: int) -> int:
-    """Stages of the bf16 kernel's K/V ring: two at hd = 256 (all that
-    fits beside Q), four below (`flash_stages` in the source)."""
+    """Stages of the bf16 kernel's K/V ring at q and k's head dim hd: two
+    at hd = 256 (all that fits beside Q), four below (`flash_stages` in the
+    source)."""
     return 2 if hd == 256 else 4
 
 
-def flash_smem_bytes(hd: int, stages: int) -> int:
-    """Dynamic shared memory of the bf16 kernel: Q for both consumers and
-    `stages` K and V tiles, each 64 rows of hd bfloat16, plus 1024 bytes
-    to start the tiles on the swizzle's 1024-byte period and 128 for the
-    mbarriers (`flash_smem_bytes` in the source)."""
-    return (2 + 2 * stages) * BLOCK_K * hd * 2 + 1024 + 128
+def flash_smem_bytes(hd: int, hd_v: int, stages: int) -> int:
+    """Dynamic shared memory of the bf16 kernel: Q for both consumers (64
+    rows of hd bfloat16 each) and `stages` K tiles (64 x hd) and V tiles
+    (64 x hd_v), plus 1024 bytes to start the tiles on the swizzle's
+    1024-byte period and 128 for the mbarriers (`flash_smem_bytes` in the
+    source)."""
+    return (2 * hd + stages * (hd + hd_v)) * BLOCK_K * 2 + 1024 + 128
 
 
 def flash_route(dtype: torch.dtype, heads: int, kv_heads: int) -> str:
@@ -279,41 +287,43 @@ def flash_tile_plan(sq: int, skv: int, causal: bool, window: int,
     return plan
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v, pairs):
     dev = cuda_device(q, "q")
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q and k must be 4-d, got {tuple(q.shape)} and "
-                         f"{tuple(k.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be 4-d, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     b, sq, h, hd = q.shape
-    skv, kh = k.shape[1], k.shape[2]
+    skv, kh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, want float32 or bfloat16")
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads over {kh} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}: the kernel takes {HEAD_DIMS}")
+    if (hd, hd_v) not in pairs:
+        raise ValueError(f"head dims {hd} (q, k) and {hd_v} (v): the kernel "
+                         f"takes {pairs}")
     check(q, "q", q.dtype, (b, sq, h, hd), dev)
     check(k, "k", q.dtype, (b, skv, kh, hd), dev)
-    check(v, "v", q.dtype, (b, skv, kh, hd), dev)
+    check(v, "v", q.dtype, (b, skv, kh, hd_v), dev)
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{n} must start on 16 bytes (the kernel "
                              f"loads rows as 16-byte vectors or TMA boxes)")
-    return dev, (b, sq, skv, h, kh, hd)
+    return dev, (b, sq, skv, h, kh, hd, hd_v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     with_lse: bool = False):
-    """q (B, Sq, H, hd); k, v (B, Skv, K, hd), H a multiple of K; one
-    dtype, float32 or bfloat16; hd 64, 128 or 256; any Sq and Skv.  Query
-    i sees key j when j <= i (causal) and j > i - window (window > 0).
-    Returns (B, Sq, H, hd) in q's dtype, within the stated tolerance of
+    """q (B, Sq, H, hd); k (B, Skv, K, hd); v (B, Skv, K, hd_v), H a
+    multiple of K; one dtype, float32 or bfloat16; (hd, hd_v) one of
+    `FWD_PAIRS`; any Sq and Skv.  Query i sees key j when j <= i (causal)
+    and j > i - window (window > 0); the scores are scaled by 1 / sqrt(hd).
+    Returns (B, Sq, H, hd_v) in q's dtype, within the stated tolerance of
     `ref.attention_ref`; with `with_lse`, (out, lse): lse (B, H, Sq)
     float32, each row's log-sum-exp of its scaled scores (-inf for a row
     that sees no key)."""
-    dev, (b, sq, skv, h, kh, hd) = _check_qkv(q, k, v)
-    out = torch.empty_like(q)
+    dev, (b, sq, skv, h, kh, hd, hd_v) = _check_qkv(q, k, v, FWD_PAIRS)
+    out = q.new_empty((b, sq, h, hd_v))
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
            if with_lse else None)
     if out.numel() == 0:
@@ -323,16 +333,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().lotaru_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, skv, h, kh, hd, int(causal),
+            _DTYPES[q.dtype], b, sq, skv, h, kh, hd, hd_v, int(causal),
             int(window), lse.data_ptr() if with_lse else None, stream)
     raise_on(_lib(), rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
+    flash_attention.pair_launches[(hd, hd_v)] += 1
     return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+flash_attention.pair_launches = dict.fromkeys(FWD_PAIRS, 0)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -345,7 +357,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     no atomics, two launches give bitwise equal results.  Its scratch
     (`bwd_scratch_floats`: the rows, and the dK/dV partials of a head
     split) is allocated here."""
-    dev, (b, sq, skv, h, kh, hd) = _check_qkv(q, k, v)
+    dev, (b, sq, skv, h, kh, hd, _) = _check_qkv(q, k, v, BWD_PAIRS)
     check(o, "o", q.dtype, (b, sq, h, hd), dev)
     check(do, "do", q.dtype, (b, sq, h, hd), dev)
     check(lse, "lse", torch.float32, (b, h, sq), dev)

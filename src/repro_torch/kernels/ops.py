@@ -9,7 +9,10 @@ records (grad enabled and an input requires grad) they run through a
 `torch.autograd.Function` whose backward is the backward kernel on a card
 (`flash_attention_bwd`, `rglru_scan_bwd`) and its plain version on the
 CPU; otherwise (serving, `inference_mode`) the forward kernel is launched
-as it is, with nothing saved."""
+as it is, with nothing saved.  Where the backward kernel lacks the head
+dims (MLA's q and k of 192 and v of 128), a recording forward on a card
+raises NotImplementedError before it launches anything: there is no
+fallback to the plain backward."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -131,6 +134,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, plain: bool):
+        pair = (q.shape[-1], v.shape[-1])
+        if not plain and pair not in _flash.BWD_PAIRS:
+            raise NotImplementedError(
+                f"flash_attention_bwd has no kernel for head dims {pair} "
+                f"(q and k, v; it takes {_flash.BWD_PAIRS}): attention at "
+                f"this pair runs on the card under no grad only")
         if plain:
             o, lse = ref.attention_fwd_ref(q, k, v, causal=causal,
                                            window=window)
@@ -174,10 +183,11 @@ class RGLRUScan(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal (and, for window > 0, sliding-window) attention with grouped
-    kv heads: q (B, Sq, H, hd), k and v (B, Skv, K, hd) at their K heads,
-    never expanded -> (B, Sq, H, hd) in q's dtype.  Any Sq: nothing is
-    padded (the TPU form asserted tile multiples, a TPU tiling limit).
-    Differentiable in q, k and v (see the module docstring)."""
+    kv heads: q (B, Sq, H, hd), k (B, Skv, K, hd) and v (B, Skv, K, hd_v)
+    at their K heads, never expanded -> (B, Sq, H, hd_v) in q's dtype,
+    the scores scaled by 1 / sqrt(hd).  Any Sq: nothing is padded (the TPU
+    form asserted tile multiples, a TPU tiling limit).  Differentiable in
+    q, k and v (see the module docstring)."""
     plain = _route(q) == "cpu"
     if records(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, plain)

@@ -313,21 +313,23 @@ def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """`attention_ref`'s output and each row's log-sum-exp of its scaled
     scores, lse (B, H, Sq) in the working type (what the kernel's
     `with_lse` returns)."""
-    b, sq, h, hd = q.shape
+    b, sq, h, _ = q.shape
     s, _, _ = _scores(q, k, causal, window)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(s.dtype))
     lse = torch.logsumexp(s, dim=-1).reshape(b, h, sq)
-    return o.reshape(b, sq, h, hd).to(q.dtype), lse
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype), lse
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Sq, H, hd); k, v (B, Skv, K, hd) with H % K == 0: query head
-    h reads kv head h // (H / K), as the JAX `ref.attention_ref` repeats
-    the kv heads (here the grouping is a reshape, nothing is copied).
-    Scores and softmax in float32 (float64 for float64 inputs), masked
-    entries at -1e30 as in the reference; the output in q's dtype.  It
+    """q (B, Sq, H, hd); k (B, Skv, K, hd), v (B, Skv, K, hd_v) with
+    H % K == 0: query head h reads kv head h // (H / K), as the JAX
+    `ref.attention_ref` repeats the kv heads (here the grouping is a
+    reshape, nothing is copied).  Scores scaled by 1 / sqrt(hd) (q's, as
+    the reference's `chunked_causal_attention` scales MLA's) and softmax in
+    float32 (float64 for float64 inputs), masked entries at -1e30 as in
+    the reference; the output (B, Sq, H, hd_v) in q's dtype.  It
     materializes the (Sq, Skv) scores: the plain version, not a path for
     long sequences."""
     return attention_fwd_ref(q, k, v, causal=causal, window=window)[0]
@@ -341,17 +343,18 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elsewhere), D = rowsum(dO * O), dS = P (dO V^T - D), dq = dS K / sqrt
     (hd), dk = dS^T Q / sqrt(hd) summed over each kv head's query heads,
     dv = P^T dO likewise; in the working type, returned in the inputs'
-    dtypes."""
+    dtypes.  o, do and dv have v's head dim, dq and dk q's."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     s, qg, mask = _scores(q, k, causal, window)
     acc = s.dtype
     lse_g = lse.to(acc).reshape(b, kh, h // kh, sq, 1)
     p = torch.where(mask, torch.exp(s - lse_g), 0.0)
-    dog = do.to(acc).reshape(qg.shape)
+    og_shape = qg.shape[:-1] + (v.shape[-1],)
+    dog = do.to(acc).reshape(og_shape)
     kf, vf = k.to(acc), v.to(acc)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
-    delta = (dog * o.to(acc).reshape(qg.shape)).sum(-1)     # (B, Sq, K, G)
+    delta = (dog * o.to(acc).reshape(og_shape)).sum(-1)     # (B, Sq, K, G)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
     scale = 1.0 / math.sqrt(hd)
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale

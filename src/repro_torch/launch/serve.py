@@ -4,12 +4,13 @@ linear regression over the measured decode steps), the counterpart of the
 JAX package's `launch/serve.py`.
 
 Any architecture of `repro_torch.configs.ARCHS`: RecurrentGemma-9B,
-Yi-6B, GLM-4-9B, StarCoder2-15B, Mixtral-8x7B (whose 93 GB of bf16
-weights do not fit one card whole: cut its depth with
-`configs.base.replace(cfg, num_layers=...)` and call `serve`) and
-SmolLM-360M.  On a card, prefill runs the hand-written CUDA
-`flash_attention` in every attention layer and `rglru_scan` in every
-RG-LRU layer; the MoE's routing and expert products and decode run plain
+Yi-6B, GLM-4-9B, StarCoder2-15B, Mixtral-8x7B and DeepSeek-V2-236B
+(whose 93 GB and 472 GB of bf16 weights do not fit one card whole: cut
+their depth with `configs.base.replace(cfg, num_layers=...)` and call
+`serve`) and SmolLM-360M.  On a card, prefill runs the hand-written CUDA
+`flash_attention` in every attention layer (MLA's expanded form at head
+dims 192 and 128) and `rglru_scan` in every RG-LRU layer; the MoE's
+routing and expert products and decode (MLA's absorbed form) run plain
 tensor code.  Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
@@ -38,19 +39,25 @@ class Served(NamedTuple):
     prefill_s: float          # host seconds of the prefill
 
 
+# a full-length cache's leaves by their sequence axis: k, v (..., S, K, hd);
+# MLA's c_kv (..., S, kv_lora) and k_rope (..., S, rope)
+_SEQ_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_rope": -2}
+
+
 def _grow(cache, prompt_len: int, gen: int):
-    """Pad full-length KV caches (k, v and slot_pos, as long as the prompt)
-    by `gen` positions, slot_pos with -1; windowed rings shorter than the
+    """Pad full-length caches (k and v, or MLA's c_kv and k_rope, and
+    slot_pos, as long as the prompt) by `gen` positions along their
+    sequence axis, slot_pos with -1; windowed rings shorter than the
     prompt keep their size, and so does recurrent state.  (The reference
     pads every slot_pos, a ring's too, and then fails to decode a prompt
     longer than the window; the port grows slot_pos only with its k, v.)"""
     if "slot_pos" in cache and cache["slot_pos"].shape[-1] == prompt_len:
         grown = dict(cache)
-        for key in ("k", "v"):
-            leaf = cache[key]
+        for key in (k for k in _SEQ_AXIS if k in cache):
+            leaf, ax = cache[key], _SEQ_AXIS[key]
             pad = list(leaf.shape)
-            pad[-3] = gen                   # (..., S, K, hd)
-            grown[key] = torch.cat([leaf, leaf.new_zeros(pad)], dim=-3)
+            pad[ax] = gen
+            grown[key] = torch.cat([leaf, leaf.new_zeros(pad)], dim=ax)
         pad = list(cache["slot_pos"].shape)
         pad[-1] = gen
         grown["slot_pos"] = torch.cat(

@@ -37,14 +37,17 @@ def _normal(gen: Optional[torch.Generator], shape: Sequence[int],
                        device=device)
 
 
+# The scaling is in place: the same values as out of place, without a
+# second float32 copy of the leaf (5 GB for one of DeepSeek-V2's stacked
+# expert leaves).
 def dense_init(gen, shape, dtype, fan_in: Optional[int] = None,
                device="cpu") -> torch.Tensor:
     fan = fan_in if fan_in is not None else shape[0]
-    return (_normal(gen, shape, device) / math.sqrt(max(fan, 1))).to(dtype)
+    return _normal(gen, shape, device).div_(math.sqrt(max(fan, 1))).to(dtype)
 
 
 def embed_init(gen, shape, dtype, device="cpu") -> torch.Tensor:
-    return (_normal(gen, shape, device) * 0.02).to(dtype)
+    return _normal(gen, shape, device).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

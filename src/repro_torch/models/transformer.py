@@ -1,7 +1,8 @@
 """Model assembly: block dispatch, the layer loop, train/prefill forward,
 the loss and decode, the counterpart of the JAX package's
 `models/transformer.py` for the block kinds the port runs (full, sliding
-window and local attention, RG-LRU; a dense FFN or a mixture of experts).
+window and local attention, DeepSeek-V2's MLA, RG-LRU; a dense FFN or a
+mixture of experts).
 
 Layer plan, as in the reference: `first_dense_layers` prefix blocks with
 a dense FFN (DeepSeek's dense layer 0), then `n_cycles` copies of
@@ -28,7 +29,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (
-    ATTENTION_KINDS, ATTN_FULL, ATTN_LOCAL, ATTN_SWA, BLK_RGLRU, ModelConfig,
+    ATTENTION_KINDS, ATTN_FULL, ATTN_LOCAL, ATTN_MLA, ATTN_SWA, BLK_RGLRU,
+    ModelConfig,
 )
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
@@ -39,7 +41,7 @@ from repro_torch.models.layers import (
     rmsnorm, rmsnorm_init, softcap,
 )
 
-PORTED_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL, BLK_RGLRU)
+PORTED_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL, ATTN_MLA, BLK_RGLRU)
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -80,6 +82,8 @@ def block_init(gen, cfg: ModelConfig, kind: str, use_moe: bool,
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, device)}
     if kind in (ATTN_FULL, ATTN_SWA, ATTN_LOCAL):
         p["attn"] = attn.attn_init(gen, cfg, device)
+    elif kind == ATTN_MLA:
+        p["attn"] = attn.mla_init(gen, cfg, device)
     elif kind == BLK_RGLRU:
         p["mix"] = rglru_mod.rglru_init(gen, cfg, device)
     else:
@@ -104,6 +108,8 @@ def block_apply_seq(p: dict, cfg: ModelConfig, kind: str, x, positions,
     if kind in (ATTN_FULL, ATTN_SWA, ATTN_LOCAL):
         mix, c = attn.attn_apply_seq(p["attn"], cfg, kind, h, positions,
                                      make_cache)
+    elif kind == ATTN_MLA:
+        mix, c = attn.mla_apply_seq(p["attn"], cfg, h, positions, make_cache)
     elif kind == BLK_RGLRU:
         mix, c = rglru_mod.rglru_apply_seq(p["mix"], cfg, h, make_cache)
     else:
@@ -123,6 +129,8 @@ def block_decode(p: dict, cfg: ModelConfig, kind: str, x, cache, pos: int):
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in (ATTN_FULL, ATTN_SWA, ATTN_LOCAL):
         mix, c = attn.attn_decode(p["attn"], cfg, kind, h, cache, pos)
+    elif kind == ATTN_MLA:
+        mix, c = attn.mla_decode(p["attn"], cfg, h, cache, pos)
     elif kind == BLK_RGLRU:
         mix, c = rglru_mod.rglru_decode(p["mix"], cfg, h, cache, pos)
     else:
@@ -413,6 +421,14 @@ def _block_cache_zeros(cfg: ModelConfig, kind: str, batch: int,
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device),
                 "slot_pos": torch.full((c_len,), -1, dtype=torch.int32,
+                                       device=device)}
+    if kind == ATTN_MLA:
+        return {"c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                    dtype=dt, device=device),
+                "k_rope": torch.zeros((batch, cache_len,
+                                       cfg.qk_rope_head_dim), dtype=dt,
+                                      device=device),
+                "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
                                        device=device)}
     if kind == BLK_RGLRU:
         w = cfg.rglru_width or cfg.d_model

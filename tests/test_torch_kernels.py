@@ -308,17 +308,28 @@ def test_library_path_tracks_sources_and_flags(monkeypatch, tmp_path):
 H100_SMEM_OPTIN = 232448        # cudaDevAttrMaxSharedMemoryPerBlockOptin
 
 
-# flash_smem_bytes in csrc/flash_attention.cu:
-#   (2 + 2 * stages) * 64 * hd * 2 + 1024 + 128
-@pytest.mark.parametrize("hd,stages,want", [
-    (64, 4, 83072), (128, 4, 164992), (256, 2, 197760)])
-def test_flash_smem_bytes_fits_and_equals_the_c_formula(hd, stages, want):
+# flash_smem_bytes in csrc/flash_attention.cu, q and k of head dim hd and
+# v of hd_v: (2 * hd + stages * (hd + hd_v)) * 64 * 2 + 1024 + 128
+@pytest.mark.parametrize("hd,hd_v,stages,want", [
+    (64, 64, 4, 83072), (128, 128, 4, 164992), (256, 256, 2, 197760),
+    (192, 128, 4, 214144)])
+def test_flash_smem_bytes_fits_and_equals_the_c_formula(hd, hd_v, stages,
+                                                        want):
+    assert (hd, hd_v) in tflash.FWD_PAIRS
     assert tflash.flash_stages(hd) == stages
-    assert tflash.flash_smem_bytes(hd, stages) == want
+    assert tflash.flash_smem_bytes(hd, hd_v, stages) == want
     assert want <= H100_SMEM_OPTIN
-    # one more stage at hd = 256 would not fit
-    if hd == 256:
-        assert tflash.flash_smem_bytes(hd, stages + 1) > H100_SMEM_OPTIN
+    # one more stage at hd = 256 and at MLA's pair would not fit
+    if hd in (256, 192):
+        assert tflash.flash_smem_bytes(hd, hd_v, stages + 1) \
+            > H100_SMEM_OPTIN
+
+
+def test_flash_head_dim_pairs():
+    """The forward takes the backward's equal pairs and MLA's (192, 128);
+    the backward the equal pairs alone."""
+    assert set(tflash.BWD_PAIRS) == {(d, d) for d in tflash.HEAD_DIMS}
+    assert set(tflash.FWD_PAIRS) == set(tflash.BWD_PAIRS) | {(192, 128)}
 
 
 @pytest.mark.parametrize("dtype,h,kh,route", [
@@ -328,6 +339,7 @@ def test_flash_smem_bytes_fits_and_equals_the_c_formula(hd, stages, want):
     (torch.bfloat16, 16, 16, "wgmma_tiles"),   # MHA
     (torch.bfloat16, 6, 2, "wgmma_tiles"),     # GQA, group 3
     (torch.bfloat16, 12, 4, "wgmma_tiles"),
+    (torch.bfloat16, 128, 128, "wgmma_tiles"),  # DeepSeek-V2's expanded MLA
     (torch.float32, 16, 1, "f32"),
 ])
 def test_flash_route_by_shape(dtype, h, kh, route):

@@ -79,7 +79,8 @@ def _close(got, want, tol, what=""):
 # ---------------------------------------------------------------------------
 def test_configs_are_the_reference_configs():
     assert tconfigs.ARCHS == ("recurrentgemma-9b", "smollm-360m", "yi-6b",
-                              "glm4-9b", "starcoder2-15b", "mixtral-8x7b")
+                              "glm4-9b", "starcoder2-15b", "mixtral-8x7b",
+                              "deepseek-v2-236b")
     for arch in tconfigs.ARCHS:
         for name in ("get_config", "get_reduced_config"):
             t, j = getattr(tconfigs, name)(arch), getattr(jconfigs, name)(arch)
@@ -92,8 +93,7 @@ def test_configs_are_the_reference_configs():
             assert t.layer_kinds() == j.layer_kinds()
             assert t.param_count() == j.param_count()
             assert t.active_param_count() == j.active_param_count()
-    for arch in ("deepseek-v2-236b", "xlstm-125m", "musicgen-large",
-                 "qwen2-vl-7b"):
+    for arch in ("xlstm-125m", "musicgen-large", "qwen2-vl-7b"):
         with pytest.raises(KeyError, match="not yet ported"):
             tconfigs.get_config(arch)
 
@@ -111,7 +111,7 @@ def test_make_batch_matches_reference(seed, step):
 @pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_param_count_exact_from_shapes_matches_reference(arch):
     """Both counts come from shapes alone (meta tensors; jax.eval_shape):
-    the full configs' 0.36-46.7 B parameters are never allocated."""
+    the full configs' 0.36-236 B parameters are never allocated."""
     cfg = tconfigs.get_config(arch)
     assert ttf.param_count_exact(cfg) == jtf.param_count_exact(
         jconfigs.get_config(arch))
@@ -354,7 +354,7 @@ def test_lm_params_from_jax_checks_the_layout(model):
 
 def test_unported_block_kinds_raise():
     _, tcfg = _cfgs()
-    for kw in (dict(block_pattern=("mlstm",)), dict(block_pattern=("mla",)),
-               dict(mrope_sections=(4, 6, 6)), dict(cross_attn=True)):
+    for kw in (dict(block_pattern=("mlstm",)), dict(mrope_sections=(4, 6, 6)),
+               dict(cross_attn=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ttf.init_params(0, dataclasses.replace(tcfg, **kw), "cpu")
