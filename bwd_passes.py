@@ -51,7 +51,7 @@ def build(variants):
             sys.exit(f"nvcc failed on {name}:\n{err.decode()}")
         lib = ctypes.CDLL(so)
         lib.lotaru_flash_attention_bwd.argtypes = \
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.lotaru_flash_attention_bwd.restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -98,7 +98,7 @@ def main() -> None:
 
                 def run():
                     rc = lib.lotaru_flash_attention_bwd(
-                        *ptrs, 1, b, s, s, h, kh, hd, 1, w,
+                        *ptrs, 1, b, s, s, h, kh, hd, hd, 1, w,
                         torch.cuda.current_stream().cuda_stream)
                     if rc != 0:
                         sys.exit(f"{name} launch failed with CUDA error {rc}")

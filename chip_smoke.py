@@ -5438,10 +5438,33 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-4)       # float32 row statistics
 
 
 def train_attention_cases():
-    """(label, B, S, H, K, hd, window, causal): the two training paths'
-    shapes (SmolLM-360M's 15 heads over 5 at hd 64, causal; RecurrentGemma-
-    9B's 16 heads over 1 at hd 256, window 2048), then the forward's edges
-    (phase_lm_kernels)."""
+    """(label, B, S, H, K, hd, hd_v, window, causal, dtypes): the two
+    training paths' shapes (SmolLM-360M's 15 heads over 5 at hd 64,
+    causal; RecurrentGemma-9B's 16 heads over 1 at hd 256, window 2048),
+    then the forward's edges (phase_lm_kernels), float32 too at the paths
+    and at hd 64; then DeepSeek-V2's pair (mla_bwd_cases)."""
+    return tuple(c[:6] + (c[5],) + c[6:] + (
+        ("bfloat16", "float32") if "path" in c[0] or c[5] == 64
+        else ("bfloat16",),) for c in equal_pair_cases()) + mla_bwd_cases()
+
+
+def mla_bwd_cases():
+    """DeepSeek-V2's expanded MLA, q and k of 192, v of 128: its training
+    shape (B 2 x 4,096, H = K = 128, causal) and a GQA group of 8 with a
+    window of 64 (head splits, so partials of both widths, and masked
+    tiles) in bf16; float32 at B 1 x MLA_F32_S."""
+    b, s, h, kh, hd, hd_v = mla_attention_shape()
+    return (
+        ("mla training shape", b, s, h, kh, hd, hd_v, 0, True,
+         ("bfloat16",)),
+        ("mla GQA group 8, window 64", 2, 1000, 16, 2, hd, hd_v, 64, True,
+         ("bfloat16",)),
+        ("mla float32", 1, MLA_F32_S, h, kh, hd, hd_v, 0, True,
+         ("float32",)))
+
+
+def equal_pair_cases():
+    """(label, B, S, H, K, hd, window, causal) at the equal pairs."""
     return (
         ("smollm path", TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64, 0, True),
         ("recurrentgemma path", 1, 4096, 16, 1, 256, 2048, True),
@@ -5537,54 +5560,135 @@ def phase_train_kernels(dev) -> dict:
             out["rglru_scan_bwd"] = (err, 0.0)
         del a, gx, h0, g, h, got, again, want
 
-    smem = {}
-    for hd in flash.HEAD_DIMS:
-        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            c_bytes = [flash._bwd_lib().lotaru_flash_bwd_smem_bytes(hd, w,
-                                                                    code)
-                       for w in (0, 1)]
-            smem[(hd, str(dt)[6:])] = c_bytes
-            check(c_bytes == [flash.bwd_smem_bytes(hd, w, dt)
-                              for w in (0, 1)],
-                  f"bwd_smem_bytes differs from C at hd={hd}, {dt}: "
-                  f"{c_bytes}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flash_bwd_mirrors(dev)
+    out.update(bwd_case_checks(dev, gen, train_attention_cases()))
+    bwd_pair_refusal(dev)
+    return out
+
+
+def flash_bwd_mirrors(dev) -> None:
+    """The backward's shape formulas in C against their Python mirrors at
+    every head-dim pair: shared memory (dK/dV, dQ) and the rings' stages,
+    and on a set of shapes the head splits and the scratch."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
     lib = flash._bwd_lib()
+    smem, stages = {}, {}
+    for hd, hd_v in flash.BWD_PAIRS:
+        st = [lib.lotaru_flash_bwd_stages(hd, hd_v, w) for w in (0, 1)]
+        stages[(hd, hd_v)] = st
+        check(st == [flash.bwd_stages(hd, w, hd_v) for w in (0, 1)],
+              f"bwd_stages differs from C at {(hd, hd_v)}: {st}")
+        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            c_bytes = [lib.lotaru_flash_bwd_smem_bytes(hd, hd_v, w, code)
+                       for w in (0, 1)]
+            smem[(hd, hd_v, str(dt)[6:])] = c_bytes
+            check(c_bytes == [flash.bwd_smem_bytes(hd, w, dt, hd_v)
+                              for w in (0, 1)]
+                  and max(c_bytes) <= flash.SMEM_OPTIN,
+                  f"bwd_smem_bytes differs from C at {(hd, hd_v)}, {dt}, or "
+                  f"is over the opt-in limit: {c_bytes}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_shapes = 0
     for b, s, h, kh in ((8, 2048, 15, 5), (1, 4096, 16, 1), (2, 1000, 16, 1),
                         (2, 1001, 15, 5), (2, 1000, 16, 8), (2, 1000, 12, 4),
-                        (2, 1000, 16, 16), (1, 64, 2, 1), (3, 1, 4, 2)):
+                        (2, 1000, 16, 16), (1, 64, 2, 1), (3, 1, 4, 2),
+                        (2, 4096, 128, 128), (2, 1000, 16, 2)):
         for n_sm in (sms, 8, 132, 1000):
-            for hd in flash.HEAD_DIMS:
+            for hd, hd_v in flash.BWD_PAIRS:
                 splits = flash.bwd_head_splits(b, s, h, kh, n_sm, hd)
-                check(lib.lotaru_flash_bwd_head_splits(b, s, h, kh, n_sm, hd)
-                      == splits, f"bwd_head_splits differs from C at "
-                      f"{(b, s, h, kh, n_sm, hd)}")
+                check(lib.lotaru_flash_bwd_head_splits(b, s, h, kh, n_sm, hd,
+                                                       hd_v) == splits,
+                      f"bwd_head_splits differs from C at "
+                      f"{(b, s, h, kh, n_sm, hd, hd_v)}")
                 for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
                     want = flash.bwd_scratch_floats(dt, b, s, s, h, kh, hd,
-                                                    n_sm)
+                                                    n_sm, hd_v)
                     check(lib.lotaru_flash_bwd_scratch_floats(
-                        code, b, s, s, h, kh, hd, n_sm) == want,
+                        code, b, s, s, h, kh, hd, hd_v, n_sm) == want,
                         f"bwd_scratch_floats differs from C at "
-                        f"{(b, s, h, kh, hd, dt, n_sm)}")
+                        f"{(b, s, h, kh, hd, hd_v, dt, n_sm)}")
                     n_shapes += 1
     print(f"[kernels] flash_attention_bwd: bwd_smem_bytes (dK/dV, dQ) by "
-          f"(hd, dtype) {smem} equal to the C formulas; bwd_head_splits and "
-          f"bwd_scratch_floats equal to them on {n_shapes} shapes; head "
-          f"splits on this card's {sms} SMs: SmolLM "
-          f"{flash.bwd_head_splits(8, 2048, 15, 5, sms, 64)}, RecurrentGemma "
-          f"{flash.bwd_head_splits(1, 4096, 16, 1, sms, 256)}")
+          f"(hd, hd_v, dtype) {smem} and bwd_stages (dK/dV, dQ) by pair "
+          f"{stages} equal to the C formulas, each pass within "
+          f"{flash.SMEM_OPTIN} bytes; bwd_head_splits and bwd_scratch_floats "
+          f"equal to them on {n_shapes} shapes; head splits on this card's "
+          f"{sms} SMs: SmolLM {flash.bwd_head_splits(8, 2048, 15, 5, sms, 64)}"
+          f", RecurrentGemma {flash.bwd_head_splits(1, 4096, 16, 1, sms, 256)}"
+          f", DeepSeek-V2 {flash.bwd_head_splits(2, 4096, 128, 128, sms, 192)}")
+
+
+def by_kv_head(fn, q, k, v, *rest, heads_axis=(2, 2)):
+    """fn over one kv head's query group at a time, its outputs
+    concatenated along their head axes (dim 2, lse's dim 1): the plain
+    attention at MLA's 128 heads would hold 17 GB of float32 scores at
+    once.  `rest` are per-query-head tensors laid out (B, S, H, .) or,
+    lse, (B, H, S), their head axes in heads_axis."""
+    import torch
+    g = q.shape[2] // k.shape[2]
+    outs = []
+    for j in range(k.shape[2]):
+        sl = slice(j * g, (j + 1) * g)
+        extra = [x[:, :, sl] if ax == 2 else x[:, sl]
+                 for x, ax in zip(rest, heads_axis)]
+        outs.append(fn(q[:, :, sl], k[:, :, j:j + 1], v[:, :, j:j + 1],
+                       *extra))
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, dim=2)
+    axes = (2, 2, 2) if len(outs[0]) == 3 else (2, 1)
+    return tuple(torch.cat(parts, dim=ax)
+                 for parts, ax in zip(zip(*outs), axes))
+
+
+def plain_bwd(q, k, v, o, do, lse, causal, window, split: bool):
+    """ref.attention_bwd_ref, a kv head at a time when `split`."""
+    from repro_torch.kernels import ref
+    if not split:
+        return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                     window=window)
+    return by_kv_head(lambda q_, k_, v_, o_, do_, l_: ref.attention_bwd_ref(
+        q_, k_, v_, o_, do_, l_, causal=causal, window=window), q, k, v, o,
+        do, lse, heads_axis=(2, 2, 1))
+
+
+def plain_fwd(q, k, v, causal, window, split: bool):
+    """ref.attention_fwd_ref -> (o, lse), a kv head at a time when
+    `split`."""
+    from repro_torch.kernels import ref
+    if not split:
+        return ref.attention_fwd_ref(q, k, v, causal=causal, window=window)
+    return by_kv_head(lambda q_, k_, v_: ref.attention_fwd_ref(
+        q_, k_, v_, causal=causal, window=window), q, k, v)
+
+
+def bwd_case_checks(dev, gen, cases) -> dict:
+    """flash_attention_bwd at each case (train_attention_cases) against
+    its plain version on the card: bf16 at both bf16 limits, f32 at 2e-5,
+    bitwise across two launches, on its route; the forward with lse
+    bitwise the forward without and its lse within LSE_TOL.  At an unequal
+    pair the plain versions run a kv head at a time, and beside each bf16
+    case the plain backward scaled by 1/sqrt(hd_v) (v's head dim, not q's)
+    must read outside 1e-2/4e-3 -> {"flash_attention_bwd": SmolLM's bf16
+    (max |err|, tol_ratio), "flash_attention_bwd_mla": the worst of the
+    pair's bf16 cases at 1e-2/4e-3, "flash_attention_bwd_mla_f32"}."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
     bf16, f32 = torch.bfloat16, torch.float32
-    for label, b, s, h, kh, hd, w, causal in train_attention_cases():
-        for dt in (bf16, f32):
-            if dt == f32 and "path" not in label and hd != 64:
-                continue                 # f32 at the paths and at hd 64
-            q, k, v = attention_inputs(gen, b, s, h, kh, hd, dt, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, b, s, h, kh, hd, hd_v, w, causal, dtypes in cases:
+        split = hd != hd_v
+        dims = f"hd={hd}" if not split else f"hd={hd} hd_v={hd_v}"
+        for dt in (getattr(torch, d) for d in dtypes):
+            q, k, v = attention_inputs(gen, b, s, h, kh, hd, dt, dev,
+                                       hd_v=hd_v)
             o_plain = flash.flash_attention(q, k, v, causal=causal, window=w)
             o, lse = flash.flash_attention(q, k, v, causal=causal, window=w,
                                            with_lse=True)
             do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
             before = dict(flash.flash_attention_bwd.route_launches)
+            before_pairs = dict(flash.flash_attention_bwd.pair_launches)
             got = flash.flash_attention_bwd(q, k, v, o, do, lse,
                                             causal=causal, window=w)
             again = flash.flash_attention_bwd(q, k, v, o, do, lse,
@@ -5593,14 +5697,17 @@ def phase_train_kernels(dev) -> dict:
             ran = {r: n - before[r] for r, n in
                    flash.flash_attention_bwd.route_launches.items()}
             check(route == ("wgmma" if dt == bf16 else "cuda_cores")
-                  and ran[route] == 2 and sum(ran.values()) == 2,
+                  and ran[route] == 2 and sum(ran.values()) == 2
+                  and flash.flash_attention_bwd.pair_launches[(hd, hd_v)]
+                  - before_pairs[(hd, hd_v)] == 2,
                   f"flash_attention_bwd ({label}, {dt}) did not take its "
-                  f"route: {ran}")
-            _, lse_want = ref.attention_fwd_ref(q, k, v, causal=causal,
-                                                window=w)
-            want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
-                                         window=w)
+                  f"route at {(hd, hd_v)}: {ran}")
+            _, lse_want = plain_fwd(q, k, v, causal, w, split)
+            want = plain_bwd(q, k, v, o, do, lse, causal, w, split)
             torch.cuda.synchronize()
+            check(all(tuple(x.shape) == tuple(y.shape) and x.dtype == dt
+                      for x, y in zip(got, (q, k, v))),
+                  f"flash_attention_bwd ({label}, {dt}): gradient shapes")
             same_o = torch.equal(o, o_plain)
             repeat = all(torch.equal(x, y) for x, y in zip(got, again))
             _, lse_ratio = tol_check(lse, lse_want, LSE_TOL)
@@ -5616,7 +5723,7 @@ def phase_train_kernels(dev) -> dict:
                 err = max(e for e, _ in errs)
                 ratio = max(r for _, r in errs)
                 print(f"[kernels] flash_attention_bwd {label} B={b} S={s} "
-                      f"H={h} K={kh} hd={hd} window={w} causal={causal} "
+                      f"H={h} K={kh} {dims} window={w} causal={causal} "
                       f"{str(dt)[6:]}, {route} route"
                       f"{f' ({flash.bwd_head_splits(b, s, h, kh, sms, hd)} head splits)' if dt == bf16 else ''}: dq, "
                       f"dk, dv vs plain (on the card) "
@@ -5629,9 +5736,62 @@ def phase_train_kernels(dev) -> dict:
                       f"outside {tol} of its plain version")
             if label == "smollm path" and dt == bf16:
                 out["flash_attention_bwd"] = (err, ratio)
+            if split:
+                key = "flash_attention_bwd_mla" + ("" if dt == bf16
+                                                   else "_f32")
+                out[key] = tuple(max(a, c) for a, c in zip(
+                    out.get(key, (0.0, 0.0)), (err, ratio)))
+            if split and dt == bf16:
+                wrong = wrong_scale_bwd(q, k, v, do, causal, w)
+                ratios = [max(tol_check(x, y, t)[1] for x, y in
+                              zip(wrong, want))
+                          for t in (BF16_TOL, BF16_KERNEL_TOL)]
+                print(f"[kernels] flash_attention_bwd {label}: the plain "
+                      f"backward scaled by 1/sqrt({hd_v}) against "
+                      f"1/sqrt({hd}), |err| / (atol + rtol |want|) "
+                      f"{ratios[0]!r} at 5e-2/5e-2, {ratios[1]!r} at "
+                      f"1e-2/4e-3")
+                check(ratios[1] > 1.0, "the bf16 limit does not see the "
+                      "backward scaled by v's head dim instead of q's")
+                del wrong
             del q, k, v, o, o_plain, lse, do, got, again, want, lse_want
             torch.cuda.empty_cache()
     return out
+
+
+def wrong_scale_bwd(q, k, v, do, causal, window) -> tuple:
+    """The plain forward and backward with the scores scaled by
+    1/sqrt(hd_v) instead of 1/sqrt(hd) (q scaled by sqrt(hd / hd_v), its
+    gradient carried back), a kv head at a time -> (dq, dk, dv)."""
+    c = (q.shape[-1] / v.shape[-1]) ** 0.5
+    qc = (q.float() * c).to(q.dtype)
+    o, lse = plain_fwd(qc, k, v, causal, window, True)
+    dq, dk, dv = plain_bwd(qc, k, v, o, do, lse, causal, window, True)
+    return (dq.float() * c).to(q.dtype), dk, dv
+
+
+def bwd_pair_refusal(dev) -> None:
+    """The backward's C entry point at (128, 192), a pair it lacks, must
+    return cudaErrorInvalidValue and launch nothing."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    q = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=dev)
+    v = torch.zeros((1, 64, 2, 192), dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros((1, 2, 64), device=dev)
+    scratch = torch.zeros(1 << 16, device=dev)
+    dq, dv = torch.full_like(q, 7.0), torch.full_like(v, 7.0)
+    rc = raw_launch("flash_attention_bwd",
+                    [q, q, v, v, v, lse, scratch, dq, dq, dv, 1, 1, 64, 64,
+                     2, 2, 128, 192, 1, 0], flash._bwd_lib()).unchecked()
+    torch.cuda.synchronize()
+    untouched = bool((dq == 7.0).all() and (dv == 7.0).all())
+    print(f"[kernels] flash_attention_bwd: the C entry point at head dims "
+          f"(128, 192), a pair it lacks, returns {rc} "
+          f"(cudaErrorInvalidValue {CUDA_INVALID_VALUE}); outputs untouched "
+          f"{untouched}")
+    check(rc == CUDA_INVALID_VALUE and untouched,
+          "the backward's C entry point did not refuse a head-dim pair it "
+          "lacks")
 
 
 TRAIN_STEPS = 30                # steps of the timed run and of the restart
@@ -5922,11 +6082,13 @@ def phase_train(dev) -> dict:
             "grad_dtypes": ("bfloat16", "float32", "bfloat16", "float32")}
 
 
-def flops_flash_bwd(b, s, h, hd, window) -> int:
-    """Operations of one attention backward over the visible band: 10 hd
-    per (query, key) pair (S recomputed, dP = dO V^T, dV, dQ and dK, a
-    multiply and an add each)."""
-    return flops_flash(b, s, h, hd, window) // 4 * 10
+def flops_flash_bwd(b, s, h, hd, window, hd_v=None) -> int:
+    """Operations of one attention backward over the visible band: 2 (3 hd
+    + 2 hd_v) per (query, key) pair, 10 hd at an equal pair (S recomputed
+    and dQ and dK over q's hd, dP = dO V^T and dV over v's hd_v, a
+    multiply and an add each); hd_v defaults to hd."""
+    pairs = flops_flash(b, s, h, hd, window) // (4 * hd)
+    return 2 * (3 * hd + 2 * (hd_v or hd)) * pairs
 
 
 def issued_flops_flash_bwd(b, s, h, hd, window) -> int:
@@ -5936,13 +6098,15 @@ def issued_flops_flash_bwd(b, s, h, hd, window) -> int:
     return flops_flash(b, s, h, hd, window) // 4 * 20
 
 
-def bounds_flash_bwd(b, s, h, kh, hd, window, itemsize) -> tuple:
+def bounds_flash_bwd(b, s, h, kh, hd, window, itemsize, hd_v=None) -> tuple:
     """Least time for one attention backward: its operations at the bf16
     tensor-core rate, or q, k, v, o, dO and lse read and dq, dk, dv
-    written once."""
-    t_ops = flops_flash_bwd(b, s, h, hd, window) / H100_BF16_FLOPS * 1e3
-    t_bytes = ((4 * b * s * h * hd + 4 * b * s * kh * hd) * itemsize
-               + 4 * b * h * s) / H100_BYTES_PER_S * 1e3
+    written once (q, k, dq and dk hd wide, v, o, dO and dv hd_v)."""
+    hd_v = hd_v or hd
+    t_ops = (flops_flash_bwd(b, s, h, hd, window, hd_v) / H100_BF16_FLOPS
+             * 1e3)
+    t_bytes = ((2 * b * s * h * (hd + hd_v) + 2 * b * s * kh * (hd + hd_v))
+               * itemsize + 4 * b * h * s) / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
         else "bytes"
 
@@ -6024,7 +6188,7 @@ def report_train(dev, launches, errors, per_step=None,
     from repro_torch.kernels import rglru_scan as scan
     gen = torch.Generator(device=dev).manual_seed(31)
     rows = {}
-    for label, b, s, h, kh, hd, w, _ in train_attention_cases()[:2]:
+    for label, b, s, h, kh, hd, _, w, _, _ in train_attention_cases()[:2]:
         q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev)
         o, lse = flash.flash_attention(q, k, v, causal=True, window=w,
                                        with_lse=True)
@@ -6036,7 +6200,7 @@ def report_train(dev, launches, errors, per_step=None,
             device=dev)
         launch = raw_launch("flash_attention_bwd",
                             [q, k, v, o, do, lse, delta, dq, dk, dv, 1, b, s,
-                             s, h, kh, hd, 1, w], flash._bwd_lib())
+                             s, h, kh, hd, hd, 1, w], flash._bwd_lib())
         fa = {"ms": time_ms(launch, reps=10),
               "wrapper_ms": time_ms(lambda: flash.flash_attention_bwd(
                   q, k, v, o, do, lse, causal=True, window=w), reps=10,
@@ -6169,12 +6333,9 @@ def attention_ref_by_kv_head(q, k, v, window: int):
     """ref.attention_ref (causal) over one kv head's query group at a
     time: the heads are independent, and Mixtral's whole prefill would
     hold 9.7 GB of float32 scores several times over."""
-    import torch
     from repro_torch.kernels import ref
-    g = q.shape[2] // k.shape[2]
-    return torch.cat([ref.attention_ref(
-        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
-        causal=True, window=window) for j in range(k.shape[2])], dim=2)
+    return by_kv_head(lambda q_, k_, v_: ref.attention_ref(
+        q_, k_, v_, causal=True, window=window), q, k, v)
 
 
 def moe_attention_checks(dev) -> dict:
@@ -6332,15 +6493,23 @@ def expert_load(cfg, top_i):
 
 def moe_grad_check(dev) -> dict:
     """Mixtral at one layer, full width, bf16, B 1 x S MOE_GRAD_S, under
-    its config's remat ("dots"): one step's loss and gradients, kernel
-    route against plain route (grad_check) with the plain route's tokens
-    pinned to the kernel route's experts, so that the leaves differ by
-    the kernels alone; the tokens whose own experts differ between the
-    routes counted; the router's leaf and every expert that received
-    tokens with a non-zero gradient -> the attention launches it made."""
+    its config's remat ("dots"): pinned_grad_check -> the attention
+    launches it made."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import replace
     cfg = replace(get_config(MOE_ARCH), num_layers=1)
+    pinned_grad_check(dev, MOE_ARCH, cfg, 1, MOE_GRAD_S, "moe")
+    return {"fwd": 2 if cfg.remat != "none" else 1, "bwd": 1}
+
+
+def pinned_grad_check(dev, arch: str, cfg, b: int, s: int, tag: str) -> dict:
+    """One step's loss and gradients of an MoE config, kernel route
+    against plain route (grad_check), with the plain route's tokens pinned
+    to the kernel route's experts, so that the leaves differ by the
+    kernels alone; the tokens whose own experts differ between the routes
+    counted; the router's leaf and every expert that received tokens with
+    a non-zero gradient (the MoE layer is the first cycle's) -> the kernel
+    route's gradients by leaf path."""
     runs = []
 
     @contextlib.contextmanager
@@ -6350,7 +6519,7 @@ def moe_grad_check(dev) -> dict:
         with routed([t for _, t in runs[0]] if plain else None) as calls:
             runs.append(calls)
             yield
-    grads = grad_check(dev, MOE_ARCH, cfg, 1, MOE_GRAD_S, around=pinned)
+    grads = grad_check(dev, arch, cfg, b, s, around=pinned)
     top_k, top_p = runs[0][0][1], runs[1][0][1]
     kept = expert_load(cfg, top_k)[0]
     moved = int((top_k != top_p).any(-1).sum())
@@ -6359,18 +6528,18 @@ def moe_grad_check(dev) -> dict:
     for name in ("we_i", "we_g", "we_down"):
         g = grads[f"cycles/b0/moe/{name}"][0]            # (E, ., .)
         fed[name] = (g.float().abs().amax(dim=(1, 2)) > 0).cpu()
-    print(f"[moe] gradients {MOE_ARCH} (remat {cfg.remat!r}): choices "
+    print(f"[{tag}] gradients {arch} (remat {cfg.remat!r}): choices "
           f"kept per expert {kept.tolist()}; router max |grad| "
           f"{float(router.abs().max())!r}; experts with a non-zero gradient "
           f"{ {k: v.tolist() for k, v in fed.items()} }")
-    print(f"[moe] gradients {MOE_ARCH}: the plain route pinned to the "
+    print(f"[{tag}] gradients {arch}: the plain route pinned to the "
           f"kernel route's experts ({len(runs[0])} router calls a route); "
           f"tokens whose own top-{cfg.top_k} experts differ between the "
           f"routes {moved} of {top_k.shape[1]}")
     check(float(router.abs().max()) > 0, "the router's gradient is zero")
     check(all(bool(v[kept > 0].all()) for v in fed.values()),
           "an expert that received tokens has a zero gradient")
-    return {"fwd": 2 if cfg.remat != "none" else 1, "bwd": 1}
+    return grads
 
 
 def remat_check(dev) -> dict:
@@ -6637,6 +6806,14 @@ MLA_CUT_LAYERS, MLA_CUT_S = 2, 256   # the float32 checks: the dense prefix
                                      # and one MoE layer, B 1
 MLA_F32_S = 1024                 # the float32 kernel's check, B 1
 CUDA_INVALID_VALUE = 1           # cudaErrorInvalidValue
+MLA_TRAIN_LAYERS = 2             # of 60: the dense prefix and one MoE
+                                 # layer, 5.359 B parameters
+MLA_GRAD_S = 2048                # the gradient check, B 1
+MLA_TRAIN_STEPS = 6              # the first warm, the median of 5 timed
+MLA_TRAIN_SEED = 7
+MLA_PROFILE_STEPS = 8            # profile_step_time: 4 points, 2 steps each
+TRAIN_PEAK_LIMIT_BYTES = 76e9    # PERF.md section 2
+MLA_LEAVES = ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo_mla")
 
 
 def mla_attention_shape() -> tuple:
@@ -6714,50 +6891,265 @@ def mla_attention_checks(dev) -> dict:
     return out
 
 
-def mla_refusal(dev) -> None:
-    """The training forward on the card at MLA's head dims: DeepSeek-V2 at
-    its dense prefix layer, full width, bf16, its weights recording
-    gradients, B 1 x 64 through models.loss_fn must raise
-    NotImplementedError naming the missing backward kernel, and launch no
-    attention kernel."""
+def step_profile(run) -> str:
+    """One call of `run` under torch.profiler -> its host time, kernel
+    time and busy share, the kernel time by kind (elementwise and
+    reductions, GEMMs, the attention backward and forward, index
+    kernels) and the top kernels."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import replace
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    evts = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and e.key != "Command Buffer Full"]
+    busy = sum(e.self_device_time_total for e in evts) / 1e3
+
+    def ms(*names):
+        return round(sum(e.self_device_time_total for e in evts
+                         if any(n in e.key for n in names)) / 1e3, 3)
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:8]
+    return (f"{host!r} ms host clock, {busy!r} ms of kernels, busy share "
+            f"{busy / host!r}; elementwise and reductions "
+            f"{ms('elementwise', 'reduce_kernel')} ms, GEMMs "
+            f"{ms('nvjet', 'gemm', 'xmma')}, flash_attention_bwd "
+            f"{ms('dkdv_', 'dq_ws_kernel', 'bwd_rows_kernel')}, "
+            f"flash_attention {ms('flash_attention_ws_kernel')}, index "
+            f"{ms('index', 'scatter', 'gather')}; "
+            f"{sum(e.count for e in evts)} device entries; top (name, ms, "
+            f"calls) {[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}")
+
+
+def mla_refusal(dev) -> None:
+    """A recording forward on the card at a head-dim pair the backward
+    kernel lacks (q and k of 48, v of 32: MLA's expanded form at the
+    reduced config's widths) must raise NotImplementedError naming the
+    backward kernel, and launch no attention kernel."""
+    import torch
     from repro_torch.kernels import flash_attention as flash
-    from repro_torch.models import init_params, loss_fn
-    from repro_torch.train.optimizer import tree_leaves
-    cfg = replace(get_config(MLA_ARCH), num_layers=1)
-    params = init_params(MOE_SEED, cfg, dev)
-    for leaf in tree_leaves(params):
-        leaf.requires_grad_()
-    tok = torch.randint(0, cfg.vocab_size, (1, 64), device=dev)
+    from repro_torch.kernels import ops
+    q, k = (torch.randn((1, 64, 2, 48), device=dev, dtype=torch.bfloat16,
+                        requires_grad=True) for _ in range(2))
+    v = torch.randn((1, 64, 2, 32), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
     before = (flash.flash_attention.launches,
               flash.flash_attention_bwd.launches)
     msg = None
     try:
         with torch.enable_grad():
-            loss_fn(params, cfg, {"tokens": tok, "labels": tok})
+            ops.flash_attention(q, k, v)
     except NotImplementedError as e:
         msg = str(e)
     after = (flash.flash_attention.launches,
              flash.flash_attention_bwd.launches)
-    print(f"[mla] the training forward on the card at head dims "
-          f"{attention_pair(cfg)} ({cfg.name}, 1 layer, B 1 x 64): "
-          f"NotImplementedError {msg!r}; attention launches (forward, "
-          f"backward) {tuple(a - b for a, b in zip(after, before))}")
+    print(f"[mla] a recording forward on the card at head dims (48, 32), "
+          f"a pair the backward lacks: NotImplementedError {msg!r}; "
+          f"attention launches (forward, backward) "
+          f"{tuple(a - b for a, b in zip(after, before))}")
     check(msg is not None and "flash_attention_bwd" in msg
-          and after == before, "the training forward at MLA's head dims "
-          "was not refused before launching, naming the missing backward")
-    del params
+          and after == before, "a recording forward at a pair the backward "
+          "lacks was not refused before launching, naming the backward")
+
+
+def mla_grad_check(dev) -> dict:
+    """DeepSeek-V2 at MLA_TRAIN_LAYERS layers (the dense prefix and one
+    MoE layer), full width, bf16, B 1 x MLA_GRAD_S, under its config's
+    remat ("full"): pinned_grad_check, and every MLA leaf non-zero in both
+    layers -> the attention launches it made."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    cfg = replace(get_config(MLA_ARCH), num_layers=MLA_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    grads = pinned_grad_check(dev, MLA_ARCH, cfg, 1, MLA_GRAD_S, "mla")
+    peaks = {}
+    for layer in ("prefix/0", "cycles/b0"):
+        for name in MLA_LEAVES:
+            peaks[f"{layer}/attn/{name}"] = float(
+                grads[f"{layer}/attn/{name}"].float().abs().max())
+    print(f"[mla] gradients {MLA_ARCH}: max |grad| of the MLA leaves "
+          f"{peaks}; the check took {time.perf_counter() - t0!r} s")
+    check(all(v > 0 for v in peaks.values()),
+          "an MLA leaf has a zero gradient in some layer")
+    del grads
+    return {"fwd": attention_forwards_a_step(cfg), "bwd": MLA_TRAIN_LAYERS}
+
+
+def attention_forwards_a_step(cfg) -> int:
+    """The attention forward's launches in one training step: one a layer,
+    and one more a layer of each cycle under remat, which recomputes the
+    cycles (not the dense prefix) in the backward."""
+    from repro_torch.models.transformer import layer_plan
+    prefix, pattern, n_cycles, tail = layer_plan(cfg)
+    again = n_cycles * len(pattern) if cfg.remat != "none" else 0
+    return len(prefix) + n_cycles * len(pattern) + len(tail) + again
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """PyTorch's caching allocator with expandable segments inside the
+    block, its cache emptied on the way in and out.  DeepSeek-V2's
+    training at 2 layers holds 54 GB of state, gradients and cast on the
+    80 GB card; with fixed segments a step failed to find room for a
+    5.03 GB float32 copy of an expert gradient while 31.6 GB lay reserved
+    but unallocated in segments others still used."""
+    import torch
     torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def mla_train_config() -> tuple:
+    """(cfg, OptConfig) of the mla cell's training: DeepSeek-V2 at
+    MLA_TRAIN_LAYERS layers with its config's remat and int8 moments, one
+    microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    from repro_torch.train.optimizer import OptConfig
+    cfg = replace(get_config(MLA_ARCH), num_layers=MLA_TRAIN_LAYERS,
+                  microbatches=1)
+    return cfg, OptConfig(int8_state=cfg.int8_opt_state)
+
+
+def mla_train_batch(cfg, dev, i: int) -> dict:
+    """Batch i of the training cell's seeded data, B MLA_BATCH x S
+    MLA_PROMPT, on the card."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    return {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        DataConfig(cfg.vocab_size, MLA_PROMPT, MLA_BATCH,
+                   seed=MLA_TRAIN_SEED), i).items()}
+
+
+def mla_train(dev) -> dict:
+    """DeepSeek-V2 at MLA_TRAIN_LAYERS of 60 layers, full width, through
+    make_train_step under its config's remat "full" with int8 moments and
+    one microbatch (the config's 8 would keep a float32 sum of the
+    gradients, 21.4 GB, beside a 53.9 GB state): Lotaru's prediction of
+    the step (launch.train.profile_step_time at B MLA_BATCH x S
+    MLA_PROMPT), then MLA_TRAIN_STEPS steps on weights made on the card
+    from MLA_TRAIN_SEED, the first warm; then one more step split at the
+    update.  Held: finite losses, the peak over making the state and the
+    steps within TRAIN_PEAK_LIMIT_BYTES, the median inside Lotaru's
+    +- 3 std -> the attention launches the steps made."""
+    import torch
+    from repro_torch.core import bayes
+    from repro_torch.launch.train import profile_step_time
+    from repro_torch.models import init_params, param_count_exact
+    from repro_torch.perf.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import init_opt_state
+    cfg, oc = mla_train_config()
+    b, s = MLA_BATCH, MLA_PROMPT
+    tokens = b * s
+    t0 = time.perf_counter()
+    post, pts = profile_step_time(cfg, oc, b, s, device=dev)
+    mean, std = bayes.predict_blr(
+        {k: torch.from_numpy(v) for k, v in post.items()},
+        torch.tensor(float(tokens)))
+    mean, std = float(mean), float(std)
+    t_prof = time.perf_counter() - t0
+    print(f"[mla] train {cfg.name} at {MLA_TRAIN_LAYERS} of 60 layers "
+          f"({param_count_exact(cfg)} parameters, {cfg.active_param_count()} "
+          f"active a token, {cfg.dtype}, remat {cfg.remat!r}, int8 moments, "
+          f"1 microbatch): lotaru predicted step {mean * 1e3!r} ms +- "
+          f"{std * 1e3!r} ms at {tokens} tokens; profile points (tokens, s) "
+          f"{pts} ({t_prof!r} s)")
+    # the cache stays: the steps reuse the profile's mapped memory, where
+    # segments grown anew slowed the first steps
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step = ts.make_train_step(cfg, oc)
+    state = {"opt": init_opt_state(init_params(MLA_TRAIN_SEED, cfg, dev),
+                                   oc)}
+    torch.cuda.synchronize()
+    t_state = time.perf_counter() - t0
+    state_peak = torch.cuda.max_memory_allocated(dev)
+
+    secs, losses = [], []
+    for i in range(MLA_TRAIN_STEPS):
+        data = mla_train_batch(cfg, dev, i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = step(state, data)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    # one more step, timed whole and at the update (a sync either side)
+    update = ts.adamw_update
+    split = {}
+
+    def timed_update(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*a, **k)
+        torch.cuda.synchronize()
+        split["update_s"] = time.perf_counter() - t
+        return out
+    data = mla_train_batch(cfg, dev, MLA_TRAIN_STEPS)
+    ts.adamw_update = timed_update
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = step(state, data)
+        torch.cuda.synchronize()
+        split["step_s"] = time.perf_counter() - t1
+    finally:
+        ts.adamw_update = update
+    losses.append(float(met["loss"]))
+    del state, data
+    torch.cuda.empty_cache()
+    med = float(np.median(secs[1:]))
+    mfu = model_flops(cfg.active_param_count(), tokens, "train") / med \
+        / PEAK_FLOPS
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"[mla] train B={b} S={s} ({tokens} tokens a step, {smi}): "
+          f"step median {med * 1e3!r} ms of {MLA_TRAIN_STEPS - 1} (the "
+          f"first {secs[0] * 1e3!r} ms excluded; all {[round(x * 1e3, 2) for x in secs]}"
+          f"), {tokens / med!r} tokens/s, model-flop utilisation {mfu!r} "
+          f"(6 N_active D / step / {PEAK_FLOPS:.4g} FLOP/s); losses "
+          f"{losses}; max_memory_allocated {peak} bytes over making the "
+          f"state ({state_peak} after it, {t_state!r} s) and the steps "
+          f"(limit {TRAIN_PEAK_LIMIT_BYTES:.0f})")
+    fb = split["step_s"] - split["update_s"]
+    print(f"[mla] train step split (one more step, a sync either side of "
+          f"the update): {split['step_s'] * 1e3!r} ms, of which the cast, "
+          f"forward and backward {fb * 1e3!r} ms and the AdamW update "
+          f"{split['update_s'] * 1e3!r} ms; lotaru {mean * 1e3!r} ms +- "
+          f"{std * 1e3!r} ms beside the median {med * 1e3!r} ms (limit +- 3 "
+          f"std: {abs(med - mean) <= 3 * std})")
+    check(all(np.isfinite(losses)), "a DeepSeek-V2 training loss is not "
+          "finite")
+    check(peak <= TRAIN_PEAK_LIMIT_BYTES, f"DeepSeek-V2 training peak "
+          f"{peak} bytes over {TRAIN_PEAK_LIMIT_BYTES:.0f}")
+    check(abs(med - mean) <= 3 * std, f"the DeepSeek-V2 step median "
+          f"{med!r} s is outside Lotaru's {mean!r} +- 3 x {std!r} s")
+    steps = MLA_PROFILE_STEPS + MLA_TRAIN_STEPS + 1
+    return {"fwd": steps * attention_forwards_a_step(cfg), "bwd":
+            steps * MLA_TRAIN_LAYERS, "step_ms": med * 1e3,
+            "update_ms": split["update_s"] * 1e3}
 
 
 def phase_mla(dev) -> dict:
     """The mla slice's main path: DeepSeek-V2-236B at its published widths,
     cut to MLA_LAYERS of 60 layers, through serve (its weights made on the
-    card from MOE_SEED inside the call, as in the moe cells), then the
-    refused training forward -> the flash_attention launches the path
-    should have made and the served numbers."""
+    card from MOE_SEED inside the call, as in the moe cells); the refused
+    recording forward at a pair the backward lacks; then training at
+    MLA_TRAIN_LAYERS layers: the bf16 gradient check and the AdamW steps
+    -> the flash_attention forward and backward launches the path should
+    have made and the served numbers."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import replace
@@ -6780,27 +7172,45 @@ def phase_mla(dev) -> dict:
           f"{DECODE_LIMIT_MS}")
     torch.cuda.empty_cache()
     mla_refusal(dev)
-    print(f"[mla] the phase's main path took {time.perf_counter() - t0!r} s")
-    return {"served": served, "fwd": served["attn_layers"]}
+    t_serve = time.perf_counter() - t0
+    gc = mla_grad_check(dev)
+    torch.cuda.empty_cache()
+    with expandable_segments():
+        tr = mla_train(dev)
+    print(f"[mla] the phase's main path took {time.perf_counter() - t0!r} s "
+          f"(serving {t_serve!r} s)")
+    return {"served": served, "fwd": served["attn_layers"] + gc["fwd"]
+            + tr["fwd"], "bwd": gc["bwd"] + tr["bwd"], "train": tr}
 
 
 def check_mla_launches(mo: dict, got: dict) -> None:
-    """The mla path's launches: the attention forward once per layer, all
-    on wgmma_tiles at MLA's head dims, nothing else."""
+    """The mla path's launches: the attention forward once per layer a
+    pass (twice a cycle's layer a training step under remat "full") and
+    the backward once per layer a step, all bf16 at MLA's head dims (the
+    forward on wgmma_tiles, the backward on wgmma), nothing else."""
     from repro_torch.kernels import flash_attention as flash
     routes = flash.flash_attention.route_launches
     pairs = {p: n for p, n in flash.flash_attention.pair_launches.items()
              if n}
+    bwd_routes = flash.flash_attention_bwd.route_launches
+    bwd_pairs = {p: n for p, n in
+                 flash.flash_attention_bwd.pair_launches.items() if n}
     print(f"[launches] mla: {got}; flash_attention by route {routes}, by "
-          f"head-dim pair {pairs}")
+          f"head-dim pair {pairs}; flash_attention_bwd by route "
+          f"{bwd_routes}, by head-dim pair {bwd_pairs}")
     check(got["flash_attention"] == mo["fwd"]
-          and all(n == 0 for k, n in got.items() if k != "flash_attention"),
-          f"the mla path did not launch the attention forward once per layer "
-          f"({mo['fwd']}), or launched a kernel off its path")
+          and got["flash_attention_bwd"] == mo["bwd"]
+          and all(n == 0 for k, n in got.items()
+                  if k not in ("flash_attention", "flash_attention_bwd")),
+          f"the mla path did not launch the attention forward ({mo['fwd']}) "
+          f"and backward ({mo['bwd']}) once per layer a pass, or launched a "
+          f"kernel off its path")
     check(routes["wgmma_tiles"] == mo["fwd"] and pairs == {(192, 128):
-                                                          mo["fwd"]},
-          "the mla path's attention launches did not all take wgmma_tiles at "
-          "head dims (192, 128)")
+                                                          mo["fwd"]}
+          and bwd_routes["wgmma"] == mo["bwd"]
+          and bwd_pairs == {(192, 128): mo["bwd"]},
+          "the mla path's attention launches did not all take wgmma_tiles "
+          "(forward) and wgmma (backward) at head dims (192, 128)")
 
 
 def mla_cut_checks(dev) -> None:
@@ -6819,13 +7229,29 @@ def mla_cut_checks(dev) -> None:
 
 def mla_profile(dev) -> None:
     """Where DeepSeek-V2's serve time goes: its prefill and decode steps at
-    the mla phase's shape under torch.profiler."""
+    the mla phase's shape under torch.profiler; then a training step's
+    (a fresh state, a warm step, one profiled)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import replace
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
     lm_profile(dev, replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS),
                MLA_BATCH, MLA_PROMPT, "mla")
     torch.cuda.empty_cache()
+    cfg, oc = mla_train_config()
+    with expandable_segments():
+        step = make_train_step(cfg, oc)
+        state = {"opt": init_opt_state(
+            init_params(MLA_TRAIN_SEED, cfg, dev), oc)}
+        data = mla_train_batch(cfg, dev, 0)
+        state, _ = step(state, data)
+        prof = step_profile(lambda: step(state, data))
+        print(f"[mla] profile {cfg.name} training, one step at "
+              f"{MLA_TRAIN_LAYERS} layers, B={MLA_BATCH} S={MLA_PROMPT} "
+              f"(after a warm one): {prof}")
+        del state, data
 
 
 def sdpa_backend(qt, kt, vt) -> str:
@@ -6885,17 +7311,86 @@ def report_mla(dev, served, errs) -> dict:
     return row
 
 
+def report_mla_bwd(dev, ml, errs) -> dict:
+    """flash_attention_bwd at DeepSeek-V2's training shape: the kernel
+    with the L2 flushed and warm, its bound (2 (3 x 192 + 2 x 128) a
+    visible pair), the plain version a kv head at a time, SDPA's causal
+    backward on heads-first copies (v at its own width) and its backend,
+    the mla path's backward launches and the checks against the plain
+    version (`errs`)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device=dev).manual_seed(43)
+    b, s, h, kh, hd, hd_v = mla_attention_shape()
+    q, k, v = attention_inputs(gen, b, s, h, kh, hd, torch.bfloat16, dev,
+                               hd_v=hd_v)
+    o, lse = flash.flash_attention(q, k, v, causal=True, with_lse=True)
+    do = torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    delta = torch.empty(flash.bwd_scratch_floats(q.dtype, b, s, s, h, kh, hd,
+                                                 sms, hd_v),
+                        dtype=torch.float32, device=dev)
+    launch = raw_launch("flash_attention_bwd",
+                        [q, k, v, o, do, lse, delta, dq, dk, dv, 1, b, s, s,
+                         h, kh, hd, hd_v, 1, 0], flash._bwd_lib())
+    row = {"shape": f"{MLA_ARCH} training B={b} S={s} H={h} K={kh} hd={hd} "
+                    f"hd_v={hd_v} causal bf16",
+           "kernel_route": flash.bwd_route(q.dtype, hd),
+           "head_splits": flash.bwd_head_splits(b, s, h, kh, sms, hd),
+           "stages": [flash.bwd_stages(hd, w, hd_v) for w in (0, 1)],
+           "ms": time_ms(launch, reps=10),
+           "warm_ms": warm_ms(launch, reps=5, inner=3),
+           "plain_ms": time_ms(lambda: plain_bwd(q, k, v, o, do, lse, True, 0,
+                                                 True), reps=1, host=True),
+           "plain_how": f"ref.attention_bwd_ref a kv head at a time ({kh} "
+                        f"calls)",
+           "forward_ms": time_ms(lambda: flash.flash_attention(
+               q, k, v, causal=True), reps=10),
+           "launches": ml["bwd"],
+           "max_abs_err": errs["flash_attention_bwd_mla"][0],
+           "tolerance": "rtol 1e-2 atol 4e-3 (bfloat16; also within "
+                        "5e-2/5e-2); float32 2e-5",
+           "tol_ratio": errs["flash_attention_bwd_mla"][1],
+           "f32_max_abs_err": errs["flash_attention_bwd_mla_f32"][0],
+           "f32_tol_ratio": errs["flash_attention_bwd_mla_f32"][1]}
+    row["bound_ms"], row["bound_by"] = bounds_flash_bwd(b, s, h, kh, hd, 0, 2,
+                                                        hd_v)
+    row["tflops"] = (flops_flash_bwd(b, s, h, hd, 0, hd_v)
+                     / (row["ms"] * 1e-3) / 1e12)
+    row["bound_ratio"] = row["ms"] / row["bound_ms"]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    row["library_backend"] = sdpa_backend(qt, kt, vt)
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps=10)
+        del out
+    except RuntimeError as e:      # the yardstick only; the port never
+        row["library_ms"] = None   # calls SDPA
+        row["library_error"] = str(e).splitlines()[0][:200]
+    print(f"[report] flash_attention_bwd {row['shape']}: {row}")
+    del q, k, v, o, lse, do, dq, dk, dv, delta, launch, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return row
+
+
 def mla_only(dev) -> None:
-    """`--only mla`: the flash mirrors and MLA's attention checks, the mla
-    phase, its launches, its float32 checks, its profile and its attention
-    report."""
+    """`--only mla`: the flash mirrors, MLA's attention checks forward and
+    backward, the mla phase, its launches, its float32 checks, its profile
+    and its attention reports."""
+    import torch
     from repro_torch.kernels import flash_attention as flash
     flash_mirrors()
+    flash_bwd_mirrors(dev)
     errs = mla_attention_checks(dev)
-    for fn in (flash.flash_attention, flash.flash_attention_bwd):
-        fn.launches = 0
-    flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
-    flash.flash_attention.pair_launches = dict.fromkeys(flash.FWD_PAIRS, 0)
+    bwd_errs = bwd_case_checks(
+        dev, torch.Generator(device=dev).manual_seed(29), mla_bwd_cases())
+    bwd_pair_refusal(dev)
+    reset_attention_counts()
     ml = phase_mla(dev)
     check_mla_launches(ml, {"flash_attention": flash.flash_attention.launches,
                             "flash_attention_bwd":
@@ -6903,6 +7398,20 @@ def mla_only(dev) -> None:
     mla_cut_checks(dev)
     mla_profile(dev)
     report_mla(dev, ml["served"], errs)
+    report_mla_bwd(dev, ml, bwd_errs)
+
+
+def reset_attention_counts() -> None:
+    """Both attention wrappers' counts, by route and by pair, to 0."""
+    from repro_torch.kernels import flash_attention as flash
+    for fn in (flash.flash_attention, flash.flash_attention_bwd):
+        fn.launches = 0
+    flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
+    flash.flash_attention.pair_launches = dict.fromkeys(flash.FWD_PAIRS, 0)
+    flash.flash_attention_bwd.route_launches = dict.fromkeys(
+        flash.BWD_ROUTES, 0)
+    flash.flash_attention_bwd.pair_launches = dict.fromkeys(
+        flash.BWD_PAIRS, 0)
 
 
 def main() -> None:
@@ -6993,11 +7502,7 @@ def main() -> None:
             fn.launches_by_route = dict.fromkeys(plane.SWEEP_ROUTES, 0)
         plane.upward_rank.launches_by_route = dict.fromkeys(
             plane.RANK_ROUTES, 0)
-        flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
-        flash.flash_attention.pair_launches = dict.fromkeys(flash.FWD_PAIRS,
-                                                            0)
-        flash.flash_attention_bwd.route_launches = dict.fromkeys(
-            flash.BWD_ROUTES, 0)
+        reset_attention_counts()
         scan.rglru_scan_bwd.route_launches = dict.fromkeys(
             scan.SCAN_BWD_ROUTES, 0)
         ops.bayes_predict = tallied
@@ -7195,6 +7700,8 @@ def main() -> None:
     next(r for r in report if r["name"] == "flash_attention")[
         "mla_shape"] = report_mla(dev, ml["served"], mla_errs)
     report += report_train(dev, launches, errors, bwd_per_step, scan_routes)
+    next(r for r in report if r["name"] == "flash_attention_bwd")[
+        "mla_shape"] = report_mla_bwd(dev, ml, errors)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -4,6 +4,14 @@
 // Built by nvcc into a plain-C shared library and bound with ctypes (see
 // kernels/_build.py).
 //
+// Every kernel is a template on the forward's head-dim pair <DQK, DV>: q, k,
+// dq and dk have DQK columns, v, o, dO and dv DV.  The entry point launches
+// (64, 64), (128, 128), (256, 256) and DeepSeek-V2's expanded MLA, (192,
+// 128), and refuses any other pair.  The scores are scaled by 1 / sqrt(DQK).
+// At (192, 128) S = Q K^T and dQ = dS K sum over or write 192 columns (three
+// swizzled 64-column boxes), dP = dO V^T sums over 128 and dV = P^T dO
+// writes 128, dK = dS^T Q writes 192 (wgmma N = 192).
+//
 // No TPU kernel is replaced: the JAX package differentiates its plain-XLA
 // chunked_causal_attention (repro/models/attention.py), and these kernels
 // compute that gradient.  The forward's kernels write each row's
@@ -22,14 +30,15 @@
 //
 // Two routes (kernels/flash_attention.bwd_route).  bfloat16 runs on the
 // tensor cores through wgmma, fed by TMA (see the section below); bound
-// on the H100: operations, 10 hd a visible pair at the bf16 tensor rate.
+// on the H100: operations, 2 (3 DQK + 2 DV) a visible pair (10 hd at an
+// equal pair) at the bf16 tensor rate.
 // float32 runs on the CUDA cores in float32: each tile is staged in shared
 // memory both transposed (for the score products, which sum over hd) and
 // row-major (for the accumulations, which sum over rows); a thread owns a
 // small register tile of scores and one of the accumulators, and the inner
 // loops read 16-byte vectors of shared memory.  Bound on the H100:
-// operations (10 hd a visible pair: S, dP, dV, dK and dQ), far above the
-// bytes.
+// operations (2 (3 DQK + 2 DV) a visible pair: S, dK and dQ over DQK, dP
+// and dV over DV), far above the bytes.
 //
 // Build flags: kernels/_build.NVCC_FLAGS (-O3 --fmad=false); held to a
 // tolerance against kernels/ref.py::attention_bwd_ref.  The C entry point
@@ -150,9 +159,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[RI][D / 16],
 }
 
 // ---------------------------------------------------------------------------
-// 1. D = rowsum(dO * O), (B, H, Sq) float32; one warp a (b, row, head)
+// 1. D = rowsum(dO * O) over v's DV columns, (B, H, Sq) float32; one warp
+// a (b, row, head)
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DV>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
              float* __restrict__ delta, int batch, int sq, int heads) {
@@ -160,11 +170,11 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                         (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= (long long)batch * sq * heads) return;
-  const float* op = o + row * D;
-  const float* dp = dout + row * D;
+  const float* op = o + row * DV;
+  const float* dp = dout + row * DV;
   float sum = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) sum += op[d] * dp[d];
+  for (int d = lane; d < DV; d += 32) sum += op[d] * dp[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -180,17 +190,18 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
 // ---------------------------------------------------------------------------
 // 2. dK, dV: one block a (batch, kv head, BK-key tile)
 // ---------------------------------------------------------------------------
-// Shared memory (floats): K and V transposed [D][BK + 4]; Q and dO
-// transposed [D][BQ + 4] and row-major [BQ][D + 4]; P and dS [BQ][BK + 4];
-// lse (base 2) and D for BQ rows.  The 4 floats of padding a row keep
-// 16-byte vectors aligned and spread a warp's stores over the banks.
-template <int D, int BK, int BQ>
+// Shared memory (floats): K [DQK][BK + 4] and V [DV][BK + 4] transposed;
+// Q and dO transposed ([DQK], [DV] x [BQ + 4]) and row-major ([BQ] x
+// [DQK + 4], [DV + 4]); P and dS [BQ][BK + 4]; lse (base 2) and D for BQ
+// rows.  The 4 floats of padding a row keep 16-byte vectors aligned and
+// spread a warp's stores over the banks.
+template <int DQK, int DV, int BK, int BQ>
 __host__ __device__ constexpr int dkdv_smem_floats() {
-  return 2 * D * (BK + 4) + 2 * D * (BQ + 4) + 2 * BQ * (D + 4) +
-         2 * BQ * (BK + 4) + 2 * BQ;
+  return (DQK + DV) * (BK + 4) + (DQK + DV) * (BQ + 4) + BQ * (DQK + 4) +
+         BQ * (DV + 4) + 2 * BQ * (BK + 4) + 2 * BQ;
 }
 
-template <int D, int BK, int BQ>
+template <int DQK, int DV, int BK, int BQ>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
@@ -201,13 +212,13 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int RQ = BQ / 16;            // queries of a thread (scores)
   constexpr int LK = BK + 4, LQ = BQ + 4;
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                      // [D][LK]
-  float* vt = kt + D * LK;               // [D][LK]
-  float* qt = vt + D * LK;               // [D][LQ]
-  float* dot = qt + D * LQ;              // [D][LQ]
-  float* qr = dot + D * LQ;              // [BQ][D + 4]
-  float* dor = qr + BQ * (D + 4);        // [BQ][D + 4]
-  float* ps = dor + BQ * (D + 4);        // [BQ][LK]
+  float* kt = smem;                      // [DQK][LK]
+  float* vt = kt + DQK * LK;             // [DV][LK]
+  float* qt = vt + DV * LK;              // [DQK][LQ]
+  float* dot = qt + DQK * LQ;            // [DV][LQ]
+  float* qr = dot + DV * LQ;             // [BQ][DQK + 4]
+  float* dor = qr + BQ * (DQK + 4);      // [BQ][DV + 4]
+  float* ps = dor + BQ * (DV + 4);       // [BQ][LK]
   float* dss = ps + BQ * LK;             // [BQ][LK]
   float* lse_s = dss + BQ * LK;          // [BQ], base 2
   float* dl_s = lse_s + BQ;              // [BQ]
@@ -220,30 +231,33 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k1 = min(k0 + BK, skv);
   const float scale_log2 = scale * kLog2e;
 
-  const float* kb = k + (long long)b * skv * kv_heads * D;
-  const float* vb = v + (long long)b * skv * kv_heads * D;
-  stage<D, BK>(kb, skv, kv_heads, kvh, k0, kt, LK, nullptr);
-  stage<D, BK>(vb, skv, kv_heads, kvh, k0, vt, LK, nullptr);
+  const float* kb = k + (long long)b * skv * kv_heads * DQK;
+  const float* vb = v + (long long)b * skv * kv_heads * DV;
+  stage<DQK, BK>(kb, skv, kv_heads, kvh, k0, kt, LK, nullptr);
+  stage<DV, BK>(vb, skv, kv_heads, kvh, k0, vt, LK, nullptr);
 
-  float acc_k[RK][D / 16], acc_v[RK][D / 16];
+  float acc_k[RK][DQK / 16], acc_v[RK][DV / 16];
 #pragma unroll
-  for (int i = 0; i < RK; ++i)
+  for (int i = 0; i < RK; ++i) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int c = 0; c < DQK / 16; ++c) acc_k[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DV / 16; ++c) acc_v[i][c] = 0.f;
+  }
 
   // the query rows that may see a key of [k0, k1)
   const int q_lo = causal ? k0 : 0;
   const int q_hi = window > 0 ? min(sq, k1 - 1 + window) : sq;
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
-    const float* qb = q + (long long)b * sq * heads * D;
-    const float* db = dout + (long long)b * sq * heads * D;
+    const float* qb = q + (long long)b * sq * heads * DQK;
+    const float* db = dout + (long long)b * sq * heads * DV;
     const float* lb = lse + ((long long)b * heads + h) * sq;
     const float* deb = delta + ((long long)b * heads + h) * sq;
     for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
       __syncthreads();   // the previous tile's q, dO, P and dS are consumed
-      stage<D, BQ>(qb, sq, heads, h, q0, qt, LQ, qr);
-      stage<D, BQ>(db, sq, heads, h, q0, dot, LQ, dor);
+      stage<DQK, BQ>(qb, sq, heads, h, q0, qt, LQ, qr);
+      stage<DV, BQ>(db, sq, heads, h, q0, dot, LQ, dor);
       for (int r = threadIdx.x; r < BQ; r += kThreads) {
         const int row = q0 + r;
         lse_s[r] = row < sq ? lb[row] * kLog2e : 0.f;
@@ -256,8 +270,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < RK; ++i)
 #pragma unroll
         for (int j = 0; j < RQ; ++j) s[i][j] = dp[i][j] = 0.f;
-      tile_product<RK, RQ, D>(s, kt + ty * RK, LK, qt + tx * RQ, LQ);
-      tile_product<RK, RQ, D>(dp, vt + ty * RK, LK, dot + tx * RQ, LQ);
+      tile_product<RK, RQ, DQK>(s, kt + ty * RK, LK, qt + tx * RQ, LQ);
+      tile_product<RK, RQ, DV>(dp, vt + ty * RK, LK, dot + tx * RQ, LQ);
 #pragma unroll
       for (int i = 0; i < RK; ++i) {
         const int kpos = k0 + ty * RK + i;
@@ -276,57 +290,60 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // a query tile's share summed apart and then added: the sum over a
       // group's heads and every query of the band (up to 32,768 terms at
       // RecurrentGemma's shape) in two levels, not one long chain
-      float part_k[RK][D / 16], part_v[RK][D / 16];
+      float part_k[RK][DQK / 16], part_v[RK][DV / 16];
 #pragma unroll
-      for (int i = 0; i < RK; ++i)
+      for (int i = 0; i < RK; ++i) {
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) part_k[i][c] = part_v[i][c] = 0.f;
-      accumulate<RK, D, BQ>(part_v, ps + ty * RK, LK, dor + tx * 4);
-      accumulate<RK, D, BQ>(part_k, dss + ty * RK, LK, qr + tx * 4);
+        for (int c = 0; c < DQK / 16; ++c) part_k[i][c] = 0.f;
 #pragma unroll
-      for (int i = 0; i < RK; ++i)
+        for (int c = 0; c < DV / 16; ++c) part_v[i][c] = 0.f;
+      }
+      accumulate<RK, DV, BQ>(part_v, ps + ty * RK, LK, dor + tx * 4);
+      accumulate<RK, DQK, BQ>(part_k, dss + ty * RK, LK, qr + tx * 4);
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          acc_k[i][c] += part_k[i][c];
-          acc_v[i][c] += part_v[i][c];
-        }
+      for (int i = 0; i < RK; ++i) {
+#pragma unroll
+        for (int c = 0; c < DQK / 16; ++c) acc_k[i][c] += part_k[i][c];
+#pragma unroll
+        for (int c = 0; c < DV / 16; ++c) acc_v[i][c] += part_v[i][c];
+      }
     }
   }
 
-  float* dkb = dk + (long long)b * skv * kv_heads * D;
-  float* dvb = dv + (long long)b * skv * kv_heads * D;
+  float* dkb = dk + (long long)b * skv * kv_heads * DQK;
+  float* dvb = dv + (long long)b * skv * kv_heads * DV;
 #pragma unroll
   for (int i = 0; i < RK; ++i) {
     const int key = k0 + ty * RK + i;
     if (key >= skv) continue;
-    const long long off = ((long long)key * kv_heads + kvh) * D;
+    const long long row = (long long)key * kv_heads + kvh;
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      const int col = g * 64 + tx * 4;
-      store4(dkb + off + col,
+    for (int g = 0; g < DQK / 64; ++g)
+      store4(dkb + row * DQK + g * 64 + tx * 4,
              make_float4(acc_k[i][g * 4] * scale, acc_k[i][g * 4 + 1] * scale,
                          acc_k[i][g * 4 + 2] * scale,
                          acc_k[i][g * 4 + 3] * scale));
-      store4(dvb + off + col,
+#pragma unroll
+    for (int g = 0; g < DV / 64; ++g)
+      store4(dvb + row * DV + g * 64 + tx * 4,
              make_float4(acc_v[i][g * 4], acc_v[i][g * 4 + 1],
                          acc_v[i][g * 4 + 2], acc_v[i][g * 4 + 3]));
-    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // 3. dQ: one block a (batch, head, BQ-query tile)
 // ---------------------------------------------------------------------------
-// Shared memory (floats): Q and dO transposed [D][BQ + 4]; K and V
-// transposed [D][BK + 4]; K row-major [BK][D + 4]; dS transposed
-// [BK][BQ + 4]; lse (base 2) and D for BQ rows.
-template <int D, int BQ, int BK>
+// Shared memory (floats): Q [DQK] and dO [DV] x [BQ + 4] transposed; K
+// [DQK] and V [DV] x [BK + 4] transposed; K row-major [BK][DQK + 4]; dS
+// transposed [BK][BQ + 4]; lse (base 2) and D for BQ rows.
+template <int DQK, int DV, int BQ, int BK>
 __host__ __device__ constexpr int dq_smem_floats() {
-  return 2 * D * (BQ + 4) + 2 * D * (BK + 4) + BK * (D + 4) +
+  return (DQK + DV) * (BQ + 4) + (DQK + DV) * (BK + 4) + BK * (DQK + 4) +
          BK * (BQ + 4) + 2 * BQ;
 }
 
-template <int D, int BQ, int BK>
+template <int DQK, int DV, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
@@ -337,12 +354,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int RK = BK / 16;            // keys of a thread (scores)
   constexpr int LK = BK + 4, LQ = BQ + 4;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                      // [D][LQ]
-  float* dot = qt + D * LQ;              // [D][LQ]
-  float* kt = dot + D * LQ;              // [D][LK]
-  float* vt = kt + D * LK;               // [D][LK]
-  float* kr = vt + D * LK;               // [BK][D + 4]
-  float* dst = kr + BK * (D + 4);        // [BK][LQ]
+  float* qt = smem;                      // [DQK][LQ]
+  float* dot = qt + DQK * LQ;            // [DV][LQ]
+  float* kt = dot + DV * LQ;             // [DQK][LK]
+  float* vt = kt + DQK * LK;             // [DV][LK]
+  float* kr = vt + DV * LK;              // [BK][DQK + 4]
+  float* dst = kr + BK * (DQK + 4);      // [BK][LQ]
   float* lse_s = dst + BK * LQ;          // [BQ], base 2
   float* dl_s = lse_s + BQ;              // [BQ]
 
@@ -354,10 +371,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q1 = min(q0 + BQ, sq);
   const float scale_log2 = scale * kLog2e;
 
-  stage<D, BQ>(q + (long long)b * sq * heads * D, sq, heads, h, q0, qt,
-                  LQ, nullptr);
-  stage<D, BQ>(dout + (long long)b * sq * heads * D, sq, heads, h, q0,
-                  dot, LQ, nullptr);
+  stage<DQK, BQ>(q + (long long)b * sq * heads * DQK, sq, heads, h, q0, qt,
+                 LQ, nullptr);
+  stage<DV, BQ>(dout + (long long)b * sq * heads * DV, sq, heads, h, q0,
+                dot, LQ, nullptr);
   const float* lb = lse + ((long long)b * heads + h) * sq;
   const float* deb = delta + ((long long)b * heads + h) * sq;
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
@@ -366,20 +383,20 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     dl_s[r] = row < sq ? deb[row] : 0.f;
   }
 
-  float acc[RQ][D / 16];
+  float acc[RQ][DQK / 16];
 #pragma unroll
   for (int i = 0; i < RQ; ++i)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < DQK / 16; ++c) acc[i][c] = 0.f;
 
-  const float* kb = k + (long long)b * skv * kv_heads * D;
-  const float* vb = v + (long long)b * skv * kv_heads * D;
+  const float* kb = k + (long long)b * skv * kv_heads * DQK;
+  const float* vb = v + (long long)b * skv * kv_heads * DV;
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? min(q1, skv) : skv;
   for (int j0 = lo; j0 < hi; j0 += BK) {
     __syncthreads();   // the previous tile's K, V and dS are consumed
-    stage<D, BK>(kb, skv, kv_heads, kvh, j0, kt, LK, kr);
-    stage<D, BK>(vb, skv, kv_heads, kvh, j0, vt, LK, nullptr);
+    stage<DQK, BK>(kb, skv, kv_heads, kvh, j0, kt, LK, kr);
+    stage<DV, BK>(vb, skv, kv_heads, kvh, j0, vt, LK, nullptr);
     __syncthreads();
 
     float s[RQ][RK], dp[RQ][RK];
@@ -387,8 +404,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < RK; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_product<RQ, RK, D>(s, qt + ty * RQ, LQ, kt + tx * RK, LK);
-    tile_product<RQ, RK, D>(dp, dot + ty * RQ, LQ, vt + tx * RK, LK);
+    tile_product<RQ, RK, DQK>(s, qt + ty * RQ, LQ, kt + tx * RK, LK);
+    tile_product<RQ, RK, DV>(dp, dot + ty * RQ, LQ, vt + tx * RK, LK);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int r = ty * RQ + i;
@@ -403,17 +420,17 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    accumulate<RQ, D, BK>(acc, dst + ty * RQ, LQ, kr + tx * 4);
+    accumulate<RQ, DQK, BK>(acc, dst + ty * RQ, LQ, kr + tx * 4);
   }
 
-  float* dqb = dq + (long long)b * sq * heads * D;
+  float* dqb = dq + (long long)b * sq * heads * DQK;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + ty * RQ + i;
     if (row >= sq) continue;
-    const long long off = ((long long)row * heads + h) * D;
+    const long long off = ((long long)row * heads + h) * DQK;
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g)
+    for (int g = 0; g < DQK / 64; ++g)
       store4(dqb + off + g * 64 + tx * 4,
              make_float4(acc[i][g * 4] * scale, acc[i][g * 4 + 1] * scale,
                          acc[i][g * 4 + 2] * scale,
@@ -444,20 +461,23 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //
 // dK/dV pass: K and V of the block's keys stay resident; the producer
 // streams the Q and dO tiles (and their rows) of each query head of the
-// block's split and each query tile of the band.  Two shapes:
+// block's split and each query tile of the band.  Two shapes, by q's head
+// dim DQK:
 //   * hd 64 (dkdv_pair_kernel, below): 128 keys, 64 a consumer, each
 //     consumer running the whole chain for its keys: S^T = K Q^T and
 //     dP^T = V dO^T, P^T = exp2(S^T scale log2e - lse2) and dS^T =
 //     P^T (dP^T - D) in registers, then dV += P^T dO and dK += dS^T Q;
 //     both accumulators (32 registers each) fit, and each Q/dO tile feeds
 //     128 keys;
-//   * hd 128 and 256 (dkdv_ws_kernel): 64 keys, the consumers splitting
-//     the work by role.  Consumer 0: S^T, P^T in registers, written to
-//     shared memory in fragment order (float32, a named barrier), then
-//     dV += P^T dO; consumer 1: dP^T, dS^T with P^T read back, then
-//     dK += dS^T Q.  Each holds one 64 x hd float32 accumulator: 128
+//   * DQK 128, 192 and 256 (dkdv_ws_kernel): 64 keys, the consumers
+//     splitting the work by role.  Consumer 0: S^T (over DQK), P^T in
+//     registers, written to shared memory in fragment order (float32, a
+//     named barrier), then dV += P^T dO (DV columns); consumer 1: dP^T
+//     (over DV), dS^T with P^T read back, then dK += dS^T Q (DQK
+//     columns).  Each holds one float32 accumulator of 64 rows: 128
 //     registers a thread at hd 256, where both would not fit one
-//     warpgroup.
+//     warpgroup; at (192, 128) both declare the wider, 96 registers, and
+//     consumer 0 uses its first 64.
 //
 // MQA: where batch x kv heads x key blocks gives too few blocks for the
 // SMs (RecurrentGemma: one kv head, B 1: 64 blocks), a group's query heads
@@ -469,7 +489,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // and V tile: two query heads of one kv head over the same 64 rows when
 // H / K is even, else two consecutive 64-row tiles of one head.  Per tile:
 // S = Q K^T and dP = dO V^T, dS = P (dP - D), dQ += dS K.  One K/V stage
-// at hd 256, where both consumers' Q and dO take 128 KB.
+// at hd 256, where both consumers' Q and dO take 128 KB; three at (192,
+// 128), where four would take 247,936 bytes.
+//
+// Each ring has the most stages, up to four, with which its pass fits the
+// card's 232,448 bytes (ring_stages).
 //
 // Each consumer runs a tile's chain in series: its score products, the
 // elementwise work, its accumulation products.  At hd 64 the elementwise
@@ -513,49 +537,66 @@ constexpr int kRowsThreads = 8 * kBlockQ;  // the rows pass: 8 lanes a row
 constexpr int kMaxSplits = 4;
 constexpr int kBarPFull = 1;               // named barriers of the dK/dV
 constexpr int kBarPEmpty = 2;              // consumers (0 is __syncthreads)
+constexpr int kSmemOptin = 232448;         // an H100 block's opt-in bytes
 
-// Stages of the rings: the dK/dV pass's Q/dO ring two at hd 256, four
-// below; the dQ pass's K/V ring one at hd 256 (beside both consumers' Q
-// and dO), four below (kernels/flash_attention.bwd_stages).
-__host__ __device__ constexpr int dkdv_stages(int d) {
-  return d == 256 ? 2 : 4;
-}
-
-__host__ __device__ constexpr int dq_stages(int d) {
-  return d == 256 ? 1 : 4;
-}
-
-// Dynamic shared memory (kernels/flash_attention.bwd_smem_bytes), each
-// tile 64 rows of hd bfloat16: dK/dV K and V of the block's keys, a ring
-// of Q, dO and their rows, and above hd 64 the P^T exchange; dQ both
-// consumers' Q and dO and rows, a ring of K and V.  1024 bytes of slack
-// start the tiles on the swizzle's 1024-byte period; 128 hold the
-// mbarriers.
-__host__ __device__ constexpr int dkdv_smem_bytes(int d) {
-  return d == 64 ? (4 + 2 * dkdv_stages(d)) * kBlockK * d * 2 +
-                       dkdv_stages(d) * kRowBytes + 1024 + 128
-                 : (2 + 2 * dkdv_stages(d)) * kBlockK * d * 2 +
-                       dkdv_stages(d) * kRowBytes + kXBytes + 1024 + 128;
-}
-
-// Keys of a dK/dV block: 128 at hd 64 (dkdv_pair_kernel, 64 a consumer),
+// Keys of a dK/dV block: 128 at DQK 64 (dkdv_pair_kernel, 64 a consumer),
 // 64 wider (dkdv_ws_kernel, both consumers on the same keys)
-__host__ __device__ constexpr int dkdv_keys(int d) {
-  return d == 64 ? 2 * kBlockK : kBlockK;
+__host__ __device__ constexpr int dkdv_keys(int dqk) {
+  return dqk == 64 ? 2 * kBlockK : kBlockK;
 }
 
-__host__ __device__ constexpr int dq_smem_bytes(int d) {
-  return (4 + 2 * dq_stages(d)) * kBlockK * d * 2 + 2 * kRowBytes + 1024 +
+// Dynamic shared memory at `stages` (kernels/flash_attention.
+// bwd_smem_bytes), each tile 64 rows: dK/dV K (DQK columns) and V (DV) of
+// the block's keys, a ring of Q, dO and their rows, and above DQK 64 the
+// P^T exchange; dQ both consumers' Q, dO and rows, a ring of K and V.
+// 1024 bytes of slack start the tiles on the swizzle's 1024-byte period;
+// 128 hold the mbarriers.
+__host__ __device__ constexpr int dkdv_smem_at(int dqk, int dv, int stages) {
+  return (dkdv_keys(dqk) / kBlockK + stages) * kBlockK * (dqk + dv) * 2 +
+         stages * kRowBytes + (dqk == 64 ? 0 : kXBytes) + 1024 + 128;
+}
+
+__host__ __device__ constexpr int dq_smem_at(int dqk, int dv, int stages) {
+  return (2 + stages) * kBlockK * (dqk + dv) * 2 + 2 * kRowBytes + 1024 +
          128;
+}
+
+// Stages of a pass's ring (which 0 the dK/dV pass's Q/dO ring, 1 the dQ
+// pass's K/V ring): the most, up to four, with which the pass fits
+// kSmemOptin.  dK/dV two at hd 256, four below and at (192, 128); dQ one at
+// hd 256, three at (192, 128), four below (kernels/flash_attention.
+// bwd_stages).
+__host__ __device__ constexpr int ring_stages(int dqk, int dv, int which) {
+  int st = 4;
+  while (st > 1 && (which == 0 ? dkdv_smem_at(dqk, dv, st)
+                               : dq_smem_at(dqk, dv, st)) > kSmemOptin)
+    --st;
+  return st;
+}
+
+__host__ __device__ constexpr int dkdv_stages(int dqk, int dv) {
+  return ring_stages(dqk, dv, 0);
+}
+
+__host__ __device__ constexpr int dq_stages(int dqk, int dv) {
+  return ring_stages(dqk, dv, 1);
+}
+
+__host__ __device__ constexpr int dkdv_smem_bytes(int dqk, int dv) {
+  return dkdv_smem_at(dqk, dv, dkdv_stages(dqk, dv));
+}
+
+__host__ __device__ constexpr int dq_smem_bytes(int dqk, int dv) {
+  return dq_smem_at(dqk, dv, dq_stages(dqk, dv));
 }
 
 // Blocks a kv head's query heads are split over in the dK/dV pass: of 1 to
 // min(4, group), the one that minimises waves x heads a block, the fewest
 // on a tie (kernels/flash_attention.bwd_head_splits).
 __host__ __device__ inline int head_splits(int batch, int skv, int heads,
-                                           int kv_heads, int sms, int d) {
-  const long long n =
-      (long long)batch * kv_heads * ((skv + dkdv_keys(d) - 1) / dkdv_keys(d));
+                                           int kv_heads, int sms, int dqk) {
+  const long long n = (long long)batch * kv_heads *
+                      ((skv + dkdv_keys(dqk) - 1) / dkdv_keys(dqk));
   const int group = heads / kv_heads;
   if (n == 0 || sms <= 0) return 1;
   int best = 1;
@@ -571,16 +612,19 @@ __host__ __device__ inline int head_splits(int batch, int skv, int heads,
 }
 
 // Float32 elements of the scratch: the rows (B, H, query tiles, 128) and,
-// with head splits, the partial dV and dK (2, splits, B, Skv, K, hd); the
-// float32 route's D (B, H, Sq) (kernels/flash_attention.
-// bwd_scratch_floats).
+// with head splits, the partial dV (splits, B, Skv, K, DV), then dK
+// (splits, B, Skv, K, DQK); the float32 route's D (B, H, Sq)
+// (kernels/flash_attention.bwd_scratch_floats).
 inline long long scratch_floats(int dtype, int batch, int sq, int skv,
-                                int heads, int kv_heads, int d, int sms) {
+                                int heads, int kv_heads, int dqk, int dv,
+                                int sms) {
   if (dtype != 1) return (long long)batch * heads * sq;
   const long long rows = (long long)batch * heads *
                          ((sq + kBlockQ - 1) / kBlockQ) * kRowFloats;
-  const int splits = head_splits(batch, skv, heads, kv_heads, sms, d);
-  return rows + (splits > 1 ? 2LL * splits * batch * skv * kv_heads * d : 0);
+  const int splits = head_splits(batch, skv, heads, kv_heads, sms, dqk);
+  return rows + (splits > 1 ? (long long)splits * batch * skv * kv_heads *
+                                  (dqk + dv)
+                            : 0);
 }
 
 __device__ __forceinline__ void named_sync(int id) {
@@ -633,9 +677,9 @@ __device__ __forceinline__ void fold_frags(float (&o)[N],
 }
 
 // o += A B over the tile's 64 rows, A in two bfloat16 parts from
-// registers, B (64 rows x hd) MN-major at bt
-template <int D>
-__device__ __forceinline__ void pv_parts(float (&o)[D / 2],
+// registers, B (64 rows x N) MN-major at bt; o's first N / 2 floats
+template <int N, int M>
+__device__ __forceinline__ void pv_parts(float (&o)[M],
                                          const uint32_t (&hi)[4][4],
                                          const uint32_t (&lo)[4][4],
                                          uint32_t bt) {
@@ -647,8 +691,8 @@ __device__ __forceinline__ void pv_parts(float (&o)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < kBlockK / 16; ++kk) {
     const uint64_t desc = smem_desc(bt + kk * 16 * 128, kBoxBytes, 1024);
-    wgmma_pv<D>(o, hi[kk], desc);
-    wgmma_pv<D>(o, lo[kk], desc);
+    wgmma_pv<N>(o, hi[kk], desc);
+    wgmma_pv<N>(o, lo[kk], desc);
   }
   wgmma_commit_wait();
   fence_regs(o);
@@ -664,8 +708,9 @@ __device__ __forceinline__ float exp2_fma(float a, float b, float c) {
   return y;
 }
 
-// s = A B^T and dp = A' B'^T over hd, all four tiles K-major: one commit
-template <int D>
+// s = A B^T over DS columns and dp = A' B'^T over DP, all four tiles
+// K-major: one commit
+template <int DS, int DP>
 __device__ __forceinline__ void score_pair(float (&s)[32], float (&dp)[32],
                                            uint32_t at, uint32_t bt,
                                            uint32_t at2, uint32_t bt2) {
@@ -676,13 +721,13 @@ __device__ __forceinline__ void score_pair(float (&s)[32], float (&dp)[32],
   }
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DS / 16; ++kk) {
     const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
     wgmma_ss_n64(s, smem_desc(at + off, 16, 1024),
                  smem_desc(bt + off, 16, 1024), kk > 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
     wgmma_ss_n64(dp, smem_desc(at2 + off, 16, 1024),
                  smem_desc(bt2 + off, 16, 1024), kk > 0);
@@ -692,7 +737,7 @@ __device__ __forceinline__ void score_pair(float (&s)[32], float (&dp)[32],
   fence_regs(dp);
 }
 
-// the rows pass
+// the rows pass: D over o's DV columns
 template <int D>
 __global__ void __launch_bounds__(kRowsThreads)
 bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
@@ -733,7 +778,30 @@ bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
   }
 }
 
-template <int D>
+// row r (0: the fragment's first row, 1: eight below) of an accumulator
+// fragment N columns wide, times mul, as bfloat16 pairs from dst (the row's
+// start plus 2 t)
+template <int N, int M>
+__device__ __forceinline__ void store_row_bf16(__nv_bfloat16* dst,
+                                               const float (&acc)[M], int r,
+                                               float mul) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+    *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+        pack_bf16(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+}
+
+// the same row in float32, unscaled (a head split's partial)
+template <int N, int M>
+__device__ __forceinline__ void store_row_f32(float* dst,
+                                              const float (&acc)[M], int r) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+    *reinterpret_cast<float2*>(dst + 8 * n) =
+        make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kWsThreads, 1)
 dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap domap,
@@ -744,15 +812,17 @@ dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
                float* __restrict__ part, int sq, int skv, int heads,
                int kv_heads, int causal, int window, float scale,
                int splits) {
-  constexpr int kStages = dkdv_stages(D);
-  constexpr int kTile = kBlockK * D * 2;       // bytes of a 64-row tile
+  constexpr int kStages = dkdv_stages(DQK, DV);
+  constexpr int kTile = kBlockK * DQK * 2;     // bytes of a 64-row K/Q tile
+  constexpr int kTileV = kBlockK * DV * 2;     // and of a V/dO tile
+  constexpr int kAcc = (DQK > DV ? DQK : DV) / 2;   // the wider role's
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t k_s = (raw + 1023) & ~1023u;                  // K
   const uint32_t v_s = k_s + kTile;                            // V
-  const uint32_t q_s = v_s + kTile;                            // Q ring
+  const uint32_t q_s = v_s + kTileV;                           // Q ring
   const uint32_t do_s = q_s + kStages * kTile;                 // dO ring
-  const uint32_t r_s = do_s + kStages * kTile;                 // rows ring
+  const uint32_t r_s = do_s + kStages * kTileV;                // rows ring
   const uint32_t x_s = r_s + kStages * kRowBytes;              // P^T
   const uint32_t bar_kv = x_s + kXBytes;
   const uint32_t bar_full = bar_kv + 8;                        // [kStages]
@@ -792,17 +862,18 @@ dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_kv, 2 * kTile);
-      tma_tile<D>(k_s, &kmap, bar_kv, kvh, k0, b);
-      tma_tile<D>(v_s, &vmap, bar_kv, kvh, k0, b);
+      mbar_expect_tx(bar_kv, kTile + kTileV);
+      tma_tile<DQK>(k_s, &kmap, bar_kv, kvh, k0, b);
+      tma_tile<DV>(v_s, &vmap, bar_kv, kvh, k0, b);
       for (int it = 0; it < n_it; ++it) {
         const int s = it % kStages;
         const int h = h_lo + it / n_qt;
         const int q0 = q_first + (it % n_qt) * kBlockQ;
         mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * kTile + kRowBytes);
-        tma_tile<D>(q_s + s * kTile, &qmap, bar_full + 8 * s, h, q0, b);
-        tma_tile<D>(do_s + s * kTile, &domap, bar_full + 8 * s, h, q0, b);
+        mbar_expect_tx(bar_full + 8 * s, kTile + kTileV + kRowBytes);
+        tma_tile<DQK>(q_s + s * kTile, &qmap, bar_full + 8 * s, h, q0, b);
+        tma_tile<DV>(do_s + s * kTileV, &domap, bar_full + 8 * s, h, q0,
+                     b);
         bulk_copy(r_s + s * kRowBytes,
                   rows + (((long long)b * heads + h) * nqt_all +
                           q0 / kBlockQ) * kRowFloats,
@@ -824,9 +895,9 @@ dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
   const int key0 = k0 + warp * 16 + g;           // keys key0 and key0 + 8
   const float scale_log2 = scale * kLog2e;
 
-  float acc[D / 2];
+  float acc[kAcc];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   int shared_tiles = 0;                          // P^T exchanges made
 
   mbar_wait(bar_kv, 0);
@@ -844,7 +915,8 @@ dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
       float x[32];
       uint32_t hi[4][4], lo[4][4];
       if (c == 0) {
-        if constexpr (kScores) qk_product<D>(x, k_s, q_s + s * kTile);  // S^T
+        if constexpr (kScores)
+          qk_product<DQK>(x, k_s, q_s + s * kTile);      // S^T
         else for (int i = 0; i < 32; ++i) x[i] = 0.f;
         auto p_loop = [&](auto full) {
 #pragma unroll
@@ -870,9 +942,10 @@ dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
               make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
         named_arrive(kBarPFull);
         a_frags(x, hi, lo);
-        pv_parts<D>(acc, hi, lo, do_s + s * kTile);    // dV
+        pv_parts<DV>(acc, hi, lo, do_s + s * kTileV);  // dV
       } else {
-        if constexpr (kScores) qk_product<D>(x, v_s, do_s + s * kTile); // dP^T
+        if constexpr (kScores)
+          qk_product<DV>(x, v_s, do_s + s * kTileV);     // dP^T
         else for (int i = 0; i < 32; ++i) x[i] = 0.f;
         named_sync(kBarPFull);
 #pragma unroll
@@ -887,7 +960,7 @@ dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
         }
         named_arrive(kBarPEmpty);
         a_frags(x, hi, lo);
-        pv_parts<D>(acc, hi, lo, q_s + s * kTile);     // dK
+        pv_parts<DQK>(acc, hi, lo, q_s + s * kTile);   // dK
       }
       ++shared_tiles;
     }
@@ -895,26 +968,24 @@ dkdv_ws_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if (c == 0 && shared_tiles > 0) named_sync(kBarPEmpty);
 
-  // dV (consumer 0) or dK (1) of keys key0 and key0 + 8
+  // dV (consumer 0, DV columns) or dK (1, DQK columns) of keys key0 and
+  // key0 + 8; a head split's partials: dV's planes, then dK's
   const float mul = c == 1 ? scale : 1.f;
+  const long long plane_v = (long long)gridDim.z * skv * kv_heads * DV;
+  const long long plane_k = (long long)gridDim.z * skv * kv_heads * DQK;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= skv) continue;
     const long long row = ((long long)b * skv + key) * kv_heads + kvh;
     if (splits == 1) {
-      __nv_bfloat16* dst = (c == 1 ? dk : dv) + row * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-            pack_bf16(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+      if (c == 1) store_row_bf16<DQK>(dk + row * DQK + 2 * t, acc, r, mul);
+      else store_row_bf16<DV>(dv + row * DV + 2 * t, acc, r, mul);
+    } else if (c == 1) {
+      store_row_f32<DQK>(part + splits * plane_v + sp * plane_k + row * DQK +
+                             2 * t, acc, r);
     } else {
-      const long long plane = (long long)gridDim.z * skv * kv_heads * D;
-      float* dst = part + (c * splits + sp) * plane + row * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(dst + 8 * n) =
-            make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+      store_row_f32<DV>(part + sp * plane_v + row * DV + 2 * t, acc, r);
     }
   }
 }
@@ -964,7 +1035,7 @@ dkdv_pair_kernel(const __grid_constant__ CUtensorMap qmap,
                  __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
                  int sq, int skv, int heads, int kv_heads, int causal,
                  int window, float scale, int splits) {
-  constexpr int kStages = dkdv_stages(D);
+  constexpr int kStages = dkdv_stages(D, D);
   constexpr int kTile = kBlockK * D * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -1063,8 +1134,8 @@ dkdv_pair_kernel(const __grid_constant__ CUtensorMap qmap,
       // x[i], dp[i]: key row key0 + 8 ((i >> 1) & 1), query column
       // 8 (i >> 2) + 2 t + (i & 1) of the tile
       float x[32], dp[32];
-      score_pair<D>(x, dp, k_s + c * kTile, q_s + s * kTile,
-                    v_s + c * kTile, do_s + s * kTile);    // S^T, dP^T
+      score_pair<D, D>(x, dp, k_s + c * kTile, q_s + s * kTile,
+                       v_s + c * kTile, do_s + s * kTile);  // S^T, dP^T
       auto ds_loop = [&](auto full) {
 #pragma unroll
         for (int i = 0; i < 32; i += 2) {
@@ -1123,21 +1194,23 @@ dkdv_pair_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// dV and dK from the head splits' float32 partials (planes of n elements:
-// dV's splits, then dK's), summed in split order; 4 elements a thread
+// dV and dK from the head splits' float32 partials (dV's splits, planes of
+// n_v elements, then dK's, planes of n_k), summed in split order; 4
+// elements a thread
 __global__ void __launch_bounds__(256)
 dkdv_reduce_kernel(const float* __restrict__ part,
                    __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, long long n, int splits,
-                   float scale) {
+                   __nv_bfloat16* __restrict__ dv, long long n_v,
+                   long long n_k, int splits, float scale) {
   const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
-  if (i >= n) return;
 #pragma unroll
   for (int w = 0; w < 2; ++w) {
-    float4 s = *reinterpret_cast<const float4*>(part + w * splits * n + i);
+    const long long n = w == 1 ? n_k : n_v;
+    if (i >= n) continue;
+    const float* src = part + (w == 1 ? splits * n_v : 0);
+    float4 s = *reinterpret_cast<const float4*>(src + i);
     for (int sp = 1; sp < splits; ++sp) {
-      const float4 p = *reinterpret_cast<const float4*>(
-          part + (w * splits + sp) * n + i);
+      const float4 p = *reinterpret_cast<const float4*>(src + sp * n + i);
       s.x += p.x;
       s.y += p.y;
       s.z += p.z;
@@ -1150,7 +1223,7 @@ dkdv_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kWsThreads, 1)
 dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap domap,
@@ -1159,15 +1232,16 @@ dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
              const float* __restrict__ rows, __nv_bfloat16* __restrict__ dq,
              int sq, int skv, int heads, int kv_heads, int causal, int window,
              float scale, int pair_heads) {
-  constexpr int kStages = dq_stages(D);
-  constexpr int kTile = kBlockK * D * 2;
+  constexpr int kStages = dq_stages(DQK, DV);
+  constexpr int kTile = kBlockK * DQK * 2;     // a Q/K tile
+  constexpr int kTileV = kBlockK * DV * 2;     // a dO/V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t q_s = (raw + 1023) & ~1023u;                  // Q of 0, 1
   const uint32_t do_s = q_s + 2 * kTile;                       // dO of 0, 1
-  const uint32_t k_s = do_s + 2 * kTile;                       // K ring
+  const uint32_t k_s = do_s + 2 * kTileV;                      // K ring
   const uint32_t v_s = k_s + kStages * kTile;                  // V ring
-  const uint32_t r_s = v_s + kStages * kTile;                  // rows of 0, 1
+  const uint32_t r_s = v_s + kStages * kTileV;                 // rows of 0, 1
   const uint32_t bar_q = r_s + 2 * kRowBytes;
   const uint32_t bar_full = bar_q + 8;                         // [kStages]
   const uint32_t bar_empty = bar_full + 8 * kStages;           // [kStages]
@@ -1210,12 +1284,12 @@ dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, n_q * (2 * kTile + kRowBytes));
+      mbar_expect_tx(bar_q, n_q * (kTile + kTileV + kRowBytes));
       for (int c = 0; c < n_q; ++c) {
         const int h = head0 + c * head_step;
         const int r0 = q_lo0 + c * q_step;
-        tma_tile<D>(q_s + c * kTile, &qmap, bar_q, h, r0, b);
-        tma_tile<D>(do_s + c * kTile, &domap, bar_q, h, r0, b);
+        tma_tile<DQK>(q_s + c * kTile, &qmap, bar_q, h, r0, b);
+        tma_tile<DV>(do_s + c * kTileV, &domap, bar_q, h, r0, b);
         bulk_copy(r_s + c * kRowBytes,
                   rows + (((long long)b * heads + h) * nqt_all +
                           r0 / kBlockQ) * kRowFloats,
@@ -1224,10 +1298,10 @@ dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * kTile);
+        mbar_expect_tx(bar_full + 8 * s, kTile + kTileV);
         const int j0 = lo + it * kBlockK;
-        tma_tile<D>(k_s + s * kTile, &kmap, bar_full + 8 * s, kvh, j0, b);
-        tma_tile<D>(v_s + s * kTile, &vmap, bar_full + 8 * s, kvh, j0, b);
+        tma_tile<DQK>(k_s + s * kTile, &kmap, bar_full + 8 * s, kvh, j0, b);
+        tma_tile<DV>(v_s + s * kTileV, &vmap, bar_full + 8 * s, kvh, j0, b);
       }
     }
     return;
@@ -1248,9 +1322,9 @@ dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
   const int row0 = warp * 16 + g;                // rows row0 and row0 + 8
   const float scale_log2 = scale * kLog2e;
 
-  float acc[D / 2];
+  float acc[DQK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_q, 0);
   const float* lse2 = rows_s + c * kRowFloats;
@@ -1266,8 +1340,8 @@ dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
       // x[i]: query row row0 + 8 ((i >> 1) & 1), key column
       // 8 (i >> 2) + 2 t + (i & 1) of the tile
       float x[32], dp[32];
-      score_pair<D>(x, dp, q_s + c * kTile, k_s + s * kTile,
-                    do_s + c * kTile, v_s + s * kTile);    // S, dP
+      score_pair<DQK, DV>(x, dp, q_s + c * kTile, k_s + s * kTile,
+                          do_s + c * kTileV, v_s + s * kTileV);  // S, dP
       auto ds_loop = [&](auto full) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -1283,7 +1357,7 @@ dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
       else ds_loop(std::false_type{});
       uint32_t hi_f[4][4], lo_f[4][4];
       a_frags(dp, hi_f, lo_f);
-      pv_parts<D>(acc, hi_f, lo_f, k_s + s * kTile);    // dQ
+      pv_parts<DQK>(acc, hi_f, lo_f, k_s + s * kTile);  // dQ
     }
     release(bar_empty + 8 * s, lane);
   }
@@ -1292,51 +1366,50 @@ dq_ws_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int r = 0; r < 2; ++r) {
     const int row = my_lo + row0 + 8 * r;
     if (row >= my_hi) continue;
-    __nv_bfloat16* dst =
-        dq + (((long long)b * sq + row) * heads + my_head) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(acc[4 * n + 2 * r] * scale,
-                    acc[4 * n + 2 * r + 1] * scale);
+    store_row_bf16<DQK>(
+        dq + (((long long)b * sq + row) * heads + my_head) * DQK + 2 * t, acc,
+        r, scale);
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-// Tiles of the float32 route by head dim: 64 keys and 64 queries at hd 64;
-// 64 keys and 32 queries at hd 128; 32 and 32 at hd 256, where each staged
-// tile of 32 rows is 32 KB of float32 (bwd_smem_bytes; the largest, dK/dV
-// at hd 256, is 223,488 bytes of the 232,448 a block may opt in to).
-template <int D> struct Tiles;
+// Tiles of the float32 route by q's head dim: 64 keys and 64 queries at hd
+// 64; 64 keys and 32 queries at hd 128; 32 and 32 at hd 256, where each
+// staged tile of 32 rows is 32 KB of float32 (bwd_smem_bytes; the largest,
+// dK/dV at hd 256, is 223,488 bytes of the 232,448 a block may opt in to),
+// and at (192, 128), where a dK/dV thread's accumulators and partials hold
+// 2 keys x (12 + 8) columns each.
+template <int DQK> struct Tiles;
 template <> struct Tiles<64> { static constexpr int BK = 64, BQ = 64; };
 template <> struct Tiles<128> { static constexpr int BK = 64, BQ = 32; };
+template <> struct Tiles<192> { static constexpr int BK = 32, BQ = 32; };
 template <> struct Tiles<256> { static constexpr int BK = 32, BQ = 32; };
 
-template <int D>
+template <int DQK, int DV>
 int smem_bytes(int which) {
-  constexpr int BK = Tiles<D>::BK, BQ = Tiles<D>::BQ;
-  return 4 * (which == 0 ? dkdv_smem_floats<D, BK, BQ>()
-                         : dq_smem_floats<D, BQ, BK>());
+  constexpr int BK = Tiles<DQK>::BK, BQ = Tiles<DQK>::BQ;
+  return 4 * (which == 0 ? dkdv_smem_floats<DQK, DV, BK, BQ>()
+                         : dq_smem_floats<DQK, DV, BQ, BK>());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const float* q, const float* k, const float* v,
                const float* o, const float* dout, const float* lse,
                float* delta, float* dq, float* dk, float* dv, int batch,
                int sq, int skv, int heads, int kv_heads, int causal,
                int window, cudaStream_t stream) {
-  constexpr int BK = Tiles<D>::BK, BQ = Tiles<D>::BQ;
-  const float scale = 1.0f / sqrtf((float)D);
+  constexpr int BK = Tiles<DQK>::BK, BQ = Tiles<DQK>::BQ;
+  const float scale = 1.0f / sqrtf((float)DQK);
   const long long rows = (long long)batch * sq * heads;
   if (rows > 0) {
-    delta_kernel<D><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
+    delta_kernel<DV><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
         o, dout, delta, batch, sq, heads);
   }
   if (skv > 0) {
-    auto kern = dkdv_kernel<D, BK, BQ>;
-    const int bytes = smem_bytes<D>(0);
+    auto kern = dkdv_kernel<DQK, DV, BK, BQ>;
+    const int bytes = smem_bytes<DQK, DV>(0);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1348,8 +1421,8 @@ int launch_f32(const float* q, const float* k, const float* v,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (sq > 0) {
-    auto kern = dq_kernel<D, BQ, BK>;
-    const int bytes = smem_bytes<D>(1);
+    auto kern = dq_kernel<DQK, DV, BQ, BK>;
+    const int bytes = smem_bytes<DQK, DV>(1);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1361,11 +1434,11 @@ int launch_f32(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bf16 dK/dV kernel of a head dim (only it is instantiated)
-template <int D>
+// the bf16 dK/dV kernel of a pair (only it is instantiated)
+template <int DQK, int DV>
 auto dkdv_kernel_for() {
-  if constexpr (D == 64) return dkdv_pair_kernel<D>;
-  else return dkdv_ws_kernel<D>;
+  if constexpr (DQK == 64) return dkdv_pair_kernel<DQK>;
+  else return dkdv_ws_kernel<DQK, DV>;
 }
 
 // the card's SMs and opt-in shared memory a block
@@ -1380,7 +1453,7 @@ int card(int* sms, int* optin) {
   return static_cast<int>(err);
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* scratch, void* dq,
                 void* dk, void* dv, int batch, int sq, int skv, int heads,
@@ -1389,42 +1462,43 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   int sms = 0, optin = 0;
   int rc = card(&sms, &optin);
   if (rc != 0) return rc;
-  if (dkdv_smem_bytes(D) > optin || dq_smem_bytes(D) > optin)
+  if (dkdv_smem_bytes(DQK, DV) > optin || dq_smem_bytes(DQK, DV) > optin)
     return static_cast<int>(cudaErrorInvalidValue);
   if (sq == 0 && skv == 0) return 0;
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)DQK);
   const int nqt = (sq + kBlockQ - 1) / kBlockQ;
   if (sq > 0)
-    bwd_rows_kernel<D><<<dim3(nqt, heads, batch), kRowsThreads, 0, stream>>>(
+    bwd_rows_kernel<DV><<<dim3(nqt, heads, batch), kRowsThreads, 0, stream>>>(
         static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
         scratch, sq, heads);
   // with no queries (keys) no Q/dO (K/V) tile is loaded; the maps need a
-  // base and a row all the same, so they map the other operand
+  // base and a row all the same, so they map the other operand (DV <= DQK:
+  // a map of DV columns stays inside it)
   CUtensorMap qm, dom, km, vm;
   const bool has_q = sq > 0, has_k = skv > 0;
-  rc = bf16_map(&qm, has_q ? q : k, D, has_q ? heads : kv_heads,
+  rc = bf16_map(&qm, has_q ? q : k, DQK, has_q ? heads : kv_heads,
                 has_q ? sq : skv, batch);
-  if (rc == 0) rc = bf16_map(&dom, has_q ? dout : k, D,
+  if (rc == 0) rc = bf16_map(&dom, has_q ? dout : k, DV,
                              has_q ? heads : kv_heads, has_q ? sq : skv,
                              batch);
-  if (rc == 0) rc = bf16_map(&km, has_k ? k : q, D,
+  if (rc == 0) rc = bf16_map(&km, has_k ? k : q, DQK,
                              has_k ? kv_heads : heads, has_k ? skv : sq,
                              batch);
-  if (rc == 0) rc = bf16_map(&vm, has_k ? v : q, D,
+  if (rc == 0) rc = bf16_map(&vm, has_k ? v : q, DV,
                              has_k ? kv_heads : heads, has_k ? skv : sq,
                              batch);
   if (rc != 0) return rc;
   cudaError_t err;
   if (has_k) {
-    const int splits = head_splits(batch, skv, heads, kv_heads, sms, D);
+    const int splits = head_splits(batch, skv, heads, kv_heads, sms, DQK);
     float* part = scratch + (long long)batch * heads * nqt * kRowFloats;
-    const int bytes = dkdv_smem_bytes(D);
-    auto kernel = dkdv_kernel_for<D>();
+    const int bytes = dkdv_smem_bytes(DQK, DV);
+    auto kernel = dkdv_kernel_for<DQK, DV>();
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((skv + dkdv_keys(D) - 1) / dkdv_keys(D),
+    const dim3 grid((skv + dkdv_keys(DQK) - 1) / dkdv_keys(DQK),
                     kv_heads * splits, batch);
     kernel<<<grid, kWsThreads, bytes, stream>>>(
         qm, dom, km, vm, scratch, static_cast<bf16*>(dk),
@@ -1433,18 +1507,20 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (splits > 1) {
-      const long long n = (long long)batch * skv * kv_heads * D;
+      const long long n_v = (long long)batch * skv * kv_heads * DV;
+      const long long n_k = (long long)batch * skv * kv_heads * DQK;
+      const long long n = n_k > n_v ? n_k : n_v;
       dkdv_reduce_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0,
                            stream>>>(part, static_cast<bf16*>(dk),
-                                     static_cast<bf16*>(dv), n, splits,
-                                     scale);
+                                     static_cast<bf16*>(dv), n_v, n_k,
+                                     splits, scale);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
   if (has_q) {
-    const int bytes = dq_smem_bytes(D);
-    err = cudaFuncSetAttribute(dq_ws_kernel<D>,
+    const int bytes = dq_smem_bytes(DQK, DV);
+    err = cudaFuncSetAttribute(dq_ws_kernel<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1452,28 +1528,35 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
     const int rows_a_block = pair_heads ? kBlockQ : 2 * kBlockQ;
     const dim3 grid((sq + rows_a_block - 1) / rows_a_block,
                     pair_heads ? heads / 2 : heads, batch);
-    dq_ws_kernel<D><<<grid, kWsThreads, bytes, stream>>>(
+    dq_ws_kernel<DQK, DV><<<grid, kWsThreads, bytes, stream>>>(
         qm, dom, km, vm, scratch, static_cast<bf16*>(dq), sq, skv, heads,
         kv_heads, causal, window, scale, pair_heads);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const void* o, const void* dout, const float* lse, float* scratch,
            void* dq, void* dk, void* dv, int batch, int sq, int skv,
            int heads, int kv_heads, int causal, int window,
            cudaStream_t stream) {
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, dout, lse, scratch, dq, dk, dv, batch,
-                          sq, skv, heads, kv_heads, causal, window, stream);
-  return launch_f32<D>(
+    return launch_bf16<DQK, DV>(q, k, v, o, dout, lse, scratch, dq, dk, dv,
+                                batch, sq, skv, heads, kv_heads, causal,
+                                window, stream);
+  return launch_f32<DQK, DV>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(dout), lse, scratch, static_cast<float*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), batch, sq, skv, heads,
       kv_heads, causal, window, stream);
+}
+
+// the head-dim pairs (q and k, v) the entry point launches
+bool launched_pair(int dqk, int dv) {
+  return (dqk == dv && (dqk == 64 || dqk == 128 || dqk == 256)) ||
+         (dqk == 192 && dv == 128);
 }
 
 }  // namespace
@@ -1484,67 +1567,90 @@ const char* lotaru_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 float32, 1 bfloat16, of q, k, v, o, dout, dq, dk and dv; head
-// dim 64, 128 or 256; q, o, dout, dq (B, Sq, H, hd), k, v, dk, dv (B, Skv,
-// K, hd), contiguous, starting on 16 bytes; lse (B, H, Sq) float32; the
-// scratch `delta` lotaru_flash_bwd_scratch_floats float32 elements,
-// starting on 16 bytes.  bfloat16: the rows pass, dK/dV (and the partials'
-// sum with head splits) and dQ; float32: D, dK/dV and dQ; all on `stream`.
-// bfloat16 returns cudaErrorInvalidValue, launching nothing, where a pass's
-// shared memory is above the card's opt-in limit.
+// dtype: 0 float32, 1 bfloat16, of q, k, v, o, dout, dq, dk and dv;
+// (head_dim, head_dim_v) the columns of q, k, dq and dk, and of v, o, dout
+// and dv: (64, 64), (128, 128), (256, 256) or (192, 128), any other pair
+// returning cudaErrorInvalidValue and launching nothing; q, dq (B, Sq, H,
+// head_dim), o, dout (B, Sq, H, head_dim_v), k, dk (B, Skv, K, head_dim),
+// v, dv (B, Skv, K, head_dim_v), contiguous, starting on 16 bytes; lse (B,
+// H, Sq) float32; the scratch `delta` lotaru_flash_bwd_scratch_floats
+// float32 elements, starting on 16 bytes.  bfloat16: the rows pass, dK/dV
+// (and the partials' sum with head splits) and dQ; float32: D, dK/dV and
+// dQ; all on `stream`.  bfloat16 returns cudaErrorInvalidValue, launching
+// nothing, where a pass's shared memory is above the card's opt-in limit.
 int lotaru_flash_attention_bwd(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const void* lse, void* delta, void* dq,
                                void* dk, void* dv, int dtype, int batch,
                                int sq, int skv, int heads, int kv_heads,
-                               int head_dim, int causal, int window,
-                               cudaStream_t stream) {
+                               int head_dim, int head_dim_v, int causal,
+                               int window, cudaStream_t stream) {
   if (batch == 0) return 0;
   if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || heads % kv_heads)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
+  if (head_dim == 192 && head_dim_v == 128)
+    return launch<192, 128>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch,
+                            sq, skv, heads, kv_heads, causal, window, stream);
+  if (head_dim_v != head_dim) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 64:
-      return launch<64>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch, sq,
-                        skv, heads, kv_heads, causal, window, stream);
+      return launch<64, 64>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch,
+                            sq, skv, heads, kv_heads, causal, window, stream);
     case 128:
-      return launch<128>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch,
-                         sq, skv, heads, kv_heads, causal, window, stream);
+      return launch<128, 128>(dtype, q, k, v, o, dout, l, d, dq, dk, dv,
+                              batch, sq, skv, heads, kv_heads, causal, window,
+                              stream);
     case 256:
-      return launch<256>(dtype, q, k, v, o, dout, l, d, dq, dk, dv, batch,
-                         sq, skv, heads, kv_heads, causal, window, stream);
+      return launch<256, 256>(dtype, q, k, v, o, dout, l, d, dq, dk, dv,
+                              batch, sq, skv, heads, kv_heads, causal, window,
+                              stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // the backward's shape formulas, for the Python mirrors
-// (kernels/flash_attention.bwd_smem_bytes, bwd_head_splits,
-// bwd_scratch_floats) to be held against: dynamic shared memory of the
-// dK/dV (which 0) and dQ (which 1) kernels at a head dim and dtype (0
-// float32, 1 bfloat16)
-int lotaru_flash_bwd_smem_bytes(int head_dim, int which, int dtype) {
-  if (dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 256))
-    return which == 0 ? dkdv_smem_bytes(head_dim) : dq_smem_bytes(head_dim);
+// (kernels/flash_attention.bwd_smem_bytes, bwd_stages, bwd_head_splits,
+// bwd_scratch_floats) to be held against, at a head-dim pair; -1 at a pair
+// the entry point does not launch.  Dynamic shared memory of the dK/dV
+// (which 0) and dQ (which 1) kernels by dtype (0 float32, 1 bfloat16)
+int lotaru_flash_bwd_smem_bytes(int head_dim, int head_dim_v, int which,
+                                int dtype) {
+  if (!launched_pair(head_dim, head_dim_v)) return -1;
+  if (dtype == 1)
+    return which == 0 ? dkdv_smem_bytes(head_dim, head_dim_v)
+                      : dq_smem_bytes(head_dim, head_dim_v);
   switch (head_dim) {
-    case 64: return smem_bytes<64>(which);
-    case 128: return smem_bytes<128>(which);
-    case 256: return smem_bytes<256>(which);
-    default: return -1;
+    case 64: return smem_bytes<64, 64>(which);
+    case 128: return smem_bytes<128, 128>(which);
+    case 192: return smem_bytes<192, 128>(which);
+    default: return smem_bytes<256, 256>(which);
   }
 }
 
+// the stages of the bf16 dK/dV pass's Q/dO ring (which 0) and the dQ
+// pass's K/V ring (which 1)
+int lotaru_flash_bwd_stages(int head_dim, int head_dim_v, int which) {
+  if (!launched_pair(head_dim, head_dim_v)) return -1;
+  return which == 0 ? dkdv_stages(head_dim, head_dim_v)
+                    : dq_stages(head_dim, head_dim_v);
+}
+
 int lotaru_flash_bwd_head_splits(int batch, int skv, int heads, int kv_heads,
-                                 int sms, int head_dim) {
+                                 int sms, int head_dim, int head_dim_v) {
+  if (!launched_pair(head_dim, head_dim_v)) return -1;
   return head_splits(batch, skv, heads, kv_heads, sms, head_dim);
 }
 
 long long lotaru_flash_bwd_scratch_floats(int dtype, int batch, int sq,
                                           int skv, int heads, int kv_heads,
-                                          int head_dim, int sms) {
+                                          int head_dim, int head_dim_v,
+                                          int sms) {
+  if (!launched_pair(head_dim, head_dim_v)) return -1;
   return scratch_floats(dtype, batch, sq, skv, heads, kv_heads, head_dim,
-                        sms);
+                        head_dim_v, sms);
 }
 
 }  // extern "C"

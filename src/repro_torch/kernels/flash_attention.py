@@ -1,18 +1,19 @@
 """Launch wrappers for the hand-written CUDA kernels in
 `csrc/flash_attention.cu`: causal attention with an optional sliding
 window and grouped key-value heads, the prefill and training attention of
-every attention layer.  The forward takes q and k of one head dim and v
-of its own (`FWD_PAIRS`: 64, 128 and 256 for all three, and DeepSeek-V2's
-expanded MLA, q and k 192 and v 128); the backward one head dim for all
-(`HEAD_DIMS`).  bfloat16 runs on the tensor cores (a
+every attention layer.  Both passes take q and k of one head dim and v
+of its own (`FWD_PAIRS` = `BWD_PAIRS`: 64, 128 and 256 for all three, and
+DeepSeek-V2's expanded MLA, q and k 192 and v 128).  bfloat16 runs on the
+tensor cores (a
 warp-specialised block: a TMA producer and two `wgmma` consumers that share
 each K/V tile), float32 on the CUDA cores.  With `with_lse=True` the
 forward also returns each row's log-sum-exp, which `flash_attention_bwd`
 takes (`csrc/flash_attention_bwd.cu`: dq, dk and dv, no atomics; bf16 on
 the tensor cores through TMA-fed `wgmma` blocks, float32 on the CUDA
 cores, `bwd_route`); it counts its launches in
-`flash_attention_bwd.launches` and, by route, in
-`flash_attention_bwd.route_launches`.
+`flash_attention_bwd.launches`, by route in
+`flash_attention_bwd.route_launches` and by head-dim pair in
+`flash_attention_bwd.pair_launches`.
 
 The wrapper takes CUDA tensors only (device dispatch is `kernels.ops`),
 checks device, dtype, shape and contiguity, allocates its output with
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -42,10 +43,11 @@ from repro_torch.kernels._launch import check, cuda_device, raise_on
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)     # the backward's, one for q, k and v
-# the forward's (q and k, v): the equal pairs and MLA's expanded form
+HEAD_DIMS = (64, 128, 256)     # one for q, k and v
+# both passes' head-dim pairs (q and k, v): the equal pairs and MLA's
+# expanded form
 FWD_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
-BWD_PAIRS = tuple((d, d) for d in HEAD_DIMS)
+BWD_PAIRS = FWD_PAIRS
 BLOCK_Q = 64        # query rows of a bf16 consumer
 BLOCK_K = 64        # keys of a kv tile
 # the bf16 kernel by the pairing of its two consumers, and the f32 kernel
@@ -74,13 +76,15 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     lib.lotaru_error_string.argtypes = [_I]
     lib.lotaru_error_string.restype = ctypes.c_char_p
-    lib.lotaru_flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.lotaru_flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 10 + [_P]
     lib.lotaru_flash_attention_bwd.restype = _I
-    lib.lotaru_flash_bwd_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lotaru_flash_bwd_smem_bytes.argtypes = [_I] * 4
     lib.lotaru_flash_bwd_smem_bytes.restype = _I
-    lib.lotaru_flash_bwd_head_splits.argtypes = [_I] * 6
+    lib.lotaru_flash_bwd_stages.argtypes = [_I] * 3
+    lib.lotaru_flash_bwd_stages.restype = _I
+    lib.lotaru_flash_bwd_head_splits.argtypes = [_I] * 7
     lib.lotaru_flash_bwd_head_splits.restype = _I
-    lib.lotaru_flash_bwd_scratch_floats.argtypes = [_I] * 8
+    lib.lotaru_flash_bwd_scratch_floats.argtypes = [_I] * 9
     lib.lotaru_flash_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
@@ -88,71 +92,90 @@ def _bwd_lib() -> ctypes.CDLL:
 # the backward's routes: bf16 on the tensor cores (wgmma), float32 on the
 # CUDA cores
 BWD_ROUTES = ("wgmma", "cuda_cores")
-# the CUDA-core route's tiles by head dim: (keys of a dK/dV block and of
-# a dQ block's key tile, queries of a dQ block and of a dK/dV query tile)
-BWD_TILES = {64: (64, 64), 128: (64, 32), 256: (32, 32)}
+# the CUDA-core route's tiles by q's head dim: (keys of a dK/dV block and
+# of a dQ block's key tile, queries of a dQ block and of a dK/dV query tile)
+BWD_TILES = {64: (64, 64), 128: (64, 32), 192: (32, 32), 256: (32, 32)}
 BWD_ROW_FLOATS = 2 * BLOCK_Q    # a query tile's lse (base 2) and D rows
 BWD_MAX_SPLITS = 4              # blocks a dK/dV group's heads split over
+BWD_MAX_STAGES = 4
+SMEM_OPTIN = 232448             # an H100 block's opt-in shared memory
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
 
 
-def bwd_stages(hd: int, which: int) -> int:
-    """Stages of the wgmma route's rings: the dK/dV pass's Q/dO ring
-    (which 0) two at hd 256, four below; the dQ pass's K/V ring (which 1)
-    one at hd 256, beside both consumers' Q and dO, four below
-    (`dkdv_stages`, `dq_stages` in the source)."""
-    if hd == 256:
-        return 2 if which == 0 else 1
-    return 4
+def bwd_smem_bytes_at(hd: int, hd_v: int, which: int, stages: int) -> int:
+    """The wgmma route's dynamic shared memory at the pair (hd, hd_v)
+    with `stages` in its pass's ring (`dkdv_smem_at`, `dq_smem_at` in the
+    source); `bwd_smem_bytes` at `bwd_stages`."""
+    tiles = BLOCK_K * (hd + hd_v) * 2      # a K/Q tile and a V/dO tile
+    rows = BWD_ROW_FLOATS * 4
+    if which == 0:
+        exchange = 0 if hd == 64 else BLOCK_K * BLOCK_Q * 4
+        return ((bwd_block_keys(hd) // BLOCK_K + stages) * tiles
+                + stages * rows + exchange + 1024 + 128)
+    return (2 + stages) * tiles + 2 * rows + 1024 + 128
+
+
+def bwd_stages(hd: int, which: int, hd_v: Optional[int] = None) -> int:
+    """Stages of the wgmma route's rings at the pair (hd, hd_v), hd_v
+    defaulting to hd: the most, up to 4, with which the pass fits a
+    block's 232,448 bytes.  The dK/dV pass's Q/dO ring (which 0): two at
+    hd 256, four below and at (192, 128); the dQ pass's K/V ring (which 1),
+    beside both consumers' Q and dO: one at hd 256, three at (192, 128),
+    four below (`ring_stages` in the source)."""
+    hd_v = hd if hd_v is None else hd_v
+    st = BWD_MAX_STAGES
+    while st > 1 and bwd_smem_bytes_at(hd, hd_v, which, st) > SMEM_OPTIN:
+        st -= 1
+    return st
 
 
 def bwd_smem_bytes(hd: int, which: int,
-                   dtype: torch.dtype = torch.float32) -> int:
+                   dtype: torch.dtype = torch.float32,
+                   hd_v: Optional[int] = None) -> int:
     """Dynamic shared memory of the backward's dK/dV kernel (which 0) or
-    dQ kernel (which 1) (`lotaru_flash_bwd_smem_bytes` in the source).
-    The wgmma route: bf16 tiles of 64 rows x hd (dK/dV: K and V of the
+    dQ kernel (which 1) at the pair (hd, hd_v), hd_v defaulting to hd
+    (`lotaru_flash_bwd_smem_bytes` in the source).  The wgmma route: bf16
+    tiles of 64 rows, K and Q hd wide, V and dO hd_v (dK/dV: K and V of the
     block's keys, a ring of Q, dO and their 512 bytes of rows, and, above
     hd 64, the 16 KB P^T exchange; dQ: both consumers' Q, dO and rows, a
     ring of K and V), 1024 bytes to align the tiles to the swizzle and 128
     for the mbarriers.  The CUDA-core route: float32 tiles padded by 4
     (dK/dV: K and V transposed, Q and dO transposed and row-major, P and
     dS; dQ: Q, dO, K and V transposed, K row-major, dS), lse and D."""
+    hd_v = hd if hd_v is None else hd_v
     if bwd_route(dtype, hd) == "wgmma":
-        st, tile, rows = bwd_stages(hd, which), BLOCK_K * hd * 2, \
-            BWD_ROW_FLOATS * 4
-        if which == 0:
-            kv = 2 * bwd_block_keys(hd) // BLOCK_K * tile
-            exchange = 0 if hd == 64 else BLOCK_K * BLOCK_Q * 4
-            return kv + 2 * st * tile + st * rows + exchange + 1024 + 128
-        return (4 + 2 * st) * tile + 2 * rows + 1024 + 128
+        return bwd_smem_bytes_at(hd, hd_v, which,
+                                 bwd_stages(hd, which, hd_v))
     bk, bq = BWD_TILES[hd]
     if which == 0:
-        floats = (2 * hd * (bk + 4) + 2 * hd * (bq + 4) + 2 * bq * (hd + 4)
-                  + 2 * bq * (bk + 4) + 2 * bq)
+        floats = ((hd + hd_v) * (bk + 4) + (hd + hd_v) * (bq + 4)
+                  + bq * (hd + 4) + bq * (hd_v + 4) + 2 * bq * (bk + 4)
+                  + 2 * bq)
     else:
-        floats = (2 * hd * (bq + 4) + 2 * hd * (bk + 4) + bk * (hd + 4)
-                  + bk * (bq + 4) + 2 * bq)
+        floats = ((hd + hd_v) * (bq + 4) + (hd + hd_v) * (bk + 4)
+                  + bk * (hd + 4) + bk * (bq + 4) + 2 * bq)
     return 4 * floats
 
 
 def bwd_block_keys(hd: int) -> int:
-    """Keys of a wgmma-route dK/dV block: 128 at hd 64, where each
-    consumer takes 64 of them and runs the whole chain, 64 wider, where
-    one consumer takes P and dV and the other dS and dK (`dkdv_keys` in
-    the source)."""
+    """Keys of a wgmma-route dK/dV block at q's head dim hd: 128 at hd 64,
+    where each consumer takes 64 of them and runs the whole chain, 64
+    wider, where one consumer takes P and dV and the other dS and dK
+    (`dkdv_keys` in the source)."""
     return 2 * BLOCK_K if hd == 64 else BLOCK_K
 
 
 def bwd_head_splits(batch: int, skv: int, heads: int, kv_heads: int,
                     sms: int, hd: int) -> int:
     """Blocks over which the wgmma route's dK/dV pass splits a kv head's
-    query heads: of 1 to min(4, group), the split that minimises waves of
-    blocks x heads a block, the fewest on a tie.  MQA at B 1 (RecurrentGemma:
-    64 blocks, fewer than the SMs) splits; SmolLM's 640 blocks do not
-    (`head_splits` in the source)."""
+    query heads, at q's head dim hd (the block's keys follow it): of 1 to
+    min(4, group), the split that minimises waves of blocks x heads a
+    block, the fewest on a tie.  MQA at B 1 (RecurrentGemma: 64 blocks,
+    fewer than the SMs) splits; SmolLM's 640 blocks do not (`head_splits`
+    in the source)."""
     n = batch * kv_heads * -(-skv // bwd_block_keys(hd))
     group = heads // kv_heads
     if n == 0 or sms <= 0:
@@ -166,16 +189,19 @@ def bwd_head_splits(batch: int, skv: int, heads: int, kv_heads: int,
 
 
 def bwd_scratch_floats(dtype: torch.dtype, batch: int, sq: int, skv: int,
-                       heads: int, kv_heads: int, hd: int, sms: int) -> int:
-    """float32 elements of the backward's scratch: the wgmma route's rows
-    (B, H, query tiles, 128: lse in base 2 and D, zeros past Sq) and, with
-    head splits, the partial dV and dK (2, splits, B, Skv, K, hd); the
+                       heads: int, kv_heads: int, hd: int, sms: int,
+                       hd_v: Optional[int] = None) -> int:
+    """float32 elements of the backward's scratch at the pair (hd, hd_v),
+    hd_v defaulting to hd: the wgmma route's rows (B, H, query tiles, 128:
+    lse in base 2 and D, zeros past Sq) and, with head splits, the partial
+    dV (splits, B, Skv, K, hd_v) and dK (splits, B, Skv, K, hd); the
     CUDA-core route's D (B, H, Sq) (`scratch_floats` in the source)."""
+    hd_v = hd if hd_v is None else hd_v
     if bwd_route(dtype, hd) != "wgmma":
         return batch * heads * sq
     rows = batch * heads * -(-sq // BLOCK_Q) * BWD_ROW_FLOATS
     splits = bwd_head_splits(batch, skv, heads, kv_heads, sms, hd)
-    return rows + (2 * splits * batch * skv * kv_heads * hd
+    return rows + (splits * batch * skv * kv_heads * (hd + hd_v)
                    if splits > 1 else 0)
 
 
@@ -183,7 +209,8 @@ def flash_bwd_plan(sq: int, skv: int, heads: int, kv_heads: int,
                    causal: bool, window: int, hd: int, splits: int = 1
                    ) -> List[Tuple[int, int, Tuple[int, ...],
                                    List[Tuple[int, str]]]]:
-    """The wgmma route's dK/dV walk, the same for every batch: for each
+    """The wgmma route's dK/dV walk at q's head dim hd, the same for every
+    batch and for any v head dim: for each
     block of `bwd_block_keys(hd)` keys, kv head and head split, and each
     64-key tile of the block with keys (one a consumer at hd 64), (its
     first key, kv head, the split's query heads, [(q0, kind), ...]): the
@@ -350,16 +377,16 @@ flash_attention.pair_launches = dict.fromkeys(FWD_PAIRS, 0)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True, window: int = 0):
-    """The gradient of `flash_attention` at (q, k, v): o its output, do
-    the gradient of o (both (B, Sq, H, hd) in q's dtype), lse (B, H, Sq)
-    float32 from the forward's `with_lse` -> (dq, dk, dv) in q's dtype,
-    within the stated tolerance of `ref.attention_bwd_ref`.  Deterministic:
-    no atomics, two launches give bitwise equal results.  Its scratch
-    (`bwd_scratch_floats`: the rows, and the dK/dV partials of a head
-    split) is allocated here."""
-    dev, (b, sq, skv, h, kh, hd, _) = _check_qkv(q, k, v, BWD_PAIRS)
-    check(o, "o", q.dtype, (b, sq, h, hd), dev)
-    check(do, "do", q.dtype, (b, sq, h, hd), dev)
+    """The gradient of `flash_attention` at (q, k, v), (hd, hd_v) one of
+    `BWD_PAIRS`: o its output, do the gradient of o (both (B, Sq, H, hd_v)
+    in q's dtype), lse (B, H, Sq) float32 from the forward's `with_lse` ->
+    (dq, dk, dv) in q's dtype, within the stated tolerance of
+    `ref.attention_bwd_ref`.  Deterministic: no atomics, two launches give
+    bitwise equal results.  Its scratch (`bwd_scratch_floats`: the rows,
+    and the dK/dV partials of a head split) is allocated here."""
+    dev, (b, sq, skv, h, kh, hd, hd_v) = _check_qkv(q, k, v, BWD_PAIRS)
+    check(o, "o", q.dtype, (b, sq, h, hd_v), dev)
+    check(do, "do", q.dtype, (b, sq, h, hd_v), dev)
     check(lse, "lse", torch.float32, (b, h, sq), dev)
     for n, t in (("o", o), ("do", do)):
         if t.data_ptr() % 16:
@@ -369,7 +396,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     delta = torch.empty(bwd_scratch_floats(q.dtype, b, sq, skv, h, kh, hd,
-                                           sms),
+                                           sms, hd_v),
                         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -377,12 +404,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, skv, h,
-            kh, hd, int(causal), int(window), stream)
+            kh, hd, hd_v, int(causal), int(window), stream)
     raise_on(_bwd_lib(), rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.route_launches[bwd_route(q.dtype, hd)] += 1
+    flash_attention_bwd.pair_launches[(hd, hd_v)] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
+flash_attention_bwd.pair_launches = dict.fromkeys(BWD_PAIRS, 0)

@@ -10,9 +10,9 @@ records (grad enabled and an input requires grad) they run through a
 (`flash_attention_bwd`, `rglru_scan_bwd`) and its plain version on the
 CPU; otherwise (serving, `inference_mode`) the forward kernel is launched
 as it is, with nothing saved.  Where the backward kernel lacks the head
-dims (MLA's q and k of 192 and v of 128), a recording forward on a card
-raises NotImplementedError before it launches anything: there is no
-fallback to the plain backward."""
+dims (a pair outside `flash_attention.BWD_PAIRS`), a recording forward on
+a card raises NotImplementedError before it launches anything: there is
+no fallback to the plain backward."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -139,7 +139,7 @@ class FlashAttention(torch.autograd.Function):
             raise NotImplementedError(
                 f"flash_attention_bwd has no kernel for head dims {pair} "
                 f"(q and k, v; it takes {_flash.BWD_PAIRS}): attention at "
-                f"this pair runs on the card under no grad only")
+                f"this pair does not train on the card")
         if plain:
             o, lse = ref.attention_fwd_ref(q, k, v, causal=causal,
                                            window=window)

@@ -326,10 +326,10 @@ def test_flash_smem_bytes_fits_and_equals_the_c_formula(hd, hd_v, stages,
 
 
 def test_flash_head_dim_pairs():
-    """The forward takes the backward's equal pairs and MLA's (192, 128);
-    the backward the equal pairs alone."""
-    assert set(tflash.BWD_PAIRS) == {(d, d) for d in tflash.HEAD_DIMS}
-    assert set(tflash.FWD_PAIRS) == set(tflash.BWD_PAIRS) | {(192, 128)}
+    """Both passes take the equal pairs and MLA's (192, 128)."""
+    assert set(tflash.FWD_PAIRS) == {(d, d) for d in tflash.HEAD_DIMS} \
+        | {(192, 128)}
+    assert tflash.BWD_PAIRS == tflash.FWD_PAIRS
 
 
 @pytest.mark.parametrize("dtype,h,kh,route", [

@@ -10,14 +10,18 @@ and k of head dim 48, v of 32), which is held here against the
 reference's `chunked_causal_attention` at an unequal pair, with GQA and a
 window too, forward and backward.  `mla_apply_seq` and its cache,
 `mla_decode` over a filled cache (the absorbed form), the model's forward,
-its loss and every gradient leaf (remat "none" and "full"), teacher-forced
-decode, `serve` and `init_decode_cache`, each against the reference's.
+its loss and every gradient leaf (remat "none" and "full"), three train
+steps under the config's remat "full" and int8 moments (one and two
+microbatches), teacher-forced decode, `serve` and `init_decode_cache`,
+each against the reference's.
 
 Tolerances (float32; the packages sum in other orders), those of
 tests/test_torch_moe.py: outputs rtol 1e-5 / atol 1e-6, gradients rtol
 1e-4 / atol 1e-5, logits (and the prefill's caches, downstream of whole
 blocks) 1e-4, decode against the forward 2e-3
-(tests/test_models_smoke.py:86)."""
+(tests/test_models_smoke.py:86); the train steps' master weights within
+rtol 1e-5 / atol 1e-5 and 2 lr, as tests/test_torch_train.py holds them,
+where int8 moments leave those limits meaningful (see the test)."""
 import dataclasses
 import warnings
 
@@ -31,8 +35,10 @@ from repro import configs as jconfigs
 from repro.launch import serve as jserve
 from repro.models import attention as jattn
 from repro.models import transformer as jtf
+from repro.train import optimizer as jopt
+from repro.train import train_step as jts
 from repro_torch import configs as tconfigs
-from repro_torch.convert import lm_params_from_jax
+from repro_torch.convert import lm_params_from_jax, train_state_from_jax
 from repro_torch.data import pipeline as tpipeline
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as tserve
@@ -46,6 +52,7 @@ OUT_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+MASTER_TOL = dict(rtol=1e-5, atol=1e-5)
 MARGIN = 1e-3       # greedy tokens compared where the top-2 margin is wider
 S = 24
 
@@ -254,6 +261,68 @@ def test_loss_and_every_gradient_leaf_match_jax(model, remat):
     wkv = [g for (path, _), g in zip(jleaves, grads)
            if "wkv_b" in jax.tree_util.keystr(path)]
     assert len(wkv) == 2 and all(float(g.abs().max()) > 0 for g in wkv)
+
+
+@pytest.mark.parametrize("nmb", [1, 2])
+def test_train_step_three_steps_match_jax(model, nmb):
+    """DeepSeek-V2's training setting, as the card runs it: remat "full"
+    and int8 moments through `make_train_step`, three AdamW steps at B 4
+    against the reference's jitted train step (one microbatch, as on the
+    card, and two).  Each step starts from the reference's state before
+    it (`train_state_from_jax`): the reference's int8 second moment rounds
+    a block's small values to code 0, so the next step divides such a
+    weight's first moment by little more than its new gradient, and a
+    weight whose gradient is near zero moves by orders of magnitude more
+    than lr; the packages' float32 rounding of that gradient moves it
+    apart in proportion, and the states part after one such step.
+    Held at each step: the loss at rtol 1e-5; every int8 code within one
+    of the reference's and 99.9 % of them equal; 99.5 % of each master
+    leaf within MASTER_TOL, and every weight whose reference step is at
+    most 2 lr (Adam's bound with float32 moments) within 2 lr of it."""
+    jcfg, tcfg, jp, tp = model
+    jcfg = dataclasses.replace(jcfg, remat="full", microbatches=nmb)
+    tcfg = dataclasses.replace(tcfg, remat="full", microbatches=nmb)
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=6, int8_state=True)
+    jstep = jax.jit(jts.make_train_step(jcfg, jopt.OptConfig(**kw)))
+    tstep = tts.make_train_step(tcfg, topt.OptConfig(**kw))
+    js = {"opt": jopt.init_opt_state(jp, jopt.OptConfig(**kw))}
+    ts = {"opt": topt.init_opt_state(tp, topt.OptConfig(**kw))}
+    lr = kw["lr"]
+    rng = np.random.default_rng(20 + nmb)
+    for step in range(3):
+        if step:
+            ts = train_state_from_jax(jax.tree.map(np.asarray, js), tcfg,
+                                      int8_state=True, device="cpu")
+        before = [np.asarray(w) for w in
+                  jax.tree_util.tree_leaves(js["opt"]["master"])]
+        b = {k: _tokens(4, S, tcfg.vocab_size, int(rng.integers(1 << 30)))
+             for k in ("tokens", "labels")}
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in b.items()})
+        ts, tm = tstep(ts, {k: torch.from_numpy(v) for k, v in b.items()})
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        assert int(ts["opt"]["step"]) == int(js["opt"]["step"]) == step + 1
+        want = jax.tree.map(np.asarray, js["opt"])
+        codes = 0
+        for mom in ("m", "v"):
+            jl = dict(jax.tree_util.tree_leaves_with_path(want[mom]))
+            for (path, w), g in zip(jl.items(),
+                                    topt.tree_leaves(ts["opt"][mom])):
+                if g.dtype != torch.int8:
+                    continue
+                d = np.abs(g.numpy().astype(int) - w.astype(int))
+                assert d.max() <= 1 and (d == 0).mean() >= 0.999, \
+                    jax.tree_util.keystr(path)
+                codes += 1
+        assert codes > 0
+        for g, w, w0 in zip(topt.tree_leaves(ts["opt"]["master"]),
+                            jax.tree_util.tree_leaves(want["master"]),
+                            before):
+            g = g.numpy()
+            assert np.isclose(g, w, **MASTER_TOL).mean() >= 0.995
+            bounded = np.abs(w - w0) <= 2 * lr
+            np.testing.assert_allclose(g[bounded], w[bounded], rtol=0,
+                                       atol=2 * lr)
 
 
 def test_teacher_forced_decode_matches_reference_and_forward():

@@ -269,6 +269,48 @@ def test_adamw_three_steps_match_jax(int8):
                                        err_msg=name)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_sliced_update_is_bitwise_the_whole_leaf_update(int8, monkeypatch):
+    """Leaves above `UPDATE_SLICE` elements are updated a slice of rows at
+    a time: with the limit at 512 elements (a (3, 5, 256) leaf in slices
+    of 2 rows, a ragged (40, 100) one, whose int8 moments stay float32, in
+    slices of 5, a bfloat16 gradient among them), three steps leave the
+    master, m and v bitwise what the whole-leaf update leaves."""
+    rng = np.random.default_rng(11)
+    params = {"big": rng.standard_normal((3, 5, 256)).astype(np.float32),
+              "ragged": rng.standard_normal((40, 100)).astype(np.float32),
+              "small": rng.standard_normal((2, 128)).astype(np.float32)}
+    grads = [topt.tree_map(lambda p: rng.standard_normal(p.shape).astype(
+        np.float32) * 0.3, params) for _ in range(3)]
+    oc = topt.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10,
+                        clip_norm=0.5, int8_state=int8)
+    sliced = []
+    whole_update = topt._update_in_slices
+
+    def counted(*a, **k):
+        sliced.append(a[1].shape)
+        return whole_update(*a, **k)
+    monkeypatch.setattr(topt, "_update_in_slices", counted)
+
+    def run(limit):
+        monkeypatch.setattr(topt, "UPDATE_SLICE", limit)
+        st = topt.init_opt_state(topt.tree_map(torch.from_numpy, params), oc)
+        for g in grads:
+            g = topt.tree_map(torch.from_numpy, g)
+            g["big"] = g["big"].bfloat16()
+            _, st, _ = topt.adamw_update(g, st, oc)
+        return st
+    want = _flat(run(1 << 30))
+    assert not sliced
+    got = _flat(run(512))
+    assert sorted(set(sliced)) == [(3, 5, 256), (40, 100)]
+    assert len(sliced) == 6
+    assert got.keys() == want.keys()
+    for name, leaf in got.items():
+        assert leaf.dtype == want[name].dtype, name
+        assert torch.equal(leaf, want[name]), name
+
+
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------

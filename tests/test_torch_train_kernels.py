@@ -180,28 +180,56 @@ def test_backward_wrappers_take_cuda_tensors_only():
         flash.flash_attention(q, k, v, with_lse=True)
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention_bwd(q, k, v, q, q, lse)
+    # MLA's pair (q and k 192, v, o and dO 128): a pair the backward takes,
+    # refused on the CPU all the same
+    q, k = torch.zeros((1, 5, 2, 192)), torch.zeros((1, 5, 1, 192))
+    v, o = torch.zeros((1, 5, 1, 128)), torch.zeros((1, 5, 2, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_bwd(q, k, v, o, o, lse)
     a = torch.zeros((1, 3, 2))
     with pytest.raises(ValueError, match="CUDA"):
         scan.rglru_scan_bwd(a, a, a[:, 0], a)
 
 
-def test_backward_shared_memory_fits_the_card():
-    """The backward's tiles at every head dim and dtype fit a block's
+# (q and k, v) -> bf16 (dK/dV, dQ) bytes and stages, f32 (dK/dV, dQ) bytes
+BWD_SMEM = {(64, 64): ((101504, 100480), (4, 4), (139776, 104960)),
+            (128, 128): ((183424, 198784), (4, 4), (157952, 149760)),
+            (256, 256): ((215168, 198784), (2, 1), (223488, 185600)),
+            (192, 128): ((224384, 206976), (4, 3), (143616, 122112))}
+
+
+@pytest.mark.parametrize("pair", flash.BWD_PAIRS, ids=str)
+def test_backward_shared_memory_fits_the_card(pair):
+    """The backward's tiles at every head-dim pair and dtype fit a block's
     opt-in shared memory on an H100 (232,448 bytes); the C side is held
     to these numbers on the card.  bf16 takes the wgmma route; its dK/dV
     block holds K and V of its keys (128 at hd 64, 64 wider), a ring of
     Q and dO tiles (4 stages, 2 at hd 256) with their rows, and above hd
-    64 the 16 KB P^T exchange."""
-    for hd in flash.HEAD_DIMS:
-        for dt in (torch.float32, torch.bfloat16):
-            for which in (0, 1):
-                assert 0 < flash.bwd_smem_bytes(hd, which, dt) <= 232448
-    assert flash.bwd_smem_bytes(256, 0) == 223488
-    assert [flash.bwd_route(dt, hd) for dt, hd in (
-        (torch.bfloat16, 64), (torch.bfloat16, 256), (torch.float32, 64))] \
-        == ["wgmma", "wgmma", "cuda_cores"]
-    assert flash.bwd_smem_bytes(64, 0, torch.bfloat16) == 101504
-    assert flash.bwd_smem_bytes(256, 0, torch.bfloat16) == 215168
+    64 the 16 KB P^T exchange; its dQ block both consumers' Q and dO and
+    a ring of K and V tiles (4 stages, 1 at hd 256, 3 at MLA's (192,
+    128), where a fourth would take 247,936 bytes).  Each ring has the
+    most stages up to 4 that fit."""
+    hd, hd_v = pair
+    for dt in (torch.float32, torch.bfloat16):
+        for which in (0, 1):
+            assert 0 < flash.bwd_smem_bytes(hd, which, dt, hd_v) <= 232448
+    assert [flash.bwd_route(dt, hd) for dt in (torch.bfloat16,
+                                               torch.float32)] \
+        == ["wgmma", "cuda_cores"]
+    bf16, stages, f32 = BWD_SMEM[pair]
+    assert tuple(flash.bwd_smem_bytes(hd, w, torch.bfloat16, hd_v)
+                 for w in (0, 1)) == bf16
+    assert tuple(flash.bwd_stages(hd, w, hd_v) for w in (0, 1)) == stages
+    assert tuple(flash.bwd_smem_bytes(hd, w, torch.float32, hd_v)
+                 for w in (0, 1)) == f32
+    for w in (0, 1):
+        if stages[w] < flash.BWD_MAX_STAGES:
+            assert flash.bwd_smem_bytes_at(hd, hd_v, w, stages[w] + 1) \
+                > flash.SMEM_OPTIN
+    if hd == hd_v:      # the equal pairs' hd_v defaults to hd
+        assert flash.bwd_smem_bytes(hd, 0, torch.bfloat16) == bf16[0]
+    if pair == (192, 128):
+        assert flash.bwd_smem_bytes_at(192, 128, 1, 4) == 247936
 
 
 # (W, aligned, route): the tma route wants W * 4 bytes a multiple of 16 (W
@@ -261,9 +289,31 @@ def test_bwd_head_splits_and_scratch_by_shape(b, skv, h, kh, hd, sms, want):
                                     sms) == b * h * sq
 
 
+# (B, Skv, H, K, SMs, splits) at MLA's pair, q and k 192, v 128: 64-key
+# blocks as at hd 128 and 256; DeepSeek-V2's training shape (MHA, 128
+# heads) never splits; GQA groups of 8 and 3 split in 2 and 3
+@pytest.mark.parametrize("b,skv,h,kh,sms,want", [
+    (2, 4096, 128, 128, 132, 1), (2, 1000, 16, 2, 132, 2),
+    (1, 1000, 6, 2, 132, 3), (1, 64, 8, 1, 132, 4)])
+def test_bwd_head_splits_and_scratch_at_mla_pair(b, skv, h, kh, sms, want):
+    """The head split follows q's head dim alone; with a split, the
+    scratch holds a dV partial of v's 128 columns and a dK partial of
+    q's 192 for each split, after the rows; the float32 route's scratch
+    is D alone."""
+    assert flash.bwd_head_splits(b, skv, h, kh, sms, 192) == want
+    assert flash.bwd_head_splits(b, skv, h, kh, sms, 192) \
+        == flash.bwd_head_splits(b, skv, h, kh, sms, 128)
+    rows = b * h * -(-skv // 64) * 128
+    parts = want * b * skv * kh * (192 + 128) if want > 1 else 0
+    assert flash.bwd_scratch_floats(torch.bfloat16, b, skv, skv, h, kh, 192,
+                                    sms, 128) == rows + parts
+    assert flash.bwd_scratch_floats(torch.float32, b, skv, skv, h, kh, 192,
+                                    sms, 128) == b * h * skv
+
+
 # (Sq, Skv, H, K, causal, window): causal, window 1 and 64, not causal (and
 # windowed), ragged S; groups 1, 3 and 16
-@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("hd", [64, 256, 192])
 @pytest.mark.parametrize("sq,skv,h,kh,causal,window", [
     (200, 200, 6, 2, True, 0), (130, 130, 16, 1, True, 1),
     (200, 200, 3, 3, True, 64), (130, 130, 3, 1, False, 0),
@@ -272,7 +322,8 @@ def test_bwd_head_splits_and_scratch_by_shape(b, skv, h, kh, hd, sms, want):
 def test_flash_bwd_plan_covers_each_visible_pair_once(sq, skv, h, kh,
                                                       causal, window, hd):
     """The dK/dV walk against ref.band_mask, at every head split of the
-    group and both block widths (128 keys at hd 64, 64 wider): each
+    group and both block widths (128 keys at hd 64, 64 wider, q's head dim
+    192 at MLA's pair among them): each
     visible (query, key, head) pair in exactly one walked tile, no hidden
     pair in a walked tile's count; a "skip" tile holds no visible pair, a
     "full" one only visible pairs and 64 real keys; the splits of a kv
