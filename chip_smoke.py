@@ -346,7 +346,31 @@ Phases (each fails loudly; nothing is caught):
                form) within 2e-3 at capacity factor E / k = 26.7, where no
                choice is dropped (counted; 8.0 dropped choices at S 256);
                a profile of one prefill and 4 decode steps.
- 17. report  — per-kernel launches on the main path (phases 3-16, each
+ 17. xlstm   — xLSTM-125M at full size (12 layers alternating mLSTM and
+               sLSTM, d_model 768, 4 heads, vocab 50,304, bf16, the
+               chunked mLSTM at chunk 128; 130,798,896 parameters),
+               weights made on the card from a seed; it launches no
+               hand-written kernel (the counts must all read 0).  Served
+               through `repro_torch.launch.serve` at B 8, prompt 4,096,
+               32 tokens (prefill, decode median, peak, every logits
+               tensor finite) and at B 128 after 256 tokens (decode
+               median beside the mLSTM states' bytes); the sLSTM and
+               mLSTM layers' shares of one more prefill, each block call
+               synchronised either side.  Float32 at full size, B 2: the chunked
+               forward of 1,024 tokens against the recurrent form's, and
+               8 teacher-forced decode steps after a chunked prefill
+               against the recurrent forward, both within 5e-3.  At 2
+               layers, B 1 x 512: float32 gradients on the card against
+               the CPU's (worst leaf 1e-3), bf16 against float32 (each
+               leaf within 5e-2, or within 3x a float32 step on the
+               weights rounded to bf16 where that rounding alone moves it
+               by 5e-2: bf16_leaf_limits; the loss within 5e-2).
+               Training through `repro_torch.launch.train.main`, B 8 x
+               2,048: the Lotaru profile and prediction, 1 warm and 3
+               timed AdamW steps (median, tokens/s, utilisation, losses,
+               peak), the sLSTM's share of the warm step.  After the main path, one
+               B 128 decode step under torch.profiler.
+ 18. report  — per-kernel launches on the main path (phases 3-17, each
                path with the counts set to 0 just before it), errors, and
                times at the main path's shapes beside their bounds: CUDA events
                around one call with the L2 flushed before it, through the
@@ -7401,6 +7425,492 @@ def mla_only(dev) -> None:
     report_mla_bwd(dev, ml, bwd_errs)
 
 
+# ---------------------------------------------------------------------------
+# 17. xlstm: xLSTM-125M (mLSTM in both forms, sLSTM) at full size
+# ---------------------------------------------------------------------------
+XL_ARCH = "xlstm-125m"
+XL_PARAMS = 130_798_896          # param_count_exact of the reference config
+XL_SEED = 11
+XL_BATCH, XL_PROMPT, XL_GEN = 8, 4096, 32    # 4,096: 32 chunks of 128
+XL_DECODE_BATCH, XL_DECODE_PROMPT, XL_DECODE_GEN = 128, 256, 16
+XL_CHECK_B, XL_CHECK_S, XL_CHECK_DECODE = 2, 1024, 8
+# the reference's contract between its two mLSTM forms
+# (tests/test_models_smoke.py:106-118), held here on decode too
+XL_FORMS_TOL = dict(rtol=5e-3, atol=5e-3)
+XL_GRAD_LAYERS, XL_GRAD_S = 2, 512           # one mLSTM and one sLSTM, B 1
+XL_CPU_GRAD_TOL = 1e-3           # float32 card against float32 CPU
+# bf16 against float32, per gradient leaf.  The control is a float32 step
+# on the weights rounded as cast_params rounds them (and nothing else
+# rounded): where that rounding alone moves a leaf by GRAD_TOL["bfloat16"]
+# or more (at full width, the first layer's leaves), 5e-2 is out of reach
+# of any bf16 step, and the leaf is held to XL_BF16_MARGIN times the
+# control's gap, a margin that the reference's own bf16 step meets
+# (tests/test_torch_xlstm.py); every other leaf is held to 5e-2.
+XL_BF16_MARGIN = 3.0
+XL_TRAIN_BATCH, XL_TRAIN_SEQ = 8, 2048
+XL_TRAIN_STEPS = 4               # the first warm, the median of 3 timed
+
+
+def xl_config(**kw):
+    """xLSTM-125M's config, fields replaced by `kw`."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import replace
+    return replace(get_config(XL_ARCH), **kw)
+
+
+@contextlib.contextmanager
+def block_clock():
+    """xlstm's mlstm_apply_seq and slstm_apply_seq wrapped, yielding
+    {kind: seconds}: a synchronise either side of each call sums its
+    forward; where the call records for autograd, identity marks either
+    side whose backward synchronises and stamps the clock, so that the
+    time from the gradient reaching the block's output to its leaving the
+    block's input is summed too (kind + " backward")."""
+    import torch
+    from repro_torch.models import xlstm
+
+    class Stamp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, stamps, key):
+            ctx.stamps, ctx.key = stamps, key
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            torch.cuda.synchronize()
+            ctx.stamps[ctx.key] = time.perf_counter()
+            return g, None, None
+
+    secs = {"mlstm": 0.0, "slstm": 0.0, "mlstm backward": 0.0,
+            "slstm backward": 0.0}
+    stamps = {}
+    saved = xlstm.mlstm_apply_seq, xlstm.slstm_apply_seq
+
+    def clocked(kind, fn):
+        def run(p, cfg, x, make_cache=False):
+            marks = torch.is_grad_enabled() and x.requires_grad
+            key = (kind, len(stamps))
+            if marks:
+                x = Stamp.apply(x, stamps, key + ("in",))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = fn(p, cfg, x, make_cache)
+            torch.cuda.synchronize()
+            secs[kind] += time.perf_counter() - t0
+            if marks:
+                stamps[key + ("out",)] = None
+                out = Stamp.apply(out, stamps, key + ("out",))
+            return out, cache
+        return run
+
+    xlstm.mlstm_apply_seq = clocked("mlstm", saved[0])
+    xlstm.slstm_apply_seq = clocked("slstm", saved[1])
+    try:
+        yield secs
+    finally:
+        xlstm.mlstm_apply_seq, xlstm.slstm_apply_seq = saved
+    for (kind, i, end), t in stamps.items():
+        if end == "in":       # the backward left the block's input
+            secs[kind + " backward"] += t - stamps[(kind, i, "out")]
+
+
+@contextlib.contextmanager
+def clocked_warm_step():
+    """launch.train's make_train_step wrapped so that the first call of
+    the step function made for main's loop (the second made: the Lotaru
+    profile makes the first) runs under block_clock, synchronised either
+    side; the dict this yields then holds its seconds ("total") and
+    block_clock's sums, and "made", the step functions made."""
+    import torch
+    from repro_torch.launch import train as train_mod
+    out = {"made": 0}
+    saved = train_mod.make_train_step
+
+    def making(cfg, oc):
+        step = saved(cfg, oc)
+        out["made"] += 1
+        if out["made"] != 2:
+            return step
+
+        def run(state, batch):
+            if "total" in out:
+                return step(state, batch)
+            with block_clock() as secs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = step(state, batch)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+            out.update(secs, total=total)
+            return res
+        return run
+
+    train_mod.make_train_step = making
+    try:
+        yield out
+    finally:
+        train_mod.make_train_step = saved
+
+
+@contextlib.contextmanager
+def checked_logits():
+    """launch.serve's prefill and decode steps wrapped so that each logits
+    tensor they return is folded into one flag on the card (all finite so
+    far) and its shape noted, in the dict this yields; no logits are
+    kept."""
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    seen = {"finite": torch.tensor(True), "shapes": []}
+    saved = serve_mod.make_prefill_step, serve_mod.make_decode_step
+
+    def checking(make):
+        def made(cfg):
+            step = make(cfg)
+
+            def run(*a):
+                logits, cache = step(*a)
+                seen["finite"] = torch.isfinite(logits).all() & \
+                    seen["finite"].to(logits.device)
+                seen["shapes"].append(tuple(logits.shape))
+                return logits, cache
+            return run
+        return made
+
+    serve_mod.make_prefill_step = checking(saved[0])
+    serve_mod.make_decode_step = checking(saved[1])
+    try:
+        yield seen
+    finally:
+        serve_mod.make_prefill_step, serve_mod.make_decode_step = saved
+
+
+def xl_tokens(cfg, b: int, s: int, dev, seed: int = XL_SEED):
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    return torch.from_numpy(make_batch(DataConfig(cfg.vocab_size, s, b,
+                                                  seed=seed), 0)["tokens"]
+                            ).to(dev)
+
+
+def xl_serve(dev, cfg, params, b: int, prompt: int, gen: int) -> dict:
+    """launch.serve at (b, prompt, gen) on weights made from XL_SEED:
+    prefill seconds, the decode median, peak bytes; every logits tensor
+    finite and the tokens in the vocabulary."""
+    import torch
+    from repro_torch.launch.serve import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with checked_logits() as seen:
+        out = serve(cfg, b, prompt, gen, seed=XL_SEED, device=dev,
+                    params=params)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(seen["shapes"] == [(b, cfg.vocab_size)] * (gen + 1)
+          and bool(seen["finite"]),
+          f"{cfg.name} B={b}: serve's logits are not all finite (B, V)")
+    check(out.tokens.shape == (b, gen) and bool(
+        ((out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all()),
+          f"{cfg.name} B={b}: serve's tokens")
+    dec = out.decode_s * 1e3
+    return {"prefill_s": out.prefill_s, "decode_ms": float(np.median(dec)),
+            "decode_first_ms": float(dec[0]), "decode_min_ms":
+            float(dec.min()), "decode_max_ms": float(dec.max()),
+            "peak": peak}
+
+
+def xl_prefill_shares(dev, cfg, params, b: int, prompt: int) -> dict:
+    """One more prefill at (b, prompt), each mLSTM and sLSTM block call
+    synchronised either side (block_clock): the prefill's seconds under
+    the synchronisation and each kind's sum."""
+    import torch
+    from repro_torch.train.train_step import make_prefill_step
+    tokens = xl_tokens(cfg, b, prompt, dev)
+    step = make_prefill_step(cfg)
+    with torch.inference_mode(), block_clock() as secs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    return dict(secs, total=total)
+
+
+def xlstm_profile(dev) -> None:
+    """One decode step of xLSTM-125M at XL_DECODE_BATCH after a prefill of
+    XL_DECODE_PROMPT tokens (and a warm step) under torch.profiler; after
+    the main path, as the other profiles (a profile inside it left the
+    copies phase's profiler without device events)."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train.train_step import make_decode_step, make_prefill_step
+    cfg = xl_config()
+    params = init_params(XL_SEED, cfg, dev)
+    tokens = xl_tokens(cfg, XL_DECODE_BATCH, XL_DECODE_PROMPT + 2, dev)
+    decode = make_decode_step(cfg)
+    with torch.inference_mode():
+        _, cache = make_prefill_step(cfg)(
+            params, {"tokens": tokens[:, :XL_DECODE_PROMPT]})
+        _, cache = decode(params, tokens[:, XL_DECODE_PROMPT:][:, :1], cache,
+                          XL_DECODE_PROMPT)
+        prof = step_profile(lambda: decode(
+            params, tokens[:, XL_DECODE_PROMPT + 1:], cache,
+            XL_DECODE_PROMPT + 1))
+    print(f"[xlstm] profile decode B={XL_DECODE_BATCH}, one step "
+          f"({card()}): {prof}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def xl_consistency(dev) -> None:
+    """Float32 at full size (allow_tf32 off, as main sets it): the chunked
+    forward of XL_CHECK_S tokens against the recurrent form's, and
+    XL_CHECK_DECODE teacher-forced decode steps after a chunked prefill of
+    XL_CHECK_S against the recurrent forward of the whole sequence, each
+    within XL_FORMS_TOL."""
+    import torch
+    from repro_torch.models import forward, init_params
+    from repro_torch.train.train_step import make_decode_step, make_prefill_step
+    cfg = xl_config(dtype="float32")
+    scan_cfg = xl_config(dtype="float32", mlstm_impl="scan")
+    params = init_params(XL_SEED, cfg, dev)
+    s, n = XL_CHECK_S, XL_CHECK_DECODE
+    tok = xl_tokens(cfg, XL_CHECK_B, s + n, dev)
+    out = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        scan, _ = forward(params, scan_cfg, {"tokens": tok})
+        torch.cuda.synchronize()
+        t_scan = time.perf_counter() - t0
+        chunked, _ = forward(params, cfg, {"tokens": tok[:, :s]})
+        out["chunked vs scan forward"] = tol_check(chunked, scan[:, :s],
+                                                   XL_FORMS_TOL)
+        del chunked
+        _, cache = make_prefill_step(cfg)(params, {"tokens": tok[:, :s]})
+        decode = make_decode_step(cfg)
+        worst = (0.0, 0.0)
+        for pos in range(s, s + n):
+            logits, cache = decode(params, tok[:, pos:pos + 1], cache, pos)
+            err = tol_check(logits, scan[:, pos], XL_FORMS_TOL)
+            worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        out["decode after a chunked prefill vs scan forward"] = worst
+    del params, scan, cache
+    torch.cuda.empty_cache()
+    print(f"[xlstm] float32 consistency at full size ({cfg.num_layers} "
+          f"layers), B={XL_CHECK_B}: {{check: (max |err|, tol_ratio)}} "
+          f"{out}, limit rtol {XL_FORMS_TOL['rtol']} atol "
+          f"{XL_FORMS_TOL['atol']} (tol_ratio at most 1); the recurrent "
+          f"forward of {s + n} tokens took {t_scan!r} s")
+    for name, (_, ratio) in out.items():
+        check(ratio <= 1.0, f"xlstm: {name} outside {XL_FORMS_TOL}")
+
+
+def rel_gaps(got: dict, want: dict) -> dict:
+    """{leaf: ||got - want|| / ||want||}."""
+    out = {}
+    for name, g in got.items():
+        w = want[name].float().cpu()
+        out[name] = float((g.float().cpu() - w).norm()
+                          / w.norm().clamp_min(1e-30))
+    return out
+
+
+def bf16_leaf_limits(control: dict) -> dict:
+    """{leaf: the limit of its bf16 gradient's gap from float32}, from the
+    control's gaps {leaf: ||g(rounded weights) - g|| / ||g||}: 5e-2, or
+    XL_BF16_MARGIN x the control's gap where that gap alone reaches 5e-2
+    (see XL_BF16_MARGIN)."""
+    tol = GRAD_TOL["bfloat16"]
+    return {k: tol if c < tol else XL_BF16_MARGIN * c
+            for k, c in control.items()}
+
+
+def xl_grad_checks(dev) -> None:
+    """One step's loss and gradient leaves at XL_GRAD_LAYERS layers (one
+    mLSTM, one sLSTM), full width, B 1 x XL_GRAD_S, the chunked form:
+    float32 on the card against float32 on the CPU at the same weights and
+    tokens (worst leaf relative norm within XL_CPU_GRAD_TOL); then bf16 on
+    the card (the weights cast as a training step casts them) against
+    float32 on the card, each leaf within bf16_leaf_limits of the control
+    (a float32 step on those rounded weights), the loss within
+    GRAD_TOL["bfloat16"]; every mLSTM and sLSTM leaf non-zero."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.train_step import cast_params
+    cfg = xl_config(num_layers=XL_GRAD_LAYERS, dtype="float32")
+    cpu = torch.device("cpu")
+    p_cpu = init_params(XL_SEED, cfg, cpu)
+    tok = xl_tokens(cfg, 1, XL_GRAD_S + 1, cpu)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = route_grads(p_cpu, cfg, batch, plain=False)
+    t_cpu = time.perf_counter() - t0
+    p_card = tree_to(p_cpu, dev)
+    b_card = tree_to(batch, dev)
+    loss_f32, g_f32 = route_grads(p_card, cfg, b_card, plain=False)
+    cpu_gap = rel_gaps(g_f32, g_cpu)
+    p_bf = cast_params(p_card, torch.bfloat16)
+    _, g_round = route_grads(tree_map(lambda t: t.float(), p_bf), cfg,
+                             b_card, plain=False)
+    control = rel_gaps(g_round, g_f32)
+    del g_round
+    loss_bf, g_bf = route_grads(p_bf, xl_config(num_layers=XL_GRAD_LAYERS),
+                                b_card, plain=False)
+    bf_gap = rel_gaps(g_bf, g_f32)
+    limits = bf16_leaf_limits(control)
+    cpu_worst = max(cpu_gap.items(), key=lambda kv: kv[1])
+    ratio = max((bf_gap[k] / limits[k], k) for k in bf_gap)
+    tol = GRAD_TOL["bfloat16"]
+    zero = [name for name, g in {**g_f32, **{k + " (bf16)": v for k, v in
+                                             g_bf.items()}}.items()
+            if "/mix/" in name and not float(g.float().abs().max()) > 0]
+    print(f"[xlstm] gradients at {XL_GRAD_LAYERS} layers (one mLSTM, one "
+          f"sLSTM), full width, B=1 S={XL_GRAD_S}, chunked: float32 card "
+          f"vs float32 CPU loss {loss_f32!r} vs {loss_cpu!r}, worst leaf "
+          f"||card - cpu|| / ||cpu|| {cpu_worst[1]!r} ({cpu_worst[0]}), "
+          f"limit {XL_CPU_GRAD_TOL} (the CPU's step {t_cpu!r} s); {len(g_f32)} "
+          f"leaves; mLSTM and sLSTM leaves with a zero gradient: {zero}")
+    print(f"[xlstm] bf16 vs float32 on the card: loss {loss_bf!r} vs "
+          f"{loss_f32!r} (limit {tol} relative); per leaf (||bf16 - f32|| / "
+          f"||f32||, the control's gap (a float32 step on the weights "
+          f"rounded to bf16), limit): "
+          f"{ {k: (round(bf_gap[k], 4), round(control[k], 4), round(limits[k], 4)) for k in bf_gap} }; "
+          f"worst gap / limit {ratio[0]!r} ({ratio[1]}); leaves over the "
+          f"issue's {tol} (not met there; the control alone is over it on "
+          f"{sorted(k for k in control if control[k] >= tol)}): "
+          f"{sorted(k for k in bf_gap if bf_gap[k] > tol)}")
+    check(cpu_worst[1] <= XL_CPU_GRAD_TOL and abs(loss_f32 - loss_cpu)
+          <= XL_CPU_GRAD_TOL * abs(loss_cpu),
+          "xlstm: the card's float32 gradients differ from the CPU's")
+    check(ratio[0] <= 1.0 and abs(loss_bf - loss_f32) <= tol * abs(loss_f32),
+          "xlstm: the bf16 gradients differ from the float32 ones by more "
+          "than bf16_leaf_limits allows")
+    check(not zero, "xlstm: an mLSTM or sLSTM leaf has no gradient")
+    del p_card, p_bf, g_f32, g_bf
+    torch.cuda.empty_cache()
+
+
+def xl_train(dev) -> None:
+    """repro_torch.launch.train.main at the full config, B XL_TRAIN_BATCH
+    x S XL_TRAIN_SEQ (the config's own remat "none" and float32 moments):
+    the launcher's Lotaru profile and prediction, XL_TRAIN_STEPS AdamW
+    steps, the first (warm, out of the median) with each block call
+    synchronised (clocked_warm_step), for the mLSTM's and sLSTM's share of
+    a step."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import param_count_exact
+    from repro_torch.perf.roofline import PEAK_FLOPS, model_flops
+    cfg = xl_config()
+    b, s = XL_TRAIN_BATCH, XL_TRAIN_SEQ
+    tokens = b * s
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with clocked_warm_step() as secs:
+        losses = train.main(["--arch", XL_ARCH, "--steps",
+                             str(XL_TRAIN_STEPS), "--batch", str(b), "--seq",
+                             str(s), "--log-every", "1", "--device", "cuda"])
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = dict(train.main.stats)
+    step_s = np.asarray(stats["step_s"])
+    med = float(np.median(step_s[1:]))
+    mean, std = stats["predicted_step_s"], stats["predicted_std_s"]
+    inside = abs(med - mean) <= 3 * std
+    mfu = model_flops(param_count_exact(cfg), tokens, "train") / med \
+        / PEAK_FLOPS
+    check(len(losses) == XL_TRAIN_STEPS and all(np.isfinite(losses)),
+          "xlstm: a training loss is not finite")
+    check(secs["made"] == 2 and "total" in secs,
+          "xlstm: the launcher's warm step was not clocked")
+    print(f"[xlstm] train {cfg.name} through repro_torch.launch.train.main "
+          f"at full size ({param_count_exact(cfg)} parameters, {cfg.dtype}, "
+          f"remat {cfg.remat!r}, float32 master and moments), B={b} S={s} "
+          f"({tokens} tokens a step, {card()}): step median "
+          f"{med * 1e3!r} ms of {XL_TRAIN_STEPS - 1} (the first, warm and "
+          f"clocked, {float(step_s[0]) * 1e3!r} ms excluded; all "
+          f"{[round(float(x) * 1e3, 2) for x in step_s]}), {tokens / med!r} "
+          f"tokens/s, model-flop utilisation {mfu!r} (6 N D / step / "
+          f"{PEAK_FLOPS:.4g} FLOP/s; 6ND leaves out mLSTM's state and "
+          f"intra-chunk work and sLSTM's recurrent products); losses "
+          f"{losses}; max_memory_allocated {peak} bytes over the profile "
+          f"and the steps; the call {t_run!r} s")
+    print(f"[xlstm] lotaru predicted step {mean * 1e3!r} ms +- "
+          f"{std * 1e3!r} ms from the launcher's profile (tokens, s) "
+          f"{stats['profile']}; the median {med * 1e3!r} ms "
+          + ("is inside +- 3 std" if inside else
+             f"misses +- 3 std by {(abs(med - mean) - 3 * std) * 1e3!r} ms"))
+    total = secs["total"]
+    sl = secs["slstm"] + secs["slstm backward"]
+    ml = secs["mlstm"] + secs["mlstm backward"]
+    print(f"[xlstm] the warm step, each block call synchronised: "
+          f"{total * 1e3!r} ms, of which sLSTM {sl * 1e3!r} ms (forward "
+          f"{secs['slstm'] * 1e3!r}, backward {secs['slstm backward'] * 1e3!r}"
+          f"; share {sl / total!r}) and mLSTM {ml * 1e3!r} ms (forward "
+          f"{secs['mlstm'] * 1e3!r}, backward {secs['mlstm backward'] * 1e3!r}"
+          f"; share {ml / total!r}) ({card()})")
+
+
+def phase_xlstm(dev) -> None:
+    """xLSTM-125M at full size (12 layers, d_model 768, 4 heads, vocab
+    50,304, bf16, the chunked mLSTM at chunk 128), weights made on the card
+    from XL_SEED: its parameter count; served at B XL_BATCH x
+    XL_PROMPT + XL_GEN (prefill, decode median, peak, the sLSTM share of
+    the prefill) and at B XL_DECODE_BATCH after XL_DECODE_PROMPT tokens;
+    the float32 checks of the two mLSTM forms and of decode; the gradient
+    checks; training through the launcher.  It launches no hand-written
+    kernel."""
+    import torch
+    from repro_torch.models import init_params, param_count_exact
+    t0 = time.perf_counter()
+    cfg = xl_config()
+    n = param_count_exact(cfg)
+    print(f"[xlstm] {cfg.name}: {cfg.num_layers} layers "
+          f"{cfg.block_pattern}, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads, vocab {cfg.vocab_size}, {cfg.dtype}, mLSTM "
+          f"{cfg.mlstm_impl!r} at chunk {cfg.mlstm_chunk}: "
+          f"param_count_exact {n} (want {XL_PARAMS})")
+    check(n == XL_PARAMS, f"xlstm: {n} parameters, not {XL_PARAMS}")
+    params = init_params(XL_SEED, cfg, dev)
+    sv = xl_serve(dev, cfg, params, XL_BATCH, XL_PROMPT, XL_GEN)
+    sh = xl_prefill_shares(dev, cfg, params, XL_BATCH, XL_PROMPT)
+    kinds = cfg.layer_kinds()
+    print(f"[xlstm] serve B={XL_BATCH} prompt {XL_PROMPT} + {XL_GEN} "
+          f"({card()}): prefill {sv['prefill_s']!r} s "
+          f"({XL_BATCH * XL_PROMPT / sv['prefill_s']!r} prompt tokens/s); "
+          f"decode median {sv['decode_ms']!r} ms/step (min "
+          f"{sv['decode_min_ms']!r}, max {sv['decode_max_ms']!r}, first "
+          f"{sv['decode_first_ms']!r}); max_memory_allocated {sv['peak']} "
+          f"bytes; logits finite")
+    print(f"[xlstm] prefill shares, one more prefill with each block call "
+          f"synchronised: {sh['total']!r} s, of which the "
+          f"{kinds.count('slstm')} sLSTM layers {sh['slstm']!r} s (share "
+          f"{sh['slstm'] / sh['total']!r}) and the {kinds.count('mlstm')} "
+          f"mLSTM layers {sh['mlstm']!r} s (share "
+          f"{sh['mlstm'] / sh['total']!r}) ({card()})")
+    dc = xl_serve(dev, cfg, params, XL_DECODE_BATCH, XL_DECODE_PROMPT,
+                  XL_DECODE_GEN)
+    pd = int(cfg.d_model * cfg.mlstm_proj_factor)
+    state_bytes = kinds.count("mlstm") * XL_DECODE_BATCH * pd * pd // \
+        cfg.num_heads * 4
+    print(f"[xlstm] decode B={XL_DECODE_BATCH} after a {XL_DECODE_PROMPT}-"
+          f"token prefill ({card()}): median {dc['decode_ms']!r} ms/step (min "
+          f"{dc['decode_min_ms']!r}, max {dc['decode_max_ms']!r}) over "
+          f"{XL_DECODE_GEN}, {XL_DECODE_BATCH * 1e3 / dc['decode_ms']!r} "
+          f"tokens/s; the mLSTM C states {state_bytes} bytes, read and "
+          f"written once a step at least {2 * state_bytes / H100_BYTES_PER_S * 1e3!r}"
+          f" ms; prefill {dc['prefill_s']!r} s; max_memory_allocated "
+          f"{dc['peak']} bytes")
+    del params
+    torch.cuda.empty_cache()
+    t_serve = time.perf_counter() - t0
+    xl_consistency(dev)
+    xl_grad_checks(dev)
+    xl_train(dev)
+    print(f"[xlstm] the phase took {time.perf_counter() - t0!r} s (serving "
+          f"{t_serve!r} s)")
+
+
 def reset_attention_counts() -> None:
     """Both attention wrappers' counts, by route and by pair, to 0."""
     from repro_torch.kernels import flash_attention as flash
@@ -7452,7 +7962,9 @@ def main() -> None:
                        dev, {"flash_attention_bwd": 0, "rglru_scan_bwd": 0},
                        errs),
                    "moe": lambda: moe_only(dev),
-                   "mla": lambda: mla_only(dev)}[name]()
+                   "mla": lambda: mla_only(dev),
+                   "xlstm": lambda: (phase_xlstm(dev),
+                                     xlstm_profile(dev))}[name]()
             if name == "train-kernels":
                 errs.update(out)
         print(f"[chip_smoke] only {ONLY}: "
@@ -7662,6 +8174,10 @@ def main() -> None:
           "routes")
     ml, got = drive(lambda: phase_mla(dev), "mla")
     check_mla_launches(ml, got)
+    _, got = drive(lambda: phase_xlstm(dev), "xlstm")
+    print(f"[launches] xlstm: {got}")
+    check(all(n == 0 for n in got.values()), "the xlstm path launched a "
+          "hand-written kernel: it has none")
     print(f"[launches] main path: {launches}; eft_sweep by route "
           f"{sweep_routes}; upward_rank by route {rank_routes}")
     check(rank_routes == {"shared": launches["upward_rank"], "global": 0},
@@ -7690,6 +8206,7 @@ def main() -> None:
     lm_profile(dev)
     moe_profile(dev)
     mla_profile(dev)
+    xlstm_profile(dev)
     train_profile(dev)
     report = phase_report(dev, launches, errors, fleet, fleet_out,
                           pieces["args"], fold, predict_q)
@@ -7713,8 +8230,8 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-# `--only train-kernels,train,report-train` (or `--only moe`, `--only mla`)
-# runs the build and those phases alone
+# `--only train-kernels,train,report-train` (or `--only moe`, `--only mla`,
+# `--only xlstm`) runs the build and those phases alone
 ONLY = (sys.argv[sys.argv.index("--only") + 1].split(",")
         if "--only" in sys.argv else [])
 

@@ -1,8 +1,8 @@
 """Model assembly: block dispatch, the layer loop, train/prefill forward,
 the loss and decode, the counterpart of the JAX package's
 `models/transformer.py` for the block kinds the port runs (full, sliding
-window and local attention, DeepSeek-V2's MLA, RG-LRU; a dense FFN or a
-mixture of experts).
+window and local attention, DeepSeek-V2's MLA, RG-LRU, xLSTM's mLSTM and
+sLSTM; a dense FFN or a mixture of experts).
 
 Layer plan, as in the reference: `first_dense_layers` prefix blocks with
 a dense FFN (DeepSeek's dense layer 0), then `n_cycles` copies of
@@ -29,19 +29,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (
-    ATTENTION_KINDS, ATTN_FULL, ATTN_LOCAL, ATTN_MLA, ATTN_SWA, BLK_RGLRU,
-    ModelConfig,
+    ATTENTION_KINDS, ATTN_FULL, ATTN_LOCAL, ATTN_MLA, ATTN_SWA, BLK_MLSTM,
+    BLK_RGLRU, BLK_SLSTM, ModelConfig,
 )
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     cross_entropy, dense_init, embed_init, ffn_apply, ffn_init, pdtype,
     rmsnorm, rmsnorm_init, softcap,
 )
 
-PORTED_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL, ATTN_MLA, BLK_RGLRU)
+PORTED_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL, ATTN_MLA, BLK_RGLRU,
+                BLK_MLSTM, BLK_SLSTM)
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -86,6 +88,10 @@ def block_init(gen, cfg: ModelConfig, kind: str, use_moe: bool,
         p["attn"] = attn.mla_init(gen, cfg, device)
     elif kind == BLK_RGLRU:
         p["mix"] = rglru_mod.rglru_init(gen, cfg, device)
+    elif kind == BLK_MLSTM:
+        p["mix"] = xlstm_mod.mlstm_init(gen, cfg, device)
+    elif kind == BLK_SLSTM:
+        p["mix"] = xlstm_mod.slstm_init(gen, cfg, device)
     else:
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     if _has_ffn(cfg, kind):
@@ -112,6 +118,10 @@ def block_apply_seq(p: dict, cfg: ModelConfig, kind: str, x, positions,
         mix, c = attn.mla_apply_seq(p["attn"], cfg, h, positions, make_cache)
     elif kind == BLK_RGLRU:
         mix, c = rglru_mod.rglru_apply_seq(p["mix"], cfg, h, make_cache)
+    elif kind == BLK_MLSTM:
+        mix, c = xlstm_mod.mlstm_apply_seq(p["mix"], cfg, h, make_cache)
+    elif kind == BLK_SLSTM:
+        mix, c = xlstm_mod.slstm_apply_seq(p["mix"], cfg, h, make_cache)
     else:
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     x = x + mix
@@ -133,6 +143,10 @@ def block_decode(p: dict, cfg: ModelConfig, kind: str, x, cache, pos: int):
         mix, c = attn.mla_decode(p["attn"], cfg, h, cache, pos)
     elif kind == BLK_RGLRU:
         mix, c = rglru_mod.rglru_decode(p["mix"], cfg, h, cache, pos)
+    elif kind == BLK_MLSTM:
+        mix, c = xlstm_mod.mlstm_decode(p["mix"], cfg, h, cache, pos)
+    elif kind == BLK_SLSTM:
+        mix, c = xlstm_mod.slstm_decode(p["mix"], cfg, h, cache, pos)
     else:
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     x = x + mix
@@ -436,6 +450,26 @@ def _block_cache_zeros(cfg: ModelConfig, kind: str, batch: int,
                                      device=device),
                 "lru_conv": torch.zeros((batch, cfg.conv_width - 1, w),
                                         dtype=dt, device=device)}
+    if kind == BLK_MLSTM:
+        pd = int(cfg.d_model * cfg.mlstm_proj_factor)
+        nh = cfg.num_heads
+        dh = pd // nh
+        f32 = torch.float32
+        return {"mc": torch.zeros((batch, nh, dh, dh), dtype=f32,
+                                  device=device),
+                "mn": torch.zeros((batch, nh, dh), dtype=f32, device=device),
+                "mm": torch.zeros((batch, nh), dtype=f32, device=device),
+                "conv_m": torch.zeros((batch, cfg.conv_width - 1, pd),
+                                      dtype=dt, device=device)}
+    if kind == BLK_SLSTM:
+        # sn starts at ones, as the reference's does: decode over this
+        # cache differs from the sequence form's first step (zeros)
+        c = {key: torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+                              device=device)
+             for key in ("sc", "sn", "sh", "sm")}
+        c["sn"] = torch.ones((batch, cfg.d_model), dtype=torch.float32,
+                             device=device)
+        return c
     raise NotImplementedError(f"block kind {kind!r} is not yet ported")
 
 

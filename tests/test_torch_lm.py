@@ -80,7 +80,7 @@ def _close(got, want, tol, what=""):
 def test_configs_are_the_reference_configs():
     assert tconfigs.ARCHS == ("recurrentgemma-9b", "smollm-360m", "yi-6b",
                               "glm4-9b", "starcoder2-15b", "mixtral-8x7b",
-                              "deepseek-v2-236b")
+                              "deepseek-v2-236b", "xlstm-125m")
     for arch in tconfigs.ARCHS:
         for name in ("get_config", "get_reduced_config"):
             t, j = getattr(tconfigs, name)(arch), getattr(jconfigs, name)(arch)
@@ -93,7 +93,7 @@ def test_configs_are_the_reference_configs():
             assert t.layer_kinds() == j.layer_kinds()
             assert t.param_count() == j.param_count()
             assert t.active_param_count() == j.active_param_count()
-    for arch in ("xlstm-125m", "musicgen-large", "qwen2-vl-7b"):
+    for arch in ("musicgen-large", "qwen2-vl-7b"):
         with pytest.raises(KeyError, match="not yet ported"):
             tconfigs.get_config(arch)
 
@@ -354,7 +354,7 @@ def test_lm_params_from_jax_checks_the_layout(model):
 
 def test_unported_block_kinds_raise():
     _, tcfg = _cfgs()
-    for kw in (dict(block_pattern=("mlstm",)), dict(mrope_sections=(4, 6, 6)),
+    for kw in (dict(frontend="audio_frames"), dict(mrope_sections=(4, 6, 6)),
                dict(cross_attn=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ttf.init_params(0, dataclasses.replace(tcfg, **kw), "cpu")
